@@ -1,31 +1,55 @@
 #!/usr/bin/env python3
-"""Drive raft_tpu_torch's main path on one CUDA card and check it.
+"""Drive raft_tpu_torch's ported paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--out results.json]
 
-The main path is the 100k-group steady configuration (100,000 groups × 5
-peers, election_tick 10, heartbeat_tick 1, one append per group per
-round): ClusterSim settles 30 general rounds, then fast_multi_round(k=32)
-advances one 32-round block at a time on the hand-written CUDA kernel
-(raft_tpu_torch/multiraft/csrc/steady_round.cu) whenever the steady
-predicate holds.  Phases, in order; any failure raises and the script
-exits nonzero:
+Two paths, both at 100,000 groups × 5 peers with one append per group per
+round (bench.py's bench_device):
 
-  1. device   — require CUDA; print the card's name and power limit
-  2. build    — build the kernel from csrc/ with nvcc; print the time
-  3. parity   — the kernel against its plain PyTorch version on the same
-                card tensors, exact equality: settled states at G=100,000
-                and a ragged G=100,003 (P=5), at P=3, and random planes
-  4. main     — the main path on the card (kernel launch count zeroed just
-                before, read just after), then the same on the CPU with
-                the plain versions; every SimState field must be equal
-  5. timing   — the bench's schedule (64-round scans, 6 scans a rep,
-                median of 5 reps): ticks/s, fused_frac, the kernel's device
-                time (torch.profiler, cold with L2 flushed before each
-                launch, and hot), the plain version's time, the whole
-                block and its parts (CUDA events), and the device's busy
-                share and time by kernel over one rep
-  6. report   — one JSON line of kernels, then the device line last
+  steady  election_tick 10: ClusterSim settles 30 general rounds, then
+          fast_multi_round(k=32) advances one 32-round block at a time on
+          the hand-written CUDA kernel csrc/steady_round.cu whenever the
+          steady predicate holds;
+  lossy   bench.py --lossy 0.01: election_tick 64, a 192-round settle,
+          then fast_multi_round(k=32, with_chaos=True) with an all-up link
+          plane and 1% loss on every directed link; a block whose
+          predicate holds runs csrc/chaos_round.cu, any other block 32
+          link-gated general steps.
+
+Phases, in order, each with its wall seconds; any failure raises and the
+script exits nonzero:
+
+  1. device        require CUDA; print the card's name and power limit
+  2. build         build both kernels from csrc/ with nvcc, in parallel;
+                   print the times and ptxas registers and spills per P
+  3. parity        the steady kernel against its plain PyTorch version on
+                   the same card tensors, exact: settled states at
+                   G=100,000 and a ragged G=100,003 (P=5), at P=3, and
+                   random planes
+  4. main          the steady path on the card (launch counts zeroed just
+                   before, read just after), then on the CPU; every
+                   SimState field must be equal
+  5. timing        the steady path on the bench's schedule (64-round
+                   scans, 6 scans a rep, median of 5 reps): ticks/s,
+                   fused_frac, the kernel's device time (torch.profiler,
+                   cold with L2 flushed before each launch, and hot), the
+                   plain version's time, the block and its parts (CUDA
+                   events), the device's busy share and time by kernel
+  6. chaos parity  the chaos kernel against its plain version, exact:
+                   lossy-settled states at G=100,000, G=100,003 (P=5) and
+                   P=3, each with and without crashed followers, under 1%
+                   and the heavy-loss layout, with the round base small
+                   and near 2**31 - 32; random planes at P=3, 5 and 7
+  7. lossy         the lossy path on the card: at G=8,192 from init_state
+                   (192 settle rounds, 4 blocks), then the main path at
+                   G=100,000 from the settled state (2 blocks on the
+                   healed plane, 1 with a link down in 1% of groups, which
+                   forces the general branch), each with the launch counts
+                   zeroed just before it and read just after; the same on
+                   the CPU from the same start; every SimState field and
+                   the fused counts must be equal
+  8. lossy timing  as phase 5, for the lossy path and the chaos kernel
+  9. report        one JSON line of kernels, then the device line last
 
 Exits 2 without a result when no CUDA device is available.
 """
@@ -37,11 +61,18 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from raft_tpu_torch.multiraft import _build, fused_step, sim
-from raft_tpu_torch.multiraft.kernels import ROLE_LEADER
+from raft_tpu_torch.multiraft.chaos_kernel import (
+    OUTPUT_NAMES as CHAOS_OUTPUTS,
+    chaos_rounds,
+    chaos_rounds_reference,
+    chaos_work,
+)
+from raft_tpu_torch.multiraft.kernels import LOSS_SCALE, ROLE_LEADER, link_loss_draw
 from raft_tpu_torch.multiraft.steady_kernel import (
     steady_rounds,
     steady_rounds_reference,
@@ -51,11 +82,24 @@ from raft_tpu_torch.multiraft.steady_kernel import (
 G, P, K = 100_000, 5, 32
 SETTLE = 30
 MAIN_BLOCKS = 4
+LOSSY_TICK = 64  # the lossy predicate's free-running bound must clear k=32
+LOSSY_SETTLE = 3 * LOSSY_TICK
+LOSS = LOSS_SCALE // 100  # 1% per directed link
+LOSSY_SMALL_G, LOSSY_SMALL_BLOCKS = 8192, 4
 ROUNDS_PER_SCAN, SCANS, REPS = 64, 6, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-OPS_PER_S = 67e12  # H100 SXM published non-tensor 32-bit rate
+# H100 SXM INT32 rate: the published 67 TFLOP/s float32 counts an FMA as two
+# operations on 128 FP32 lanes an SM; an SM has 64 INT32 lanes (NVIDIA H100
+# Tensor Core GPU Architecture whitepaper; CUDA C++ Programming Guide,
+# arithmetic instruction throughput for compute capability 9.0: 64 results a
+# clock an SM for 32-bit integer add, compare, min/max, logic and shift), so
+# one operation a lane a clock is a quarter of that figure.  Both kernels'
+# work is 32-bit integer operations.
+OPS_PER_S = 67e12 / 4
 STEADY_SOURCE = "raft_tpu_torch/multiraft/csrc/steady_round.cu"
 STEADY_REPLACES = "raft_tpu/multiraft/pallas_step.py:116"
+CHAOS_SOURCE = "raft_tpu_torch/multiraft/csrc/chaos_round.cu"
+CHAOS_REPLACES = "raft_tpu/multiraft/pallas_step.py:297"
 
 
 def card_line():
@@ -67,25 +111,47 @@ def card_line():
     return out.stdout.strip()
 
 
+def phase(name):
+    """Decorator printing a phase's wall seconds after it returns."""
+    def wrap(fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            print(f"[phase {name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+            return out
+        return run
+    return wrap
+
+
+@phase("build")
+def phase_build():
+    """Both kernels built at once, one nvcc per source."""
+    loaders = {"steady_round": _build.load_steady_cuda,
+               "chaos_round": _build.load_chaos_cuda}
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        for fut in [pool.submit(fn) for fn in loaders.values()]:
+            fut.result()  # raises a failed build's error
+    for name in loaders:
+        log, secs = _build.build_log.get(name, ("(cached build)", 0.0))
+        print(f"build: {name}.cu in {secs:.2f}s")
+        entry = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("ILi")[1].split("E")[0] if "ILi" in line else "?"
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas P={entry}: {line.strip()}")
+
+
+# --- the steady path -------------------------------------------------------
+
+
 def settle_on(device, n_groups, n_peers):
     cfg = sim.SimConfig(n_groups=n_groups, n_peers=n_peers)
     s = sim.ClusterSim(cfg, device=device)
     s.run(SETTLE, None, torch.ones(n_groups, dtype=torch.int32, device=s.device))
     return s.state
-
-
-def kernel_inputs(st, crashed, append):
-    """The steady kernel's operands, gathered as fused_step.steady_round
-    gathers them."""
-    is_leader = (st.state == ROLE_LEADER) & ~crashed
-    f = is_leader.to(torch.int32)
-    return (
-        st.state, st.term, st.election_elapsed, st.heartbeat_elapsed,
-        st.last_index, st.last_term,
-        (st.matched * f[:, None, :]).sum(0, dtype=torch.int32), st.commit,
-        st.voter_mask, st.voter_mask | st.learner_mask, crashed,
-        (st.term_start_index * f).sum(0, dtype=torch.int32), append,
-    )
 
 
 def random_inputs(n_peers, n_groups, seed, device):
@@ -102,23 +168,40 @@ def random_inputs(n_peers, n_groups, seed, device):
             ints(3, (n_groups,)))
 
 
-def compare_kernel(args, rounds, note):
-    """Kernel vs plain on the same card tensors; returns max |difference|."""
-    kw = dict(rounds=rounds, election_tick=10, heartbeat_tick=1)
-    got = steady_rounds(*args, **kw)
-    want = steady_rounds_reference(*args, **kw)
+def compare(kernel, reference, names, args, kw, note):
+    """Kernel vs plain version on the same card tensors, exact; returns the
+    max |difference| (0)."""
+    got = kernel(*args, **kw)
+    want = reference(*args, **kw)
     torch.cuda.synchronize()
     err = 0
-    for name, g, w in zip(("ee", "hb", "li", "lt", "matched", "commit"), got, want):
+    for name, g, w in zip(names, got, want):
         if g.dtype != torch.int32 or g.shape != w.shape:
             raise AssertionError(f"{note}: {name} is {g.dtype} {tuple(g.shape)}")
         err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
         if not torch.equal(g, w):
             raise AssertionError(f"{note}: kernel and plain version differ in {name}")
-    print(f"parity {note}: exact (6 outputs, {args[0].shape[1]} groups)")
+    print(f"parity {note}: exact ({len(names)} outputs, {args[0].shape[1]} groups)")
     return err
 
 
+def compare_kernel(args, rounds, note):
+    kw = dict(rounds=rounds, election_tick=10, heartbeat_tick=1)
+    return compare(steady_rounds, steady_rounds_reference,
+                   ("ee", "hb", "li", "lt", "matched", "commit"), args, kw, note)
+
+
+def crash_followers(st, n_peers, n_groups, dev):
+    """bool[P, G]: the peer after each group's leader is down in every
+    third group."""
+    crashed = torch.zeros((n_peers, n_groups), dtype=torch.bool, device=dev)
+    lead = st.state.eq(ROLE_LEADER).to(torch.int64).argmax(0)
+    idx = torch.arange(n_groups, device=dev)
+    crashed[(lead + 1) % n_peers, idx] = idx % 3 == 0
+    return crashed
+
+
+@phase("parity")
 def phase_parity(dev):
     err = 0
     for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3)):
@@ -126,12 +209,11 @@ def phase_parity(dev):
         append = torch.ones(n_groups, dtype=torch.int32, device=dev)
         crashed = torch.zeros((n_peers, n_groups), dtype=torch.bool, device=dev)
         err = max(err, compare_kernel(
-            kernel_inputs(st, crashed, append), K, f"settled G={n_groups} P={n_peers}"))
-        lead = st.state.eq(ROLE_LEADER).to(torch.int64).argmax(0)
-        idx = torch.arange(n_groups, device=dev)
-        crashed[(lead + 1) % n_peers, idx] = idx % 3 == 0
+            fused_step.steady_operands(st, crashed, append), K,
+            f"settled G={n_groups} P={n_peers}"))
+        crashed = crash_followers(st, n_peers, n_groups, dev)
         err = max(err, compare_kernel(
-            kernel_inputs(st, crashed, append), K,
+            fused_step.steady_operands(st, crashed, append), K,
             f"settled+crashed followers G={n_groups} P={n_peers}"))
     for n_peers in (3, 5, 7):
         err = max(err, compare_kernel(
@@ -154,13 +236,13 @@ def run_main_path(device):
     return cfg, st, fused
 
 
-def check_state(st):
-    """Shapes, dtypes and the protocol's own invariants after the main path."""
+def check_state(st, n_groups=G):
+    """Shapes, dtypes and the protocol's own invariants after a path."""
     for f, v in st._asdict().items():
         if v is None:
             continue
         want = torch.bool if f.endswith("_mask") else torch.int32
-        shape = (P, P, G) if f in ("matched", "agree") else (P, G)
+        shape = (P, P, n_groups) if f in ("matched", "agree") else (P, n_groups)
         if v.dtype != want or tuple(v.shape) != shape:
             raise AssertionError(f"{f}: {v.dtype} {tuple(v.shape)}")
     # The bench's sanity rule: every group committed something.
@@ -168,8 +250,17 @@ def check_state(st):
         raise AssertionError("some group never committed")
 
 
+def assert_same(st_gpu, st_cpu, note):
+    for f in st_gpu._fields:
+        a, b = getattr(st_gpu, f), getattr(st_cpu, f)
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a.cpu(), b)):
+            raise AssertionError(f"{note}: card and CPU differ in {f}")
+
+
+@phase("main")
 def phase_main(dev):
     steady_rounds.launches = 0
+    chaos_rounds.launches = 0
     t0 = time.perf_counter()
     cfg, st_gpu, fused = run_main_path(dev)
     torch.cuda.synchronize()
@@ -181,10 +272,7 @@ def phase_main(dev):
     t0 = time.perf_counter()
     _, st_cpu, fused_cpu = run_main_path("cpu")
     t_cpu = time.perf_counter() - t0
-    for f in st_gpu._fields:
-        a, b = getattr(st_gpu, f), getattr(st_cpu, f)
-        if (a is None) != (b is None) or (a is not None and not torch.equal(a.cpu(), b)):
-            raise AssertionError(f"card and CPU main paths differ in {f}")
+    assert_same(st_gpu, st_cpu, "steady main path")
     if fused != fused_cpu:
         raise AssertionError(f"fused counts differ: card {fused}, CPU {fused_cpu}")
     total = MAIN_BLOCKS * K * G
@@ -193,6 +281,9 @@ def phase_main(dev):
           f"{int(st_gpu.commit.max())}); steady kernel launches {launches}; "
           f"fused {fused}/{total}; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s")
     return cfg, st_gpu, launches
+
+
+# --- timing helpers ----------------------------------------------------------
 
 
 def cuda_ms(fn, reps, flush=None):
@@ -218,8 +309,10 @@ def cuda_ms(fn, reps, flush=None):
 def kernel_device_ms(fn, name, reps, flush=None):
     """Device milliseconds per launch of the kernel whose name contains
     `name`, by torch.profiler over `reps` calls of fn() (with `flush`
-    before each).  Unlike CUDA events around a call, this leaves out the
-    host's time to prepare the launch, during which the card waits."""
+    before each): the mean over the launches the profiler recorded, which
+    may miss a few of them.  Unlike CUDA events around a call, this leaves
+    out the host's time to prepare the launch, during which the card
+    waits."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -234,8 +327,10 @@ def kernel_device_ms(fn, name, reps, flush=None):
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and name in e.key]
     count = sum(e.count for e in rows)
-    if count != reps:
-        raise AssertionError(f"profiler saw {count} launches of {name}, not {reps}")
+    if not 0 < count <= reps:
+        raise AssertionError(f"profiler saw {count} launches of {name} in {reps} calls")
+    if count < reps:
+        print(f"  (the profiler recorded {count} of {reps} launches of {name})")
     return sum(e.self_device_time_total for e in rows) / count / 1e3
 
 
@@ -265,15 +360,17 @@ def device_profile(run):
                 kernels=[dict(name=k[:120], us=us, count=n) for k, us, n in kernels])
 
 
-def phase_timing(dev, cfg, st):
-    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
-    append = torch.ones(G, dtype=torch.int32, device=dev)
-    block = fused_step.fast_multi_round(cfg, k=K, count_fused=True)
-
-    # The bench's timed loop: ticks/s over REPS reps of SCANS 64-round scans.
+def time_path(dev, label, st, rb, block, operands, kernel, reference, kernel_name,
+              fused_round, predicate, work):
+    """The bench's timed loop over `block(st, rb, fused) -> (st, fused)`
+    (rb the absolute round of the block's first round), then the parts of
+    one block from the loop's final state: the kernel (`kernel(*args,
+    **kw)` with `operands(st, rb) -> (args, kw)`), its plain version, the
+    fused round and the predicate, and a profile of one rep."""
     blocks_per_scan = ROUNDS_PER_SCAN // K
     for _ in range(blocks_per_scan):  # warm-up scan, as the bench does
-        st, _ = block(st, crashed, append, 0)
+        st, _ = block(st, rb, 0)
+        rb += K
     torch.cuda.synchronize()
     samples, fused_total = [], 0
     ticks = G * ROUNDS_PER_SCAN * SCANS
@@ -281,61 +378,58 @@ def phase_timing(dev, cfg, st):
         fused = 0
         t0 = time.perf_counter()
         for _ in range(SCANS * blocks_per_scan):
-            st, fused = block(st, crashed, append, fused)
+            st, fused = block(st, rb, fused)
+            rb += K
         torch.cuda.synchronize()
         samples.append(ticks / (time.perf_counter() - t0))
         fused_total += fused
     fused_frac = fused_total / (ticks * REPS)
 
-    # The kernel alone at the main path's shapes, from the current state.
-    args = kernel_inputs(st, crashed, append)
-    kw = dict(rounds=K, election_tick=cfg.election_tick,
-              heartbeat_tick=cfg.heartbeat_tick)
+    args, kw = operands(st, rb)
     scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
     def flush():
         scratch.fill_(1)  # 256 MB written: the 50 MB L2 holds none of the operands
 
     def launch():
-        steady_rounds(*args, **kw)
+        kernel(*args, **kw)
 
-    kernel_ms = kernel_device_ms(launch, "steady_round_kernel", 30, flush)
-    kernel_hot_ms = kernel_device_ms(launch, "steady_round_kernel", 30)
+    kernel_ms = kernel_device_ms(launch, kernel_name, 30, flush)
+    kernel_hot_ms = kernel_device_ms(launch, kernel_name, 30)
     call_ms = cuda_ms(launch, 30, flush)
-    plain_ms = cuda_ms(lambda: steady_rounds_reference(*args, **kw), 5, flush)
-    round_fn = fused_step.steady_round(cfg, rounds=K)
-    round_ms = cuda_ms(lambda: round_fn(st, crashed, append), 10, flush)
-    pred_ms = cuda_ms(
-        lambda: bool(fused_step.steady_predicate(cfg, st, crashed, K)), 10, flush)
-    block_ms = cuda_ms(lambda: block(st, crashed, append, 0), 10, flush)
+    plain_ms = cuda_ms(lambda: reference(*args, **kw), 5, flush)
+    round_ms = cuda_ms(lambda: fused_round(st, rb), 10, flush)
+    pred_ms = cuda_ms(lambda: bool(predicate(st)), 10, flush)
+    block_ms = cuda_ms(lambda: block(st, rb, 0), 10, flush)
     del scratch
 
     def one_rep():
-        s = st
+        s, r = st, rb
         for _ in range(SCANS * blocks_per_scan):
-            s, _ = block(s, crashed, append, 0)
+            s, _ = block(s, r, 0)
+            r += K
 
     prof = device_profile(one_rep)
     loop_block_ms = statistics.median(ticks / x for x in samples) * 1e3 / (
         SCANS * blocks_per_scan)
 
-    nbytes, ops = steady_work(P, G, K)
+    nbytes, ops = work
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     card = card_line()
     med = statistics.median(samples)
-    print(f"timing {G}x{P} k={K} [{card}]: ticks/s median {med:.1f} "
+    print(f"timing {label} {G}x{P} k={K} [{card}]: ticks/s median {med:.1f} "
           f"(min {min(samples):.1f}, max {max(samples):.1f}, {REPS} reps), "
-          f"fused_frac {fused_frac:.4f}; steady kernel {kernel_ms:.4f} ms cold "
-          f"({kernel_hot_ms:.4f} ms hot; a steady_rounds call {call_ms:.4f} ms), "
+          f"fused_frac {fused_frac:.4f}; {kernel_name} {kernel_ms:.4f} ms cold "
+          f"({kernel_hot_ms:.4f} ms hot; a wrapper call {call_ms:.4f} ms), "
           f"plain version {plain_ms:.3f} ms; "
           f"block {loop_block_ms:.3f} ms in the loop, {block_ms:.3f} ms alone = "
-          f"predicate {pred_ms:.3f} + steady_round {round_ms:.3f} (wrapper "
-          f"{round_ms - call_ms:.3f} + the steady_rounds call); bound {bound_ms:.4f} ms "
+          f"predicate {pred_ms:.3f} + fused round {round_ms:.3f} (wrapper "
+          f"{round_ms - call_ms:.3f} + the kernel call); bound {bound_ms:.4f} ms "
           f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})")
-    print(f"profile of one rep ({SCANS * blocks_per_scan} blocks): device busy "
-          f"{prof['busy_us']:.1f} of {prof['wall_us']:.1f} us "
+    print(f"profile of one {label} rep ({SCANS * blocks_per_scan} blocks): device "
+          f"busy {prof['busy_us']:.1f} of {prof['wall_us']:.1f} us "
           f"({100 * prof['busy_share']:.1f}%)")
     for row in prof["kernels"][:8]:
         print(f"  {row['us']:10.1f} us {row['count']:6d}x  {row['name']}")
@@ -343,12 +437,243 @@ def phase_timing(dev, cfg, st):
         ticks_per_s=samples, ticks_per_s_median=med, fused_frac=fused_frac,
         ms=kernel_ms, hot_ms=kernel_hot_ms, call_ms=call_ms, plain_ms=plain_ms,
         block_ms=block_ms, loop_block_ms=loop_block_ms, predicate_ms=pred_ms,
-        steady_round_ms=round_ms, profile=prof,
+        fused_round_ms=round_ms, profile=prof,
         wrapper_ms=round_ms - call_ms, bound_ms=bound_ms,
         bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         bytes=nbytes, operations=ops, card=card,
     )
+
+
+@phase("timing")
+def phase_timing(dev, cfg, st):
+    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    fast = fused_step.fast_multi_round(cfg, k=K, count_fused=True)
+    round_fn = fused_step.steady_round(cfg, rounds=K)
+    kw = dict(rounds=K, election_tick=cfg.election_tick,
+              heartbeat_tick=cfg.heartbeat_tick)
+    return time_path(
+        dev, "steady", st, 0,
+        block=lambda s, rb, f: fast(s, crashed, append, f),
+        operands=lambda s, rb: (fused_step.steady_operands(s, crashed, append), kw),
+        kernel=steady_rounds, reference=steady_rounds_reference,
+        kernel_name="steady_round_kernel",
+        fused_round=lambda s, rb: round_fn(s, crashed, append),
+        predicate=lambda s: fused_step.steady_predicate(cfg, s, crashed, K),
+        work=steady_work(P, G, K),
+    )
+
+
+# --- the lossy path ----------------------------------------------------------
+
+
+def lossy_cfg(n_groups, n_peers=P):
+    return sim.SimConfig(n_groups=n_groups, n_peers=n_peers, election_tick=LOSSY_TICK)
+
+
+def lossy_settle(device, n_groups, n_peers=P):
+    """init_state and LOSSY_SETTLE plain rounds of one append per group."""
+    s = sim.ClusterSim(lossy_cfg(n_groups, n_peers), device=device)
+    s.run(LOSSY_SETTLE, None,
+          torch.ones(n_groups, dtype=torch.int32, device=s.device))
+    return s.state
+
+
+def uniform_loss(n_groups, n_peers, dev):
+    return torch.full((n_peers, n_peers, n_groups), LOSS, dtype=torch.int32, device=dev)
+
+
+def heavy_loss(n_groups, n_peers, dev):
+    """tests/test_pallas_step.py:_loss_plane's layout: heavy loss on a few
+    directed links, none elsewhere."""
+    loss = torch.zeros((n_peers, n_peers, n_groups), dtype=torch.int32, device=dev)
+    loss[0, 1, :] = 3000
+    loss[1, 0, ::2] = 5000
+    loss[(n_peers - 1) % n_peers, n_peers // 2, 1::3] = 7000
+    return loss
+
+
+def random_chaos_inputs(n_peers, n_groups, seed, device):
+    """Random operand planes: any roles, several or no leaders, crashes,
+    masks and loss rates; small enough that no int32 sum wraps."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def ints(hi, shape=(n_peers, n_groups)):
+        return torch.randint(0, hi, shape, generator=gen, dtype=torch.int32).to(device)
+
+    def bools(p):
+        return (torch.rand((n_peers, n_groups), generator=gen) < p).to(device)
+
+    pp = (n_peers, n_peers, n_groups)
+    return (ints(3), ints(n_peers + 1), ints(3), ints(12), ints(40), ints(5),
+            ints(40), ints(40), bools(0.8), bools(0.9), bools(0.2), ints(40, pp),
+            ints(LOSS_SCALE + 1, pp), ints(40, (n_groups,)), ints(5, (n_groups,)),
+            ints(3, (n_groups,)))
+
+
+def compare_chaos(args, round_base, note, election_tick=LOSSY_TICK):
+    kw = dict(round_base=round_base, rounds=K, election_tick=election_tick,
+              heartbeat_tick=1)
+    return compare(chaos_rounds, chaos_rounds_reference, CHAOS_OUTPUTS, args, kw,
+                   f"{note} round_base={round_base}")
+
+
+@phase("chaos parity")
+def phase_chaos_parity(dev):
+    """Returns (max |difference|, the settled 100k × 5 lossy state)."""
+    err, settled = 0, None
+    for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3)):
+        st0 = lossy_settle(dev, n_groups, n_peers)
+        if (n_groups, n_peers) == (G, P):
+            settled = st0
+        cfg = lossy_cfg(n_groups, n_peers)
+        append = torch.ones(n_groups, dtype=torch.int32, device=dev)
+        link = torch.ones((n_peers, n_peers, n_groups), dtype=torch.bool, device=dev)
+        for loss_name, make_loss in (("1%", uniform_loss), ("heavy", heavy_loss)):
+            loss = make_loss(n_groups, n_peers, dev)
+            # Four lossy general rounds: lagging and resumed followers.
+            st = st0
+            for r in range(4):
+                eff = link & ~link_loss_draw(LOSSY_SETTLE + r, loss)
+                st = sim.step(cfg, st, torch.zeros_like(st.voter_mask), append, link=eff)
+            for crashed_name in ("no crashes", "crashed followers"):
+                crashed = torch.zeros((n_peers, n_groups), dtype=torch.bool, device=dev)
+                if crashed_name != "no crashes":
+                    crashed = crash_followers(st, n_peers, n_groups, dev)
+                args = fused_step.chaos_operands(st, crashed, append, loss)
+                for rb in (LOSSY_SETTLE + 4, 2**31 - K):
+                    err = max(err, compare_chaos(
+                        args, rb, f"lossy-settled G={n_groups} P={n_peers} "
+                        f"{loss_name} loss, {crashed_name}"))
+    for n_peers in (3, 5, 7):
+        args = random_chaos_inputs(n_peers, G + 3, 10 + n_peers, dev)
+        for rb in (7, 2**31 - K):
+            err = max(err, compare_chaos(
+                args, rb, f"random planes G={G + 3} P={n_peers}", election_tick=6))
+    return err, settled
+
+
+def run_lossy_path(device, n_groups, blocks, start=None, cut_last=False):
+    """The lossy path: from `start` (else init_state and the settle), `blocks`
+    k=32 blocks of fast_multi_round(with_chaos=True) on an all-up link
+    plane with 1% loss; with `cut_last`, the last block's plane has the
+    0 -> 1 link down in 1% of groups.  Returns (state, fused group-rounds,
+    blocks that ran the general branch)."""
+    cfg = lossy_cfg(n_groups)
+    st = lossy_settle(device, n_groups) if start is None else start
+    dev = st.term.device
+    crashed = torch.zeros((P, n_groups), dtype=torch.bool, device=dev)
+    append = torch.ones(n_groups, dtype=torch.int32, device=dev)
+    link = torch.ones((P, P, n_groups), dtype=torch.bool, device=dev)
+    loss = uniform_loss(n_groups, P, dev)
+    block = fused_step.fast_multi_round(cfg, k=K, with_chaos=True, count_fused=True)
+    fused, general, rb = 0, 0, LOSSY_SETTLE
+    for b in range(blocks):
+        ln = link
+        if cut_last and b == blocks - 1:
+            ln = link.clone()
+            ln[0, 1, ::100] = False
+        prev = fused
+        st, fused = block(st, crashed, append, ln, loss, rb, fused)
+        general += fused == prev
+        rb += K
+    return st, fused, general
+
+
+@phase("lossy")
+def phase_lossy(dev, settled):
+    """Returns (the 100k state, the chaos kernel's launches in the 100k
+    run alone)."""
+    settled_cpu = sim.SimState(*(None if v is None else v.cpu() for v in settled))
+    t0 = time.perf_counter()
+    steady_rounds.launches = 0
+    chaos_rounds.launches = 0
+    small = run_lossy_path(dev, LOSSY_SMALL_G, LOSSY_SMALL_BLOCKS)
+    small_launches = (chaos_rounds.launches, steady_rounds.launches)
+    # The main path at full size, its launches counted alone.
+    steady_rounds.launches = 0
+    chaos_rounds.launches = 0
+    full = run_lossy_path(dev, G, 3, start=settled, cut_last=True)
+    launches = chaos_rounds.launches
+    full_steady = steady_rounds.launches
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    if small_launches[0] <= 0 or launches <= 0:
+        raise AssertionError(f"the lossy path never launched the chaos kernel "
+                             f"(G={LOSSY_SMALL_G}: {small_launches[0]}, G={G}: "
+                             f"{launches})")
+    if full[2] <= 0:
+        raise AssertionError(f"the lossy path at G={G} never ran the general branch")
+    if small_launches[1] or full_steady:
+        raise AssertionError("the lossy path launched the steady kernel")
+    check_state(small[0], LOSSY_SMALL_G)
+    check_state(full[0])
+    t0 = time.perf_counter()
+    small_cpu = run_lossy_path("cpu", LOSSY_SMALL_G, LOSSY_SMALL_BLOCKS)
+    full_cpu = run_lossy_path("cpu", G, 3, start=settled_cpu, cut_last=True)
+    t_cpu = time.perf_counter() - t0
+    for note, a, b in (("lossy G=8192", small, small_cpu), ("lossy G=100000", full, full_cpu)):
+        assert_same(a[0], b[0], note)
+        if a[1:] != b[1:]:
+            raise AssertionError(f"{note}: fused/general counts differ {a[1:]} {b[1:]}")
+    print(f"lossy path {LOSSY_SMALL_G}x{P} (init, {LOSSY_SETTLE} settle rounds, "
+          f"{LOSSY_SMALL_BLOCKS} blocks; fused {small[1]}, general blocks {small[2]}) "
+          f"and {G}x{P} (settled, 3 blocks, the last with a link down in 1% of "
+          f"groups; fused {full[1]}, general blocks {full[2]}): card == CPU on all "
+          f"{len(settled._fields)} fields; chaos kernel launches {small_launches[0]} "
+          f"at G={LOSSY_SMALL_G} and {launches} at G={G} (the main path's count); "
+          f"card {t_gpu:.2f}s, CPU {t_cpu:.2f}s")
+    return full[0], launches
+
+
+@phase("lossy timing")
+def phase_lossy_timing(dev, st):
+    cfg = lossy_cfg(G)
+    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    link = torch.ones((P, P, G), dtype=torch.bool, device=dev)
+    loss = uniform_loss(G, P, dev)
+    fast = fused_step.fast_multi_round(cfg, k=K, with_chaos=True, count_fused=True)
+    round_fn = fused_step.chaos_round(cfg, rounds=K)
+
+    def operands(s, rb):
+        return fused_step.chaos_operands(s, crashed, append, loss), dict(
+            round_base=rb, rounds=K, election_tick=cfg.election_tick,
+            heartbeat_tick=cfg.heartbeat_tick)
+
+    return time_path(
+        dev, "lossy", st, LOSSY_SETTLE + 3 * K,
+        block=lambda s, rb, f: fast(s, crashed, append, link, loss, rb, f),
+        operands=operands, kernel=chaos_rounds, reference=chaos_rounds_reference,
+        kernel_name="chaos_round_kernel",
+        fused_round=lambda s, rb: round_fn(s, crashed, append, loss, rb),
+        predicate=lambda s: fused_step.steady_predicate(
+            cfg, s, crashed, K, link, loss_rate=loss),
+        work=chaos_work(P, G, K),
+    )
+
+
+def kernel_entry(name, source, replaces, launches, err, t):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": err,
+        "parity": "exact",
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+        "hot_ms": t["hot_ms"],
+        "call_ms": t["call_ms"],
+        "block_ms": t["block_ms"],
+        "wrapper_ms": t["wrapper_ms"],
+        "predicate_ms": t["predicate_ms"],
+    }
 
 
 def main(argv=None):
@@ -363,41 +688,25 @@ def main(argv=None):
     print(card_line())
     print(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    _build.load_steady_cuda()
-    log, _ = _build.build_log.get("steady_round", ("(cached build)", 0.0))
-    print(f"build: steady_round.cu in {time.perf_counter() - t0:.2f}s")
-    for line in log.splitlines():
-        if "entry function" in line or "registers" in line:
-            print("  ptxas:", line.strip())
+    phase_build()
+    steady_err = phase_parity(dev)
+    cfg, st, steady_launches = phase_main(dev)
+    steady = phase_timing(dev, cfg, st)
+    chaos_err, settled = phase_chaos_parity(dev)
+    st, chaos_launches = phase_lossy(dev, settled)
+    lossy = phase_lossy_timing(dev, st)
 
-    max_err = phase_parity(dev)
-    cfg, st, launches = phase_main(dev)
-    t = phase_timing(dev, cfg, st)
-
-    kernels = {"kernels": [{
-        "name": "steady_rounds",
-        "route": "cuda",
-        "source": STEADY_SOURCE,
-        "replaces": STEADY_REPLACES,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "parity": "exact",
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": None,
-        "hot_ms": t["hot_ms"],
-        "call_ms": t["call_ms"],
-        "block_ms": t["block_ms"],
-        "wrapper_ms": t["wrapper_ms"],
-        "predicate_ms": t["predicate_ms"],
-    }]}
+    kernels = {"kernels": [
+        kernel_entry("steady_rounds", STEADY_SOURCE, STEADY_REPLACES,
+                     steady_launches, steady_err, steady),
+        kernel_entry("chaos_rounds", CHAOS_SOURCE, CHAOS_REPLACES,
+                     chaos_launches, chaos_err, lossy),
+    ]}
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w", encoding="utf-8") as fh:
-            json.dump({**kernels, "timing": t}, fh, indent=1)
+            json.dump({**kernels, "timing": {"steady": steady, "lossy": lossy}},
+                      fh, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

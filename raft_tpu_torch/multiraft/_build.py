@@ -33,13 +33,18 @@ NVCC_FLAGS = [
 ]
 GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-Wno-unknown-pragmas"]
 
-_lock = threading.Lock()
+# One lock per library, so two libraries can build at the same time.
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 # The last build's compiler output (nvcc -Xptxas -v reports registers and
 # spills per kernel) and wall seconds, by library name.
 build_log: Dict[str, Tuple[str, float]] = {}
 
 _STEADY_ARGS = [ctypes.c_void_p] * 19 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+# 16 operand and 9 output pointers, G, then P, round_base, rounds,
+# election_tick and heartbeat_tick.
+_CHAOS_ARGS = [ctypes.c_void_p] * 25 + [ctypes.c_longlong] + [ctypes.c_int] * 5
 
 
 def _nvcc() -> str:
@@ -95,7 +100,9 @@ def _build(name: str, cmd: List[str], sources: List[Path], flags: List[str]) -> 
 
 
 def _load(name: str, build_fn) -> ctypes.CDLL:
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build_fn()))
@@ -133,4 +140,36 @@ def load_steady_host() -> ctypes.CDLL:
     lib = _load("steady_host", build)
     lib.steady_round_host.argtypes = _STEADY_ARGS
     lib.steady_round_host.restype = ctypes.c_int
+    return lib
+
+
+def load_chaos_cuda() -> ctypes.CDLL:
+    """The CUDA chaos-round library (built with nvcc for sm_90a at first
+    use); its `chaos_round_launch` takes the 25 tensor pointers, G, P,
+    round_base, rounds, election_tick, heartbeat_tick and the CUDA
+    stream."""
+
+    def build():
+        return _build(
+            "chaos_round", [_nvcc()], [CSRC / "chaos_round.cu"], NVCC_FLAGS
+        )
+
+    lib = _load("chaos_round", build)
+    lib.chaos_round_launch.argtypes = _CHAOS_ARGS + [ctypes.c_void_p]
+    lib.chaos_round_launch.restype = ctypes.c_int
+    return lib
+
+
+def load_chaos_host() -> ctypes.CDLL:
+    """The host build of the chaos kernel body (g++), for the CPU tests."""
+
+    def build():
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found: cannot build the host shim")
+        return _build("chaos_host", [gxx], [CSRC / "chaos_host.cpp"], GXX_FLAGS)
+
+    lib = _load("chaos_host", build)
+    lib.chaos_round_host.argtypes = _CHAOS_ARGS
+    lib.chaos_round_host.restype = ctypes.c_int
     return lib

@@ -1,0 +1,47 @@
+// Host build of chaos_body.cuh: the same per-group body as the CUDA
+// kernel, looped over the groups on the CPU (the loop index is the group
+// id, as the grid's global thread index is).  Compiled with g++ by the
+// tests so the kernel's arithmetic can be held against the plain PyTorch
+// version on a machine without a card; nothing on the card path uses it.
+#include <stdint.h>
+
+#include "chaos_body.cuh"
+
+extern "C" int chaos_round_host(
+    const void* state, const void* leader_id, const void* hb, const void* ee,
+    const void* li, const void* lt, const void* commit, const void* matched,
+    const void* voter, const void* member, const void* crashed,
+    const void* agree, const void* loss_rate, const void* ts,
+    const void* lead_term, const void* app, void* state_out,
+    void* leader_id_out, void* hb_out, void* ee_out, void* li_out,
+    void* lt_out, void* commit_out, void* matched_out, void* agree_out,
+    long long G, int P, int round_base, int rounds, int election_tick,
+    int heartbeat_tick) {
+  const raft_chaos::ChaosPlanes t = {
+      (const int32_t*)state,    (const int32_t*)leader_id,
+      (const int32_t*)hb,       (const int32_t*)ee,
+      (const int32_t*)li,       (const int32_t*)lt,
+      (const int32_t*)commit,   (const int32_t*)matched,
+      (const uint8_t*)voter,    (const uint8_t*)member,
+      (const uint8_t*)crashed,  (const int32_t*)agree,
+      (const int32_t*)loss_rate, (const int32_t*)ts,
+      (const int32_t*)lead_term, (const int32_t*)app,
+      (int32_t*)state_out,      (int32_t*)leader_id_out,
+      (int32_t*)hb_out,         (int32_t*)ee_out,
+      (int32_t*)li_out,         (int32_t*)lt_out,
+      (int32_t*)commit_out,     (int32_t*)matched_out,
+      (int32_t*)agree_out};
+#define RAFT_CHAOS_HOST(NP)                                               \
+  case NP:                                                                \
+    for (int64_t g = 0; g < (int64_t)G; ++g) {                            \
+      raft_chaos::chaos_group<NP>(g, (int64_t)G, t, (int32_t)round_base,  \
+                                  rounds, election_tick, heartbeat_tick); \
+    }                                                                     \
+    return 0;
+  switch (P) {
+    RAFT_FOR_EACH_P(RAFT_CHAOS_HOST)
+    default:
+      return 1;
+  }
+#undef RAFT_CHAOS_HOST
+}

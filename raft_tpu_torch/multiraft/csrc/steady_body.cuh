@@ -16,27 +16,18 @@
 // Outputs: ee, hb, li, lt, matched row, commit (int32 [P, G]).
 //
 // Integer sums and increments wrap modulo 2**32 like PyTorch's int32
-// arithmetic (done in uint32, then reinterpreted).
+// arithmetic (fused_common.cuh's wadd).
 #pragma once
 
 #include <stdint.h>
 
-#if defined(__CUDACC__)
-#define RAFT_HD __host__ __device__ __forceinline__
-#else
-#define RAFT_HD inline
-#endif
+#include "fused_common.cuh"
 
 namespace raft_steady {
 
-constexpr int32_t kRoleLeader = 2;
-
-RAFT_HD int32_t wadd(int32_t a, int32_t b) {
-  return (int32_t)((uint32_t)a + (uint32_t)b);
-}
-
-RAFT_HD int32_t imax(int32_t a, int32_t b) { return a > b ? a : b; }
-RAFT_HD int32_t imin(int32_t a, int32_t b) { return a < b ? a : b; }
+using raft_fused::imax;
+using raft_fused::kRoleLeader;
+using raft_fused::wadd;
 
 template <int P>
 RAFT_HD void steady_group(
@@ -106,7 +97,6 @@ RAFT_HD void steady_group(
     }
     const bool sent = has_leader && (lead_beat || n_app > 0);
     // --- in-round sync of alive members; the acting matched row follows
-    int32_t rows[P];
     bool sync[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
@@ -117,24 +107,9 @@ RAFT_HD void steady_group(
         lt[p] = lead_lt;
       }
       if (sync[p] || (is_leader[p] && sent)) matched[p] = li[p];
-      rows[p] = voter[p] ? matched[p] : 0;
     }
-    // --- majority index: descending odd-even transposition network
-#pragma unroll
-    for (int pass = 0; pass < P; ++pass) {
-#pragma unroll
-      for (int i = pass % 2; i < P - 1; i += 2) {
-        const int32_t hi = imax(rows[i], rows[i + 1]);
-        const int32_t lo = imin(rows[i], rows[i + 1]);
-        rows[i] = hi;
-        rows[i + 1] = lo;
-      }
-    }
-    int32_t mci = 0;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      if (qpos == p) mci = rows[p];
-    }
+    // --- majority index over the voters
+    const int32_t mci = raft_fused::quorum_index<P>(matched, voter, qpos);
     // --- commit, gated on the leader's own term
     int32_t lead_commit = 0;
 #pragma unroll
@@ -163,8 +138,3 @@ RAFT_HD void steady_group(
 }
 
 }  // namespace raft_steady
-
-// Expands CASE(P) for every instantiated peer count, 1 through 7; the
-// Python wrapper rejects any other P before calling in.
-#define RAFT_STEADY_FOR_EACH_P(CASE) \
-  CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7)

@@ -29,7 +29,7 @@ extern "C" int steady_round_host(
     }                                                                       \
     return 0;
   switch (P) {
-    RAFT_STEADY_FOR_EACH_P(RAFT_STEADY_HOST)
+    RAFT_FOR_EACH_P(RAFT_STEADY_HOST)
     default:
       return 1;
   }

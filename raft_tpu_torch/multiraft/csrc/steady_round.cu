@@ -58,7 +58,7 @@ extern "C" int steady_round_launch(
         (int64_t)G, rounds, election_tick, heartbeat_tick);                 \
     break;
   switch (P) {
-    RAFT_STEADY_FOR_EACH_P(RAFT_STEADY_LAUNCH)
+    RAFT_FOR_EACH_P(RAFT_STEADY_LAUNCH)
     default:
       return (int)cudaErrorInvalidValue;
   }

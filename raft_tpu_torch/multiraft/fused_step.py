@@ -2,17 +2,19 @@
 when the steady invariant provably holds for all of them, else k general
 steps.  Both branches give the same state, bit for bit.
 
-Counterpart of the undamped, unlinked, uninstrumented arm of
-`raft_tpu/multiraft/pallas_step.py`: `steady_mask` (:1355-1554),
-`steady_predicate` (:1557), `steady_round` with its host wrapper `_run`
-(:549-718) and `fast_multi_round` (:1605-1782, the arm at :1759-1782 with
-`count_fused`).
+Counterpart of the undamped, uninstrumented arms of
+`raft_tpu/multiraft/pallas_step.py`: `steady_mask` (:1355-1554, the plain
+and the link arm), `steady_predicate` (:1557), `steady_round` with its host
+wrapper `_run` (:549-718), `steady_round(with_chaos=True)` with its host
+wrapper `_build_chaos_round._run` (:806-863) as `chaos_round` here, and `fast_multi_round` (:1605-1782: the plain arm at
+:1759-1782 and the chaos arm at :1654-1728, both with `count_fused`).
 
 The reference's `lax.cond` on the predicate becomes a host `bool(pred)`:
 one device sync per k-round block.  The gather of the acting leader's
-matched row before the kernel and the matched scatter and `agree` update
-after it stay plain PyTorch, as the reference leaves them to XLA; at
-100k groups × 5 peers they move more bytes than the kernel itself.
+matched row before the kernel and the matched scatter (and, on the plain
+path, the `agree` update) after it stay plain PyTorch, as the reference
+leaves them to XLA; at 100k groups × 5 peers they move more bytes than the
+steady kernel itself.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from typing import Callable
 import torch
 
 from . import sim as sim_mod
-from .kernels import ROLE_LEADER
+from .chaos_kernel import chaos_rounds, check_round_base
+from .kernels import ROLE_LEADER, link_loss_draw
 from .sim import SimConfig, SimState
 from .steady_kernel import steady_rounds
 
@@ -41,18 +44,24 @@ def steady_mask(
 ) -> torch.Tensor:
     """bool[G]: per-group steady invariant for the next `horizon` rounds —
     no election timer can fire, exactly one alive leader, every alive peer
-    already at the leader's term, not in joint config."""
+    already at the leader's term, not in joint config.
+
+    With `link` (the bool[P, P, G] reachability plane) every directed link
+    among alive peers must also be up, and the election-timer bound is the
+    free-running one: per-link loss may drop any heartbeat, so the
+    per-round re-sync cannot be relied on.  `loss_rate` matters only to
+    the damped check-quorum bound, which is not ported; it is accepted."""
     sim_mod.check_supported(
-        cfg, link=link, reconfig_pending=reconfig_pending,
-        loss_rate=loss_rate, read_pending=read_pending,
+        cfg, reconfig_pending=reconfig_pending, read_pending=read_pending,
     )
     alive = ~crashed
     # 1. nobody can campaign within the horizon.  With heartbeat_tick == 1
-    # an alive follower under a live leader is re-synced every round, so
-    # only its first tick uses the current ee; crashed peers' timers run
-    # free.  Larger heartbeat ticks use the free-running bound for all.
+    # and no link plane, an alive follower under a live leader is re-synced
+    # every round, so only its first tick uses the current ee; crashed
+    # peers' timers run free.  Otherwise the free-running bound holds for
+    # all.
     non_leader_voter = (st.state != ROLE_LEADER) & st.voter_mask
-    if cfg.heartbeat_tick == 1:
+    if cfg.heartbeat_tick == 1 and link is None:
         elapsed = torch.where(
             alive, st.election_elapsed + 1, st.election_elapsed + horizon
         )
@@ -68,7 +77,15 @@ def steady_mask(
     terms_ok = torch.where(alive, st.term == lead_term, True).all(0)
     # 4. not joint
     not_joint = ~st.outgoing_mask.any(0)
-    return no_campaign & one_leader & terms_ok & not_joint
+    ok = no_campaign & one_leader & terms_ok & not_joint
+    if link is not None:
+        # 5. every directed link among alive peers is up.
+        eye = torch.eye(cfg.n_peers, dtype=torch.bool, device=link.device)
+        links_ok = (
+            link | eye[:, :, None] | crashed[:, None, :] | crashed[None, :, :]
+        ).all(1).all(0)
+        ok = ok & links_ok
+    return ok
 
 
 def steady_predicate(
@@ -84,52 +101,86 @@ def steady_predicate(
     return steady_mask(cfg, st, crashed, horizon, link, loss_rate=loss_rate).all()
 
 
-def steady_round(
-    cfg: SimConfig, rounds: int = 1
-) -> Callable[[SimState, torch.Tensor, torch.Tensor], SimState]:
+def _leader_flag(st: SimState, crashed: torch.Tensor) -> torch.Tensor:
+    """int32[P, G], 1 at each group's acting leader (alive, role leader).
+    It is fixed for the whole steady horizon, so the kernels' leader
+    operands are gathered once before the call."""
+    return ((st.state == ROLE_LEADER) & ~crashed).to(I32)
+
+
+def _gather(plane: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:
+    """The acting leader's slice of a plane: [P, G] -> [G], [P, P, G] ->
+    [P, G] (its tracker row)."""
+    f = flag if plane.dim() == 2 else flag[:, None, :]
+    return (plane * f).sum(0, dtype=I32)
+
+
+def _scatter_matched(st: SimState, flag: torch.Tensor, row: torch.Tensor):
+    """st.matched with the acting leader's tracker row replaced by `row`."""
+    return torch.where(flag[:, None, :] != 0, row[None, :, :], st.matched)
+
+
+def steady_operands(st: SimState, crashed: torch.Tensor, append_n: torch.Tensor):
+    """The steady kernel's operands (steady_rounds' positional arguments):
+    the planes, the acting leader's tracker row and its term start."""
+    f = _leader_flag(st, crashed)
+    return (
+        st.state, st.term, st.election_elapsed, st.heartbeat_elapsed,
+        st.last_index, st.last_term, _gather(st.matched, f), st.commit,
+        st.voter_mask, st.voter_mask | st.learner_mask, crashed,
+        _gather(st.term_start_index, f), append_n,
+    )
+
+
+def chaos_operands(
+    st: SimState, crashed: torch.Tensor, append_n: torch.Tensor,
+    loss_rate: torch.Tensor,
+):
+    """The chaos kernel's operands (chaos_rounds' positional arguments):
+    the planes as they are (the reference packs roles and masks into words;
+    the kernel takes them unpacked), the acting leader's tracker row, term
+    start and term."""
+    f = _leader_flag(st, crashed)
+    return (
+        st.state, st.leader_id, st.heartbeat_elapsed, st.election_elapsed,
+        st.last_index, st.last_term, st.commit, _gather(st.matched, f),
+        st.voter_mask, st.voter_mask | st.learner_mask, crashed, st.agree,
+        loss_rate, _gather(st.term_start_index, f), _gather(st.term, f),
+        append_n,
+    )
+
+
+def _ticks(cfg: SimConfig, rounds: int) -> dict:
+    return dict(rounds=rounds, election_tick=cfg.election_tick,
+                heartbeat_tick=cfg.heartbeat_tick)
+
+
+def steady_round(cfg: SimConfig, rounds: int = 1) -> Callable[..., SimState]:
     """fn(st, crashed, append_n) -> SimState advancing `rounds` fused steady
     rounds (same crashed/append each round).  Valid only where
     steady_predicate(cfg, st, crashed, horizon=rounds) holds."""
     sim_mod.check_supported(cfg)
+    ticks = _ticks(cfg, rounds)
 
     def fn(st: SimState, crashed: torch.Tensor, append_n: torch.Tensor) -> SimState:
-        # The acting leader is fixed for the whole steady horizon, so its
-        # tracker row and term start are gathered once before the kernel
-        # and scattered back after it.
-        is_leader = (st.state == ROLE_LEADER) & ~crashed
-        f = is_leader.to(I32)
-        acting_row = (st.matched * f[:, None, :]).sum(0, dtype=I32)  # [P, G]
-        ts_acting = (st.term_start_index * f).sum(0, dtype=I32)  # [G]
-        member = st.voter_mask | st.learner_mask
         ee, hb, li, lt, new_row, commit = steady_rounds(
-            st.state, st.term, st.election_elapsed, st.heartbeat_elapsed,
-            st.last_index, st.last_term, acting_row, st.commit,
-            st.voter_mask, member, crashed, ts_acting, append_n,
-            rounds=rounds, election_tick=cfg.election_tick,
-            heartbeat_tick=cfg.heartbeat_tick,
+            *steady_operands(st, crashed, append_n), **ticks
         )
-        matched = torch.where(is_leader[:, None, :], new_row[None, :, :], st.matched)
+        f = _leader_flag(st, crashed)
+        is_leader = f != 0
         # Pairwise log agreement, applied once for the whole horizon (the
         # sync set is constant while steady; only the final last index
         # of the leader matters).
+        member = st.voter_mask | st.learner_mask
         in_s = (member & ~crashed) | is_leader
         lead_last = torch.where(is_leader, li, 0).amax(0)  # [G]
-        lead_row = (st.agree * f[:, None, :]).sum(0, dtype=I32)  # [P, G]
-        agree = torch.where(
-            in_s[:, None, :] & in_s[None, :, :],
-            lead_last[None, None, :],
-            torch.where(
-                in_s[:, None, :],
-                lead_row[None, :, :],
-                torch.where(in_s[None, :, :], lead_row[:, None, :], st.agree),
-            ),
-        )
+        agree = sim_mod._merge_agree(st.agree, in_s, lead_last, _gather(st.agree, f))
         return st._replace(
             election_elapsed=ee,
             heartbeat_elapsed=hb,
             last_index=li,
             last_term=lt,
-            matched=matched,
+            matched=_scatter_matched(st, f, new_row),
             commit=commit,
             agree=agree,
         )
@@ -137,28 +188,87 @@ def steady_round(
     return fn
 
 
-def fast_multi_round(cfg: SimConfig, k: int = 16, count_fused: bool = False):
+def chaos_round(cfg: SimConfig, rounds: int = 1) -> Callable[..., SimState]:
+    """The reference's steady_round(with_chaos=True): fn(st, crashed,
+    append_n, loss_rate, round_base) -> SimState advancing `rounds` fused
+    loss-gated steady rounds.  loss_rate is the int32[P, P, G] per-link
+    rate, round_base (a Python int) the absolute index of the first round,
+    and the result equals `rounds` steps of sim.step(link=healed &
+    ~link_loss_draw(round, loss_rate)).  Valid where the predicate holds
+    with a healed link plane."""
+    sim_mod.check_supported(cfg)
+    ticks = _ticks(cfg, rounds)
+
+    def fn(
+        st: SimState,
+        crashed: torch.Tensor,
+        append_n: torch.Tensor,
+        loss_rate: torch.Tensor,
+        round_base: int,
+    ) -> SimState:
+        state, leader_id, hb, ee, li, lt, commit, new_row, agree = chaos_rounds(
+            *chaos_operands(st, crashed, append_n, loss_rate),
+            round_base=round_base, **ticks,
+        )
+        return st._replace(
+            state=state,
+            leader_id=leader_id,
+            election_elapsed=ee,
+            heartbeat_elapsed=hb,
+            last_index=li,
+            last_term=lt,
+            matched=_scatter_matched(st, _leader_flag(st, crashed), new_row),
+            commit=commit,
+            agree=agree,
+        )
+
+    return fn
+
+
+def fast_multi_round(
+    cfg: SimConfig, k: int = 16, with_chaos: bool = False, count_fused: bool = False
+):
     """Dispatcher advancing k protocol rounds per call (same crashed/append
     every round): the fused kernel when provably steady for the whole
     horizon, else k sequential general steps.  Semantically identical to
     calling sim.step k times.
 
-    fn(st, crashed, append_n) -> SimState.  With `count_fused`, fn takes
-    one more argument, the fused group-round count so far (a Python int),
-    and returns (SimState, count + k * n_groups if the fused branch ran,
-    else count)."""
-    fused_fn = steady_round(cfg, rounds=k)
+    fn(st, crashed, append_n) -> SimState.  With `with_chaos`,
+    fn(st, crashed, append_n, link, loss_rate, round_base): the link plane
+    and the int32[P, P, G] per-link loss rates are the fault surface and
+    round_base (a Python int) the absolute index of the first of the k
+    rounds, the loss PRNG's replay key; the general branch runs k steps of
+    sim.step(link=link & ~link_loss_draw(round_base + r, loss_rate)), and
+    every round index must lie in int32.
 
-    def fn(st: SimState, crashed, append_n, *acc):
-        pred = bool(steady_predicate(cfg, st, crashed, horizon=k))
-        if pred:
+    With `count_fused`, fn takes one more argument, the fused group-round
+    count so far (a Python int), and returns (SimState, count + k *
+    n_groups if the fused branch ran, else count)."""
+    fused_fn = chaos_round(cfg, k) if with_chaos else steady_round(cfg, k)
+
+    def fn(st: SimState, crashed, append_n, *rest):
+        if count_fused:
+            rest, acc = rest[:-1], rest[-1]
+        link = loss_rate = round_base = None
+        if with_chaos:
+            link, loss_rate, round_base = rest
+            check_round_base(round_base, k)
+        pred = bool(steady_predicate(
+            cfg, st, crashed, horizon=k, link=link, loss_rate=loss_rate
+        ))
+        if pred and with_chaos:
+            out = fused_fn(st, crashed, append_n, loss_rate, round_base)
+        elif pred:
             out = fused_fn(st, crashed, append_n)
         else:
             out = st
-            for _ in range(k):
-                out = sim_mod.step(cfg, out, crashed, append_n)
+            for r in range(k):
+                kw = {}
+                if with_chaos:
+                    kw["link"] = link & ~link_loss_draw(round_base + r, loss_rate)
+                out = sim_mod.step(cfg, out, crashed, append_n, **kw)
         if not count_fused:
             return out
-        return out, acc[0] + (k * cfg.n_groups if pred else 0)
+        return out, acc + (k * cfg.n_groups if pred else 0)
 
     return fn

@@ -4,11 +4,13 @@
 Counterparts (reference file `raft_tpu/multiraft/kernels.py`):
   INF, VOTE_*      :162-167
   _mix32           :331
+  LOSS_SCALE       :342
+  link_loss_draw   :345
   timeout_draw     :1258
   ROLE_*           :1280-1283
   tick_kernel      :1628
 
-The reference computes the timeout PRNG in uint32.  PyTorch's uint32
+The reference computes the timeout and loss PRNGs in uint32.  PyTorch's uint32
 tensors do not support `>>`, `+`, `%` or `<` on every backend, so here the
 words live in int64 holding values in [0, 2**32), and every multiply and
 add is followed by `& 0xFFFFFFFF`.  Multiplies by a 32-bit constant are
@@ -19,7 +21,7 @@ overflow wrapping.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,6 +57,34 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     x = _mul32(x, 0xC2B2AE35)
     x = x ^ (x >> 16)
     return x
+
+
+LOSS_SCALE = 10_000  # loss rates are int32 fixed-point per-ten-thousand
+
+
+def link_loss_draw(
+    round_idx: int,  # the round number, the replay key (int32 range)
+    loss_rate: torch.Tensor,  # int32[P, P, G]
+    group_ids: Optional[torch.Tensor] = None,  # int32[G]
+) -> torch.Tensor:
+    """Seeded per-link message-loss sample for one protocol round: bool[P,
+    P, G], True where the (src, dst, group) link drops every message this
+    round.  A counter PRNG keyed (round, src, dst, group), the same bits as
+    the reference's link_loss_draw.  loss_rate is in units of 1/LOSS_SCALE;
+    group_ids, when given, are the GLOBAL ids of a gathered sub-batch."""
+    P, G = loss_rate.shape[0], loss_rate.shape[2]
+    dev = loss_rate.device
+    if group_ids is None:
+        g = torch.arange(G, dtype=torch.int64, device=dev)
+    else:
+        g = group_ids.to(device=dev, dtype=torch.int64) & _MASK32
+    s = torch.arange(P, dtype=torch.int64, device=dev)[:, None, None]
+    d = torch.arange(P, dtype=torch.int64, device=dev)[None, :, None]
+    lane = s * P + d + 1
+    x = _mix32((_mul32(g, 0x9E3779B1) + (round_idx & _MASK32)) & _MASK32)
+    x = x[None, None, :]
+    x = _mix32(x ^ _mul32(lane, 0x85EBCA6B))
+    return (x % LOSS_SCALE).to(torch.int32) < loss_rate
 
 
 def timeout_draw(

@@ -9,7 +9,7 @@ and the reference comparison in `chip_smoke.py` do.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Iterable, Optional, Tuple, Union
 
 import torch
 
@@ -30,3 +30,22 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "on the CPU"
         )
     return dev
+
+
+def check_operands(
+    kernel: str,
+    device: torch.device,
+    groups: Iterable[Tuple[Dict[str, torch.Tensor], Tuple[int, ...], torch.dtype]],
+) -> None:
+    """Raise ValueError unless every tensor of every (tensors by name,
+    shape, dtype) group lies on `device` with that shape and dtype and is
+    contiguous: what a kernel launched on raw pointers relies on."""
+    for tensors, shape, dtype in groups:
+        for name, t in tensors.items():
+            if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+                raise ValueError(
+                    f"{kernel}: {name} must be {dtype} {list(shape)} on "
+                    f"{device}, got {t.dtype} {list(t.shape)} on {t.device}"
+                )
+            if not t.is_contiguous():
+                raise ValueError(f"{kernel}: {name} must be contiguous")

@@ -1,22 +1,24 @@
 """ClusterSim in PyTorch: G Raft groups × P peers in peer-major [P, G]
 tensors, advanced one lockstep protocol round at a time.
 
-Counterpart of `raft_tpu/multiraft/sim.py`, reduced to what the main path
-runs: `SimConfig` (:117), `SimState` (:226), `_node_key` (:511),
+Counterpart of `raft_tpu/multiraft/sim.py`, reduced to what the ported
+paths run: `SimConfig` (:117), `SimState` (:226), `_node_key` (:511),
 `init_state` (:528), `_sort_rows_desc` (:621), `_quorum_index` (:635), the
-plain arm of `step` (:1209-1716: undamped, `link=None`, no extras) and
-`ClusterSim` with `__init__`, `run_round` (:3950) and `run` (:4005).  The
-round is the reference's round exactly, plane by plane: tick, campaign,
-election resolution (vote grants, joint tallies, commit fast-forward via
-vote traffic), the solo crashed-campaigner win, then replication and
-quorum commit.
+plain arm of `step` (:1209-1716: undamped, `link=None`, no extras), the
+link-gated round `_linked_step` (:1792-2379, undamped, no extras) behind
+`step(link=)`, and `ClusterSim` with `__init__`, `run_round` (:3950) and
+`run` (:4005).  Each round is the reference's round exactly, plane by
+plane: tick, campaign, election resolution (vote grants, joint tallies,
+commit fast-forward via vote traffic), the solo crashed-campaigner win,
+then replication and quorum commit; the linked round replays the same
+protocol wave by wave over the directed delivery plane.
 
 Options that this port does not implement yet raise NotImplementedError
 instead of being ignored: the SimConfig flags `check_quorum`, `pre_vote`,
 `transfer`, `lease_read`, `collect_counters`, `collect_health` and
 `blackbox`, and the step arguments `group_ids`, `counters`, `health`,
-`link`, `reconfig_propose`, `transfer_propose`, `campaign_kick`,
-`read_propose` and `blackbox`.
+`reconfig_propose`, `transfer_propose`, `campaign_kick`, `read_propose`
+and `blackbox`.
 
 The reference gates the election phase behind `lax.cond(any(req))`.
 Here that is a host-side `if`, one device sync per general round; with
@@ -241,19 +243,29 @@ def _sort_rows_desc(rows: List[torch.Tensor]) -> List[torch.Tensor]:
     return rows
 
 
-def _quorum_index(matched: torch.Tensor, voter_mask: torch.Tensor) -> torch.Tensor:
-    """Per-group majority commit index over the peer axis of [P, G] planes
-    (reference: majority.rs:70-124); INF for an empty config.  int32[G]."""
+def _quorum_pick(
+    matched: torch.Tensor, voter_mask: torch.Tensor, qpos: torch.Tensor
+) -> torch.Tensor:
+    """The value at position `qpos` [G] of each group's voter slots of
+    `matched` [P, G] sorted in descending order (non-voters count as 0),
+    by the odd-even network.  int32[G]."""
     P = matched.shape[0]
     rows = _sort_rows_desc(
         [torch.where(voter_mask[p], matched[p], 0) for p in range(P)]
     )
-    count = voter_mask.sum(0, dtype=I32)
-    qpos = count // 2
     out = torch.zeros_like(rows[0])
     for p in range(P):
         out = torch.where(qpos == p, rows[p], out)
-    return torch.where(count == 0, kernels.INF, out)
+    return out
+
+
+def _quorum_index(matched: torch.Tensor, voter_mask: torch.Tensor) -> torch.Tensor:
+    """Per-group majority commit index over the peer axis of [P, G] planes
+    (reference: majority.rs:70-124); INF for an empty config.  int32[G]."""
+    count = voter_mask.sum(0, dtype=I32)
+    return torch.where(
+        count == 0, kernels.INF, _quorum_pick(matched, voter_mask, count // 2)
+    )
 
 
 def _weighted_row(plane: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
@@ -279,16 +291,19 @@ def step(
     read_propose=None,
     blackbox=None,
 ) -> SimState:
-    """One lockstep protocol round for every group (the reference step's
-    plain arm).  crashed: bool[P, G] peers isolated this round (they keep
-    ticking, exchange no messages); append_n: int32[G] entries proposed at
-    each group's leader.  Returns the next SimState."""
+    """One lockstep protocol round for every group.  crashed: bool[P, G]
+    peers isolated this round (they keep ticking, exchange no messages);
+    append_n: int32[G] entries proposed at each group's leader; link:
+    optional bool[P, P, G] directed reachability plane, which routes the
+    round through `_linked_step`.  Returns the next SimState."""
     check_supported(
-        cfg, group_ids=group_ids, counters=counters, health=health, link=link,
+        cfg, group_ids=group_ids, counters=counters, health=health,
         reconfig_propose=reconfig_propose, transfer_propose=transfer_propose,
         campaign_kick=campaign_kick, read_propose=read_propose,
         blackbox=blackbox,
     )
+    if link is not None:
+        return _linked_step(cfg, st, crashed, append_n, link)
     G, P = cfg.n_groups, cfg.n_peers
     dev = st.term.device
     self_id = torch.arange(P, dtype=I32, device=dev)[:, None] + 1  # [P, 1]
@@ -528,15 +543,7 @@ def step(
     acting_f = is_acting_leader.to(I32)
     in_s = sync | is_acting_leader
     agree_lead_row = _weighted_row(st.agree, acting_f)  # [P, G]: agree[l, b]
-    agree = torch.where(
-        in_s[:, None, :] & in_s[None, :, :],
-        lead_last[None, None, :],
-        torch.where(
-            in_s[:, None, :],
-            agree_lead_row[None, :, :],
-            torch.where(in_s[None, :, :], agree_lead_row[:, None, :], st.agree),
-        ),
-    )
+    agree = _merge_agree(st.agree, in_s, lead_last, agree_lead_row)
     acting_row = _weighted_row(matched, acting_f)  # [P_t, G]
     acting_row = torch.where(sync | is_acting_leader, new_last_index, acting_row)
     matched = torch.where(
@@ -577,6 +584,395 @@ def step(
     )
 
 
+def _merge_agree(agree, in_set, value, lead_row):
+    """One wholesale-adoption agreement event: pairs inside `in_set` agree
+    to `value` [G]; a pair with one side inside inherits `lead_row` [P, G]
+    (the sender's agreement row) at the other side; the rest keep
+    `agree`."""
+    return torch.where(
+        in_set[:, None, :] & in_set[None, :, :],
+        value[None, None, :],
+        torch.where(
+            in_set[:, None, :],
+            lead_row[None, :, :],
+            torch.where(in_set[None, :, :], lead_row[:, None, :], agree),
+        ),
+    )
+
+
+def _set_row(plane: torch.Tensor, sid: int, row: torch.Tensor) -> torch.Tensor:
+    """A fresh plane equal to `plane` with row `sid` replaced by `row`."""
+    out = plane.clone()
+    out[sid] = row
+    return out
+
+
+def _linked_step(
+    cfg: SimConfig,
+    st: SimState,
+    crashed: torch.Tensor,  # bool[P, G]
+    append_n: torch.Tensor,  # int32[G]
+    link: torch.Tensor,  # bool[P, P, G]
+) -> SimState:
+    """The link-gated protocol round behind `step(..., link=)`: the
+    reference's `_linked_step` (sim.py:1792-2379) without its extras.
+
+    Every exchange is gated per directed link: the delivery plane is
+    `E[src, dst, g] = link & alive(src) & alive(dst)`, self edges excluded.
+    The phases replay the scalar pump's waves: wave 1 (vote requests and
+    heartbeats, per receiver in sender order), wave 2 (responses over the
+    reverse links, per-candidate tallies in voter order with the win/loss
+    cutoffs), the append passes with their stage-A and stage-B quorum
+    commits and the commit re-broadcast, then the round's append workload
+    at the acting leader.  Each of the reference's `lax.scan`s over
+    senders is a Python loop over `s` in the same order; the receive order
+    is what makes the result bit-identical."""
+    G, P = cfg.n_groups, cfg.n_peers
+    dev = st.term.device
+    self_id = torch.arange(P, dtype=I32, device=dev)[:, None] + 1  # [P, 1]
+    p_idx = self_id - 1  # [P, 1]
+    alive = ~crashed
+    eye = torch.eye(P, dtype=torch.bool, device=dev)[:, :, None]
+    E = link & alive[:, None, :] & alive[None, :, :] & ~eye
+    Erev = E.transpose(0, 1)  # Erev[s, v, g]: v -> s delivery
+    node_key = _node_key(cfg, dev)
+    lo = torch.full((P, G), cfg.min_timeout, dtype=I32, device=dev)
+    hi = torch.full((P, G), cfg.max_timeout, dtype=I32, device=dev)
+
+    def draw(term):
+        return kernels.timeout_draw(
+            node_key, term.to(torch.int64) & 0xFFFFFFFF, lo, hi
+        )
+
+    promotable = st.voter_mask | st.outgoing_mask
+    member = promotable | st.learner_mask
+    ee, hb, want_campaign, want_heartbeat, _ = kernels.tick_kernel(
+        st.state,
+        st.election_elapsed,
+        st.heartbeat_elapsed,
+        st.randomized_timeout,
+        promotable,
+        cfg.election_tick,
+        cfg.heartbeat_tick,
+    )
+
+    # Campaign side effects are local; isolation cuts the network, never
+    # the clock.
+    term = st.term + want_campaign.to(I32)
+    state = torch.where(want_campaign, ROLE_CANDIDATE, st.state)
+    vote = torch.where(want_campaign, self_id, st.vote)
+    leader_id = torch.where(want_campaign, 0, st.leader_id)
+    rt = torch.where(want_campaign, draw(term), st.randomized_timeout)
+    req = want_campaign
+    hb_send = want_heartbeat
+
+    # ---- wave 1: tick-queued traffic, per receiver in sender order.
+    # Candidate payloads are the pre-round cursors.
+    T, V, Ld, St, EE, HB, RT, C = (
+        term, vote, leader_id, state, ee, hb, rt, st.commit
+    )
+    grants, resps, rej_snap, hb_accs = [], [], [], []
+    for sid in range(P):
+        d = E[sid]
+        t_s = term[sid][None, :]
+        # Heartbeat from s, queued at tick time: delivered even if s is
+        # deposed later this round.
+        h_del = d & hb_send[sid][None, :] & member
+        h_bump = h_del & (t_s > T)
+        h_acc = h_del & (t_s >= T)  # lower-term heartbeats: silent ignore
+        T = torch.where(h_bump, t_s, T)
+        V = torch.where(h_bump, 0, V)
+        St = torch.where(h_acc, ROLE_FOLLOWER, St)
+        Ld = torch.where(h_acc, sid + 1, Ld)
+        EE = torch.where(h_acc, 0, EE)
+        HB = torch.where(h_bump, 0, HB)
+        RT = torch.where(h_bump, draw(T), RT)
+        hb_val = torch.minimum(st.matched[sid], st.commit[sid][None, :])
+        C = torch.where(h_acc, torch.maximum(C, hb_val), C)
+        # Vote request from s, with the can_vote leader_id gate.
+        r_del = d & req[sid][None, :] & promotable
+        r_bump = r_del & (t_s > T)
+        T = torch.where(r_bump, t_s, T)
+        V = torch.where(r_bump, 0, V)
+        Ld = torch.where(r_bump, 0, Ld)
+        St = torch.where(r_bump, ROLE_FOLLOWER, St)
+        EE = torch.where(r_bump, 0, EE)
+        HB = torch.where(r_bump, 0, HB)
+        RT = torch.where(r_bump, draw(T), RT)
+        at = r_del & (T == t_s)  # higher-term receivers silently ignore
+        lt_s = st.last_term[sid][None, :]
+        up = (lt_s > st.last_term) | (
+            (lt_s == st.last_term) & (st.last_index[sid][None, :] >= st.last_index)
+        )
+        g = at & (V == 0) & (Ld == 0) & up
+        rej = at & ~g
+        snap = C  # reject responses snapshot commit before the fast-forward
+        c_s = st.commit[sid][None, :]
+        # Voter-side maybe_commit_by_vote off the request's commit info.
+        vff = rej & (St != ROLE_LEADER) & (c_s > C) & (c_s <= st.agree[sid])
+        V = torch.where(g, sid + 1, V)
+        EE = torch.where(g, 0, EE)
+        C = torch.where(vff, c_s, C)
+        grants.append(g)
+        resps.append(at)
+        rej_snap.append(snap)
+        hb_accs.append(h_acc)
+
+    # ---- wave 2: responses over the reverse links; each candidate tallies
+    # in voter order with the scalar cutoffs.
+    n_i = st.voter_mask.sum(0, dtype=I32)
+    n_o = st.outgoing_mask.sum(0, dtype=I32)
+    q_i = n_i // 2 + 1
+    q_o = n_o // 2 + 1
+    won_rows, lost_rows = [], []
+    for sid in range(P):
+        active = req[sid] & (St[sid] == ROLE_CANDIDATE)  # survived wave 1
+        del_g = grants[sid] & Erev[sid]
+        del_r = (resps[sid] & ~grants[sid]) & Erev[sid]
+        cnt_i = (active & st.voter_mask[sid]).to(I32)  # self-vote
+        cnt_o = (active & st.outgoing_mask[sid]).to(I32)
+        rec_i, rec_o = cnt_i, cnt_o
+        ff = torch.zeros((G,), dtype=I32, device=dev)
+        for v in range(P):
+            won_before = ((cnt_i >= q_i) | (n_i == 0)) & (
+                (cnt_o >= q_o) | (n_o == 0)
+            )
+            lost_before = ((n_i > 0) & (cnt_i + (n_i - rec_i) < q_i)) | (
+                (n_o > 0) & (cnt_o + (n_o - rec_o) < q_o)
+            )
+            snap_v = rej_snap[sid][v]
+            ok = del_r[v] & ~won_before & ~lost_before & (snap_v <= st.agree[sid][v])
+            ff = torch.where(ok, torch.maximum(ff, snap_v), ff)
+            resp_v = del_g[v] | del_r[v]
+            rec_i = rec_i + (resp_v & st.voter_mask[v]).to(I32)
+            rec_o = rec_o + (resp_v & st.outgoing_mask[v]).to(I32)
+            cnt_i = cnt_i + (del_g[v] & st.voter_mask[v]).to(I32)
+            cnt_o = cnt_o + (del_g[v] & st.outgoing_mask[v]).to(I32)
+        won_ci = (
+            active
+            & ((cnt_i >= q_i) | (n_i == 0))
+            & ((cnt_o >= q_o) | (n_o == 0))
+        )
+        lost_ci = (
+            active
+            & ~won_ci
+            & (
+                ((n_i > 0) & (cnt_i + (n_i - rec_i) < q_i))
+                | ((n_o > 0) & (cnt_o + (n_o - rec_o) < q_o))
+            )
+        )
+        C = _set_row(C, sid, torch.maximum(C[sid], ff))
+        won_rows.append(won_ci)
+        lost_rows.append(lost_ci)
+    won = torch.stack(won_rows)
+    lost = torch.stack(lost_rows)
+
+    # Winners become leaders and append their noop; losers of a decided
+    # election step down.
+    li2 = st.last_index + won.to(I32)
+    lt2 = torch.where(won, term, st.last_term)
+    TS = torch.where(won, li2, st.term_start_index)
+    St = torch.where(won, ROLE_LEADER, St)
+    Ld = torch.where(won, self_id, Ld)
+    RT = torch.where(won | lost, draw(T), RT)
+    EE = torch.where(won | lost, 0, EE)
+    HB = torch.where(won, 0, HB)
+    St = torch.where(lost, ROLE_FOLLOWER, St)
+    matched3 = torch.where(won[:, None, :], 0, st.matched)
+    matched3 = torch.where(won[:, None, :] & eye, li2[:, None, :], matched3)
+
+    # ---- waves 3+: append deliveries.  Pass 1 = winner noop broadcasts
+    # plus heartbeat-triggered catch-ups (the heartbeat response needs the
+    # reverse link).  A delivered, term-accepted append resets the
+    # receiver's timer and leader; the log is adopted only on a probe match
+    # (`agree[s, v] >= prev`) or a live reverse link (the retry chain).
+    agree_run = st.agree
+    St2 = St  # send-time snapshots
+    C_send = C
+    LI, LT = li2, lt2
+    resumed_rows = []
+    for sid in range(P):
+        e_s, erev_s = E[sid], Erev[sid]
+        t_s = term[sid][None, :]
+        li2_s = li2[sid][None, :]
+        res = hb_accs[sid] & erev_s  # pr.resume() at the leader
+        cu = (
+            res
+            & (st.matched[sid] < st.last_index[sid][None, :])
+            & (St2[sid] == ROLE_LEADER)[None, :]
+        )
+        dmask = e_s & member & (won[sid][None, :] | cu)
+        msg = dmask & (t_s >= T)
+        agree_s = agree_run[sid]
+        # The winner's noop probe carries prev = its pre-noop cursor.
+        adopt = msg & (cu | (agree_s >= st.last_index[sid][None, :]) | erev_s)
+        bump = msg & (t_s > T)
+        T = torch.where(msg, t_s, T)
+        V = torch.where(bump, 0, V)
+        St = torch.where(msg, ROLE_FOLLOWER, St)
+        Ld = torch.where(msg, sid + 1, Ld)
+        EE = torch.where(msg, 0, EE)
+        RT = torch.where(bump, draw(T), RT)
+        C = torch.where(adopt, torch.maximum(C, C_send[sid][None, :]), C)
+        ack = adopt & erev_s
+        m3_s = matched3[sid]
+        matched3 = _set_row(
+            matched3, sid, torch.where(ack, torch.maximum(m3_s, li2_s), m3_s)
+        )
+        in_s = adopt | ((p_idx == sid) & adopt.any(0)[None, :])
+        agree_run = _merge_agree(agree_run, in_s, li2[sid], agree_s)
+        LI = torch.where(adopt, li2_s, LI)
+        LT = torch.where(adopt, lt2[sid][None, :], LT)
+        resumed_rows.append(res)
+    resumed = torch.stack(resumed_rows)
+
+    def quorum(row):
+        return torch.minimum(
+            _quorum_index(row, st.voter_mask),
+            _quorum_index(row, st.outgoing_mask),
+        )
+
+    # Stage-A quorum commit per leader off the fresh acks (the term gate is
+    # maybe_commit's own-term check).
+    adv_rows = []
+    for sid in range(P):
+        mci = quorum(matched3[sid])
+        c_s = C[sid]
+        ok = (St[sid] == ROLE_LEADER) & (mci >= TS[sid]) & (mci < kernels.INF)
+        c_new = torch.where(ok, torch.maximum(c_s, mci), c_s)
+        C = _set_row(C, sid, c_new)
+        adv_rows.append(c_new > c_s)
+
+    # Pass 2: a commit advance re-broadcasts appends to every member whose
+    # Progress can still send (acked since the election, or resumed this
+    # round), with prev = the leader's current last.
+    for sid in range(P):
+        e_s, erev_s = E[sid], Erev[sid]
+        t_s = term[sid][None, :]
+        li2_s = li2[sid][None, :]
+        m3_s = matched3[sid]
+        dmask = e_s & member & adv_rows[sid][None, :] & ((m3_s > 0) | resumed[sid])
+        msg = dmask & (t_s >= T)
+        agree_s = agree_run[sid]
+        adopt = msg & ((agree_s >= li2_s) | erev_s)
+        bump = msg & (t_s > T)
+        T = torch.where(msg, t_s, T)
+        V = torch.where(bump, 0, V)
+        St = torch.where(msg, ROLE_FOLLOWER, St)
+        Ld = torch.where(msg, sid + 1, Ld)
+        EE = torch.where(msg, 0, EE)
+        RT = torch.where(bump, draw(T), RT)
+        LI = torch.where(adopt, li2_s, LI)
+        LT = torch.where(adopt, lt2[sid][None, :], LT)
+        ack = adopt & erev_s
+        matched3 = _set_row(
+            matched3, sid, torch.where(ack, torch.maximum(m3_s, li2_s), m3_s)
+        )
+        in_s = adopt | ((p_idx == sid) & adopt.any(0)[None, :])
+        agree_run = _merge_agree(agree_run, in_s, li2[sid], agree_s)
+
+    # Stage-B commit, then the post-advance propagation: a LEADER whose
+    # commit rose past what its sends carried delivers the settled value to
+    # sendable Progresses where the probe matches or the reverse link is up.
+    for sid in range(P):
+        mci = quorum(matched3[sid])
+        c_s = C[sid]
+        is_lead_s = St[sid] == ROLE_LEADER
+        ok = is_lead_s & (mci >= TS[sid]) & (mci < kernels.INF)
+        c_new = torch.where(ok, torch.maximum(c_s, mci), c_s)
+        C = _set_row(C, sid, c_new)
+        elig = (
+            E[sid]
+            & member
+            & is_lead_s[None, :]
+            & (term[sid][None, :] >= T)
+            & ((matched3[sid] > 0) | resumed[sid])
+            & ((agree_run[sid] >= li2[sid][None, :]) | Erev[sid])
+            & (c_new > C_send[sid])[None, :]
+        )
+        C = torch.where(elig, torch.maximum(C, c_new[None, :]), C)
+
+    # ---- the round's append workload at the acting leader, link-gated.
+    is_leader = (St == ROLE_LEADER) & alive
+    has_leader = is_leader.any(0)
+    lead_term = torch.where(is_leader, T, -1).amax(0)
+    is_acting = is_leader & (T == lead_term)
+    first_l = torch.where(is_acting, p_idx, P).amin(0)
+    is_acting_leader = (p_idx == first_l) & has_leader
+    n_app = torch.where(has_leader, append_n, 0)
+    sent_b = has_leader & (n_app > 0)
+    lead_pre_last = torch.where(is_acting_leader, LI, 0).amax(0)
+    LI = LI + torch.where(is_acting_leader, n_app, 0)
+    LT = torch.where(is_acting_leader & (n_app > 0), lead_term, LT)
+    lead_last = torch.where(is_acting_leader, LI, 0).amax(0)
+    lead_last_term = torch.where(is_acting_leader, LT, 0).amax(0)
+    reach_b = (E & is_acting_leader[:, None, :]).any(0)  # [P_v, G]
+    ack_path = (E & is_acting_leader[None, :, :]).any(1)  # v -> l
+    acting_f = is_acting_leader.to(I32)
+    acting_row0 = _weighted_row(matched3, acting_f)
+    resumed_act = (resumed & is_acting_leader[:, None, :]).any(0)
+    agree_act = _weighted_row(agree_run, acting_f)
+    # The proposal broadcast skips paused probes; delivered appends reset
+    # timers either way, but the log is adopted only on a probe match or a
+    # live reverse link.
+    pr_ok = (acting_row0 > 0) | resumed_act
+    sync_msg = (
+        sent_b
+        & reach_b
+        & member
+        & (T <= lead_term)
+        & ~is_acting_leader
+        & pr_ok
+    )
+    sync_b = sync_msg & ((agree_act >= lead_pre_last[None, :]) | ack_path)
+    bump_b = sync_msg & (T < lead_term)
+    T = torch.where(sync_msg, lead_term, T)
+    St = torch.where(sync_msg, ROLE_FOLLOWER, St)
+    V = torch.where(bump_b, 0, V)
+    Ld = torch.where(sync_msg, first_l + 1, Ld)
+    EE = torch.where(sync_msg, 0, EE)
+    RT = torch.where(bump_b, draw(T), RT)
+    LI = torch.where(sync_b, lead_last, LI)
+    LT = torch.where(sync_b, lead_last_term, LT)
+    in_sb = sync_b | (is_acting_leader & sent_b)
+    agree_run = _merge_agree(agree_run, in_sb, lead_last, agree_act)
+    acked_b = (sync_b & ack_path) | (is_acting_leader & sent_b)
+    acting_row = torch.where(
+        acked_b, torch.maximum(acting_row0, lead_last), acting_row0
+    )
+    matched3 = torch.where(
+        is_acting_leader[:, None, :], acting_row[None, :, :], matched3
+    )
+    ts_acting = _weighted_row(TS, acting_f)
+    mci_b = quorum(acting_row)
+    commit_ok = sent_b & (mci_b >= ts_acting) & (mci_b < kernels.INF)
+    lead_commit_old = torch.where(is_acting_leader, C, 0).amax(0)
+    lead_commit = torch.where(
+        commit_ok, torch.maximum(lead_commit_old, mci_b), lead_commit_old
+    )
+    C = torch.where(is_acting_leader, lead_commit, C)
+    C = torch.where(sync_b, torch.maximum(C, lead_commit), C)
+
+    return SimState(
+        term=T,
+        state=St,
+        vote=V,
+        leader_id=Ld,
+        election_elapsed=EE,
+        heartbeat_elapsed=HB,
+        randomized_timeout=RT,
+        last_index=LI,
+        last_term=LT,
+        commit=C,
+        matched=matched3,
+        term_start_index=TS,
+        agree=agree_run,
+        voter_mask=st.voter_mask,
+        outgoing_mask=st.outgoing_mask,
+        learner_mask=st.learner_mask,
+    )
+
+
 class ClusterSim:
     """Host-side runner over `step`: holds the state and advances it one
     round per `run_round`.  Planes are peer-major [P, G] on `device`
@@ -596,9 +992,11 @@ class ClusterSim:
             cfg, voter_mask, outgoing_mask, learner_mask, device=self.device
         )
 
-    def run_round(self, crashed=None, append_n=None) -> SimState:
+    def run_round(self, crashed=None, append_n=None, link=None) -> SimState:
         """One protocol round; crashed bool[P, G] and append_n int32[G]
-        default to no crashes and no appends."""
+        default to no crashes and no appends.  `link` (optional bool[P, P,
+        G]) threads the directed reachability plane through the step; None
+        keeps the all-visible round."""
         G, P = self.cfg.n_groups, self.cfg.n_peers
         if crashed is None:
             crashed = torch.zeros((P, G), dtype=torch.bool, device=self.device)
@@ -606,7 +1004,9 @@ class ClusterSim:
             append_n = torch.zeros((G,), dtype=I32, device=self.device)
         crashed = crashed.to(device=self.device, dtype=torch.bool)
         append_n = append_n.to(device=self.device, dtype=I32)
-        self.state = step(self.cfg, self.state, crashed, append_n)
+        if link is not None:
+            link = link.to(device=self.device, dtype=torch.bool)
+        self.state = step(self.cfg, self.state, crashed, append_n, link=link)
         return self.state
 
     def run(self, rounds: int, crashed=None, append_n=None) -> SimState:

@@ -15,15 +15,15 @@ as one-byte planes it reads 8 int32 and 3 one-byte [P, G] planes plus two
 int32 [G] rows, and writes 6 int32 [P, G] planes: (8·4 + 3 + 6·4)·P·G +
 8·G bytes, 30.3 MB at P=5, G=100k, or 9.0 µs at 3.35 TB/s.  The integer
 work grows with `rounds` (208 operations per group and round at P=5,
-`steady_work`): at k=32 that is 666 M operations, 9.9 µs at the card's
-67 T/s non-tensor rate, so operations and bytes bound it about equally.
+`steady_work`): at k=32 that is 666 M operations, 39.7 µs at the card's
+16.75 T/s INT32 rate, so operations set the bound.
 The design keeps both low: one thread per group holds its P-column of
 every plane in registers for all k rounds (csrc/steady_body.cuh, P a
 template parameter so the peer loops and the odd-even network unroll), so
 each byte crosses the memory bus once per call, and the peer-major layout
-makes neighbouring threads touch neighbouring words.  On the card it runs
-several times over that bound, limited by integer issue: 100k groups give
-only about 760 threads an SM, each running a long dependent chain.
+makes neighbouring threads touch neighbouring words.  On the card it is
+limited by integer issue: 100k groups give only about 760 threads an SM,
+each running a long dependent chain.
 
 On CPU tensors `steady_rounds` runs `steady_rounds_reference`, the same
 arithmetic as plain tensor code; on CUDA tensors it launches the kernel or
@@ -38,6 +38,8 @@ import torch
 
 from . import _build
 from .kernels import ROLE_LEADER
+from .platform import check_operands
+from .sim import _quorum_pick
 
 I32 = torch.int32
 MAX_PEERS = 7
@@ -52,7 +54,6 @@ def steady_rounds_reference(
     """Plain PyTorch version of the kernel: planes [P, G] (int32; masks
     bool or 0/1 ints), ts and app [G] int32.  Returns (ee, hb, li, lt,
     acting_row, commit) as fresh int32 [P, G] tensors."""
-    P = state.shape[0]
     voter, member, crashed = voter != 0, member != 0, crashed != 0
     matched = acting_row
     alive = ~crashed
@@ -82,15 +83,7 @@ def steady_rounds_reference(
         lt = torch.where(sync, lead_lt, lt)
         matched = torch.where(sync | (is_leader & sent), li, matched)
 
-        rows = [torch.where(voter[p], matched[p], 0) for p in range(P)]
-        for pass_ in range(P):
-            for i in range(pass_ % 2, P - 1, 2):
-                hi = torch.maximum(rows[i], rows[i + 1])
-                lo = torch.minimum(rows[i], rows[i + 1])
-                rows[i], rows[i + 1] = hi, lo
-        mci = torch.zeros_like(rows[0])
-        for p in range(P):
-            mci = torch.where(qpos == p, rows[p], mci)
+        mci = _quorum_pick(matched, voter, qpos)
 
         ok = has_leader & sent & (mci >= ts)
         lead_commit_old = torch.where(is_leader, commit, 0).sum(0, dtype=I32)
@@ -125,17 +118,9 @@ def _launch(
                   acting_row=acting_row, commit=commit)
     masks = dict(voter=voter, member=member, crashed=crashed)
     rows = dict(ts=ts, app=app)
-    for group, shape, dtype in (
+    check_operands("steady_rounds", dev, (
         (planes, (P, G), I32), (masks, (P, G), torch.bool), (rows, (G,), I32)
-    ):
-        for name, t in group.items():
-            if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-                raise ValueError(
-                    f"steady_rounds: {name} must be {dtype} {list(shape)} on "
-                    f"{dev}, got {t.dtype} {list(t.shape)} on {t.device}"
-                )
-            if not t.is_contiguous():
-                raise ValueError(f"steady_rounds: {name} must be contiguous")
+    ))
     outs = tuple(torch.empty((P, G), dtype=I32, device=dev) for _ in range(6))
     lib = _build.load_steady_cuda()
     with torch.cuda.device(dev):

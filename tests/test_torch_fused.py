@@ -156,7 +156,10 @@ def test_fused_dispatch_rejects_unported_options():
     cfg = tsim.SimConfig(n_groups=4, n_peers=3)
     st = tsim.init_state(cfg, device="cpu")
     crashed = torch.zeros((3, 4), dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        tfs.steady_mask(cfg, st, crashed, link=torch.ones((3, 3, 4), dtype=torch.bool))
+    for extra in ("reconfig_pending", "read_pending"):
+        with pytest.raises(NotImplementedError):
+            tfs.steady_mask(cfg, st, crashed, **{extra: torch.zeros(4, dtype=torch.bool)})
     with pytest.raises(NotImplementedError):
         tfs.fast_multi_round(cfg._replace(check_quorum=True), k=4)
+    with pytest.raises(NotImplementedError):
+        tfs.fast_multi_round(cfg._replace(check_quorum=True), k=4, with_chaos=True)

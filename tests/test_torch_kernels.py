@@ -150,11 +150,22 @@ def test_unported_config_flags_raise(field):
             "transfer_propose", "campaign_kick", "read_propose", "blackbox"],
 )
 def test_unported_step_args_raise(arg):
+    """Every step extra not ported yet raises, on the plain round and on
+    the link-gated one (`link` itself is ported: it must raise only beside
+    an unported extra)."""
     cfg = tsim.SimConfig(n_groups=4, n_peers=3)
     st = tsim.init_state(cfg, device="cpu")
+    args = (cfg, st, torch.zeros((3, 4), dtype=torch.bool), torch.zeros(4, dtype=torch.int32))
+    link = torch.ones((3, 3, 4), dtype=torch.bool)
+    if arg == "link":
+        tsim.step(*args, link=link)
+        with pytest.raises(NotImplementedError):
+            tsim.step(*args, link=link, counters=torch.zeros(4))
+        return
     with pytest.raises(NotImplementedError):
-        tsim.step(cfg, st, torch.zeros((3, 4), dtype=torch.bool),
-                  torch.zeros(4, dtype=torch.int32), **{arg: torch.zeros(4)})
+        tsim.step(*args, **{arg: torch.zeros(4)})
+    with pytest.raises(NotImplementedError):
+        tsim.step(*args, link=link, **{arg: torch.zeros(4)})
 
 
 def test_cuda_is_the_default_device():
