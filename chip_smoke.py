@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Two paths, both at 100,000 groups × 5 peers with one append per group per
-round (bench.py's bench_device):
+Three paths, all at 100,000 groups × 5 peers with one append per group
+per round (bench.py's bench_device):
 
   steady  election_tick 10: ClusterSim settles 30 general rounds, then
           fast_multi_round(k=32) advances one 32-round block at a time on
@@ -14,13 +14,18 @@ round (bench.py's bench_device):
           then fast_multi_round(k=32, with_chaos=True) with an all-up link
           plane and 1% loss on every directed link; a block whose
           predicate holds runs csrc/chaos_round.cu, any other block 32
-          link-gated general steps.
+          link-gated general steps;
+  damped  bench.py --check-quorum: election_tick 64 with check_quorum, a
+          192-round settle on the damped step, then fast_multi_round(k=32)
+          on csrc/damped_round.cu whenever the predicate (with its
+          check-quorum boundary proof) holds, any other block 32 damped
+          general steps.
 
 Phases, in order, each with its wall seconds; any failure raises and the
 script exits nonzero:
 
   1. device        require CUDA; print the card's name and power limit
-  2. build         build both kernels from csrc/ with nvcc, in parallel;
+  2. build         build the three kernels from csrc/ with nvcc, in parallel;
                    print the times and ptxas registers and spills per P
   3. parity        the steady kernel against its plain PyTorch version on
                    the same card tensors, exact: settled states at
@@ -49,7 +54,24 @@ script exits nonzero:
                    the CPU from the same start; every SimState field and
                    the fused counts must be equal
   8. lossy timing  as phase 5, for the lossy path and the chaos kernel
-  9. report        one JSON line of kernels, then the device line last
+  9. damped parity the damped kernel against its plain version, exact:
+                   damped-settled states at G=100,000, G=100,003 (P=5) and
+                   P=3, each with and without crashed followers, without
+                   loss and under 1% and the heavy-loss layout (round base
+                   small and near 2**31 - 32); with_cq off on a
+                   pre-vote-settled state; random planes at P=3, 5 and 7
+ 10. damped        the check-quorum path on the card: at G=8,192 from
+                   init_state (192 settle rounds, 4 blocks), then the main
+                   path at G=100,000 from the settled state (2 fused
+                   blocks, then 3 with the acting leader crashed in 1% of
+                   groups: general blocks with check-quorum step-downs and
+                   elections), the launch counts zeroed just before each
+                   and read just after; the same on the CPU from the same
+                   start; every SimState field, recent_active included, and
+                   the fused counts must be equal
+ 11. damped timing as phase 5, for the damped path and kernel; fused_frac
+                   must be 1.0
+ 12. report        one JSON line of kernels, then the device line last
 
 Exits 2 without a result when no CUDA device is available.
 """
@@ -72,6 +94,12 @@ from raft_tpu_torch.multiraft.chaos_kernel import (
     chaos_rounds_reference,
     chaos_work,
 )
+from raft_tpu_torch.multiraft.damped_kernel import (
+    OUTPUT_NAMES as DAMPED_OUTPUTS,
+    damped_rounds,
+    damped_rounds_reference,
+    damped_work,
+)
 from raft_tpu_torch.multiraft.kernels import LOSS_SCALE, ROLE_LEADER, link_loss_draw
 from raft_tpu_torch.multiraft.steady_kernel import (
     steady_rounds,
@@ -86,6 +114,10 @@ LOSSY_TICK = 64  # the lossy predicate's free-running bound must clear k=32
 LOSSY_SETTLE = 3 * LOSSY_TICK
 LOSS = LOSS_SCALE // 100  # 1% per directed link
 LOSSY_SMALL_G, LOSSY_SMALL_BLOCKS = 8192, 4
+CQ_TICK = 64  # bench.py --check-quorum: the damped bound is free-running too
+CQ_SETTLE = 3 * CQ_TICK
+CQ_SMALL_G, CQ_SMALL_BLOCKS = 8192, 4
+CQ_FUSED_BLOCKS, CQ_CRASH_BLOCKS = 2, 3
 ROUNDS_PER_SCAN, SCANS, REPS = 64, 6, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 # H100 SXM INT32 rate: the published 67 TFLOP/s float32 counts an FMA as two
@@ -100,6 +132,8 @@ STEADY_SOURCE = "raft_tpu_torch/multiraft/csrc/steady_round.cu"
 STEADY_REPLACES = "raft_tpu/multiraft/pallas_step.py:116"
 CHAOS_SOURCE = "raft_tpu_torch/multiraft/csrc/chaos_round.cu"
 CHAOS_REPLACES = "raft_tpu/multiraft/pallas_step.py:297"
+DAMPED_SOURCE = "raft_tpu_torch/multiraft/csrc/damped_round.cu"
+DAMPED_REPLACES = "raft_tpu/multiraft/pallas_step.py:889"
 
 
 def card_line():
@@ -127,9 +161,10 @@ def phase(name):
 
 @phase("build")
 def phase_build():
-    """Both kernels built at once, one nvcc per source."""
+    """The three kernels built at once, one nvcc per source."""
     loaders = {"steady_round": _build.load_steady_cuda,
-               "chaos_round": _build.load_chaos_cuda}
+               "chaos_round": _build.load_chaos_cuda,
+               "damped_round": _build.load_damped_cuda}
     with ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(fn) for fn in loaders.values()]:
             fut.result()  # raises a failed build's error
@@ -139,9 +174,12 @@ def phase_build():
         entry = None
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                entry = line.split("ILi")[1].split("E")[0] if "ILi" in line else "?"
+                # The template arguments: P, then the damped kernel's flags.
+                args = line.split("ILi")[1].split("EE")[0].split("ELb") if "ILi" in line else ["?"]
+                entry = f"P={args[0]}" + (
+                    f" cq={args[1]} loss={args[2]}" if len(args) == 3 else "")
             elif "registers" in line or "spill" in line:
-                print(f"  ptxas P={entry}: {line.strip()}")
+                print(f"  ptxas {entry}: {line.strip()}")
 
 
 # --- the steady path -------------------------------------------------------
@@ -176,7 +214,7 @@ def compare(kernel, reference, names, args, kw, note):
     torch.cuda.synchronize()
     err = 0
     for name, g, w in zip(names, got, want):
-        if g.dtype != torch.int32 or g.shape != w.shape:
+        if g.dtype != w.dtype or g.shape != w.shape:
             raise AssertionError(f"{note}: {name} is {g.dtype} {tuple(g.shape)}")
         err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
         if not torch.equal(g, w):
@@ -241,8 +279,9 @@ def check_state(st, n_groups=G):
     for f, v in st._asdict().items():
         if v is None:
             continue
-        want = torch.bool if f.endswith("_mask") else torch.int32
-        shape = (P, P, n_groups) if f in ("matched", "agree") else (P, n_groups)
+        want = torch.bool if f.endswith("_mask") or f == "recent_active" else torch.int32
+        pairs = ("matched", "agree", "recent_active")
+        shape = (P, P, n_groups) if f in pairs else (P, n_groups)
         if v.dtype != want or tuple(v.shape) != shape:
             raise AssertionError(f"{f}: {v.dtype} {tuple(v.shape)}")
     # The bench's sanity rule: every group committed something.
@@ -654,6 +693,196 @@ def phase_lossy_timing(dev, st):
     )
 
 
+# --- the damped (check-quorum) path -------------------------------------------
+
+
+def damped_cfg(n_groups, n_peers=P, pre_vote=False):
+    """bench.py --check-quorum's config; with `pre_vote`, pre-vote alone."""
+    return sim.SimConfig(n_groups=n_groups, n_peers=n_peers, election_tick=CQ_TICK,
+                         check_quorum=not pre_vote, pre_vote=pre_vote)
+
+
+def damped_settle(device, n_groups, n_peers=P, pre_vote=False):
+    """init_state and CQ_SETTLE damped rounds of one append per group."""
+    s = sim.ClusterSim(damped_cfg(n_groups, n_peers, pre_vote), device=device)
+    s.run(CQ_SETTLE, None, torch.ones(n_groups, dtype=torch.int32, device=s.device))
+    return s.state
+
+
+def random_damped_inputs(n_peers, n_groups, seed, device, loss):
+    """Random damped-kernel operands: any roles, several or no leaders,
+    crashes, masks, recent_active rows and (with `loss`) loss rates."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def ints(hi, shape=(n_peers, n_groups)):
+        return torch.randint(0, hi, shape, generator=gen, dtype=torch.int32).to(device)
+
+    def bools(p):
+        return (torch.rand((n_peers, n_groups), generator=gen) < p).to(device)
+
+    pp = (n_peers, n_peers, n_groups)
+    return (ints(3), ints(n_peers + 1), ints(3), ints(12), ints(40), ints(5),
+            ints(40), ints(40), bools(0.5), bools(0.8), bools(0.9), bools(0.2),
+            ints(40, pp), ints(LOSS_SCALE + 1, pp) if loss else None,
+            ints(40, (n_groups,)), ints(5, (n_groups,)), ints(3, (n_groups,)))
+
+
+def compare_damped(args, note, with_cq=True, round_base=CQ_SETTLE,
+                   election_tick=CQ_TICK):
+    kw = dict(round_base=round_base, rounds=K, election_tick=election_tick,
+              heartbeat_tick=1, with_cq=with_cq)
+    return compare(damped_rounds, damped_rounds_reference, DAMPED_OUTPUTS, args, kw,
+                   f"{note} cq={with_cq} round_base={round_base}")
+
+
+@phase("damped parity")
+def phase_damped_parity(dev):
+    """Returns (max |difference|, the settled 100k × 5 damped state)."""
+    err, settled = 0, None
+    for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3)):
+        st = damped_settle(dev, n_groups, n_peers)
+        if (n_groups, n_peers) == (G, P):
+            settled = st
+        append = torch.ones(n_groups, dtype=torch.int32, device=dev)
+        for crashed_name in ("no crashes", "crashed followers"):
+            crashed = torch.zeros((n_peers, n_groups), dtype=torch.bool, device=dev)
+            if crashed_name != "no crashes":
+                crashed = crash_followers(st, n_peers, n_groups, dev)
+            note = f"damped-settled G={n_groups} P={n_peers} {crashed_name}"
+            err = max(err, compare_damped(
+                fused_step.damped_operands(st, crashed, append), note))
+            for loss_name, make_loss in (("1%", uniform_loss), ("heavy", heavy_loss)):
+                args = fused_step.damped_operands(
+                    st, crashed, append, make_loss(n_groups, n_peers, dev))
+                for rb in (CQ_SETTLE, 2**31 - K):
+                    err = max(err, compare_damped(
+                        args, f"{note} {loss_name} loss", round_base=rb))
+    st = damped_settle(dev, G, P, pre_vote=True)
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    for loss in (None, uniform_loss(G, P, dev)):
+        err = max(err, compare_damped(
+            fused_step.damped_operands(st, crashed, append, loss),
+            f"pre-vote-settled G={G} P={P} loss={loss is not None}", with_cq=False))
+    for n_peers in (3, 5, 7):
+        for with_cq in (False, True):
+            for loss in (False, True):
+                args = random_damped_inputs(n_peers, G + 3, 20 + n_peers, dev, loss)
+                err = max(err, compare_damped(
+                    args, f"random planes G={G + 3} P={n_peers} loss={loss}",
+                    with_cq=with_cq, round_base=2**31 - K, election_tick=6))
+    return err, settled
+
+
+def run_damped_path(device, n_groups, blocks, start=None, crash_blocks=0):
+    """The check-quorum path: from `start` (else init_state and the
+    settle), `blocks` k=32 blocks of fast_multi_round, then `crash_blocks`
+    with the acting leader crashed in every hundredth group.  Returns
+    (state, fused group-rounds, general blocks, the state before the crash
+    blocks)."""
+    cfg = damped_cfg(n_groups)
+    st = damped_settle(device, n_groups) if start is None else start
+    dev = st.term.device
+    crashed = torch.zeros((P, n_groups), dtype=torch.bool, device=dev)
+    append = torch.ones(n_groups, dtype=torch.int32, device=dev)
+    block = fused_step.fast_multi_round(cfg, k=K, count_fused=True)
+    fused = general = 0
+    for b in range(blocks + crash_blocks):
+        if b == blocks:
+            mid = st
+            lead = st.state.eq(ROLE_LEADER).to(torch.int64).argmax(0)
+            idx = torch.arange(n_groups, device=dev)[::100]
+            crashed = crashed.clone()
+            crashed[lead[::100], idx] = True
+        prev = fused
+        st, fused = block(st, crashed, append, fused)
+        general += fused == prev
+    return st, fused, general, (st if crash_blocks == 0 else mid)
+
+
+@phase("damped")
+def phase_damped(dev, settled):
+    """Returns (the 100k state after the fused blocks, the damped kernel's
+    launches in the 100k run alone)."""
+    settled_cpu = sim.SimState(*(None if v is None else v.cpu() for v in settled))
+    t0 = time.perf_counter()
+    for fn in (steady_rounds, chaos_rounds, damped_rounds):
+        fn.launches = 0
+    small = run_damped_path(dev, CQ_SMALL_G, CQ_SMALL_BLOCKS)
+    small_launches = damped_rounds.launches
+    # The main path at full size, its launches counted alone.
+    for fn in (steady_rounds, chaos_rounds, damped_rounds):
+        fn.launches = 0
+    full = run_damped_path(dev, G, CQ_FUSED_BLOCKS, start=settled,
+                           crash_blocks=CQ_CRASH_BLOCKS)
+    launches = damped_rounds.launches
+    others = steady_rounds.launches + chaos_rounds.launches
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    if small_launches <= 0 or launches <= 0:
+        raise AssertionError(f"the check-quorum path never launched the damped "
+                             f"kernel (G={CQ_SMALL_G}: {small_launches}, G={G}: "
+                             f"{launches})")
+    if others:
+        raise AssertionError("the check-quorum path launched another kernel")
+    if full[2] != CQ_CRASH_BLOCKS or small[2] or full[1] != CQ_FUSED_BLOCKS * K * G:
+        raise AssertionError(f"unexpected branches: G={CQ_SMALL_G} general "
+                             f"{small[2]}, G={G} fused {full[1]} general {full[2]}")
+    check_state(small[0], CQ_SMALL_G)
+    check_state(full[0])
+    crashed_groups = slice(None, None, 100)
+    elected = int((full[0].term.amax(0)[crashed_groups]
+                   > full[3].term.amax(0)[crashed_groups]).sum())
+    if elected <= 0:
+        raise AssertionError("no election in the groups whose leader crashed")
+    t0 = time.perf_counter()
+    small_cpu = run_damped_path("cpu", CQ_SMALL_G, CQ_SMALL_BLOCKS)
+    full_cpu = run_damped_path("cpu", G, CQ_FUSED_BLOCKS, start=settled_cpu,
+                               crash_blocks=CQ_CRASH_BLOCKS)
+    t_cpu = time.perf_counter() - t0
+    for note, a, b in ((f"damped G={CQ_SMALL_G}", small, small_cpu),
+                       (f"damped G={G}", full, full_cpu)):
+        assert_same(a[0], b[0], note)
+        assert_same(a[3], b[3], note + " (before the crash blocks)")
+        if a[1:3] != b[1:3]:
+            raise AssertionError(f"{note}: fused/general counts differ {a[1:3]} {b[1:3]}")
+    print(f"check-quorum path {CQ_SMALL_G}x{P} (init, {CQ_SETTLE} settle rounds, "
+          f"{CQ_SMALL_BLOCKS} blocks; fused {small[1]}, general blocks {small[2]}) "
+          f"and {G}x{P} (settled, {CQ_FUSED_BLOCKS} blocks, then {CQ_CRASH_BLOCKS} "
+          f"with the acting leader crashed in 1% of groups, {elected} of "
+          f"{len(range(0, G, 100))} of which elected a new leader; fused "
+          f"{full[1]}, general blocks {full[2]}): card == CPU "
+          f"on all {len(settled._fields)} fields, recent_active included; damped "
+          f"kernel launches {small_launches} at G={CQ_SMALL_G} and {launches} at "
+          f"G={G} (the main path's count); card {t_gpu:.2f}s, CPU {t_cpu:.2f}s")
+    return full[3], launches
+
+
+@phase("damped timing")
+def phase_damped_timing(dev, st):
+    cfg = damped_cfg(G)
+    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    fast = fused_step.fast_multi_round(cfg, k=K, count_fused=True)
+    round_fn = fused_step.damped_round(cfg, rounds=K)
+    kw = dict(round_base=0, rounds=K, election_tick=cfg.election_tick,
+              heartbeat_tick=cfg.heartbeat_tick, with_cq=True)
+    t = time_path(
+        dev, "damped", st, 0,
+        block=lambda s, rb, f: fast(s, crashed, append, f),
+        operands=lambda s, rb: (fused_step.damped_operands(s, crashed, append), kw),
+        kernel=damped_rounds, reference=damped_rounds_reference,
+        kernel_name="damped_round_kernel",
+        fused_round=lambda s, rb: round_fn(s, crashed, append),
+        predicate=lambda s: fused_step.steady_predicate(cfg, s, crashed, K),
+        work=damped_work(P, G, K),
+    )
+    if t["fused_frac"] < 1.0:
+        raise AssertionError(f"damped timed loop left the fused path: "
+                             f"fused_frac {t['fused_frac']}")
+    return t
+
+
 def kernel_entry(name, source, replaces, launches, err, t):
     return {
         "name": name,
@@ -695,17 +924,23 @@ def main(argv=None):
     chaos_err, settled = phase_chaos_parity(dev)
     st, chaos_launches = phase_lossy(dev, settled)
     lossy = phase_lossy_timing(dev, st)
+    damped_err, settled = phase_damped_parity(dev)
+    st, damped_launches = phase_damped(dev, settled)
+    damped = phase_damped_timing(dev, st)
 
     kernels = {"kernels": [
         kernel_entry("steady_rounds", STEADY_SOURCE, STEADY_REPLACES,
                      steady_launches, steady_err, steady),
         kernel_entry("chaos_rounds", CHAOS_SOURCE, CHAOS_REPLACES,
                      chaos_launches, chaos_err, lossy),
+        kernel_entry("damped_rounds", DAMPED_SOURCE, DAMPED_REPLACES,
+                     damped_launches, damped_err, damped),
     ]}
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w", encoding="utf-8") as fh:
-            json.dump({**kernels, "timing": {"steady": steady, "lossy": lossy}},
+            json.dump({**kernels, "timing": {"steady": steady, "lossy": lossy,
+                                              "damped": damped}},
                       fh, indent=1)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

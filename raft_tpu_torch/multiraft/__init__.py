@@ -3,10 +3,16 @@ tensors, counterpart of `raft_tpu/multiraft`.
 
 Modules:
   platform      — resolve_device: `cuda` by default, the CPU on request
-  kernels       — elementwise protocol kernels (timeout PRNG, tick)
-  sim           — SimConfig, SimState, init_state, the plain step, ClusterSim
+  kernels       — elementwise protocol kernels (timeout and loss PRNGs, tick,
+                  quorum index, check-quorum liveness and boundary bound)
+  sim           — SimConfig, SimState, init_state, the plain, link-gated and
+                  damped steps, ClusterSim
   steady_kernel — k fused steady rounds: the CUDA kernel and its plain version
-  fused_step    — steady_mask/steady_predicate, steady_round, fast_multi_round
+  chaos_kernel  — k fused loss-gated rounds: the CUDA kernel and its plain version
+  damped_kernel — k fused check-quorum/pre-vote rounds: the CUDA kernel and its
+                  plain version
+  fused_step    — steady_mask/steady_predicate, steady_round, chaos_round,
+                  damped_round, fast_multi_round
 """
 
 from .fused_step import fast_multi_round, steady_predicate, steady_round

@@ -45,6 +45,9 @@ _STEADY_ARGS = [ctypes.c_void_p] * 19 + [ctypes.c_longlong] + [ctypes.c_int] * 4
 # 16 operand and 9 output pointers, G, then P, round_base, rounds,
 # election_tick and heartbeat_tick.
 _CHAOS_ARGS = [ctypes.c_void_p] * 25 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+# 17 operand and 10 output pointers, G, then P, round_base, rounds,
+# election_tick, heartbeat_tick, with_cq and with_loss.
+_DAMPED_ARGS = [ctypes.c_void_p] * 27 + [ctypes.c_longlong] + [ctypes.c_int] * 7
 
 
 def _nvcc() -> str:
@@ -110,66 +113,66 @@ def _load(name: str, build_fn) -> ctypes.CDLL:
         return lib
 
 
-def load_steady_cuda() -> ctypes.CDLL:
-    """The CUDA steady-round library (built with nvcc for sm_90a at first
-    use); its `steady_round_launch` takes the 19 tensor pointers, G, P,
-    rounds, election_tick, heartbeat_tick and the CUDA stream."""
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: cannot build the host shim")
+    return found
+
+
+def _library(name: str, source: str, cuda: bool, fn: str, argtypes) -> ctypes.CDLL:
+    """Build (once) and load csrc/`source` as library `name`: with nvcc for
+    sm_90a when `cuda`, else with g++; declare its C function `fn`."""
 
     def build():
-        return _build(
-            "steady_round", [_nvcc()], [CSRC / "steady_round.cu"], NVCC_FLAGS
-        )
+        compiler, flags = ([_nvcc()], NVCC_FLAGS) if cuda else ([_gxx()], GXX_FLAGS)
+        return _build(name, compiler, [CSRC / source], flags)
 
-    lib = _load("steady_round", build)
-    lib.steady_round_launch.argtypes = _STEADY_ARGS + [ctypes.c_void_p]
-    lib.steady_round_launch.restype = ctypes.c_int
+    lib = _load(name, build)
+    func = getattr(lib, fn)
+    func.argtypes = argtypes
+    func.restype = ctypes.c_int
     return lib
+
+
+def load_steady_cuda() -> ctypes.CDLL:
+    """The CUDA steady-round library; its `steady_round_launch` takes the
+    19 tensor pointers, G, P, rounds, election_tick, heartbeat_tick and the
+    CUDA stream."""
+    return _library("steady_round", "steady_round.cu", True,
+                    "steady_round_launch", _STEADY_ARGS + [ctypes.c_void_p])
 
 
 def load_steady_host() -> ctypes.CDLL:
     """The host build of the same kernel body (g++), for the CPU tests."""
-
-    def build():
-        gxx = shutil.which("g++")
-        if gxx is None:
-            raise RuntimeError("g++ not found: cannot build the host shim")
-        return _build(
-            "steady_host", [gxx], [CSRC / "steady_host.cpp"], GXX_FLAGS
-        )
-
-    lib = _load("steady_host", build)
-    lib.steady_round_host.argtypes = _STEADY_ARGS
-    lib.steady_round_host.restype = ctypes.c_int
-    return lib
+    return _library("steady_host", "steady_host.cpp", False,
+                    "steady_round_host", _STEADY_ARGS)
 
 
 def load_chaos_cuda() -> ctypes.CDLL:
-    """The CUDA chaos-round library (built with nvcc for sm_90a at first
-    use); its `chaos_round_launch` takes the 25 tensor pointers, G, P,
-    round_base, rounds, election_tick, heartbeat_tick and the CUDA
-    stream."""
-
-    def build():
-        return _build(
-            "chaos_round", [_nvcc()], [CSRC / "chaos_round.cu"], NVCC_FLAGS
-        )
-
-    lib = _load("chaos_round", build)
-    lib.chaos_round_launch.argtypes = _CHAOS_ARGS + [ctypes.c_void_p]
-    lib.chaos_round_launch.restype = ctypes.c_int
-    return lib
+    """The CUDA chaos-round library; its `chaos_round_launch` takes the 25
+    tensor pointers, G, P, round_base, rounds, election_tick,
+    heartbeat_tick and the CUDA stream."""
+    return _library("chaos_round", "chaos_round.cu", True,
+                    "chaos_round_launch", _CHAOS_ARGS + [ctypes.c_void_p])
 
 
 def load_chaos_host() -> ctypes.CDLL:
     """The host build of the chaos kernel body (g++), for the CPU tests."""
+    return _library("chaos_host", "chaos_host.cpp", False,
+                    "chaos_round_host", _CHAOS_ARGS)
 
-    def build():
-        gxx = shutil.which("g++")
-        if gxx is None:
-            raise RuntimeError("g++ not found: cannot build the host shim")
-        return _build("chaos_host", [gxx], [CSRC / "chaos_host.cpp"], GXX_FLAGS)
 
-    lib = _load("chaos_host", build)
-    lib.chaos_round_host.argtypes = _CHAOS_ARGS
-    lib.chaos_round_host.restype = ctypes.c_int
-    return lib
+def load_damped_cuda() -> ctypes.CDLL:
+    """The CUDA damped-round library; its `damped_round_launch` takes the
+    27 tensor pointers (the loss_rate pointer null without loss), G, P,
+    round_base, rounds, election_tick, heartbeat_tick, with_cq, with_loss
+    and the CUDA stream."""
+    return _library("damped_round", "damped_round.cu", True,
+                    "damped_round_launch", _DAMPED_ARGS + [ctypes.c_void_p])
+
+
+def load_damped_host() -> ctypes.CDLL:
+    """The host build of the damped kernel body (g++), for the CPU tests."""
+    return _library("damped_host", "damped_host.cpp", False,
+                    "damped_round_host", _DAMPED_ARGS)

@@ -2,19 +2,24 @@
 when the steady invariant provably holds for all of them, else k general
 steps.  Both branches give the same state, bit for bit.
 
-Counterpart of the undamped, uninstrumented arms of
-`raft_tpu/multiraft/pallas_step.py`: `steady_mask` (:1355-1554, the plain
-and the link arm), `steady_predicate` (:1557), `steady_round` with its host
-wrapper `_run` (:549-718), `steady_round(with_chaos=True)` with its host
-wrapper `_build_chaos_round._run` (:806-863) as `chaos_round` here, and `fast_multi_round` (:1605-1782: the plain arm at
-:1759-1782 and the chaos arm at :1654-1728, both with `count_fused`).
+Counterpart of the uninstrumented arms of
+`raft_tpu/multiraft/pallas_step.py`: `steady_mask` (:1355-1554, the plain,
+the link and the damped arm), `steady_predicate` (:1557), `steady_round`
+with its host wrapper `_run` (:549-718), `steady_round(with_chaos=True)`
+with its host wrapper `_build_chaos_round._run` (:806-863) as
+`chaos_round` here, the damped configs' `_build_damped_round._run`
+(:1240-1324, plain and with chaos) as `damped_round`, and
+`fast_multi_round` (:1605-1782: the plain arm at :1759-1782 and the chaos
+arm at :1654-1728, both with `count_fused`).  As in the reference, a
+damped config (check_quorum or pre_vote) routes every fused block to the
+damped kernel.
 
 The reference's `lax.cond` on the predicate becomes a host `bool(pred)`:
-one device sync per k-round block.  The gather of the acting leader's
-matched row before the kernel and the matched scatter (and, on the plain
-path, the `agree` update) after it stay plain PyTorch, as the reference
-leaves them to XLA; at 100k groups × 5 peers they move more bytes than the
-steady kernel itself.
+one device sync per k-round block.  The gathers of the acting leader's
+rows before the kernel and the scatters after it (and, on the plain path,
+the `agree` update) stay plain PyTorch, as the reference leaves them to
+XLA; at 100k groups × 5 peers they move more bytes than the steady kernel
+itself.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from typing import Callable
 import torch
 
 from . import sim as sim_mod
+from . import kernels
 from .chaos_kernel import chaos_rounds, check_round_base
+from .damped_kernel import damped_rounds
 from .kernels import ROLE_LEADER, link_loss_draw
 from .sim import SimConfig, SimState
 from .steady_kernel import steady_rounds
@@ -49,11 +56,24 @@ def steady_mask(
     With `link` (the bool[P, P, G] reachability plane) every directed link
     among alive peers must also be up, and the election-timer bound is the
     free-running one: per-link loss may drop any heartbeat, so the
-    per-round re-sync cannot be relied on.  `loss_rate` matters only to
-    the damped check-quorum bound, which is not ported; it is accepted."""
+    per-round re-sync cannot be relied on.
+
+    A damped config (check_quorum or pre_vote) always takes the
+    free-running bound, which keeps pre-vote and the low-term nudge
+    provably dormant, and rejects every group when election_tick <=
+    heartbeat_tick.  With check_quorum every leader boundary inside the
+    horizon must provably pass: without `link`, kernels.cq_boundary_safe;
+    with `link` and `loss_rate` (int32[P, P, G]), the same per group, the
+    groups with a nonzero rate anywhere held to the no-boundary bound; with
+    `link` alone, no role-leader may reach its boundary."""
     sim_mod.check_supported(
         cfg, reconfig_pending=reconfig_pending, read_pending=read_pending,
     )
+    damped = cfg.check_quorum or cfg.pre_vote
+    if damped and cfg.election_tick <= cfg.heartbeat_tick:
+        # The saturation argument needs a full heartbeat interval strictly
+        # inside each boundary window.
+        return torch.zeros((cfg.n_groups,), dtype=torch.bool, device=st.term.device)
     alive = ~crashed
     # 1. nobody can campaign within the horizon.  With heartbeat_tick == 1
     # and no link plane, an alive follower under a live leader is re-synced
@@ -61,7 +81,7 @@ def steady_mask(
     # peers' timers run free.  Otherwise the free-running bound holds for
     # all.
     non_leader_voter = (st.state != ROLE_LEADER) & st.voter_mask
-    if cfg.heartbeat_tick == 1 and link is None:
+    if cfg.heartbeat_tick == 1 and link is None and not damped:
         elapsed = torch.where(
             alive, st.election_elapsed + 1, st.election_elapsed + horizon
         )
@@ -85,6 +105,29 @@ def steady_mask(
             link | eye[:, :, None] | crashed[:, None, :] | crashed[None, :, :]
         ).all(1).all(0)
         ok = ok & links_ok
+    if cfg.check_quorum:
+        # 6. every check-quorum boundary inside the horizon passes.
+        if st.recent_active is None:
+            raise ValueError(
+                "steady_mask for a check_quorum config needs the "
+                "recent_active plane but the state has None; rebuild it "
+                "with init_state(cfg)"
+            )
+        bound = (
+            st.recent_active, st.voter_mask, st.outgoing_mask, st.state,
+            crashed, st.election_elapsed, horizon, cfg.election_tick,
+        )
+        if link is None:
+            ok = ok & kernels.cq_boundary_safe(*bound)
+        elif loss_rate is not None:
+            lossy = (loss_rate != 0).any(0).any(0)
+            ok = ok & kernels.cq_boundary_safe(*bound, lossy=lossy)
+        else:
+            ok = ok & torch.where(
+                st.state == ROLE_LEADER,
+                st.election_elapsed + horizon < cfg.election_tick,
+                True,
+            ).all(0)
     return ok
 
 
@@ -150,6 +193,29 @@ def chaos_operands(
     )
 
 
+def damped_operands(
+    st: SimState, crashed: torch.Tensor, append_n: torch.Tensor,
+    loss_rate=None,
+):
+    """The damped kernel's operands (damped_rounds' positional arguments):
+    the planes as they are, the acting leader's tracker row, its
+    recent_active row, term start and term, and `loss_rate` or None."""
+    if st.recent_active is None:
+        raise ValueError(
+            "the fused damped round needs the recent_active plane but the "
+            "state has None; rebuild it with init_state(cfg)"
+        )
+    f = _leader_flag(st, crashed)
+    ra_row = (st.recent_active & (f != 0)[:, None, :]).any(0)
+    return (
+        st.state, st.leader_id, st.heartbeat_elapsed, st.election_elapsed,
+        st.last_index, st.last_term, st.commit, _gather(st.matched, f),
+        ra_row, st.voter_mask, st.voter_mask | st.learner_mask, crashed,
+        st.agree, loss_rate, _gather(st.term_start_index, f),
+        _gather(st.term, f), append_n,
+    )
+
+
 def _ticks(cfg: SimConfig, rounds: int) -> dict:
     return dict(rounds=rounds, election_tick=cfg.election_tick,
                 heartbeat_tick=cfg.heartbeat_tick)
@@ -158,8 +224,11 @@ def _ticks(cfg: SimConfig, rounds: int) -> dict:
 def steady_round(cfg: SimConfig, rounds: int = 1) -> Callable[..., SimState]:
     """fn(st, crashed, append_n) -> SimState advancing `rounds` fused steady
     rounds (same crashed/append each round).  Valid only where
-    steady_predicate(cfg, st, crashed, horizon=rounds) holds."""
+    steady_predicate(cfg, st, crashed, horizon=rounds) holds.  A damped
+    config gets damped_round(cfg, rounds)."""
     sim_mod.check_supported(cfg)
+    if cfg.check_quorum or cfg.pre_vote:
+        return damped_round(cfg, rounds)
     ticks = _ticks(cfg, rounds)
 
     def fn(st: SimState, crashed: torch.Tensor, append_n: torch.Tensor) -> SimState:
@@ -195,8 +264,11 @@ def chaos_round(cfg: SimConfig, rounds: int = 1) -> Callable[..., SimState]:
     rate, round_base (a Python int) the absolute index of the first round,
     and the result equals `rounds` steps of sim.step(link=healed &
     ~link_loss_draw(round, loss_rate)).  Valid where the predicate holds
-    with a healed link plane."""
+    with a healed link plane.  A damped config gets damped_round(cfg,
+    rounds, with_chaos=True)."""
     sim_mod.check_supported(cfg)
+    if cfg.check_quorum or cfg.pre_vote:
+        return damped_round(cfg, rounds, with_chaos=True)
     ticks = _ticks(cfg, rounds)
 
     def fn(
@@ -225,6 +297,48 @@ def chaos_round(cfg: SimConfig, rounds: int = 1) -> Callable[..., SimState]:
     return fn
 
 
+def damped_round(
+    cfg: SimConfig, rounds: int = 1, with_chaos: bool = False
+) -> Callable[..., SimState]:
+    """The reference's steady_round for a damped config: fn(st, crashed,
+    append_n) -> SimState advancing `rounds` fused damped rounds, equal to
+    `rounds` damped sim.steps; with `with_chaos`, fn(st, crashed, append_n,
+    loss_rate, round_base) as chaos_round.  The kernel's matched and
+    recent_active rows go back to the acting leader only: the rows of
+    crashed stale leaders stay as they are, as the general rounds leave
+    them.  Valid where the predicate holds (with a healed link plane and
+    `loss_rate` when chaos is on)."""
+    sim_mod.check_supported(cfg)
+    if not (cfg.check_quorum or cfg.pre_vote):
+        raise ValueError("damped_round needs check_quorum or pre_vote")
+    ticks = dict(_ticks(cfg, rounds), with_cq=cfg.check_quorum)
+
+    def fn(st: SimState, crashed: torch.Tensor, append_n: torch.Tensor, *rest):
+        loss_rate, round_base = rest if with_chaos else (None, 0)
+        (state, leader_id, hb, ee, li, lt, commit, new_row, ra,
+         agree) = damped_rounds(
+            *damped_operands(st, crashed, append_n, loss_rate),
+            round_base=round_base, **ticks,
+        )
+        f = _leader_flag(st, crashed)
+        return st._replace(
+            state=state,
+            leader_id=leader_id,
+            election_elapsed=ee,
+            heartbeat_elapsed=hb,
+            last_index=li,
+            last_term=lt,
+            matched=_scatter_matched(st, f, new_row),
+            commit=commit,
+            agree=agree,
+            recent_active=torch.where(
+                f[:, None, :] != 0, ra[None, :, :], st.recent_active
+            ),
+        )
+
+    return fn
+
+
 def fast_multi_round(
     cfg: SimConfig, k: int = 16, with_chaos: bool = False, count_fused: bool = False
 ):
@@ -239,7 +353,8 @@ def fast_multi_round(
     round_base (a Python int) the absolute index of the first of the k
     rounds, the loss PRNG's replay key; the general branch runs k steps of
     sim.step(link=link & ~link_loss_draw(round_base + r, loss_rate)), and
-    every round index must lie in int32.
+    every round index must lie in int32.  A damped config runs
+    damped_round on its fused branch and damped sim.steps on the other.
 
     With `count_fused`, fn takes one more argument, the fused group-round
     count so far (a Python int), and returns (SimState, count + k *

@@ -1,14 +1,18 @@
 """Elementwise protocol kernels on [P, G] tensors: the subset of
-`raft_tpu/multiraft/kernels.py` that the plain step of the main path calls.
+`raft_tpu/multiraft/kernels.py` that the ported steps call.
 
 Counterparts (reference file `raft_tpu/multiraft/kernels.py`):
-  INF, VOTE_*      :162-167
-  _mix32           :331
-  LOSS_SCALE       :342
-  link_loss_draw   :345
-  timeout_draw     :1258
-  ROLE_*           :1280-1283
-  tick_kernel      :1628
+  INF, VOTE_*          :162-167
+  majority_of          :170
+  committed_index      :175
+  _mix32               :331
+  LOSS_SCALE           :342
+  link_loss_draw       :345
+  check_quorum_active  :1147
+  cq_boundary_safe     :1178
+  timeout_draw         :1258
+  ROLE_*               :1280-1283
+  tick_kernel          :1628
 
 The reference computes the timeout and loss PRNGs in uint32.  PyTorch's uint32
 tensors do not support `>>`, `+`, `%` or `<` on every backend, so here the
@@ -39,6 +43,85 @@ ROLE_LEADER = 2
 ROLE_PRE_CANDIDATE = 3
 
 _MASK32 = 0xFFFFFFFF
+
+
+def majority_of(count: torch.Tensor) -> torch.Tensor:
+    """Quorum size: n // 2 + 1 (reference: util.rs:118-120)."""
+    return count // 2 + 1
+
+
+def committed_index(
+    matched: torch.Tensor,  # int32[..., P]
+    voter_mask: torch.Tensor,  # bool[..., P]
+) -> torch.Tensor:
+    """Per-group quorum commit index over the last (peer) axis: the
+    majority()-th largest matched value among voters, INF for an empty
+    config (so a joint min() ignores that half).  Non-voters are masked to
+    0, which only displaces other zeros because matched >= 0.  int32[...]."""
+    masked = torch.where(voter_mask, matched, 0).to(torch.int32)
+    srt = torch.sort(masked, dim=-1).values  # ascending
+    count = voter_mask.sum(-1, dtype=torch.int32)
+    p = matched.shape[-1]
+    idx = torch.clamp(p - majority_of(count), 0, p - 1).to(torch.int64)
+    quorum_idx = torch.gather(srt, -1, idx[..., None])[..., 0]
+    return torch.where(count == 0, INF, quorum_idx)
+
+
+def check_quorum_active(
+    recent_active: torch.Tensor,  # bool[P, P, G]
+    voter_mask: torch.Tensor,  # bool[P, G]
+    outgoing_mask: torch.Tensor,  # bool[P, G]
+) -> torch.Tensor:
+    """bool[P, G]: whether owner p's recent_active row holds an active
+    quorum of each (possibly joint) half; the owner itself always counts
+    (reference: tracker.rs:346-372, quorum_recently_active)."""
+    P = recent_active.shape[0]
+    eye = torch.eye(P, dtype=torch.bool, device=recent_active.device)
+    active = recent_active | eye[:, :, None]
+
+    def half(mask):
+        cnt = (active & mask[None, :, :]).sum(1, dtype=torch.int32)
+        n = mask.sum(0, dtype=torch.int32)[None, :]
+        return (cnt >= majority_of(n)) | (n == 0)
+
+    return half(voter_mask) & half(outgoing_mask)
+
+
+def cq_boundary_safe(
+    recent_active: torch.Tensor,  # bool[P, P, G]
+    voter_mask: torch.Tensor,  # bool[P, G]
+    outgoing_mask: torch.Tensor,  # bool[P, G]
+    state: torch.Tensor,  # int32[P, G]
+    crashed: torch.Tensor,  # bool[P, G]
+    election_elapsed: torch.Tensor,  # int32[P, G]
+    horizon: int,
+    election_tick: int,
+    lossy: Optional[torch.Tensor] = None,  # bool[G]
+) -> torch.Tensor:
+    """bool[G]: every check-quorum boundary that can fire within `horizon`
+    rounds provably passes.  Lossless: every alive leader's row holds an
+    active quorum now, the alive voters form a quorum of each half (so a
+    heartbeat interval re-saturates the row after a clear), and no crashed
+    role-leader reaches its boundary.  Groups marked `lossy` need instead
+    that no role-leader at all reaches its boundary in the horizon."""
+    alive = ~crashed
+    role_lead = state == ROLE_LEADER
+    qa = check_quorum_active(recent_active, voter_mask, outgoing_mask)
+    lead_ok = torch.where(role_lead & alive, qa, True).all(0)
+
+    def half_alive(mask):
+        cnt = (alive & mask).sum(0, dtype=torch.int32)
+        n = mask.sum(0, dtype=torch.int32)
+        return (cnt >= majority_of(n)) | (n == 0)
+
+    alive_quorum = half_alive(voter_mask) & half_alive(outgoing_mask)
+    before_boundary = election_elapsed + horizon < election_tick
+    stale_ok = torch.where(role_lead & crashed, before_boundary, True).all(0)
+    lossless_ok = lead_ok & alive_quorum & stale_ok
+    if lossy is None:
+        return lossless_ok
+    no_boundary = torch.where(role_lead, before_boundary, True).all(0)
+    return torch.where(lossy, no_boundary, lossless_ok)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:

@@ -6,19 +6,20 @@ paths run: `SimConfig` (:117), `SimState` (:226), `_node_key` (:511),
 `init_state` (:528), `_sort_rows_desc` (:621), `_quorum_index` (:635), the
 plain arm of `step` (:1209-1716: undamped, `link=None`, no extras), the
 link-gated round `_linked_step` (:1792-2379, undamped, no extras) behind
-`step(link=)`, and `ClusterSim` with `__init__`, `run_round` (:3950) and
+`step(link=)`, the damped round `_damped_linked_step` (:2451-3572: check
+quorum and pre-vote, no extras) that `step` runs for every config with
+either flag, and `ClusterSim` with `__init__`, `run_round` (:3950) and
 `run` (:4005).  Each round is the reference's round exactly, plane by
 plane: tick, campaign, election resolution (vote grants, joint tallies,
 commit fast-forward via vote traffic), the solo crashed-campaigner win,
-then replication and quorum commit; the linked round replays the same
-protocol wave by wave over the directed delivery plane.
+then replication and quorum commit; the linked and damped rounds replay
+the same protocol wave by wave over the directed delivery plane.
 
 Options that this port does not implement yet raise NotImplementedError
-instead of being ignored: the SimConfig flags `check_quorum`, `pre_vote`,
-`transfer`, `lease_read`, `collect_counters`, `collect_health` and
-`blackbox`, and the step arguments `group_ids`, `counters`, `health`,
-`reconfig_propose`, `transfer_propose`, `campaign_kick`, `read_propose`
-and `blackbox`.
+instead of being ignored: the SimConfig flags `transfer`, `lease_read`,
+`collect_counters`, `collect_health` and `blackbox`, and the step
+arguments `group_ids`, `counters`, `health`, `reconfig_propose`,
+`transfer_propose`, `campaign_kick`, `read_propose` and `blackbox`.
 
 The reference gates the election phase behind `lax.cond(any(req))`.
 Here that is a host-side `if`, one device sync per general round; with
@@ -38,7 +39,12 @@ import numpy as np
 import torch
 
 from . import kernels
-from .kernels import ROLE_CANDIDATE, ROLE_FOLLOWER, ROLE_LEADER
+from .kernels import (
+    ROLE_CANDIDATE,
+    ROLE_FOLLOWER,
+    ROLE_LEADER,
+    ROLE_PRE_CANDIDATE,
+)
 from .platform import DeviceLike, resolve_device
 
 I32 = torch.int32
@@ -46,8 +52,9 @@ I32 = torch.int32
 
 class SimConfig(NamedTuple):
     """Static per-sim configuration; same fields, order and defaults as the
-    reference's SimConfig.  Only the undamped, uninstrumented arm is
-    implemented: see `check_supported`."""
+    reference's SimConfig.  The uninstrumented arms are implemented,
+    undamped and damped (`check_quorum`, `pre_vote`): see
+    `check_supported`."""
 
     n_groups: int
     n_peers: int
@@ -82,8 +89,6 @@ class SimConfig(NamedTuple):
 
 # SimConfig flags whose device paths are not ported yet.
 _UNSUPPORTED_FLAGS = (
-    "check_quorum",
-    "pre_vote",
     "transfer",
     "lease_read",
     "collect_counters",
@@ -99,7 +104,7 @@ def check_supported(cfg: SimConfig, **extras) -> None:
     if on:
         raise NotImplementedError(
             f"raft_tpu_torch does not implement SimConfig({', '.join(on)}) "
-            "yet; only the undamped, uninstrumented step is ported"
+            "yet; only the uninstrumented step (damped or not) is ported"
         )
     given = [k for k, v in extras.items() if v is not None]
     if given:
@@ -110,8 +115,9 @@ def check_supported(cfg: SimConfig, **extras) -> None:
 
 class SimState(NamedTuple):
     """SoA state, peer-major [P, G] int32/bool; same fields and order as the
-    reference's SimState.  `recent_active` and `transferee` belong to
-    features not ported yet and are always None."""
+    reference's SimState.  `recent_active` is the damped configs' plane
+    (None for undamped ones, as in the reference); `transferee` belongs
+    to leader transfer, not ported yet, and is always None."""
 
     term: torch.Tensor  # int32[P, G]
     state: torch.Tensor  # int32[P, G] — ROLE_* codes
@@ -129,11 +135,11 @@ class SimState(NamedTuple):
     voter_mask: torch.Tensor  # bool[P, G]
     outgoing_mask: torch.Tensor  # bool[P, G] — all False = not joint
     learner_mask: torch.Tensor  # bool[P, G]
-    recent_active: Optional[torch.Tensor] = None
+    recent_active: Optional[torch.Tensor] = None  # bool[P, P, G] — per-owner
     transferee: Optional[torch.Tensor] = None
 
 
-_BOOL_FIELDS = ("voter_mask", "outgoing_mask", "learner_mask")
+_BOOL_FIELDS = ("voter_mask", "outgoing_mask", "learner_mask", "recent_active")
 
 
 def state_from_numpy(
@@ -155,11 +161,10 @@ def state_from_numpy(
         fields[name] = torch.from_numpy(
             np.array(a, dtype=np_dtype, order="C", copy=True)
         ).to(dev)
-    for name in ("recent_active", "transferee"):
-        if fields[name] is not None:
-            raise NotImplementedError(
-                f"raft_tpu_torch does not implement the {name} plane yet"
-            )
+    if fields["transferee"] is not None:
+        raise NotImplementedError(
+            "raft_tpu_torch does not implement the transferee plane yet"
+        )
     return SimState(**fields)
 
 
@@ -189,8 +194,9 @@ def init_state(
     device: DeviceLike = None,
 ) -> SimState:
     """All peers start as followers at term 0 with their deterministic
-    timeout draw (mirrors Raft.__init__ -> become_follower(0)).  Runs on
-    `cuda` unless `device` says otherwise."""
+    timeout draw (mirrors Raft.__init__ -> become_follower(0)); damped
+    configs get an all-False recent_active plane.  Runs on `cuda` unless
+    `device` says otherwise."""
     check_supported(cfg)
     dev = resolve_device(device)
     G, P = cfg.n_groups, cfg.n_peers
@@ -227,6 +233,11 @@ def init_state(
         voter_mask=mask(voter_mask, True),
         outgoing_mask=mask(outgoing_mask, False),
         learner_mask=mask(learner_mask, False),
+        recent_active=(
+            torch.zeros((P, P, G), dtype=torch.bool, device=dev)
+            if cfg.check_quorum or cfg.pre_vote
+            else None
+        ),
     )
 
 
@@ -295,13 +306,22 @@ def step(
     peers isolated this round (they keep ticking, exchange no messages);
     append_n: int32[G] entries proposed at each group's leader; link:
     optional bool[P, P, G] directed reachability plane, which routes the
-    round through `_linked_step`.  Returns the next SimState."""
+    round through `_linked_step`.  A damped config (check_quorum or
+    pre_vote) always runs `_damped_linked_step`, under an all-up plane
+    when `link` is None.  Returns the next SimState."""
     check_supported(
         cfg, group_ids=group_ids, counters=counters, health=health,
         reconfig_propose=reconfig_propose, transfer_propose=transfer_propose,
         campaign_kick=campaign_kick, read_propose=read_propose,
         blackbox=blackbox,
     )
+    if cfg.check_quorum or cfg.pre_vote:
+        if link is None:
+            link = torch.ones(
+                (cfg.n_peers, cfg.n_peers, cfg.n_groups), dtype=torch.bool,
+                device=st.term.device,
+            )
+        return _damped_linked_step(cfg, st, crashed, append_n, link)
     if link is not None:
         return _linked_step(cfg, st, crashed, append_n, link)
     G, P = cfg.n_groups, cfg.n_peers
@@ -607,6 +627,68 @@ def _set_row(plane: torch.Tensor, sid: int, row: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _half_quorums(st: SimState):
+    """(n_i, n_o, q_i, q_o): each config half's voter count and quorum."""
+    n_i = st.voter_mask.sum(0, dtype=I32)
+    n_o = st.outgoing_mask.sum(0, dtype=I32)
+    return n_i, n_o, kernels.majority_of(n_i), kernels.majority_of(n_o)
+
+
+def _decided(cnt_i, cnt_o, rec_i, rec_o, quorums):
+    """(won, lost) of a tally so far: both halves granted a quorum (or are
+    empty), or some half can no longer reach one."""
+    n_i, n_o, q_i, q_o = quorums
+    won = ((cnt_i >= q_i) | (n_i == 0)) & ((cnt_o >= q_o) | (n_o == 0))
+    lost = ((n_i > 0) & (cnt_i + (n_i - rec_i) < q_i)) | (
+        (n_o > 0) & (cnt_o + (n_o - rec_o) < q_o)
+    )
+    return won, lost
+
+
+def _real_tally(st, C, active, grants, resps, snaps, Erev, agree):
+    """The per-candidate vote tally in voter order with the scalar win/loss
+    cutoffs (the reference's wave-2 machinery, `_real_tally` in its damped
+    round).  active bool[P, G]: candidates still campaigning; grants[s],
+    resps[s], snaps[s] [P_v, G]: s's grants, responses and reject-time
+    commit snapshots; `agree` [P, P, G] the agreement rows the commit
+    fast-forward checks.  Returns (C', won, lost)."""
+    P = active.shape[0]
+    quorums = _half_quorums(st)
+    won_rows, lost_rows = [], []
+    for sid in range(P):
+        act = active[sid]
+        del_g = grants[sid] & Erev[sid]
+        del_r = (resps[sid] & ~grants[sid]) & Erev[sid]
+        cnt_i = (act & st.voter_mask[sid]).to(I32)  # self-vote
+        cnt_o = (act & st.outgoing_mask[sid]).to(I32)
+        rec_i, rec_o = cnt_i, cnt_o
+        ff = torch.zeros_like(C[sid])
+        for v in range(P):
+            won_before, lost_before = _decided(cnt_i, cnt_o, rec_i, rec_o, quorums)
+            snap_v = snaps[sid][v]
+            ok = del_r[v] & ~won_before & ~lost_before & (snap_v <= agree[sid][v])
+            ff = torch.where(ok, torch.maximum(ff, snap_v), ff)
+            resp_v = del_g[v] | del_r[v]
+            rec_i = rec_i + (resp_v & st.voter_mask[v]).to(I32)
+            rec_o = rec_o + (resp_v & st.outgoing_mask[v]).to(I32)
+            cnt_i = cnt_i + (del_g[v] & st.voter_mask[v]).to(I32)
+            cnt_o = cnt_o + (del_g[v] & st.outgoing_mask[v]).to(I32)
+        won_ci, lost_ci = _decided(cnt_i, cnt_o, rec_i, rec_o, quorums)
+        won_ci = act & won_ci
+        C = _set_row(C, sid, torch.maximum(C[sid], ff))
+        won_rows.append(won_ci)
+        lost_rows.append(act & ~won_ci & lost_ci)
+    return C, torch.stack(won_rows), torch.stack(lost_rows)
+
+
+def _cut_before(eff: torch.Tensor, dim: int) -> torch.Tensor:
+    """True strictly after the first True along `dim`: the response-stream
+    cutoff, where a deposed sender ignores everything later in its
+    stream.  The cumsum is pinned to int32 (it widens to int64 otherwise)."""
+    e = eff.to(I32)
+    return (torch.cumsum(e, dim=dim, dtype=I32) - e) > 0
+
+
 def _linked_step(
     cfg: SimConfig,
     st: SimState,
@@ -720,52 +802,10 @@ def _linked_step(
 
     # ---- wave 2: responses over the reverse links; each candidate tallies
     # in voter order with the scalar cutoffs.
-    n_i = st.voter_mask.sum(0, dtype=I32)
-    n_o = st.outgoing_mask.sum(0, dtype=I32)
-    q_i = n_i // 2 + 1
-    q_o = n_o // 2 + 1
-    won_rows, lost_rows = [], []
-    for sid in range(P):
-        active = req[sid] & (St[sid] == ROLE_CANDIDATE)  # survived wave 1
-        del_g = grants[sid] & Erev[sid]
-        del_r = (resps[sid] & ~grants[sid]) & Erev[sid]
-        cnt_i = (active & st.voter_mask[sid]).to(I32)  # self-vote
-        cnt_o = (active & st.outgoing_mask[sid]).to(I32)
-        rec_i, rec_o = cnt_i, cnt_o
-        ff = torch.zeros((G,), dtype=I32, device=dev)
-        for v in range(P):
-            won_before = ((cnt_i >= q_i) | (n_i == 0)) & (
-                (cnt_o >= q_o) | (n_o == 0)
-            )
-            lost_before = ((n_i > 0) & (cnt_i + (n_i - rec_i) < q_i)) | (
-                (n_o > 0) & (cnt_o + (n_o - rec_o) < q_o)
-            )
-            snap_v = rej_snap[sid][v]
-            ok = del_r[v] & ~won_before & ~lost_before & (snap_v <= st.agree[sid][v])
-            ff = torch.where(ok, torch.maximum(ff, snap_v), ff)
-            resp_v = del_g[v] | del_r[v]
-            rec_i = rec_i + (resp_v & st.voter_mask[v]).to(I32)
-            rec_o = rec_o + (resp_v & st.outgoing_mask[v]).to(I32)
-            cnt_i = cnt_i + (del_g[v] & st.voter_mask[v]).to(I32)
-            cnt_o = cnt_o + (del_g[v] & st.outgoing_mask[v]).to(I32)
-        won_ci = (
-            active
-            & ((cnt_i >= q_i) | (n_i == 0))
-            & ((cnt_o >= q_o) | (n_o == 0))
-        )
-        lost_ci = (
-            active
-            & ~won_ci
-            & (
-                ((n_i > 0) & (cnt_i + (n_i - rec_i) < q_i))
-                | ((n_o > 0) & (cnt_o + (n_o - rec_o) < q_o))
-            )
-        )
-        C = _set_row(C, sid, torch.maximum(C[sid], ff))
-        won_rows.append(won_ci)
-        lost_rows.append(lost_ci)
-    won = torch.stack(won_rows)
-    lost = torch.stack(lost_rows)
+    C, won, lost = _real_tally(
+        st, C, req & (St == ROLE_CANDIDATE), grants, resps, rej_snap, Erev,
+        st.agree,
+    )
 
     # Winners become leaders and append their noop; losers of a decided
     # election step down.
@@ -970,6 +1010,635 @@ def _linked_step(
         voter_mask=st.voter_mask,
         outgoing_mask=st.outgoing_mask,
         learner_mask=st.learner_mask,
+    )
+
+
+def _damped_linked_step(
+    cfg: SimConfig,
+    st: SimState,
+    crashed: torch.Tensor,  # bool[P, G]
+    append_n: torch.Tensor,  # int32[G]
+    link: torch.Tensor,  # bool[P, P, G]
+) -> SimState:
+    """The damped (check-quorum / pre-vote) round: the reference's
+    `_damped_linked_step` (sim.py:2451-3572) without its extras.
+
+    It extends `_linked_step`'s wave replay with the damping mechanisms,
+    all in receipt order:
+
+      tick      with check_quorum, each leader's election-timeout boundary
+                reads and clears its recent_active row; without an active
+                quorum it steps down and sends no heartbeat that round;
+      lease     with check_quorum, a voter ignores a higher-term (pre-)vote
+                request while leader_id != 0 and election_elapsed <
+                election_tick at receipt (the running planes of the
+                sender-ordered loops are receipt time);
+      nudge     lower-term heartbeats and appends draw a response at the
+                receiver's term, which deposes the stale sender in its
+                response order: acks after the first such nudge are lost;
+      pre-vote  campaigners probe at term + 1 without bumping anything;
+                pre-winners run the real election two waves later, their
+                vote requests interleaved with the catch-up appends.
+
+    Acks, heartbeat responses and commit propagation set the owner's
+    recent_active bits.  Each of the reference's `lax.scan`s over senders
+    (and over voters inside a tally) is a Python loop in the same order."""
+    if st.recent_active is None:
+        raise ValueError(
+            "damped step (SimConfig.check_quorum/pre_vote) needs the "
+            "recent_active plane but the state has None; rebuild it with "
+            "init_state(cfg)"
+        )
+    G, P = cfg.n_groups, cfg.n_peers
+    cq, pv, et = cfg.check_quorum, cfg.pre_vote, cfg.election_tick
+    dev = st.term.device
+    self_id = torch.arange(P, dtype=I32, device=dev)[:, None] + 1  # [P, 1]
+    p_idx = self_id - 1  # [P, 1]
+    alive = ~crashed
+    eye = torch.eye(P, dtype=torch.bool, device=dev)[:, :, None]
+    E = link & alive[:, None, :] & alive[None, :, :] & ~eye
+    Erev = E.transpose(0, 1)  # Erev[s, v, g]: v -> s delivery
+    node_key = _node_key(cfg, dev)
+    lo = torch.full((P, G), cfg.min_timeout, dtype=I32, device=dev)
+    hi = torch.full((P, G), cfg.max_timeout, dtype=I32, device=dev)
+    no = torch.zeros((P, G), dtype=torch.bool, device=dev)
+
+    def draw(term):
+        return kernels.timeout_draw(
+            node_key, term.to(torch.int64) & 0xFFFFFFFF, lo, hi
+        )
+
+    promotable = st.voter_mask | st.outgoing_mask
+    member = promotable | st.learner_mask
+    ee, hb, want_campaign, want_heartbeat, want_cq = kernels.tick_kernel(
+        st.state,
+        st.election_elapsed,
+        st.heartbeat_elapsed,
+        st.randomized_timeout,
+        promotable,
+        cfg.election_tick,
+        cfg.heartbeat_tick,
+    )
+    RA = st.recent_active
+    state0, leader0 = st.state, st.leader_id
+
+    # ---- the check-quorum boundary at tick time: read and clear the row;
+    # without an active quorum the leader becomes a follower at its own
+    # term and its heartbeat this round is suppressed.
+    if cq:
+        qa = kernels.check_quorum_active(RA, st.voter_mask, st.outgoing_mask)
+        cq_dep = want_cq & ~qa
+        RA = torch.where(want_cq[:, None, :], eye, RA)
+        state0 = torch.where(cq_dep, ROLE_FOLLOWER, state0)
+        leader0 = torch.where(cq_dep, 0, leader0)
+        hb = torch.where(cq_dep, 0, hb)
+        want_heartbeat = want_heartbeat & ~cq_dep
+
+    # ---- campaign local effects.  Real: term + 1, vote self, redraw.
+    # Pre-vote: only the role and leader_id change; the request goes out
+    # at term + 1.
+    if pv:
+        term = st.term
+        state = torch.where(want_campaign, ROLE_PRE_CANDIDATE, state0)
+        vote = st.vote
+        leader_id = torch.where(want_campaign, 0, leader0)
+        rt = st.randomized_timeout
+        req_term = term + want_campaign.to(I32)
+    else:
+        term = st.term + want_campaign.to(I32)
+        state = torch.where(want_campaign, ROLE_CANDIDATE, state0)
+        vote = torch.where(want_campaign, self_id, st.vote)
+        leader_id = torch.where(want_campaign, 0, leader0)
+        rt = torch.where(want_campaign, draw(term), st.randomized_timeout)
+        req_term = term
+    req = want_campaign
+    hb_send = want_heartbeat
+    quorums = _half_quorums(st)
+
+    def in_lease(Ld, EE):
+        return (Ld != 0) & (EE < et) if cq else no
+
+    def up_to_date(sid, LT, LI):
+        lt_s = st.last_term[sid][None, :]
+        return (lt_s > LT) | ((lt_s == LT) & (st.last_index[sid][None, :] >= LI))
+
+    # ---- wave 1: heartbeats and (pre-)vote requests, per receiver in
+    # sender order, with lease ignores and low-term nudges.
+    T, V, Ld, St, EE, HB, RT, C = term, vote, leader_id, state, ee, hb, rt, st.commit
+    grants, resps, snaps, resp_ts = [], [], [], []
+    hb_accs, hb_ndg, hb_ndg_t = [], [], []
+    for sid in range(P):
+        d = E[sid]
+        t_s = term[sid][None, :]
+        h_del = d & hb_send[sid][None, :] & member
+        h_bump = h_del & (t_s > T)
+        h_acc = h_del & (t_s >= T)
+        h_ndg = h_del & (t_s < T)  # the low-term nudge
+        hb_ndg_t.append(torch.where(h_ndg, T, 0))
+        T = torch.where(h_bump, t_s, T)
+        V = torch.where(h_bump, 0, V)
+        St = torch.where(h_acc, ROLE_FOLLOWER, St)
+        Ld = torch.where(h_acc, sid + 1, Ld)
+        EE = torch.where(h_acc, 0, EE)
+        HB = torch.where(h_bump, 0, HB)
+        RT = torch.where(h_bump, draw(T), RT)
+        hb_val = torch.minimum(st.matched[sid], st.commit[sid][None, :])
+        C = torch.where(h_acc, torch.maximum(C, hb_val), C)
+        # (Pre-)vote request from s at its request term.
+        rq = req_term[sid][None, :]
+        c_s = st.commit[sid][None, :]
+        r_del = d & req[sid][None, :] & promotable
+        open_rq = r_del & ~(r_del & (rq > T) & in_lease(Ld, EE))
+        up = up_to_date(sid, st.last_term, st.last_index)
+        if pv:
+            # No term bump, no vote record, no timer reset.
+            at_hi = open_rq & (rq > T)
+            at_eq = open_rq & (rq == T)
+            g = (at_hi | (at_eq & ((V == sid + 1) | ((V == 0) & (Ld == 0))))) & up
+            rej = (at_hi | at_eq) & ~g  # a reject with commit info
+            snaps.append(torch.where(rej, C, 0))
+            resps.append(g | rej | (open_rq & (rq < T)))
+            resp_ts.append(torch.where(g, rq, T))
+        else:
+            bump = open_rq & (rq > T)
+            T = torch.where(bump, rq, T)
+            V = torch.where(bump, 0, V)
+            Ld = torch.where(bump, 0, Ld)
+            St = torch.where(bump, ROLE_FOLLOWER, St)
+            EE = torch.where(bump, 0, EE)
+            HB = torch.where(bump, 0, HB)
+            RT = torch.where(bump, draw(T), RT)
+            at = open_rq & (T == rq)
+            g = at & (V == 0) & (Ld == 0) & up
+            rej = at & ~g
+            snaps.append(C)
+            resps.append(at)
+            V = torch.where(g, sid + 1, V)
+            EE = torch.where(g, 0, EE)
+        # Voter-side maybe_commit_by_vote off the request's commit info.
+        vff = rej & (St != ROLE_LEADER) & (c_s > C) & (c_s <= st.agree[sid])
+        C = torch.where(vff, c_s, C)
+        grants.append(g)
+        hb_accs.append(h_acc)
+        hb_ndg.append(h_ndg)
+    hb_accs, hb_ndg, hb_ndg_t = map(torch.stack, (hb_accs, hb_ndg, hb_ndg_t))
+
+    # ---- wave 2a: heartbeat responses and nudges back at each leader, in
+    # receiver order: the first nudge above the leader's term cuts off
+    # every later response and deposes it at the largest nudge term.
+    eff_hn = hb_ndg & Erev & (hb_ndg_t > T[:, None, :])
+    resumed2 = (
+        hb_accs
+        & Erev
+        & ~_cut_before(eff_hn, 1)
+        & ((T == term) & (St == ROLE_LEADER))[:, None, :]
+    )
+    RA = RA | resumed2
+    cu = resumed2 & (st.matched < st.last_index[:, None, :])
+    hdep_t = torch.where(eff_hn, hb_ndg_t, 0).amax(1)
+    hdep = eff_hn.any(1)
+    T = torch.where(hdep, torch.maximum(T, hdep_t), T)
+    V = torch.where(hdep, 0, V)
+    St = torch.where(hdep, ROLE_FOLLOWER, St)
+    Ld = torch.where(hdep, 0, Ld)
+    EE = torch.where(hdep, 0, EE)
+    HB = torch.where(hdep, 0, HB)
+    RT = torch.where(hdep, draw(T), RT)
+
+    if not pv:
+        # ---- wave 2b: the real tally, as in _linked_step.
+        C, won, lost = _real_tally(
+            st, C, req & (St == ROLE_CANDIDATE), grants, resps, snaps, Erev,
+            st.agree,
+        )
+        real_req = no
+        rqt2 = req_term
+    else:
+        # ---- wave 2b: the pre-vote tally, responses in voter order.  A
+        # reject above the candidate's current term deposes it (chainable),
+        # a reject at its pre-campaign term records a poll rejection, grants
+        # count while undecided; on a quorum the pre-winner campaigns for
+        # real (term + 1, vote self, timers reset), its vote requests queued
+        # for wave 3.
+        pre_active = req & (St == ROLE_PRE_CANDIDATE)
+        won_rows = []
+        for sid in range(P):
+            act = pre_active[sid]
+            del_g = grants[sid] & Erev[sid]
+            del_r = (resps[sid] & ~grants[sid]) & Erev[sid]
+            t0 = term[sid]
+            cnt_i = (act & st.voter_mask[sid]).to(I32)
+            cnt_o = (act & st.outgoing_mask[sid]).to(I32)
+            rec_i, rec_o = cnt_i, cnt_o
+            won_f = act & _decided(cnt_i, cnt_o, rec_i, rec_o, quorums)[0]
+            lost_f = dep_f = torch.zeros_like(act)
+            cur_t = torch.where(won_f, t0 + 1, t0)
+            ff = torch.zeros_like(t0)
+            for v in range(P):
+                rt_v, snap_v = resp_ts[sid][v], snaps[sid][v]
+                dep_now = del_r[v] & (rt_v > cur_t)
+                undecided = ~dep_f & ~won_f & ~lost_f
+                rec_grant = del_g[v] & undecided
+                rec_rej = del_r[v] & (rt_v == t0) & undecided
+                ok = rec_rej & (snap_v <= st.agree[sid][v])
+                ff = torch.where(ok, torch.maximum(ff, snap_v), ff)
+                cnt_i = cnt_i + (rec_grant & st.voter_mask[v]).to(I32)
+                cnt_o = cnt_o + (rec_grant & st.outgoing_mask[v]).to(I32)
+                resp_v = rec_grant | rec_rej
+                rec_i = rec_i + (resp_v & st.voter_mask[v]).to(I32)
+                rec_o = rec_o + (resp_v & st.outgoing_mask[v]).to(I32)
+                won_v, lost_v = _decided(cnt_i, cnt_o, rec_i, rec_o, quorums)
+                won_now = rec_grant & won_v
+                cur_t = torch.where(won_now, t0 + 1, cur_t)
+                won_f = won_f | won_now
+                lost_f = lost_f | (rec_rej & lost_v)
+                dep_f = dep_f | dep_now
+                cur_t = torch.where(dep_now, torch.maximum(cur_t, rt_v), cur_t)
+            won_f, lost_f, dep_f = won_f & act, lost_f & act, dep_f & act
+            # End-of-wave state of candidate row sid.
+            C = _set_row(C, sid, torch.maximum(C[sid], ff))
+            t_new = torch.where(act, cur_t, T[sid])
+            win = won_f & ~dep_f
+            v_new = torch.where(
+                win, sid + 1, torch.where(dep_f & act & (cur_t != t0), 0, V[sid])
+            )
+            st_new = torch.where(
+                win,
+                ROLE_CANDIDATE,
+                torch.where(dep_f | lost_f, ROLE_FOLLOWER, St[sid]),
+            )
+            settled = won_f | lost_f | dep_f
+            rt_new = torch.where(
+                won_f | dep_f,
+                kernels.timeout_draw(
+                    node_key[sid], t_new.to(torch.int64) & 0xFFFFFFFF,
+                    lo[sid], hi[sid],
+                ),
+                RT[sid],
+            )
+            T = _set_row(T, sid, t_new)
+            V = _set_row(V, sid, v_new)
+            St = _set_row(St, sid, st_new)
+            EE = _set_row(EE, sid, torch.where(settled, 0, EE[sid]))
+            HB = _set_row(HB, sid, torch.where(settled, 0, HB[sid]))
+            RT = _set_row(RT, sid, rt_new)
+            won_rows.append(won_f)
+        real_req = torch.stack(won_rows)  # broadcasts queued at win time
+        rqt2 = term + 1
+
+    # ---- after the real election (no pre-vote): winners become leaders
+    # and append their noop; losers of a decided election step down.
+    if not pv:
+        li2 = st.last_index + won.to(I32)
+        lt2 = torch.where(won, term, st.last_term)
+        TS = torch.where(won, li2, st.term_start_index)
+        St = torch.where(won, ROLE_LEADER, St)
+        Ld = torch.where(won, self_id, Ld)
+        RT = torch.where(won | lost, draw(T), RT)
+        EE = torch.where(won | lost, 0, EE)
+        HB = torch.where(won, 0, HB)
+        St = torch.where(lost, ROLE_FOLLOWER, St)
+        matched3 = torch.where(won[:, None, :], 0, st.matched)
+        matched3 = torch.where(won[:, None, :] & eye, li2[:, None, :], matched3)
+        RA = RA & ~won[:, None, :]
+        noop_w3 = won
+    else:
+        li2, lt2 = st.last_index, st.last_term
+        TS, matched3 = st.term_start_index, st.matched
+        noop_w3 = won = no
+
+    agree_run = st.agree
+    LI, LT = li2, lt2
+    C_send = C  # commit snapshots for the wave-3 sends
+
+    def follow(msg, t, T, V, St, Ld, EE, HB, RT, sid):
+        """A delivered message at term t that the receiver accepts."""
+        bump = msg & (t > T)
+        return (
+            torch.where(msg, t, T),
+            torch.where(bump, 0, V),
+            torch.where(msg, ROLE_FOLLOWER, St),
+            torch.where(msg, sid + 1, Ld),
+            torch.where(msg, 0, EE),
+            torch.where(bump, 0, HB),
+            torch.where(bump, draw(torch.where(msg, t, T)), RT),
+        )
+
+    # ---- wave 3: appends (winner noops and catch-ups) and, with pre-vote,
+    # the real vote requests, per receiver in sender order.  A probe that
+    # does not match starts a retry chain, applied after the wave.
+    ack3, ndg3, ndg3_t, retry3 = [], [], [], []
+    r_grants, r_resps, r_snaps = [], [], []
+    for sid in range(P):
+        e_s, erev_s = E[sid], Erev[sid]
+        agree_s = agree_run[sid]
+        t_row = term[sid][None, :]
+        dmask = e_s & member & (noop_w3[sid][None, :] | cu[sid])
+        msg = dmask & (t_row >= T)
+        ndg = dmask & (t_row < T)
+        ndg3_t.append(torch.where(ndg, T, 0))
+        # First-probe prev: a member never acked since this owner's
+        # election probes from the noop, everyone else from the owner's
+        # current last.
+        prev_row = torch.where(
+            matched3[sid] == 0, TS[sid][None, :] - 1, li2[sid][None, :]
+        )
+        probe_ok = agree_s >= prev_row
+        retry3.append(msg & ~probe_ok & erev_s & ~_cut_before(ndg & erev_s, 0))
+        adopt = msg & probe_ok
+        T, V, St, Ld, EE, HB, RT = follow(msg, t_row, T, V, St, Ld, EE, HB, RT, sid)
+        C = torch.where(adopt, torch.maximum(C, C_send[sid][None, :]), C)
+        ack3.append(adopt & erev_s)
+        ndg3.append(ndg)
+        in_s = adopt | ((p_idx == sid) & adopt.any(0)[None, :])
+        agree_run = _merge_agree(agree_run, in_s, li2[sid], agree_s)
+        LI = torch.where(adopt, li2[sid][None, :], LI)
+        LT = torch.where(adopt, lt2[sid][None, :], LT)
+        if pv:
+            # The pre-winner's real vote request, after s's appends.
+            rq = rqt2[sid][None, :]
+            r_del = e_s & real_req[sid][None, :] & promotable
+            open_rq = r_del & ~(r_del & (rq > T) & in_lease(Ld, EE))
+            rbump = open_rq & (rq > T)
+            T = torch.where(rbump, rq, T)
+            V = torch.where(rbump, 0, V)
+            Ld = torch.where(rbump, 0, Ld)
+            St = torch.where(rbump, ROLE_FOLLOWER, St)
+            EE = torch.where(rbump, 0, EE)
+            HB = torch.where(rbump, 0, HB)
+            RT = torch.where(rbump, draw(T), RT)
+            at = open_rq & (T == rq)
+            g = at & (V == 0) & (Ld == 0) & up_to_date(sid, LT, LI)
+            rej = at & ~g
+            r_snaps.append(C)
+            rc = C_send[sid][None, :]
+            vff = rej & (St != ROLE_LEADER) & (rc > C) & (rc <= agree_s)
+            V = torch.where(g, sid + 1, V)
+            EE = torch.where(g, 0, EE)
+            C = torch.where(vff, rc, C)
+            r_grants.append(g)
+            r_resps.append(at)
+    ack3, ndg3, ndg3_t, retry3 = map(torch.stack, (ack3, ndg3, ndg3_t, retry3))
+    # A retry chain survives to the reject-processing wave only while its
+    # sender is still the same-term leader.
+    retry3_fire = retry3 & ((T == term) & (St == ROLE_LEADER))[:, None, :]
+
+    def stage_fold(T, V, St, Ld, EE, HB, RT, RA, matched3, C, TS, ack, ndg,
+                   ndg_t, sent_term, sent_idx):
+        """The ack/nudge fold of waves 4 and 6: per sender, acks and nudges
+        interleave in receiver order, the first effective nudge deposes it
+        and drops every later ack; then each owner's quorum commit off its
+        cut-off row."""
+        eff_n = ndg & Erev & (ndg_t > T[:, None, :])
+        was_lead = St == ROLE_LEADER
+        ack_eff = (
+            ack
+            & ~_cut_before(eff_n, 1)
+            & ((T == sent_term) & was_lead)[:, None, :]
+        )
+        matched3 = torch.where(
+            ack_eff, torch.maximum(matched3, sent_idx[:, None, :]), matched3
+        )
+        RA = RA | ack_eff
+        dep_t = torch.where(eff_n, ndg_t, 0).amax(1)
+        dep = eff_n.any(1)
+        T = torch.where(dep, torch.maximum(T, dep_t), T)
+        V = torch.where(dep, 0, V)
+        St = torch.where(dep, ROLE_FOLLOWER, St)
+        Ld = torch.where(dep, 0, Ld)
+        EE = torch.where(dep, 0, EE)
+        HB = torch.where(dep, 0, HB)
+        RT = torch.where(dep, draw(T), RT)
+        rows = matched3.transpose(1, 2)  # [owner, G, target]
+        mci = torch.minimum(
+            kernels.committed_index(rows, st.voter_mask.t()[None].expand(P, G, P)),
+            kernels.committed_index(rows, st.outgoing_mask.t()[None].expand(P, G, P)),
+        )
+        ok = was_lead & (mci >= TS) & (mci < kernels.INF)
+        c_new = torch.where(ok, torch.maximum(C, mci), C)
+        return T, V, St, Ld, EE, HB, RT, RA, matched3, c_new, c_new > C
+
+    # ---- wave 4: the stage fold over the wave-3 acks; with pre-vote, the
+    # real tally and its winner effects.
+    T, V, St, Ld, EE, HB, RT, RA, matched3, C, adv = stage_fold(
+        T, V, St, Ld, EE, HB, RT, RA, matched3, C, TS, ack3, ndg3, ndg3_t,
+        term, li2,
+    )
+    if pv:
+        C, won, lost = _real_tally(
+            st, C, real_req & (St == ROLE_CANDIDATE), r_grants, r_resps,
+            r_snaps, Erev, agree_run,
+        )
+        li2 = LI + won.to(I32)
+        lt2 = torch.where(won, T, lt2)
+        TS = torch.where(won, li2, TS)
+        St = torch.where(won, ROLE_LEADER, St)
+        Ld = torch.where(won, self_id, Ld)
+        RT = torch.where(won | lost, draw(T), RT)
+        EE = torch.where(won | lost, 0, EE)
+        HB = torch.where(won, 0, HB)
+        St = torch.where(lost, ROLE_FOLLOWER, St)
+        matched3 = torch.where(won[:, None, :], 0, matched3)
+        matched3 = torch.where(won[:, None, :] & eye, li2[:, None, :], matched3)
+        RA = RA & ~won[:, None, :]
+        LI = torch.where(won, li2, LI)
+        LT = torch.where(won, lt2, LT)
+
+    def apply_retry(fire, t_send, csend, St, Ld, EE, C, LI, LT, agree_run):
+        """Retry resends (the maybe_decr chain) landing as wholesale
+        adoption one wave after the reject, per sender in index order.  T
+        is read-only: a resend is accepted only at an equal term."""
+        acc_rows = []
+        for sid in range(P):
+            acc = fire[sid] & (t_send[sid][None, :] >= T)
+            St = torch.where(acc, ROLE_FOLLOWER, St)
+            Ld = torch.where(acc, sid + 1, Ld)
+            EE = torch.where(acc, 0, EE)
+            LI = torch.where(acc, li2[sid][None, :], LI)
+            LT = torch.where(acc, lt2[sid][None, :], LT)
+            C = torch.where(acc, torch.maximum(C, csend[sid][None, :]), C)
+            in_s = acc | ((p_idx == sid) & acc.any(0)[None, :])
+            agree_run = _merge_agree(agree_run, in_s, li2[sid], agree_run[sid])
+            acc_rows.append(acc)
+        return torch.stack(acc_rows), St, Ld, EE, C, LI, LT, agree_run
+
+    retry3_acc, St, Ld, EE, C, LI, LT, agree_run = apply_retry(
+        retry3_fire, term, C_send, St, Ld, EE, C, LI, LT, agree_run
+    )
+
+    # ---- wave 5: commit-advance re-broadcasts and, with pre-vote, the
+    # winners' noop broadcasts, one sender-ordered pass.  Re-broadcasts
+    # carry prev = the leader's current last; a pre-vote winner's noop
+    # carries its pre-noop cursor.
+    C_send5 = C
+    if pv:
+        w5_prev = torch.where(won, li2 - 1, li2)
+        w5_noop = won
+        sent_term5 = torch.where(won, rqt2, term)
+    else:
+        w5_prev, w5_noop, sent_term5 = li2, no, term
+    ack5, ndg5, ndg5_t, retry5 = [], [], [], []
+    for sid in range(P):
+        e_s, erev_s = E[sid], Erev[sid]
+        agree_s = agree_run[sid]
+        m3 = matched3[sid]
+        t_row = sent_term5[sid][None, :]
+        noop_d = e_s & member & w5_noop[sid][None, :]
+        dmask = (e_s & member & adv[sid][None, :] & ((m3 > 0) | resumed2[sid])) | noop_d
+        msg = dmask & (t_row >= T)
+        ndg = dmask & (t_row < T)
+        ndg5_t.append(torch.where(ndg, T, 0))
+        prev_row = torch.where(m3 == 0, TS[sid][None, :] - 1, w5_prev[sid][None, :])
+        probe_ok = agree_s >= prev_row
+        retry5.append(msg & ~probe_ok & erev_s & ~_cut_before(ndg & erev_s, 0))
+        adopt = msg & probe_ok
+        T, V, St, Ld, EE, HB, RT = follow(msg, t_row, T, V, St, Ld, EE, HB, RT, sid)
+        C = torch.where(adopt & noop_d, torch.maximum(C, C_send5[sid][None, :]), C)
+        LI = torch.where(adopt, li2[sid][None, :], LI)
+        LT = torch.where(adopt, lt2[sid][None, :], LT)
+        ack5.append(adopt & erev_s)
+        ndg5.append(ndg)
+        in_s = adopt | ((p_idx == sid) & adopt.any(0)[None, :])
+        agree_run = _merge_agree(agree_run, in_s, li2[sid], agree_s)
+    ack5, ndg5, ndg5_t, retry5 = map(torch.stack, (ack5, ndg5, ndg5_t, retry5))
+    retry5_fire = retry5 & ((T == sent_term5) & (St == ROLE_LEADER))[:, None, :]
+    retry5_acc, St, Ld, EE, C, LI, LT, agree_run = apply_retry(
+        retry5_fire, sent_term5, torch.where(w5_noop, C_send5, 0), St, Ld,
+        EE, C, LI, LT, agree_run,
+    )
+    ack5 = ack5 | retry3_acc | retry5_acc
+
+    # ---- wave 6: the stage fold over the wave-5 acks, then the settled
+    # commit propagated to in-sync sendable members, whose sends draw
+    # nudges from higher-term receivers.
+    T, V, St, Ld, EE, HB, RT, RA, matched3, C, _ = stage_fold(
+        T, V, St, Ld, EE, HB, RT, RA, matched3, C, TS, ack5, ndg5, ndg5_t,
+        sent_term5, li2,
+    )
+    # Against what each sender's appends carried: the wave-3 snapshot, or
+    # the wave-5 one for a pre-vote winner's noop.
+    csend6 = torch.where(won, C_send5, C_send) if pv else C_send
+    send6 = (
+        E
+        & member
+        & (St == ROLE_LEADER)[:, None, :]
+        & ((matched3 > 0) | resumed2)
+        & (C > csend6)[:, None, :]
+    )
+    elig6 = (
+        send6
+        & (sent_term5[:, None, :] >= T[None, :, :])
+        & ((agree_run >= li2[:, None, :]) | Erev)
+    )
+    C = torch.maximum(C, torch.where(elig6, C[:, None, :], 0).amax(0))
+    RA = RA | (elig6 & Erev)
+    ndg6 = send6 & (sent_term5[:, None, :] < T[None, :, :]) & Erev
+    dep6_t = torch.where(ndg6, T[None, :, :], 0).amax(1)
+    dep6 = ndg6.any(1) & (dep6_t > T)
+    T = torch.where(dep6, dep6_t, T)
+    V = torch.where(dep6, 0, V)
+    St = torch.where(dep6, ROLE_FOLLOWER, St)
+    Ld = torch.where(dep6, 0, Ld)
+    EE = torch.where(dep6, 0, EE)
+    HB = torch.where(dep6, 0, HB)
+    RT = torch.where(dep6, draw(T), RT)
+
+    # ---- the round's append workload at the acting leader, with the same
+    # nudge cutoffs on its ack stream.
+    is_leader = (St == ROLE_LEADER) & alive
+    has_leader = is_leader.any(0)
+    lead_term = torch.where(is_leader, T, -1).amax(0)
+    is_acting = is_leader & (T == lead_term)
+    first_l = torch.where(is_acting, p_idx, P).amin(0)
+    is_acting_leader = (p_idx == first_l) & has_leader
+    n_app = torch.where(has_leader, append_n, 0)
+    sent_b = has_leader & (n_app > 0)
+    lead_pre_last = torch.where(is_acting_leader, LI, 0).amax(0)
+    LI = LI + torch.where(is_acting_leader, n_app, 0)
+    LT = torch.where(is_acting_leader & (n_app > 0), lead_term, LT)
+    lead_last = torch.where(is_acting_leader, LI, 0).amax(0)
+    lead_last_term = torch.where(is_acting_leader, LT, 0).amax(0)
+    reach_b = (E & is_acting_leader[:, None, :]).any(0)  # [P_v, G]
+    ack_path = (E & is_acting_leader[None, :, :]).any(1)  # v -> l
+    acting_f = is_acting_leader.to(I32)
+    acting_row0 = _weighted_row(matched3, acting_f)
+    resumed_act = (resumed2 & is_acting_leader[:, None, :]).any(0)
+    agree_act = _weighted_row(agree_run, acting_f)
+    pr_ok = (acting_row0 > 0) | resumed_act
+    ts_acting = _weighted_row(TS, acting_f)
+    send_w = sent_b & reach_b & member & ~is_acting_leader & pr_ok
+    sync_msg = send_w & (T <= lead_term)
+    ndg_w = send_w & (T > lead_term) & ack_path
+    depw_t = torch.where(ndg_w, T, 0).amax(0)
+    cutw = _cut_before(ndg_w, 0)
+    # First-probe prev, or the surviving retry chain: the acting leader is
+    # deposed only by these very nudges, so ~cutw is the survival gate.
+    probe_w = agree_act >= torch.where(
+        acting_row0 == 0, ts_acting[None, :] - 1, lead_pre_last[None, :]
+    )
+    sync_b = sync_msg & (probe_w | (ack_path & ~cutw))
+    bump_b = sync_msg & (T < lead_term)
+    T = torch.where(sync_msg, lead_term, T)
+    St = torch.where(sync_msg, ROLE_FOLLOWER, St)
+    V = torch.where(bump_b, 0, V)
+    Ld = torch.where(sync_msg, first_l + 1, Ld)
+    EE = torch.where(sync_msg, 0, EE)
+    HB = torch.where(bump_b, 0, HB)
+    RT = torch.where(bump_b, draw(T), RT)
+    LI = torch.where(sync_b, lead_last, LI)
+    LT = torch.where(sync_b, lead_last_term, LT)
+    in_sb = sync_b | (is_acting_leader & sent_b)
+    agree_run = _merge_agree(agree_run, in_sb, lead_last, agree_act)
+    # The acting leader's ack stream, cut at the first workload nudge.
+    ack_w = sync_b & ack_path & ~cutw
+    acting_row = torch.where(
+        ack_w | (is_acting_leader & sent_b),
+        torch.maximum(acting_row0, lead_last),
+        acting_row0,
+    )
+    matched3 = torch.where(
+        is_acting_leader[:, None, :], acting_row[None, :, :], matched3
+    )
+    RA = RA | (is_acting_leader[:, None, :] & ack_w[None, :, :])
+    mci_b = torch.minimum(
+        _quorum_index(acting_row, st.voter_mask),
+        _quorum_index(acting_row, st.outgoing_mask),
+    )
+    commit_ok = sent_b & (mci_b >= ts_acting) & (mci_b < kernels.INF)
+    lead_commit_old = torch.where(is_acting_leader, C, 0).amax(0)
+    lead_commit = torch.where(
+        commit_ok, torch.maximum(lead_commit_old, mci_b), lead_commit_old
+    )
+    C = torch.where(is_acting_leader, lead_commit, C)
+    C = torch.where(sync_b, torch.maximum(C, lead_commit), C)
+    # Workload nudges depose the acting leader at round end.
+    dw = is_acting_leader & (ndg_w.any(0) & (depw_t > lead_term))[None, :]
+    T = torch.where(dw, depw_t[None, :], T)
+    V = torch.where(dw, 0, V)
+    St = torch.where(dw, ROLE_FOLLOWER, St)
+    Ld = torch.where(dw, 0, Ld)
+    EE = torch.where(dw, 0, EE)
+    HB = torch.where(dw, 0, HB)
+    RT = torch.where(dw, draw(T), RT)
+
+    return SimState(
+        term=T,
+        state=St,
+        vote=V,
+        leader_id=Ld,
+        election_elapsed=EE,
+        heartbeat_elapsed=HB,
+        randomized_timeout=RT,
+        last_index=LI,
+        last_term=LT,
+        commit=C,
+        matched=matched3,
+        term_start_index=TS,
+        agree=agree_run,
+        voter_mask=st.voter_mask,
+        outgoing_mask=st.outgoing_mask,
+        learner_mask=st.learner_mask,
+        recent_active=RA,
     )
 
 

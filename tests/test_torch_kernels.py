@@ -132,8 +132,8 @@ def test_state_planes_stay_int32_or_bool():
 
 
 @pytest.mark.parametrize(
-    "field", ["check_quorum", "pre_vote", "transfer", "lease_read",
-              "collect_counters", "collect_health", "blackbox"],
+    "field", ["transfer", "lease_read", "collect_counters", "collect_health",
+              "blackbox"],
 )
 def test_unported_config_flags_raise(field):
     cfg = tsim.SimConfig(n_groups=4, n_peers=3, **{field: True})
