@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--out results.json]
 
 Three paths, all at 100,000 groups × 5 peers with one append per group
-per round (bench.py's bench_device):
+per round (bench.py's bench_device), each bare and instrumented (bench.py
+--health: the counter plane and the health planes ride every round, and the
+fused blocks run each kernel's with_health variant):
 
   steady  election_tick 10: ClusterSim settles 30 general rounds, then
           fast_multi_round(k=32) advances one 32-round block at a time on
@@ -22,37 +24,49 @@ per round (bench.py's bench_device):
           general steps.
 
 Phases, in order, each with its wall seconds; any failure raises and the
-script exits nonzero:
+script exits nonzero.  Every parity phase holds both variants of its
+kernel, with_health=False and with_health=True (the latter with a random
+ticks_since_commit row), against the plain version on the same cases.
+Every path phase runs its path on the card bare and instrumented
+(ClusterSim(collect_counters=True, collect_health=True) for the settle,
+fast_multi_round(k=32, with_health=True, with_counters=True) for the
+blocks), each with the launch counts of both variants zeroed just before it
+and read just after, then once on the CPU, instrumented: the reference for
+both, since the extras never change the state.  Every SimState field, the
+four health planes, window_pos, the counters, the health summary and the
+fused and general block counts must be equal; the end-of-run summary is
+printed as bench.py --health-out writes it.
 
   1. device        require CUDA; print the card's name and power limit
   2. build         build the three kernels from csrc/ with nvcc, in parallel;
-                   print the times and ptxas registers and spills per P
+                   print the times and ptxas registers and spills per P and
+                   template flag
   3. parity        the steady kernel against its plain PyTorch version on
                    the same card tensors, exact: settled states at
                    G=100,000 and a ragged G=100,003 (P=5), at P=3, and
                    random planes
-  4. main          the steady path on the card (launch counts zeroed just
-                   before, read just after), then on the CPU; every
-                   SimState field must be equal
+  4. main          the steady path: 30 settle rounds, 4 blocks
   5. timing        the steady path on the bench's schedule (64-round
                    scans, 6 scans a rep, median of 5 reps): ticks/s,
-                   fused_frac, the kernel's device time (torch.profiler,
-                   cold with L2 flushed before each launch, and hot), the
-                   plain version's time, the block and its parts (CUDA
-                   events), the device's busy share and time by kernel
+                   fused_frac, the kernel's device time (one call captured
+                   in a CUDA graph and replayed between CUDA events: cold
+                   with L2 flushed before each launch, and hot), the plain
+                   version's time, the block and its parts (CUDA events),
+                   the device's busy share and time by kernel
+                   (torch.profiler); and the steady kernel's time by each
+                   timing method (graph replay, torch.profiler, CUDA
+                   events around a launch queued behind a sleep kernel)
+                   with the event methods' floor
   6. chaos parity  the chaos kernel against its plain version, exact:
                    lossy-settled states at G=100,000, G=100,003 (P=5) and
                    P=3, each with and without crashed followers, under 1%
                    and the heavy-loss layout, with the round base small
                    and near 2**31 - 32; random planes at P=3, 5 and 7
-  7. lossy         the lossy path on the card: at G=8,192 from init_state
-                   (192 settle rounds, 4 blocks), then the main path at
-                   G=100,000 from the settled state (2 blocks on the
-                   healed plane, 1 with a link down in 1% of groups, which
-                   forces the general branch), each with the launch counts
-                   zeroed just before it and read just after; the same on
-                   the CPU from the same start; every SimState field and
-                   the fused counts must be equal
+  7. lossy         the lossy path at G=8,192 from init_state (192 settle
+                   rounds, 4 blocks), bare, on the card and the CPU; then
+                   the main path at G=100,000 from phase 6's settled state
+                   (2 blocks on the healed plane, 1 with a link down in 1%
+                   of groups, which forces the general branch)
   8. lossy timing  as phase 5, for the lossy path and the chaos kernel
   9. damped parity the damped kernel against its plain version, exact:
                    damped-settled states at G=100,000, G=100,003 (P=5) and
@@ -60,20 +74,25 @@ script exits nonzero:
                    loss and under 1% and the heavy-loss layout (round base
                    small and near 2**31 - 32); with_cq off on a
                    pre-vote-settled state; random planes at P=3, 5 and 7
- 10. damped        the check-quorum path on the card: at G=8,192 from
-                   init_state (192 settle rounds, 4 blocks), then the main
-                   path at G=100,000 from the settled state (2 fused
-                   blocks, then 3 with the acting leader crashed in 1% of
-                   groups: general blocks with check-quorum step-downs and
-                   elections), the launch counts zeroed just before each
-                   and read just after; the same on the CPU from the same
-                   start; every SimState field, recent_active included, and
-                   the fused counts must be equal
+ 10. damped        the check-quorum path: at G=8,192 from init_state (one
+                   instrumented 192-round settle each on the card and the
+                   CPU, then 4 blocks), then the main path at G=100,000
+                   from phase 9's settled state (2 fused blocks, then 3
+                   with the acting leader crashed in 1% of groups: general
+                   blocks with check-quorum step-downs and elections);
+                   recent_active included
  11. damped timing as phase 5, for the damped path and kernel; fused_frac
                    must be 1.0
- 12. report        one JSON line of kernels, then the device line last
+ 12. health timing as phase 5 for the steady and the check-quorum path with
+                   the health planes threaded as bench.py --health does
+                   (fused_frac must be 1.0), and the lossy with_health
+                   kernel's device time cold and hot
+ 13. report        one JSON line of the six kernel variants, then the device
+                   line last
 
-Exits 2 without a result when no CUDA device is available.
+With --quick it runs phases 1 to 3, 6 and 9 only (the builds and every
+kernel against its plain version) and prints no result.  Exits 2 without a
+result when no CUDA device is available.
 """
 
 import argparse
@@ -87,7 +106,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from raft_tpu_torch.multiraft import _build, fused_step, sim
+from raft_tpu_torch.multiraft import _build, fused_step, kernels as pk, sim
+from raft_tpu_torch.multiraft.health import HealthMonitor
 from raft_tpu_torch.multiraft.chaos_kernel import (
     OUTPUT_NAMES as CHAOS_OUTPUTS,
     chaos_rounds,
@@ -119,6 +139,7 @@ CQ_SETTLE = 3 * CQ_TICK
 CQ_SMALL_G, CQ_SMALL_BLOCKS = 8192, 4
 CQ_FUSED_BLOCKS, CQ_CRASH_BLOCKS = 2, 3
 ROUNDS_PER_SCAN, SCANS, REPS = 64, 6, 5
+SLEEP_CYCLES = 4_000_000  # about 2 ms at the H100's 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 # H100 SXM INT32 rate: the published 67 TFLOP/s float32 counts an FMA as two
 # operations on 128 FP32 lanes an SM; an SM has 64 INT32 lanes (NVIDIA H100
@@ -134,6 +155,9 @@ CHAOS_SOURCE = "raft_tpu_torch/multiraft/csrc/chaos_round.cu"
 CHAOS_REPLACES = "raft_tpu/multiraft/pallas_step.py:297"
 DAMPED_SOURCE = "raft_tpu_torch/multiraft/csrc/damped_round.cu"
 DAMPED_REPLACES = "raft_tpu/multiraft/pallas_step.py:889"
+KERNELS = (steady_rounds, chaos_rounds, damped_rounds)
+# ptxas registers and spills by library and template instance, for --out.
+PTXAS = {}
 
 
 def card_line():
@@ -170,16 +194,29 @@ def phase_build():
             fut.result()  # raises a failed build's error
     for name in loaders:
         log, secs = _build.build_log.get(name, ("(cached build)", 0.0))
-        print(f"build: {name}.cu in {secs:.2f}s")
+        PTXAS[name] = {"seconds": secs, "instances": {}}
         entry = None
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                # The template arguments: P, then the damped kernel's flags.
+                # The template arguments: P, then the flags (the damped
+                # kernel's cq and loss), with_health last.
                 args = line.split("ILi")[1].split("EE")[0].split("ELb") if "ILi" in line else ["?"]
-                entry = f"P={args[0]}" + (
-                    f" cq={args[1]} loss={args[2]}" if len(args) == 3 else "")
-            elif "registers" in line or "spill" in line:
-                print(f"  ptxas {entry}: {line.strip()}")
+                flags = ("cq", "loss", "health")[-(len(args) - 1):] if len(args) > 1 else ()
+                entry = " ".join([f"P={args[0]}"] + [
+                    f"{f}={v}" for f, v in zip(flags, args[1:])])
+            elif "Used" in line and "registers" in line:
+                regs = int(line.split("Used")[1].split("registers")[0])
+                PTXAS[name]["instances"].setdefault(entry, {})["registers"] = regs
+            elif "spill stores" in line:
+                spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+                PTXAS[name]["instances"].setdefault(entry, {})["spill_stores"] = spill
+        inst = PTXAS[name]["instances"]
+        print(f"build: {name}.cu in {secs:.2f}s, {len(inst)} instances; ptxas "
+              "registers (spill-store bytes where nonzero):")
+        for entry in sorted(inst):
+            r = inst[entry]
+            spill = f" ({r['spill_stores']} B spilled)" if r.get("spill_stores") else ""
+            print(f"  {entry}: {r.get('registers')}{spill}")
 
 
 # --- the steady path -------------------------------------------------------
@@ -206,9 +243,12 @@ def random_inputs(n_peers, n_groups, seed, device):
             ints(3, (n_groups,)))
 
 
-def compare(kernel, reference, names, args, kw, note):
-    """Kernel vs plain version on the same card tensors, exact; returns the
-    max |difference| (0)."""
+def compare(kernel, reference, names, args, kw, note, tsc=None):
+    """Kernel vs plain version on the same card tensors, exact; with `tsc`
+    (a ticks_since_commit row) the with_health variant.  Returns the max
+    |difference| (0)."""
+    if tsc is not None:
+        args, names = args + (tsc,), names + ("tsc",)
     got = kernel(*args, **kw)
     want = reference(*args, **kw)
     torch.cuda.synchronize()
@@ -218,15 +258,40 @@ def compare(kernel, reference, names, args, kw, note):
             raise AssertionError(f"{note}: {name} is {g.dtype} {tuple(g.shape)}")
         err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
         if not torch.equal(g, w):
-            raise AssertionError(f"{note}: kernel and plain version differ in {name}")
-    print(f"parity {note}: exact ({len(names)} outputs, {args[0].shape[1]} groups)")
+            raise AssertionError(f"{note} with_health={tsc is not None}: kernel and "
+                                 f"plain version differ in {name}")
     return err
+
+
+def random_tsc(n_groups, seed, device):
+    """A random ticks_since_commit row: int32 [G] in [0, 100)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(0, 100, (n_groups,), generator=gen,
+                         dtype=torch.int32).to(device)
+
+
+def compare_variants(kernel, reference, names, args, kw, note):
+    """compare() for both variants of a kernel on the same operands:
+    (max |difference| of with_health=False, of with_health=True)."""
+    n_groups, dev = args[0].shape[1], args[0].device
+    tsc = random_tsc(n_groups, n_groups + len(note), dev)
+    errs = (compare(kernel, reference, names, args, kw, note),
+            compare(kernel, reference, names, args, kw, note, tsc))
+    print(f"parity {note}: exact, both variants ({len(names)} outputs, and tsc; "
+          f"{n_groups} groups)")
+    return errs
+
+
+def worst(a, b):
+    """Elementwise max of two (plain, with_health) error pairs."""
+    return tuple(max(x, y) for x, y in zip(a, b))
 
 
 def compare_kernel(args, rounds, note):
     kw = dict(rounds=rounds, election_tick=10, heartbeat_tick=1)
-    return compare(steady_rounds, steady_rounds_reference,
-                   ("ee", "hb", "li", "lt", "matched", "commit"), args, kw, note)
+    return compare_variants(steady_rounds, steady_rounds_reference,
+                            ("ee", "hb", "li", "lt", "matched", "commit"), args,
+                            kw, note)
 
 
 def crash_followers(st, n_peers, n_groups, dev):
@@ -241,20 +306,21 @@ def crash_followers(st, n_peers, n_groups, dev):
 
 @phase("parity")
 def phase_parity(dev):
-    err = 0
+    """Returns (plain, with_health) max |difference|."""
+    err = (0, 0)
     for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3)):
         st = settle_on(dev, n_groups, n_peers)
         append = torch.ones(n_groups, dtype=torch.int32, device=dev)
         crashed = torch.zeros((n_peers, n_groups), dtype=torch.bool, device=dev)
-        err = max(err, compare_kernel(
+        err = worst(err, compare_kernel(
             fused_step.steady_operands(st, crashed, append), K,
             f"settled G={n_groups} P={n_peers}"))
         crashed = crash_followers(st, n_peers, n_groups, dev)
-        err = max(err, compare_kernel(
+        err = worst(err, compare_kernel(
             fused_step.steady_operands(st, crashed, append), K,
             f"settled+crashed followers G={n_groups} P={n_peers}"))
     for n_peers in (3, 5, 7):
-        err = max(err, compare_kernel(
+        err = worst(err, compare_kernel(
             random_inputs(n_peers, G + 3, n_peers, dev), K,
             f"random planes G={G + 3} P={n_peers}"))
     return err
@@ -298,28 +364,26 @@ def assert_same(st_gpu, st_cpu, note):
 
 @phase("main")
 def phase_main(dev):
-    steady_rounds.launches = 0
-    chaos_rounds.launches = 0
+    """The steady path on the card, bare and instrumented, then once on the
+    CPU (instrumented), the reference for both.  Returns (cfg, the bare
+    final state, its steady kernel launches, the instrumented card run, its
+    with_health launches)."""
+    zero_launches()
     t0 = time.perf_counter()
     cfg, st_gpu, fused = run_main_path(dev)
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
-    launches = steady_rounds.launches
-    if launches <= 0:
-        raise AssertionError("the main path never launched the steady kernel")
+    launches = bare_launches(steady_rounds, "the steady main path")
     check_state(st_gpu)
-    t0 = time.perf_counter()
-    _, st_cpu, fused_cpu = run_main_path("cpu")
-    t_cpu = time.perf_counter() - t0
-    assert_same(st_gpu, st_cpu, "steady main path")
-    if fused != fused_cpu:
-        raise AssertionError(f"fused counts differ: card {fused}, CPU {fused_cpu}")
-    total = MAIN_BLOCKS * K * G
+    run, ref, h_launches = instrumented_pair(
+        dev, "steady", steady_rounds, (MAIN_BLOCKS, 0), cfg=cfg, blocks=MAIN_BLOCKS,
+        settle=SETTLE)
+    same_as_reference((st_gpu, fused, 0), ref, "steady main path")
     print(f"main path {G}x{P}: {SETTLE} settle rounds + {MAIN_BLOCKS} blocks of "
           f"{K}: card == CPU on all {len(st_gpu._fields)} fields (commit max "
           f"{int(st_gpu.commit.max())}); steady kernel launches {launches}; "
-          f"fused {fused}/{total}; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s")
-    return cfg, st_gpu, launches
+          f"fused {fused}/{MAIN_BLOCKS * K * G}; card {t_gpu:.2f}s")
+    return cfg, st_gpu, launches, run, h_launches
 
 
 # --- timing helpers ----------------------------------------------------------
@@ -345,13 +409,75 @@ def cuda_ms(fn, reps, flush=None):
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, name, reps, flush=None):
-    """Device milliseconds per launch of the kernel whose name contains
-    `name`, by torch.profiler over `reps` calls of fn() (with `flush`
-    before each): the mean over the launches the profiler recorded, which
-    may miss a few of them.  Unlike CUDA events around a call, this leaves
-    out the host's time to prepare the launch, during which the card
-    waits."""
+def kernel_device_ms(fn, reps, flush=None):
+    """Device milliseconds per launch of the one kernel that fn() launches.
+    The call is captured once into a CUDA graph and the graph replayed, so
+    no host work sits between the events around a launch.  With `flush`
+    (run before each replay, outside the timed pair: the kernel finds its
+    operands cold) the median of `reps` single replays; without it, `reps`
+    replays back to back between one pair of events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    if flush is None:
+        e0.record()
+        for _ in range(reps):
+            graph.replay()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / reps
+    times = []
+    for _ in range(reps):
+        flush()
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def queued_ms(fn, reps, flush=None):
+    """Milliseconds of fn()'s device work by CUDA events around a plain
+    launch that the host queued behind a sleep kernel (about 2 ms), so the
+    card never waits for the host between the events.  With `flush` (before
+    the sleep) the median of `reps` single calls; without it, `reps` calls
+    back to back between one pair of events."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    if flush is None:
+        torch.cuda._sleep(SLEEP_CYCLES)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / reps
+    times = []
+    for _ in range(reps):
+        flush()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def profiler_ms(fn, name, reps, flush=None):
+    """(ms, launches seen): torch.profiler's device time a launch of the
+    kernel whose name contains `name` over `reps` calls of fn() (`flush`
+    before each), the mean over the launches it recorded; ms is None when
+    it recorded none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -366,11 +492,37 @@ def kernel_device_ms(fn, name, reps, flush=None):
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and name in e.key]
     count = sum(e.count for e in rows)
-    if not 0 < count <= reps:
-        raise AssertionError(f"profiler saw {count} launches of {name} in {reps} calls")
-    if count < reps:
-        print(f"  (the profiler recorded {count} of {reps} launches of {name})")
-    return sum(e.self_device_time_total for e in rows) / count / 1e3
+    us = sum(e.self_device_time_total for e in rows)
+    return (us / count / 1e3 if count else None), count
+
+
+def timing_methods(dev, launch, kernel_name, flush, reps=30):
+    """One kernel's device time cold and hot by three methods on the same
+    operands in one run, and what the two event methods measure around a
+    one-element add (their floor: the part of a reading that is the method's
+    own, not the kernel's).  `graph` is kernel_device_ms, `profiler`
+    profiler_ms, `events` queued_ms."""
+    tiny = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def add():
+        tiny.add_(1)
+
+    graph = (kernel_device_ms(launch, reps, flush), kernel_device_ms(launch, reps))
+    (p_cold, n_cold), (p_hot, n_hot) = (profiler_ms(launch, kernel_name, reps, flush),
+                                        profiler_ms(launch, kernel_name, reps))
+    events = (queued_ms(launch, reps, flush), queued_ms(launch, reps))
+    graph_floor = (kernel_device_ms(add, reps, flush), kernel_device_ms(add, reps))
+    events_floor = (queued_ms(add, reps, flush), queued_ms(add, reps))
+
+    def show(pair):
+        return " / ".join("not recorded" if x is None else f"{x:.4f}" for x in pair)
+
+    print(f"timing methods, {kernel_name} ms cold / hot: graph replay {show(graph)}; "
+          f"profiler {show((p_cold, p_hot))} ({n_cold} and {n_hot} of {reps} launches "
+          f"recorded); events behind a sleep {show(events)}; a one-element add: graph "
+          f"replay {show(graph_floor)}, events behind a sleep {show(events_floor)}")
+    return dict(graph=graph, profiler=(p_cold, p_hot), profiler_seen=(n_cold, n_hot),
+                events=events, graph_floor=graph_floor, events_floor=events_floor)
 
 
 def device_profile(run):
@@ -400,12 +552,15 @@ def device_profile(run):
 
 
 def time_path(dev, label, st, rb, block, operands, kernel, reference, kernel_name,
-              fused_round, predicate, work):
+              fused_round, predicate, work, compare_methods=False):
     """The bench's timed loop over `block(st, rb, fused) -> (st, fused)`
-    (rb the absolute round of the block's first round), then the parts of
+    (rb the absolute round of the block's first round; `st` is the loop's
+    carry: a SimState, or (SimState, HealthState) on a health path), then
+    the parts of
     one block from the loop's final state: the kernel (`kernel(*args,
     **kw)` with `operands(st, rb) -> (args, kw)`), its plain version, the
-    fused round and the predicate, and a profile of one rep."""
+    fused round and the predicate, and a profile of one rep.  With
+    `compare_methods`, the kernel's time by each timing method as well."""
     blocks_per_scan = ROUNDS_PER_SCAN // K
     for _ in range(blocks_per_scan):  # warm-up scan, as the bench does
         st, _ = block(st, rb, 0)
@@ -425,22 +580,11 @@ def time_path(dev, label, st, rb, block, operands, kernel, reference, kernel_nam
     fused_frac = fused_total / (ticks * REPS)
 
     args, kw = operands(st, rb)
-    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-
-    def flush():
-        scratch.fill_(1)  # 256 MB written: the 50 MB L2 holds none of the operands
-
-    def launch():
-        kernel(*args, **kw)
-
-    kernel_ms = kernel_device_ms(launch, kernel_name, 30, flush)
-    kernel_hot_ms = kernel_device_ms(launch, kernel_name, 30)
-    call_ms = cuda_ms(launch, 30, flush)
-    plain_ms = cuda_ms(lambda: reference(*args, **kw), 5, flush)
-    round_ms = cuda_ms(lambda: fused_round(st, rb), 10, flush)
-    pred_ms = cuda_ms(lambda: bool(predicate(st)), 10, flush)
-    block_ms = cuda_ms(lambda: block(st, rb, 0), 10, flush)
-    del scratch
+    t = kernel_times(dev, kernel, reference, args, kw, work, parts=dict(
+        fused_round_ms=lambda: fused_round(st, rb),
+        predicate_ms=lambda: bool(predicate(st)),
+        block_ms=lambda: block(st, rb, 0)),
+        methods_of=kernel_name if compare_methods else None)
 
     def one_rep():
         s, r = st, rb
@@ -452,36 +596,58 @@ def time_path(dev, label, st, rb, block, operands, kernel, reference, kernel_nam
     loop_block_ms = statistics.median(ticks / x for x in samples) * 1e3 / (
         SCANS * blocks_per_scan)
 
-    nbytes, ops = work
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    card = card_line()
     med = statistics.median(samples)
-    print(f"timing {label} {G}x{P} k={K} [{card}]: ticks/s median {med:.1f} "
+    t.update(ticks_per_s=samples, ticks_per_s_median=med, fused_frac=fused_frac,
+             loop_block_ms=loop_block_ms, profile=prof,
+             wrapper_ms=t["fused_round_ms"] - t["call_ms"])
+    print(f"timing {label} {G}x{P} k={K} [{t['card']}]: ticks/s median {med:.1f} "
           f"(min {min(samples):.1f}, max {max(samples):.1f}, {REPS} reps), "
-          f"fused_frac {fused_frac:.4f}; {kernel_name} {kernel_ms:.4f} ms cold "
-          f"({kernel_hot_ms:.4f} ms hot; a wrapper call {call_ms:.4f} ms), "
-          f"plain version {plain_ms:.3f} ms; "
-          f"block {loop_block_ms:.3f} ms in the loop, {block_ms:.3f} ms alone = "
-          f"predicate {pred_ms:.3f} + fused round {round_ms:.3f} (wrapper "
-          f"{round_ms - call_ms:.3f} + the kernel call); bound {bound_ms:.4f} ms "
-          f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})")
+          f"fused_frac {fused_frac:.4f}; {kernel_name} {t['ms']:.4f} ms cold "
+          f"({t['hot_ms']:.4f} ms hot; a wrapper call {t['call_ms']:.4f} ms), "
+          f"plain version {t['plain_ms']:.3f} ms; "
+          f"block {loop_block_ms:.3f} ms in the loop, {t['block_ms']:.3f} ms alone = "
+          f"predicate {t['predicate_ms']:.3f} + fused round {t['fused_round_ms']:.3f} "
+          f"(wrapper {t['wrapper_ms']:.3f} + the kernel call); bound "
+          f"{t['bound_ms']:.4f} ms (bytes {t['bytes_bound_ms']:.4f}, operations "
+          f"{t['ops_bound_ms']:.4f})")
     print(f"profile of one {label} rep ({SCANS * blocks_per_scan} blocks): device "
           f"busy {prof['busy_us']:.1f} of {prof['wall_us']:.1f} us "
           f"({100 * prof['busy_share']:.1f}%)")
     for row in prof["kernels"][:8]:
         print(f"  {row['us']:10.1f} us {row['count']:6d}x  {row['name']}")
-    return dict(
-        ticks_per_s=samples, ticks_per_s_median=med, fused_frac=fused_frac,
-        ms=kernel_ms, hot_ms=kernel_hot_ms, call_ms=call_ms, plain_ms=plain_ms,
-        block_ms=block_ms, loop_block_ms=loop_block_ms, predicate_ms=pred_ms,
-        fused_round_ms=round_ms, profile=prof,
-        wrapper_ms=round_ms - call_ms, bound_ms=bound_ms,
-        bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        bytes=nbytes, operations=ops, card=card,
-    )
+    return t
+
+
+def kernel_times(dev, kernel, reference, args, kw, work, parts=None,
+                 methods_of=None):
+    """`kernel(*args, **kw)`'s device time cold (L2 flushed before each
+    launch) and hot, a wrapper call and its plain version on the same
+    operands, each of `parts` ({name: fn}, 10 calls, L2 flushed before
+    each) by CUDA events, and the bound of `work` (bytes, operations).
+    With `methods_of` (the kernel's name), also timing_methods on the same
+    operands."""
+    scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.fill_(1)  # 256 MB written: the 50 MB L2 holds none of the operands
+
+    def launch():
+        kernel(*args, **kw)
+
+    t = dict(ms=kernel_device_ms(launch, 30, flush), hot_ms=kernel_device_ms(launch, 30),
+             call_ms=cuda_ms(launch, 30, flush),
+             plain_ms=cuda_ms(lambda: reference(*args, **kw), 5, flush))
+    for name, fn in (parts or {}).items():
+        t[name] = cuda_ms(fn, 10, flush)
+    if methods_of is not None:
+        t["methods"] = timing_methods(dev, launch, methods_of, flush)
+    del scratch
+    nbytes, ops = work
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    t.update(bound_ms=max(bytes_ms, ops_ms), bytes_bound_ms=bytes_ms,
+             ops_bound_ms=ops_ms, bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+             bytes=nbytes, operations=ops, card=card_line())
+    return t
 
 
 @phase("timing")
@@ -500,7 +666,7 @@ def phase_timing(dev, cfg, st):
         kernel_name="steady_round_kernel",
         fused_round=lambda s, rb: round_fn(s, crashed, append),
         predicate=lambda s: fused_step.steady_predicate(cfg, s, crashed, K),
-        work=steady_work(P, G, K),
+        work=steady_work(P, G, K), compare_methods=True,
     )
 
 
@@ -554,14 +720,15 @@ def random_chaos_inputs(n_peers, n_groups, seed, device):
 def compare_chaos(args, round_base, note, election_tick=LOSSY_TICK):
     kw = dict(round_base=round_base, rounds=K, election_tick=election_tick,
               heartbeat_tick=1)
-    return compare(chaos_rounds, chaos_rounds_reference, CHAOS_OUTPUTS, args, kw,
-                   f"{note} round_base={round_base}")
+    return compare_variants(chaos_rounds, chaos_rounds_reference, CHAOS_OUTPUTS,
+                            args, kw, f"{note} round_base={round_base}")
 
 
 @phase("chaos parity")
 def phase_chaos_parity(dev):
-    """Returns (max |difference|, the settled 100k × 5 lossy state)."""
-    err, settled = 0, None
+    """Returns ((plain, with_health) max |difference|, the settled 100k × 5
+    lossy state)."""
+    err, settled = (0, 0), None
     for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3)):
         st0 = lossy_settle(dev, n_groups, n_peers)
         if (n_groups, n_peers) == (G, P):
@@ -582,13 +749,13 @@ def phase_chaos_parity(dev):
                     crashed = crash_followers(st, n_peers, n_groups, dev)
                 args = fused_step.chaos_operands(st, crashed, append, loss)
                 for rb in (LOSSY_SETTLE + 4, 2**31 - K):
-                    err = max(err, compare_chaos(
+                    err = worst(err, compare_chaos(
                         args, rb, f"lossy-settled G={n_groups} P={n_peers} "
                         f"{loss_name} loss, {crashed_name}"))
     for n_peers in (3, 5, 7):
         args = random_chaos_inputs(n_peers, G + 3, 10 + n_peers, dev)
         for rb in (7, 2**31 - K):
-            err = max(err, compare_chaos(
+            err = worst(err, compare_chaos(
                 args, rb, f"random planes G={G + 3} P={n_peers}", election_tick=6))
     return err, settled
 
@@ -622,48 +789,47 @@ def run_lossy_path(device, n_groups, blocks, start=None, cut_last=False):
 
 @phase("lossy")
 def phase_lossy(dev, settled):
-    """Returns (the 100k state, the chaos kernel's launches in the 100k
-    run alone)."""
-    settled_cpu = sim.SimState(*(None if v is None else v.cpu() for v in settled))
+    """The lossy path: at G=8,192 from init_state on the card and the CPU;
+    at G=100,000 from the settled state on the card, bare and
+    instrumented, then once on the CPU (instrumented), the reference for
+    both.  Returns (the bare 100k state, its chaos kernel launches, the
+    instrumented card run, its with_health launches)."""
     t0 = time.perf_counter()
-    steady_rounds.launches = 0
-    chaos_rounds.launches = 0
+    zero_launches()
     small = run_lossy_path(dev, LOSSY_SMALL_G, LOSSY_SMALL_BLOCKS)
-    small_launches = (chaos_rounds.launches, steady_rounds.launches)
+    small_launches = bare_launches(chaos_rounds, f"the lossy path at G={LOSSY_SMALL_G}")
     # The main path at full size, its launches counted alone.
-    steady_rounds.launches = 0
-    chaos_rounds.launches = 0
+    zero_launches()
     full = run_lossy_path(dev, G, 3, start=settled, cut_last=True)
-    launches = chaos_rounds.launches
-    full_steady = steady_rounds.launches
+    launches = bare_launches(chaos_rounds, f"the lossy path at G={G}")
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
-    if small_launches[0] <= 0 or launches <= 0:
-        raise AssertionError(f"the lossy path never launched the chaos kernel "
-                             f"(G={LOSSY_SMALL_G}: {small_launches[0]}, G={G}: "
-                             f"{launches})")
     if full[2] <= 0:
         raise AssertionError(f"the lossy path at G={G} never ran the general branch")
-    if small_launches[1] or full_steady:
-        raise AssertionError("the lossy path launched the steady kernel")
     check_state(small[0], LOSSY_SMALL_G)
     check_state(full[0])
     t0 = time.perf_counter()
     small_cpu = run_lossy_path("cpu", LOSSY_SMALL_G, LOSSY_SMALL_BLOCKS)
-    full_cpu = run_lossy_path("cpu", G, 3, start=settled_cpu, cut_last=True)
     t_cpu = time.perf_counter() - t0
-    for note, a, b in (("lossy G=8192", small, small_cpu), ("lossy G=100000", full, full_cpu)):
-        assert_same(a[0], b[0], note)
-        if a[1:] != b[1:]:
-            raise AssertionError(f"{note}: fused/general counts differ {a[1:]} {b[1:]}")
+    assert_same(small[0], small_cpu[0], f"lossy G={LOSSY_SMALL_G}")
+    if small[1:] != small_cpu[1:]:
+        raise AssertionError(f"lossy G={LOSSY_SMALL_G}: fused/general counts differ "
+                             f"{small[1:]} {small_cpu[1:]}")
+    cfg = lossy_cfg(G)
+    run, ref, h_launches = instrumented_pair(
+        dev, "lossy", chaos_rounds, (2, 1),
+        cpu_start=fresh_start(on_cpu(settled), cfg), cfg=cfg, blocks=3,
+        start=fresh_start(settled, cfg), chaos=True, round_base=LOSSY_SETTLE,
+        cut_last=True)
+    same_as_reference(full, ref, f"lossy G={G}")
     print(f"lossy path {LOSSY_SMALL_G}x{P} (init, {LOSSY_SETTLE} settle rounds, "
           f"{LOSSY_SMALL_BLOCKS} blocks; fused {small[1]}, general blocks {small[2]}) "
           f"and {G}x{P} (settled, 3 blocks, the last with a link down in 1% of "
           f"groups; fused {full[1]}, general blocks {full[2]}): card == CPU on all "
-          f"{len(settled._fields)} fields; chaos kernel launches {small_launches[0]} "
+          f"{len(settled._fields)} fields; chaos kernel launches {small_launches} "
           f"at G={LOSSY_SMALL_G} and {launches} at G={G} (the main path's count); "
-          f"card {t_gpu:.2f}s, CPU {t_cpu:.2f}s")
-    return full[0], launches
+          f"card {t_gpu:.2f}s, CPU (G={LOSSY_SMALL_G}) {t_cpu:.2f}s")
+    return full[0], launches, run, h_launches
 
 
 @phase("lossy timing")
@@ -731,14 +897,15 @@ def compare_damped(args, note, with_cq=True, round_base=CQ_SETTLE,
                    election_tick=CQ_TICK):
     kw = dict(round_base=round_base, rounds=K, election_tick=election_tick,
               heartbeat_tick=1, with_cq=with_cq)
-    return compare(damped_rounds, damped_rounds_reference, DAMPED_OUTPUTS, args, kw,
-                   f"{note} cq={with_cq} round_base={round_base}")
+    return compare_variants(damped_rounds, damped_rounds_reference, DAMPED_OUTPUTS,
+                            args, kw, f"{note} cq={with_cq} round_base={round_base}")
 
 
 @phase("damped parity")
 def phase_damped_parity(dev):
-    """Returns (max |difference|, the settled 100k × 5 damped state)."""
-    err, settled = 0, None
+    """Returns ((plain, with_health) max |difference|, the settled 100k × 5
+    damped state)."""
+    err, settled = (0, 0), None
     for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3)):
         st = damped_settle(dev, n_groups, n_peers)
         if (n_groups, n_peers) == (G, P):
@@ -749,26 +916,26 @@ def phase_damped_parity(dev):
             if crashed_name != "no crashes":
                 crashed = crash_followers(st, n_peers, n_groups, dev)
             note = f"damped-settled G={n_groups} P={n_peers} {crashed_name}"
-            err = max(err, compare_damped(
+            err = worst(err, compare_damped(
                 fused_step.damped_operands(st, crashed, append), note))
             for loss_name, make_loss in (("1%", uniform_loss), ("heavy", heavy_loss)):
                 args = fused_step.damped_operands(
                     st, crashed, append, make_loss(n_groups, n_peers, dev))
                 for rb in (CQ_SETTLE, 2**31 - K):
-                    err = max(err, compare_damped(
+                    err = worst(err, compare_damped(
                         args, f"{note} {loss_name} loss", round_base=rb))
     st = damped_settle(dev, G, P, pre_vote=True)
     append = torch.ones(G, dtype=torch.int32, device=dev)
     crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
     for loss in (None, uniform_loss(G, P, dev)):
-        err = max(err, compare_damped(
+        err = worst(err, compare_damped(
             fused_step.damped_operands(st, crashed, append, loss),
             f"pre-vote-settled G={G} P={P} loss={loss is not None}", with_cq=False))
     for n_peers in (3, 5, 7):
         for with_cq in (False, True):
             for loss in (False, True):
                 args = random_damped_inputs(n_peers, G + 3, 20 + n_peers, dev, loss)
-                err = max(err, compare_damped(
+                err = worst(err, compare_damped(
                     args, f"random planes G={G + 3} P={n_peers} loss={loss}",
                     with_cq=with_cq, round_base=2**31 - K, election_tick=6))
     return err, settled
@@ -802,29 +969,25 @@ def run_damped_path(device, n_groups, blocks, start=None, crash_blocks=0):
 
 @phase("damped")
 def phase_damped(dev, settled):
-    """Returns (the 100k state after the fused blocks, the damped kernel's
-    launches in the 100k run alone)."""
-    settled_cpu = sim.SimState(*(None if v is None else v.cpu() for v in settled))
+    """The check-quorum path on the card, bare and instrumented: at G=8,192
+    from one instrumented settle, and at G=100,000 from the settled state
+    (fused blocks, then crash blocks); then each once on the CPU
+    (instrumented), the reference for both.  Returns (the bare 100k state
+    before the crash blocks, its damped kernel launches, the instrumented
+    card run, its with_health launches)."""
     t0 = time.perf_counter()
-    for fn in (steady_rounds, chaos_rounds, damped_rounds):
-        fn.launches = 0
-    small = run_damped_path(dev, CQ_SMALL_G, CQ_SMALL_BLOCKS)
-    small_launches = damped_rounds.launches
+    small_cfg = damped_cfg(CQ_SMALL_G)
+    small_start = instrumented_settle(dev, small_cfg, CQ_SETTLE)
+    zero_launches()
+    small = run_damped_path(dev, CQ_SMALL_G, CQ_SMALL_BLOCKS, start=small_start[0])
+    small_launches = bare_launches(damped_rounds, f"the check-quorum path at G={CQ_SMALL_G}")
     # The main path at full size, its launches counted alone.
-    for fn in (steady_rounds, chaos_rounds, damped_rounds):
-        fn.launches = 0
+    zero_launches()
     full = run_damped_path(dev, G, CQ_FUSED_BLOCKS, start=settled,
                            crash_blocks=CQ_CRASH_BLOCKS)
-    launches = damped_rounds.launches
-    others = steady_rounds.launches + chaos_rounds.launches
+    launches = bare_launches(damped_rounds, f"the check-quorum path at G={G}")
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
-    if small_launches <= 0 or launches <= 0:
-        raise AssertionError(f"the check-quorum path never launched the damped "
-                             f"kernel (G={CQ_SMALL_G}: {small_launches}, G={G}: "
-                             f"{launches})")
-    if others:
-        raise AssertionError("the check-quorum path launched another kernel")
     if full[2] != CQ_CRASH_BLOCKS or small[2] or full[1] != CQ_FUSED_BLOCKS * K * G:
         raise AssertionError(f"unexpected branches: G={CQ_SMALL_G} general "
                              f"{small[2]}, G={G} fused {full[1]} general {full[2]}")
@@ -835,27 +998,27 @@ def phase_damped(dev, settled):
                    > full[3].term.amax(0)[crashed_groups]).sum())
     if elected <= 0:
         raise AssertionError("no election in the groups whose leader crashed")
-    t0 = time.perf_counter()
-    small_cpu = run_damped_path("cpu", CQ_SMALL_G, CQ_SMALL_BLOCKS)
-    full_cpu = run_damped_path("cpu", G, CQ_FUSED_BLOCKS, start=settled_cpu,
-                               crash_blocks=CQ_CRASH_BLOCKS)
-    t_cpu = time.perf_counter() - t0
-    for note, a, b in ((f"damped G={CQ_SMALL_G}", small, small_cpu),
-                       (f"damped G={G}", full, full_cpu)):
-        assert_same(a[0], b[0], note)
-        assert_same(a[3], b[3], note + " (before the crash blocks)")
-        if a[1:3] != b[1:3]:
-            raise AssertionError(f"{note}: fused/general counts differ {a[1:3]} {b[1:3]}")
-    print(f"check-quorum path {CQ_SMALL_G}x{P} (init, {CQ_SETTLE} settle rounds, "
-          f"{CQ_SMALL_BLOCKS} blocks; fused {small[1]}, general blocks {small[2]}) "
+    _, small_ref, _ = instrumented_pair(
+        dev, f"check-quorum G={CQ_SMALL_G}", damped_rounds, (CQ_SMALL_BLOCKS, 0),
+        cpu_start=instrumented_settle("cpu", small_cfg, CQ_SETTLE), cfg=small_cfg,
+        blocks=CQ_SMALL_BLOCKS, start=small_start)
+    same_as_reference(small, small_ref, f"check-quorum G={CQ_SMALL_G}")
+    cfg = damped_cfg(G)
+    run, ref, h_launches = instrumented_pair(
+        dev, "check-quorum", damped_rounds, (CQ_FUSED_BLOCKS, CQ_CRASH_BLOCKS),
+        cpu_start=fresh_start(on_cpu(settled), cfg), cfg=cfg, blocks=CQ_FUSED_BLOCKS,
+        crash_blocks=CQ_CRASH_BLOCKS, start=fresh_start(settled, cfg))
+    same_as_reference(full, ref, f"check-quorum G={G}")
+    print(f"check-quorum path {CQ_SMALL_G}x{P} (init, {CQ_SETTLE} instrumented settle "
+          f"rounds, {CQ_SMALL_BLOCKS} blocks; fused {small[1]}, general blocks {small[2]}) "
           f"and {G}x{P} (settled, {CQ_FUSED_BLOCKS} blocks, then {CQ_CRASH_BLOCKS} "
           f"with the acting leader crashed in 1% of groups, {elected} of "
           f"{len(range(0, G, 100))} of which elected a new leader; fused "
           f"{full[1]}, general blocks {full[2]}): card == CPU "
           f"on all {len(settled._fields)} fields, recent_active included; damped "
           f"kernel launches {small_launches} at G={CQ_SMALL_G} and {launches} at "
-          f"G={G} (the main path's count); card {t_gpu:.2f}s, CPU {t_cpu:.2f}s")
-    return full[3], launches
+          f"G={G} (the main path's count); card {t_gpu:.2f}s")
+    return full[3], launches, run, h_launches
 
 
 @phase("damped timing")
@@ -882,6 +1045,251 @@ def phase_damped_timing(dev, st):
                              f"fused_frac {t['fused_frac']}")
     return t
 
+# --- the instrumented paths (bench.py --health) -----------------------------
+
+
+def zero_launches():
+    for fn in KERNELS:
+        fn.launches = fn.health_launches = 0
+
+
+def launch_counts():
+    """{kernel: (with_health=False launches, with_health=True launches)}."""
+    return {fn.__name__: (fn.launches, fn.health_launches) for fn in KERNELS}
+
+
+def instrumented(cfg):
+    return cfg._replace(collect_counters=True, collect_health=True)
+
+
+def summary_of(cfg, planes):
+    """kernels.health_summary at the config's thresholds, as the
+    HealthMonitor's dict (what bench.py --health-out writes)."""
+    out = pk.health_summary(planes, cfg.leaderless_stall_ticks, cfg.commit_stall_ticks,
+                            cfg.churn_bumps, min(cfg.health_topk, cfg.n_groups))
+    return HealthMonitor.summary_dict(*(t.tolist() for t in out))
+
+
+def instrumented_settle(device, cfg, rounds):
+    """init_state and `rounds` rounds of one append a group through
+    ClusterSim(collect_counters=True, collect_health=True): (state, counter
+    totals, health)."""
+    s = sim.ClusterSim(instrumented(cfg), device=device)
+    s.run(rounds, None, torch.ones(cfg.n_groups, dtype=torch.int32, device=s.device))
+    return s.state, s.counters(), s._health
+
+
+def fresh_start(st, cfg):
+    """A settled state with zero counters and fresh health planes."""
+    return st, dict.fromkeys(pk.COUNTER_NAMES, 0), sim.init_health(cfg, st.term.device)
+
+
+def run_health_path(device, cfg, blocks, settle=0, start=None, chaos=False,
+                    round_base=0, crash_blocks=0, cut_last=False):
+    """An instrumented path: from `start` (state, counter totals, health)
+    or else instrumented_settle(device, cfg, settle), `blocks` k=32
+    blocks of fast_multi_round(with_health=True, with_counters=True), then
+    `crash_blocks` with the acting leader crashed in every hundredth group;
+    with `chaos`, an all-up link plane and 1% loss, and with `cut_last` the
+    last block's 0 -> 1 link down in 1% of groups.  Returns a dict of the
+    final state, health, counter totals, summary, fused and general block
+    counts, and the state and health before the crash blocks."""
+    cfg = instrumented(cfg)
+    n_groups = cfg.n_groups
+    st, totals, health = instrumented_settle(device, cfg, settle) if start is None else start
+    dev = st.term.device
+    counters = pk.zero_counters(dev)
+    crashed = torch.zeros((P, n_groups), dtype=torch.bool, device=dev)
+    append = torch.ones(n_groups, dtype=torch.int32, device=dev)
+    lead = ()
+    if chaos:
+        lead = (torch.ones((P, P, n_groups), dtype=torch.bool, device=dev),
+                uniform_loss(n_groups, P, dev))
+    block = fused_step.fast_multi_round(cfg, k=K, with_chaos=chaos, count_fused=True,
+                                        with_health=True, with_counters=True)
+    fused = general = 0
+    mid = None
+    for b in range(blocks + crash_blocks):
+        if b == blocks:
+            mid = (st, health)
+            leader = st.state.eq(ROLE_LEADER).to(torch.int64).argmax(0)
+            crashed = crashed.clone()
+            crashed[leader[::100], torch.arange(n_groups, device=dev)[::100]] = True
+        args = lead
+        if chaos:
+            link = lead[0]
+            if cut_last and b == blocks + crash_blocks - 1:
+                link = link.clone()
+                link[0, 1, ::100] = False
+            args = (link, lead[1], round_base)
+            round_base += K
+        prev = fused
+        st, counters, health, fused = block(st, crashed, append, *args, counters,
+                                            health, fused)
+        general += fused == prev
+    if mid is None:
+        mid = (st, health)
+    window = counters.tolist()
+    if min(window) < 0:
+        raise AssertionError(f"the counter plane wrapped int32: {window}")
+    totals = {k: v + w for (k, v), w in zip(totals.items(), window)}
+    return dict(state=st, health=health, counters=totals, fused=fused,
+                general=general, summary=summary_of(cfg, health.planes), mid=mid)
+
+
+def assert_same_health(a, b, note):
+    """Card run `a` against CPU run `b` (run_health_path's dicts)."""
+    assert_same(a["state"], b["state"], note)
+    assert_same(a["mid"][0], b["mid"][0], note + " (before the crash blocks)")
+    for key in ("counters", "summary", "fused", "general"):
+        if a[key] != b[key]:
+            raise AssertionError(f"{note}: {key} differ: card {a[key]}, CPU {b[key]}")
+    for h_a, h_b, when in ((a["health"], b["health"], ""),
+                           (a["mid"][1], b["mid"][1], " (before the crash blocks)")):
+        if h_a.window_pos != h_b.window_pos or not torch.equal(h_a.planes.cpu(), h_b.planes):
+            raise AssertionError(f"{note}{when}: health planes or window_pos differ")
+
+
+def on_cpu(st):
+    return sim.SimState(*(None if v is None else v.cpu() for v in st))
+
+
+def bare_launches(kernel, note):
+    """The bare path just run launched `kernel`'s with_health=False variant
+    and nothing else; returns that count."""
+    counts = launch_counts()
+    for name, (plain, health) in counts.items():
+        if health or (plain > 0) != (name == kernel.__name__):
+            raise AssertionError(f"{note}: unexpected launches {counts}")
+    return counts[kernel.__name__][0]
+
+
+def same_as_reference(bare, ref, note):
+    """A bare card run (state, fused, general[, the state before the crash
+    blocks]) against the CPU's instrumented run of the same schedule (the
+    extras never change the state)."""
+    assert_same(bare[0], ref["state"], note)
+    if len(bare) > 3:
+        assert_same(bare[3], ref["mid"][0], note + " (before the crash blocks)")
+    if tuple(bare[1:3]) != (ref["fused"], ref["general"]):
+        raise AssertionError(f"{note}: fused/general counts differ {bare[1:3]} "
+                             f"{(ref['fused'], ref['general'])}")
+
+
+def instrumented_pair(dev, name, kernel, expect, cpu_start=None, **kw):
+    """A path run instrumented (run_health_path's `kw`) on the card, its
+    launch counts zeroed just before it and read just after, then on the
+    CPU (from `cpu_start` in place of kw's start): every field, the four
+    health planes, window_pos, the counters, the summary and the (fused,
+    general) block counts, which must be `expect`, equal.  Prints the
+    end-of-run summary as bench.py --health-out writes it.  Returns (card
+    run, CPU run, with_health launches)."""
+    t0 = time.perf_counter()
+    zero_launches()
+    got = run_health_path(dev, **kw)
+    counts = launch_counts()
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    for kname, (plain, health) in counts.items():
+        if plain or (health > 0) != (kname == kernel.__name__):
+            raise AssertionError(f"{name} --health: unexpected launches {counts}")
+    n_groups = kw["cfg"].n_groups
+    check_state(got["state"], n_groups)
+    t0 = time.perf_counter()
+    want = run_health_path("cpu", **(kw if cpu_start is None else dict(kw, start=cpu_start)))
+    t_cpu = time.perf_counter() - t0
+    assert_same_health(got, want, f"{name} --health")
+    fused_blocks, general_blocks = expect
+    if (got["fused"], got["general"]) != (fused_blocks * K * n_groups, general_blocks):
+        raise AssertionError(f"{name} --health: fused {got['fused']}, general blocks "
+                             f"{got['general']}")
+    origin = "settled" if "start" in kw else f"{kw['settle']} instrumented settle rounds"
+    print(f"health path {name} ({n_groups}x{P}, {origin}, {fused_blocks + general_blocks} "
+          f"blocks of {K}, general {got['general']}): card == CPU on every field, the "
+          f"four health planes, window_pos (={got['health'].window_pos}), the counters "
+          f"{got['counters']}, the summary and the fused count ({got['fused']}); "
+          f"launches by variant {counts}; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s")
+    print(f"  end-of-run health summary: {json.dumps(got['summary'])}")
+    return got, want, counts[kernel.__name__][1]
+
+
+def health_time_path(dev, label, cfg, start, rb, fused_round, operands, kernel,
+                     reference, kernel_name, work):
+    """time_path over bench.py --health's block: fast_multi_round with the
+    health planes threaded (no counters), the carry (SimState,
+    HealthState); fused_frac must be 1.0."""
+    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    fast = fused_step.fast_multi_round(cfg, k=K, count_fused=True, with_health=True)
+
+    def block(carry, rb, f):
+        st, h, f = fast(carry[0], crashed, append, carry[1], f)
+        return (st, h), f
+
+    t = time_path(
+        dev, label, start, rb, block=block,
+        operands=lambda c, rb: operands(c[0], crashed, append,
+                                        c[1].planes[pk.HP_SINCE_COMMIT], rb),
+        kernel=kernel, reference=reference, kernel_name=kernel_name,
+        fused_round=lambda c, rb: fused_round(c[0], crashed, append, c[1]),
+        predicate=lambda c: fused_step.steady_predicate(cfg, c[0], crashed, K),
+        work=work,
+    )
+    if t["fused_frac"] < 1.0:
+        raise AssertionError(f"{label} timed loop left the fused path: "
+                             f"fused_frac {t['fused_frac']}")
+    return t
+
+
+@phase("health timing")
+def phase_health_timing(dev, card):
+    """bench.py --health on the steady and the check-quorum path, and the
+    lossy with_health kernel alone."""
+    steady_cfg = sim.SimConfig(n_groups=G, n_peers=P)
+    ticks = dict(rounds=K, election_tick=steady_cfg.election_tick,
+                 heartbeat_tick=steady_cfg.heartbeat_tick)
+    steady = health_time_path(
+        dev, "steady --health", steady_cfg,
+        (card["steady"]["state"], card["steady"]["health"]), 0,
+        fused_round=fused_step.steady_round(steady_cfg, K, with_health=True),
+        operands=lambda s, c, a, tsc, rb: (fused_step.steady_operands(s, c, a, tsc), ticks),
+        kernel=steady_rounds, reference=steady_rounds_reference,
+        kernel_name="steady_round_kernel", work=steady_work(P, G, K, with_health=True))
+    cq_cfg = damped_cfg(G)
+    cq_ticks = dict(round_base=0, rounds=K, election_tick=cq_cfg.election_tick,
+                    heartbeat_tick=cq_cfg.heartbeat_tick, with_cq=True)
+    damped = health_time_path(
+        dev, "check-quorum --health", cq_cfg, card["damped"]["mid"], 0,
+        fused_round=fused_step.damped_round(cq_cfg, K, with_health=True),
+        operands=lambda s, c, a, tsc, rb: (
+            fused_step.damped_operands(s, c, a, None, tsc), cq_ticks),
+        kernel=damped_rounds, reference=damped_rounds_reference,
+        kernel_name="damped_round_kernel",
+        work=damped_work(P, G, K, with_health=True))
+    lossy = kernel_timing(
+        dev, "lossy with_health", card["lossy"]["state"], card["lossy"]["health"])
+    return steady, damped, lossy
+
+
+def kernel_timing(dev, label, st, health):
+    """The lossy with_health kernel alone: device time cold and hot, a
+    wrapper call, the plain version and the bound."""
+    cfg = lossy_cfg(G)
+    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    args = fused_step.chaos_operands(st, crashed, append, uniform_loss(G, P, dev),
+                                     health.planes[pk.HP_SINCE_COMMIT])
+    kw = dict(round_base=LOSSY_SETTLE, rounds=K, election_tick=cfg.election_tick,
+              heartbeat_tick=cfg.heartbeat_tick)
+    t = kernel_times(dev, chaos_rounds, chaos_rounds_reference, args, kw,
+                     chaos_work(P, G, K, with_health=True))
+    print(f"timing {label} {G}x{P} k={K} [{t['card']}]: chaos_round_kernel "
+          f"{t['ms']:.4f} ms cold ({t['hot_ms']:.4f} ms hot; a wrapper call "
+          f"{t['call_ms']:.4f} ms), plain version {t['plain_ms']:.3f} ms; bound "
+          f"{t['bound_ms']:.4f} ms (bytes {t['bytes_bound_ms']:.4f}, operations "
+          f"{t['ops_bound_ms']:.4f})")
+    return t
+
 
 def kernel_entry(name, source, replaces, launches, err, t):
     return {
@@ -899,15 +1307,18 @@ def kernel_entry(name, source, replaces, launches, err, t):
         "library_ms": None,
         "hot_ms": t["hot_ms"],
         "call_ms": t["call_ms"],
-        "block_ms": t["block_ms"],
-        "wrapper_ms": t["wrapper_ms"],
-        "predicate_ms": t["predicate_ms"],
+        "block_ms": t.get("block_ms"),
+        "wrapper_ms": t.get("wrapper_ms"),
+        "predicate_ms": t.get("predicate_ms"),
     }
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="", help="also write all results as JSON here")
+    ap.add_argument("--quick", action="store_true",
+                    help="build, hold every kernel variant against its plain "
+                         "version, and stop")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -919,29 +1330,43 @@ def main(argv=None):
 
     phase_build()
     steady_err = phase_parity(dev)
-    cfg, st, steady_launches = phase_main(dev)
+    if opts.quick:
+        phase_chaos_parity(dev)
+        phase_damped_parity(dev)
+        print("quick: every kernel variant equals its plain version on the card")
+        return 0
+    cfg, st, steady_launches, steady_run, steady_h_launches = phase_main(dev)
     steady = phase_timing(dev, cfg, st)
     chaos_err, settled = phase_chaos_parity(dev)
-    st, chaos_launches = phase_lossy(dev, settled)
+    st, chaos_launches, lossy_run, chaos_h_launches = phase_lossy(dev, settled)
     lossy = phase_lossy_timing(dev, st)
     damped_err, settled = phase_damped_parity(dev)
-    st, damped_launches = phase_damped(dev, settled)
+    st, damped_launches, damped_run, damped_h_launches = phase_damped(dev, settled)
     damped = phase_damped_timing(dev, st)
+    steady_h, damped_h, lossy_h = phase_health_timing(
+        dev, {"steady": steady_run, "lossy": lossy_run, "damped": damped_run})
 
+    rows = (
+        ("steady_rounds", STEADY_SOURCE, STEADY_REPLACES, steady_err,
+         (steady_launches, steady), (steady_h_launches, steady_h)),
+        ("chaos_rounds", CHAOS_SOURCE, CHAOS_REPLACES, chaos_err,
+         (chaos_launches, lossy), (chaos_h_launches, lossy_h)),
+        ("damped_rounds", DAMPED_SOURCE, DAMPED_REPLACES, damped_err,
+         (damped_launches, damped), (damped_h_launches, damped_h)),
+    )
     kernels = {"kernels": [
-        kernel_entry("steady_rounds", STEADY_SOURCE, STEADY_REPLACES,
-                     steady_launches, steady_err, steady),
-        kernel_entry("chaos_rounds", CHAOS_SOURCE, CHAOS_REPLACES,
-                     chaos_launches, chaos_err, lossy),
-        kernel_entry("damped_rounds", DAMPED_SOURCE, DAMPED_REPLACES,
-                     damped_launches, damped_err, damped),
+        kernel_entry(f"{kname} with_health={flag}", source,
+                     f"{replaces} (with_health={flag})", launches, errs[flag], t)
+        for kname, source, replaces, errs, *variants in rows
+        for flag, (launches, t) in zip((False, True), variants)
     ]}
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w", encoding="utf-8") as fh:
-            json.dump({**kernels, "timing": {"steady": steady, "lossy": lossy,
-                                              "damped": damped}},
-                      fh, indent=1)
+            json.dump({**kernels, "ptxas": PTXAS, "timing": {
+                "steady": steady, "lossy": lossy, "damped": damped,
+                "steady_health": steady_h, "damped_health": damped_h,
+                "lossy_health_kernel": lossy_h}}, fh, indent=1, default=str)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -4,9 +4,11 @@ tensors, counterpart of `raft_tpu/multiraft`.
 Modules:
   platform      — resolve_device: `cuda` by default, the CPU on request
   kernels       — elementwise protocol kernels (timeout and loss PRNGs, tick,
-                  quorum index, check-quorum liveness and boundary bound)
-  sim           — SimConfig, SimState, init_state, the plain, link-gated and
-                  damped steps, ClusterSim
+                  quorum index, check-quorum liveness and boundary bound, the
+                  event counters and the health planes)
+  sim           — SimConfig, SimState, HealthState, init_state, init_health,
+                  the plain, link-gated and damped steps, ClusterSim
+  health        — HealthMonitor, the host consumer of health summaries
   steady_kernel — k fused steady rounds: the CUDA kernel and its plain version
   chaos_kernel  — k fused loss-gated rounds: the CUDA kernel and its plain version
   damped_kernel — k fused check-quorum/pre-vote rounds: the CUDA kernel and its
@@ -16,13 +18,25 @@ Modules:
 """
 
 from .fused_step import fast_multi_round, steady_predicate, steady_round
-from .sim import ClusterSim, SimConfig, SimState, init_state, step
+from .health import HealthMonitor
+from .sim import (
+    ClusterSim,
+    HealthState,
+    SimConfig,
+    SimState,
+    init_health,
+    init_state,
+    step,
+)
 
 __all__ = [
     "ClusterSim",
+    "HealthMonitor",
+    "HealthState",
     "SimConfig",
     "SimState",
     "fast_multi_round",
+    "init_health",
     "init_state",
     "steady_predicate",
     "steady_round",

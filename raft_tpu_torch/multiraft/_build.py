@@ -41,13 +41,17 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # spills per kernel) and wall seconds, by library name.
 build_log: Dict[str, Tuple[str, float]] = {}
 
-_STEADY_ARGS = [ctypes.c_void_p] * 19 + [ctypes.c_longlong] + [ctypes.c_int] * 4
-# 16 operand and 9 output pointers, G, then P, round_base, rounds,
-# election_tick and heartbeat_tick.
-_CHAOS_ARGS = [ctypes.c_void_p] * 25 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-# 17 operand and 10 output pointers, G, then P, round_base, rounds,
-# election_tick, heartbeat_tick, with_cq and with_loss.
-_DAMPED_ARGS = [ctypes.c_void_p] * 27 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+# Each launcher takes its operand and output pointers, then the
+# ticks_since_commit pointers tsc and tsc_out (null without health), G, and
+# its int parameters ending in with_health.
+# 13 operands, 6 outputs; P, rounds, election_tick, heartbeat_tick.
+_STEADY_ARGS = [ctypes.c_void_p] * 21 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+# 16 operands, 9 outputs; P, round_base, rounds, election_tick,
+# heartbeat_tick.
+_CHAOS_ARGS = [ctypes.c_void_p] * 27 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+# 17 operands, 10 outputs; P, round_base, rounds, election_tick,
+# heartbeat_tick, with_cq and with_loss.
+_DAMPED_ARGS = [ctypes.c_void_p] * 29 + [ctypes.c_longlong] + [ctypes.c_int] * 8
 
 
 def _nvcc() -> str:
@@ -137,8 +141,8 @@ def _library(name: str, source: str, cuda: bool, fn: str, argtypes) -> ctypes.CD
 
 def load_steady_cuda() -> ctypes.CDLL:
     """The CUDA steady-round library; its `steady_round_launch` takes the
-    19 tensor pointers, G, P, rounds, election_tick, heartbeat_tick and the
-    CUDA stream."""
+    21 tensor pointers, G, P, rounds, election_tick, heartbeat_tick,
+    with_health and the CUDA stream."""
     return _library("steady_round", "steady_round.cu", True,
                     "steady_round_launch", _STEADY_ARGS + [ctypes.c_void_p])
 
@@ -150,9 +154,9 @@ def load_steady_host() -> ctypes.CDLL:
 
 
 def load_chaos_cuda() -> ctypes.CDLL:
-    """The CUDA chaos-round library; its `chaos_round_launch` takes the 25
+    """The CUDA chaos-round library; its `chaos_round_launch` takes the 27
     tensor pointers, G, P, round_base, rounds, election_tick,
-    heartbeat_tick and the CUDA stream."""
+    heartbeat_tick, with_health and the CUDA stream."""
     return _library("chaos_round", "chaos_round.cu", True,
                     "chaos_round_launch", _CHAOS_ARGS + [ctypes.c_void_p])
 
@@ -165,9 +169,9 @@ def load_chaos_host() -> ctypes.CDLL:
 
 def load_damped_cuda() -> ctypes.CDLL:
     """The CUDA damped-round library; its `damped_round_launch` takes the
-    27 tensor pointers (the loss_rate pointer null without loss), G, P,
-    round_base, rounds, election_tick, heartbeat_tick, with_cq, with_loss
-    and the CUDA stream."""
+    29 tensor pointers (the loss_rate pointer null without loss), G, P,
+    round_base, rounds, election_tick, heartbeat_tick, with_cq, with_loss,
+    with_health and the CUDA stream."""
     return _library("damped_round", "damped_round.cu", True,
                     "damped_round_launch", _DAMPED_ARGS + [ctypes.c_void_p])
 

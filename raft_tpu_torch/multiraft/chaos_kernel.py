@@ -1,9 +1,8 @@
 """k fused loss-gated steady rounds: the hand-written CUDA kernel, its plain
 PyTorch version, and the wrapper that picks between them by device.
 
-Replaces `raft_tpu/multiraft/pallas_step.py:_steady_chaos_kernel` (the
-`with_health=False` variant, built by `_build_chaos_round` at :752) with
-its helpers `_kernel_loss_draw` (:243), `_agree_event` (:259) and
+Replaces `raft_tpu/multiraft/pallas_step.py:_steady_chaos_kernel`, both
+variants (built by `_build_chaos_round` at :752), with its helpers `_kernel_loss_draw` (:243), `_agree_event` (:259) and
 `_quorum_tile` (:278).  It computes k rounds of `sim.step(link=healed &
 ~link_loss_draw(round))` for groups in the steady state: each round draws
 the per-link loss sample keyed (round, src, dst, group), delivers the
@@ -12,7 +11,9 @@ Progress over the reverse link), sends catch-up appends to lagging
 members, commits at stage A off the fresh acks, re-broadcasts a commit
 advance, commits at stage B and propagates it, then runs the round's
 append workload; the pairwise `agree` block follows every wholesale
-adoption.
+adoption.  The with_health variant (`tsc` given) also carries
+ticks_since_commit, as the steady kernel's does (steady_kernel.py's
+CommitTracker).
 
 Bound on an H100 (`chaos_work`, which counts what the outputs need: the
 loss draws and `loss_rate` entries of the leader's 2(P - 1) links only):
@@ -48,6 +49,7 @@ from . import _build
 from .kernels import ROLE_FOLLOWER, ROLE_LEADER, link_loss_draw
 from .platform import check_operands
 from .sim import _merge_agree, _quorum_pick
+from .steady_kernel import CommitTracker, health_work
 
 I32 = torch.int32
 MAX_PEERS = 7
@@ -61,14 +63,15 @@ OUTPUT_NAMES = (
 
 def chaos_rounds_reference(
     state, leader_id, hb, ee, li, lt, commit, matched_row, voter, member,
-    crashed, agree, loss_rate, ts, lead_term, app, *, round_base: int,
-    rounds: int, election_tick: int, heartbeat_tick: int,
+    crashed, agree, loss_rate, ts, lead_term, app, tsc=None, *,
+    round_base: int, rounds: int, election_tick: int, heartbeat_tick: int,
 ) -> Outputs:
     """Plain PyTorch version of the kernel.  Planes [P, G] int32 (masks bool
     or 0/1 ints), agree and loss_rate [P, P, G] int32, ts, lead_term and
-    app [G] int32; round_base is the absolute index of the first round.
-    Returns fresh (state, leader_id, hb, ee, li, lt, commit, matched_row,
-    agree)."""
+    app [G] int32, and for the with_health variant tsc, the int32 [G]
+    ticks_since_commit row; round_base is the absolute index of the first
+    round.  Returns fresh (state, leader_id, hb, ee, li, lt, commit,
+    matched_row, agree), and tsc' last when tsc is given."""
     P = state.shape[0]
     dev = state.device
     voter, member, crashed = voter != 0, member != 0, crashed != 0
@@ -84,6 +87,7 @@ def chaos_rounds_reference(
     count = voter.sum(0, dtype=I32)
     qpos = count // 2
     n_app = torch.where(has_leader, app, 0)
+    track = CommitTracker(tsc, commit)
 
     def lead_gather(plane):  # [P, G] -> [G]: the acting leader's value
         return (plane * lead_f).sum(0, dtype=I32)
@@ -190,10 +194,15 @@ def chaos_rounds_reference(
         lead_commit = torch.where(ok_c, torch.maximum(c_new2, mci3), c_new2)
         commit = torch.where(is_lead, lead_commit, commit)
         commit = torch.where(sync_b, torch.maximum(commit, lead_commit), commit)
-    return state, leader_id, hb, ee, li, lt, commit, matched_row, agree
+        track.round(commit)
+    return (
+        state, leader_id, hb, ee, li, lt, commit, matched_row, agree
+    ) + track.outputs()
 
 
-def chaos_work(P: int, G: int, rounds: int) -> Tuple[int, int]:
+def chaos_work(
+    P: int, G: int, rounds: int, with_health: bool = False
+) -> Tuple[int, int]:
     """(bytes, integer operations) the function needs for G groups that
     each have one acting leader, as every group of a fused block has.
 
@@ -222,6 +231,7 @@ def chaos_work(P: int, G: int, rounds: int) -> Tuple[int, int]:
       quorum picks     3 × (3P + 2 per comparator of the network)
       commits          7 + P (stage A), 7 + 11P (stage B and propagation)
       workload         9 + 29P
+    The with_health variant adds health_work's bytes and operations.
     """
     links = 2 * (P - 1)
     nbytes = (
@@ -230,7 +240,11 @@ def chaos_work(P: int, G: int, rounds: int) -> Tuple[int, int]:
     )
     comparators = sum(len(range(s % 2, P - 1, 2)) for s in range(P))
     per_round = 20 * P * P + 120 * P + 12 * links + 6 * comparators + 33
-    return nbytes, per_round * rounds * G
+    ops = per_round * rounds * G
+    if with_health:
+        hb, hops = health_work(P, G, rounds)
+        nbytes, ops = nbytes + hb, ops + hops
+    return nbytes, ops
 
 
 def check_round_base(round_base: int, rounds: int) -> None:
@@ -244,7 +258,7 @@ def check_round_base(round_base: int, rounds: int) -> None:
 
 def _launch(
     state, leader_id, hb, ee, li, lt, commit, matched_row, voter, member,
-    crashed, agree, loss_rate, ts, lead_term, app, round_base: int,
+    crashed, agree, loss_rate, ts, lead_term, app, tsc, round_base: int,
     rounds: int, election_tick: int, heartbeat_tick: int,
 ) -> Outputs:
     P, G = state.shape
@@ -256,50 +270,62 @@ def _launch(
     masks = dict(voter=voter, member=member, crashed=crashed)
     pairs = dict(agree=agree, loss_rate=loss_rate)
     rows = dict(ts=ts, lead_term=lead_term, app=app)
+    if tsc is not None:
+        rows["tsc"] = tsc
     check_operands("chaos_rounds", dev, (
         (planes, (P, G), I32), (masks, (P, G), torch.bool),
         (pairs, (P, P, G), I32), (rows, (G,), I32),
     ))
     outs = tuple(torch.empty((P, G), dtype=I32, device=dev) for _ in range(8))
     outs += (torch.empty((P, P, G), dtype=I32, device=dev),)
+    tsc_out = None if tsc is None else torch.empty((G,), dtype=I32, device=dev)
     lib = _build.load_chaos_cuda()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         args = [t.data_ptr() for t in (*planes.values(), *masks.values(),
-                                       *pairs.values(), *rows.values(), *outs)]
+                                       *pairs.values(), ts, lead_term, app,
+                                       *outs)]
+        args += [None if t is None else t.data_ptr() for t in (tsc, tsc_out)]
         rc = lib.chaos_round_launch(
             *args, G, P, round_base, rounds, election_tick, heartbeat_tick,
-            stream,
+            int(tsc is not None), stream,
         )
     if rc != 0:
         raise RuntimeError(f"chaos_round_launch failed: CUDA error {rc}")
-    chaos_rounds.launches += 1
-    return outs
+    if tsc is None:
+        chaos_rounds.launches += 1
+    else:
+        chaos_rounds.health_launches += 1
+    return outs + (() if tsc_out is None else (tsc_out,))
 
 
 def chaos_rounds(
     state, leader_id, hb, ee, li, lt, commit, matched_row, voter, member,
-    crashed, agree, loss_rate, ts, lead_term, app, *, round_base: int,
-    rounds: int, election_tick: int, heartbeat_tick: int,
+    crashed, agree, loss_rate, ts, lead_term, app, tsc=None, *,
+    round_base: int, rounds: int, election_tick: int, heartbeat_tick: int,
 ) -> Outputs:
     """`rounds` fused loss-gated steady rounds from absolute round
     `round_base` (every round index must lie in int32); returns (state,
-    leader_id, hb, ee, li, lt, commit, matched_row, agree).  Planes [P, G]
-    int32, masks [P, G] bool, agree and loss_rate [P, P, G] int32, ts,
-    lead_term and app [G] int32.
+    leader_id, hb, ee, li, lt, commit, matched_row, agree), and with `tsc`
+    (the with_health variant) the updated ticks_since_commit row last.
+    Planes [P, G] int32, masks [P, G] bool, agree and loss_rate [P, P, G]
+    int32, ts, lead_term, app and tsc [G] int32.
 
     CUDA tensors launch the CUDA kernel (or raise); CPU tensors run the
-    plain version."""
+    plain version.  `chaos_rounds.launches` counts launches of the
+    with_health=False variant, `chaos_rounds.health_launches` those of the
+    with_health=True one."""
     check_round_base(round_base, rounds)
     args = (state, leader_id, hb, ee, li, lt, commit, matched_row, voter,
-            member, crashed, agree, loss_rate, ts, lead_term, app)
+            member, crashed, agree, loss_rate, ts, lead_term, app, tsc)
     kw = dict(round_base=round_base, rounds=rounds, election_tick=election_tick,
               heartbeat_tick=heartbeat_tick)
     if state.is_cuda:
         return _launch(*args, **kw)
-    if any(t.is_cuda for t in args):
+    if any(t is not None and t.is_cuda for t in args):
         raise ValueError("chaos_rounds: tensors on mixed devices")
     return chaos_rounds_reference(*args, **kw)
 
 
 chaos_rounds.launches = 0
+chaos_rounds.health_launches = 0

@@ -1,6 +1,6 @@
 // Per-group body of k fused loss-gated steady rounds: the arithmetic of
-// raft_tpu/multiraft/pallas_step.py:_steady_chaos_kernel
-// (with_health=False), written once for both the CUDA grid wrapper
+// raft_tpu/multiraft/pallas_step.py:_steady_chaos_kernel, both
+// variants, written once for both the CUDA grid wrapper
 // (chaos_round.cu) and the host shim the CPU tests build with g++
 // (chaos_host.cpp).  The plain PyTorch version is
 // chaos_kernel.chaos_rounds_reference; this body computes the same
@@ -18,7 +18,9 @@
 //
 // The loss draw keys on (round_base + r, src, dst, gid) with gid the
 // group's global index, in native uint32, bit for bit the reference's
-// link_loss_draw.
+// link_loss_draw.  WITH_HEALTH (the with_health variant) tracks
+// ticks_since_commit from tsc into tsc_out (fused_common.cuh's
+// CommitTracker).
 #pragma once
 
 #include <stdint.h>
@@ -37,7 +39,8 @@ using raft_fused::wadd;
 // leader_id, hb, ee, li, lt, commit and the acting leader's matched row
 // (int32), voter, member and crashed (one byte each, nonzero = true);
 // [P, P, G]: agree and loss_rate (int32); [G]: the acting leader's
-// term_start, its term and the append count (int32).
+// term_start, its term and the append count (int32); with health,
+// ticks_since_commit in and out ([G] int32; null otherwise).
 struct ChaosPlanes {
   const int32_t* state;
   const int32_t* leader_id;
@@ -64,9 +67,11 @@ struct ChaosPlanes {
   int32_t* commit_out;
   int32_t* matched_out;
   int32_t* agree_out;
+  const int32_t* tsc;
+  int32_t* tsc_out;
 };
 
-template <int P>
+template <int P, bool WITH_HEALTH>
 RAFT_HD void chaos_group(int64_t g, int64_t G, const ChaosPlanes& t,
                          int32_t round_base, int rounds, int election_tick,
                          int heartbeat_tick) {
@@ -107,6 +112,7 @@ RAFT_HD void chaos_group(int64_t g, int64_t G, const ChaosPlanes& t,
   const int32_t n_app = has_leader ? t.app[g] : 0;
   const bool sent_b = has_leader && n_app > 0;
   const uint32_t gid = (uint32_t)g;
+  raft_fused::CommitTracker<P, WITH_HEALTH> tsc(t.tsc, g, commit);
 
   for (int r = 0; r < rounds; ++r) {
     // --- per-link loss: forward (leader -> v) and reverse (v -> leader)
@@ -269,6 +275,7 @@ RAFT_HD void chaos_group(int64_t g, int64_t G, const ChaosPlanes& t,
       if (is_lead[p]) commit[p] = lead_commit;
       if (sync_b[p]) commit[p] = imax(commit[p], lead_commit);
     }
+    tsc.round(commit);
   }
 
 #pragma unroll
@@ -287,6 +294,7 @@ RAFT_HD void chaos_group(int64_t g, int64_t G, const ChaosPlanes& t,
       t.agree_out[((int64_t)p * P + q) * G + g] = agree[p][q];
     }
   }
+  tsc.store(t.tsc_out, g);
 }
 
 }  // namespace raft_chaos

@@ -15,8 +15,9 @@ extern "C" int chaos_round_host(
     const void* lead_term, const void* app, void* state_out,
     void* leader_id_out, void* hb_out, void* ee_out, void* li_out,
     void* lt_out, void* commit_out, void* matched_out, void* agree_out,
-    long long G, int P, int round_base, int rounds, int election_tick,
-    int heartbeat_tick) {
+    const void* tsc, void* tsc_out, long long G, int P, int round_base,
+    int rounds, int election_tick, int heartbeat_tick, int with_health) {
+  if (with_health && (tsc == nullptr || tsc_out == nullptr)) return 1;
   const raft_chaos::ChaosPlanes t = {
       (const int32_t*)state,    (const int32_t*)leader_id,
       (const int32_t*)hb,       (const int32_t*)ee,
@@ -30,18 +31,22 @@ extern "C" int chaos_round_host(
       (int32_t*)hb_out,         (int32_t*)ee_out,
       (int32_t*)li_out,         (int32_t*)lt_out,
       (int32_t*)commit_out,     (int32_t*)matched_out,
-      (int32_t*)agree_out};
-#define RAFT_CHAOS_HOST(NP)                                               \
-  case NP:                                                                \
+      (int32_t*)agree_out,      (const int32_t*)tsc,
+      (int32_t*)tsc_out};
+#define RAFT_CHAOS_HOST(NP, HEALTH)                                       \
+  case NP * 2 + (HEALTH ? 1 : 0):                                         \
     for (int64_t g = 0; g < (int64_t)G; ++g) {                            \
-      raft_chaos::chaos_group<NP>(g, (int64_t)G, t, (int32_t)round_base,  \
-                                  rounds, election_tick, heartbeat_tick); \
+      raft_chaos::chaos_group<NP, HEALTH>(g, (int64_t)G, t,               \
+                                          (int32_t)round_base, rounds,    \
+                                          election_tick, heartbeat_tick); \
     }                                                                     \
     return 0;
-  switch (P) {
-    RAFT_FOR_EACH_P(RAFT_CHAOS_HOST)
+#define RAFT_CHAOS_P(NP) RAFT_FOR_EACH_HEALTH(RAFT_CHAOS_HOST, NP)
+  switch (P * 2 + (with_health ? 1 : 0)) {
+    RAFT_FOR_EACH_P(RAFT_CHAOS_P)
     default:
       return 1;
   }
+#undef RAFT_CHAOS_P
 #undef RAFT_CHAOS_HOST
 }

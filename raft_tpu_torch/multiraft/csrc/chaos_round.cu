@@ -2,7 +2,9 @@
 // 256 threads a block, the ragged last block masked by g < G; the global
 // thread index is the group id that keys the loss draw.  Launches on the
 // caller's stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() so a refused launch reaches the caller.
+// cudaGetLastError() so a refused launch reaches the caller.  with_health
+// picks the WITH_HEALTH instance, which reads tsc and writes tsc_out (both
+// null otherwise).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -12,14 +14,14 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int P>
+template <int P, bool WITH_HEALTH>
 __global__ void __launch_bounds__(kThreads)
     chaos_round_kernel(raft_chaos::ChaosPlanes t, int64_t G, int32_t round_base,
                        int rounds, int election_tick, int heartbeat_tick) {
   const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (g >= G) return;
-  raft_chaos::chaos_group<P>(g, G, t, round_base, rounds, election_tick,
-                             heartbeat_tick);
+  raft_chaos::chaos_group<P, WITH_HEALTH>(g, G, t, round_base, rounds,
+                                          election_tick, heartbeat_tick);
 }
 
 }  // namespace
@@ -32,9 +34,13 @@ extern "C" int chaos_round_launch(
     const void* lead_term, const void* app, void* state_out,
     void* leader_id_out, void* hb_out, void* ee_out, void* li_out,
     void* lt_out, void* commit_out, void* matched_out, void* agree_out,
-    long long G, int P, int round_base, int rounds, int election_tick,
-    int heartbeat_tick, void* stream) {
+    const void* tsc, void* tsc_out, long long G, int P, int round_base,
+    int rounds, int election_tick, int heartbeat_tick, int with_health,
+    void* stream) {
   if (G <= 0) return (int)cudaSuccess;
+  if (with_health && (tsc == nullptr || tsc_out == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const raft_chaos::ChaosPlanes t = {
       (const int32_t*)state,    (const int32_t*)leader_id,
       (const int32_t*)hb,       (const int32_t*)ee,
@@ -48,20 +54,23 @@ extern "C" int chaos_round_launch(
       (int32_t*)hb_out,         (int32_t*)ee_out,
       (int32_t*)li_out,         (int32_t*)lt_out,
       (int32_t*)commit_out,     (int32_t*)matched_out,
-      (int32_t*)agree_out};
+      (int32_t*)agree_out,      (const int32_t*)tsc,
+      (int32_t*)tsc_out};
   const unsigned blocks = (unsigned)((G + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
-#define RAFT_CHAOS_LAUNCH(NP)                                             \
-  case NP:                                                                \
-    chaos_round_kernel<NP><<<blocks, kThreads, 0, s>>>(                   \
+#define RAFT_CHAOS_LAUNCH(NP, HEALTH)                                     \
+  case NP * 2 + (HEALTH ? 1 : 0):                                         \
+    chaos_round_kernel<NP, HEALTH><<<blocks, kThreads, 0, s>>>(           \
         t, (int64_t)G, (int32_t)round_base, rounds, election_tick,        \
         heartbeat_tick);                                                  \
     break;
-  switch (P) {
-    RAFT_FOR_EACH_P(RAFT_CHAOS_LAUNCH)
+#define RAFT_CHAOS_P(NP) RAFT_FOR_EACH_HEALTH(RAFT_CHAOS_LAUNCH, NP)
+  switch (P * 2 + (with_health ? 1 : 0)) {
+    RAFT_FOR_EACH_P(RAFT_CHAOS_P)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef RAFT_CHAOS_P
 #undef RAFT_CHAOS_LAUNCH
   return (int)cudaGetLastError();
 }

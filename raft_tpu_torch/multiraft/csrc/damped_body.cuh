@@ -1,6 +1,6 @@
 // Per-group body of k fused check-quorum/pre-vote steady rounds: the
-// arithmetic of raft_tpu/multiraft/pallas_step.py:_steady_damped_kernel
-// (with_health=False), written once for both the CUDA grid wrapper
+// arithmetic of raft_tpu/multiraft/pallas_step.py:_steady_damped_kernel,
+// every variant, written once for both the CUDA grid wrapper
 // (damped_round.cu) and the host shim the CPU tests build with g++
 // (damped_host.cpp).  The plain PyTorch version is
 // damped_kernel.damped_rounds_reference; this body computes the same
@@ -16,8 +16,10 @@
 // outputs.  WITH_CQ adds the check-quorum row clear at the leader's
 // election-timeout boundary; WITH_LOSS the per-link loss draw, keyed on
 // (round_base + r, src, dst, gid) with gid the group's global index, as in
-// chaos_body.cuh.  The acting leader, its id and term, the voter count and
-// the append count are fixed for the whole horizon.
+// chaos_body.cuh; WITH_HEALTH tracks ticks_since_commit from tsc into
+// tsc_out (fused_common.cuh's CommitTracker).  The acting leader, its id
+// and term, the voter count and the append count are fixed for the whole
+// horizon.
 #pragma once
 
 #include <stdint.h>
@@ -37,7 +39,8 @@ using raft_fused::wadd;
 // (int32), its recent_active row ra, voter, member and crashed (one byte
 // each, nonzero = true); [P, P, G]: agree and, with loss, loss_rate
 // (int32; null without loss); [G]: the acting leader's term_start, its
-// term and the append count (int32).  ra_out is one byte a peer.
+// term and the append count (int32); with health, ticks_since_commit in
+// and out ([G] int32; null otherwise).  ra_out is one byte a peer.
 struct DampedPlanes {
   const int32_t* state;
   const int32_t* leader_id;
@@ -66,6 +69,8 @@ struct DampedPlanes {
   int32_t* matched_out;
   uint8_t* ra_out;
   int32_t* agree_out;
+  const int32_t* tsc;
+  int32_t* tsc_out;
 };
 
 // A wholesale adoption from the leader by the members flagged in
@@ -85,7 +90,7 @@ RAFT_HD void adopt_event(int32_t (&agree)[P][P], const bool (&adopted)[P],
   raft_fused::agree_event<P>(agree, in_set, value, lead_row);
 }
 
-template <int P, bool WITH_CQ, bool WITH_LOSS>
+template <int P, bool WITH_CQ, bool WITH_LOSS, bool WITH_HEALTH>
 RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
                           int32_t round_base, int rounds, int election_tick,
                           int heartbeat_tick) {
@@ -129,6 +134,7 @@ RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
   const int32_t n_app = has_leader ? t.app[g] : 0;
   const bool sent_b = has_leader && n_app > 0;
   const uint32_t gid = (uint32_t)g;
+  raft_fused::CommitTracker<P, WITH_HEALTH> tsc(t.tsc, g, commit);
 
   for (int r = 0; r < rounds; ++r) {
     // --- delivery: forward (leader -> v) and reverse (v -> leader).  The
@@ -323,6 +329,7 @@ RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
       if (is_lead[p]) commit[p] = lead_commit;
       if (sync_b[p]) commit[p] = imax(commit[p], lead_commit);
     }
+    tsc.round(commit);
   }
 
 #pragma unroll
@@ -342,11 +349,15 @@ RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
       t.agree_out[((int64_t)p * P + q) * G + g] = agree[p][q];
     }
   }
+  tsc.store(t.tsc_out, g);
 }
 
 }  // namespace raft_damped
 
-// Expands CASE(P, WITH_CQ, WITH_LOSS) for every instantiated combination.
-#define RAFT_DAMPED_FOR_EACH_FLAG(CASE, NP) \
-  CASE(NP, false, false) CASE(NP, true, false) \
-  CASE(NP, false, true) CASE(NP, true, true)
+// Expands CASE(P, WITH_CQ, WITH_LOSS, WITH_HEALTH) for every instantiated
+// combination.
+#define RAFT_DAMPED_FOR_EACH_FLAG(CASE, NP)                          \
+  CASE(NP, false, false, false) CASE(NP, true, false, false)         \
+  CASE(NP, false, true, false) CASE(NP, true, true, false)           \
+  CASE(NP, false, false, true) CASE(NP, true, false, true)           \
+  CASE(NP, false, true, true) CASE(NP, true, true, true)

@@ -15,8 +15,9 @@ extern "C" int damped_round_host(
     const void* ts, const void* lead_term, const void* app, void* state_out,
     void* leader_id_out, void* hb_out, void* ee_out, void* li_out,
     void* lt_out, void* commit_out, void* matched_out, void* ra_out,
-    void* agree_out, long long G, int P, int round_base, int rounds,
-    int election_tick, int heartbeat_tick, int with_cq, int with_loss) {
+    void* agree_out, const void* tsc, void* tsc_out, long long G, int P,
+    int round_base, int rounds, int election_tick, int heartbeat_tick,
+    int with_cq, int with_loss, int with_health) {
   const raft_damped::DampedPlanes t = {
       (const int32_t*)state,     (const int32_t*)leader_id,
       (const int32_t*)hb,        (const int32_t*)ee,
@@ -31,20 +32,23 @@ extern "C" int damped_round_host(
       (int32_t*)ee_out,          (int32_t*)li_out,
       (int32_t*)lt_out,          (int32_t*)commit_out,
       (int32_t*)matched_out,     (uint8_t*)ra_out,
-      (int32_t*)agree_out};
-  const int flags = (with_cq ? 1 : 0) + (with_loss ? 2 : 0);
+      (int32_t*)agree_out,       (const int32_t*)tsc,
+      (int32_t*)tsc_out};
+  const int flags =
+      (with_cq ? 1 : 0) + (with_loss ? 2 : 0) + (with_health ? 4 : 0);
   if (with_loss && loss_rate == nullptr) return 1;
-#define RAFT_DAMPED_HOST(NP, CQ, LOSS)                                      \
-  case NP * 4 + (CQ ? 1 : 0) + (LOSS ? 2 : 0):                              \
+  if (with_health && (tsc == nullptr || tsc_out == nullptr)) return 1;
+#define RAFT_DAMPED_HOST(NP, CQ, LOSS, HEALTH)                              \
+  case NP * 8 + (CQ ? 1 : 0) + (LOSS ? 2 : 0) + (HEALTH ? 4 : 0):           \
     for (int64_t g = 0; g < (int64_t)G; ++g) {                              \
-      raft_damped::damped_group<NP, CQ, LOSS>(g, (int64_t)G, t,             \
-                                              (int32_t)round_base, rounds,  \
-                                              election_tick, heartbeat_tick); \
+      raft_damped::damped_group<NP, CQ, LOSS, HEALTH>(                      \
+          g, (int64_t)G, t, (int32_t)round_base, rounds, election_tick,     \
+          heartbeat_tick);                                                  \
     }                                                                       \
     return 0;
 #define RAFT_DAMPED_P(NP) RAFT_DAMPED_FOR_EACH_FLAG(RAFT_DAMPED_HOST, NP)
   if (P < 1 || P > 7) return 1;
-  switch (P * 4 + flags) {
+  switch (P * 8 + flags) {
     RAFT_FOR_EACH_P(RAFT_DAMPED_P)
     default:
       return 1;

@@ -2,7 +2,9 @@
 // 256 threads a block, the ragged last block masked by g < G; the global
 // thread index is the group id that keys the loss draw.  Launches on the
 // caller's stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() so a refused launch reaches the caller.
+// cudaGetLastError() so a refused launch reaches the caller.  with_health
+// picks the WITH_HEALTH instances, which read tsc and write tsc_out (both
+// null otherwise).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -12,14 +14,14 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int P, bool WITH_CQ, bool WITH_LOSS>
+template <int P, bool WITH_CQ, bool WITH_LOSS, bool WITH_HEALTH>
 __global__ void __launch_bounds__(kThreads)
     damped_round_kernel(raft_damped::DampedPlanes t, int64_t G,
                         int32_t round_base, int rounds, int election_tick,
                         int heartbeat_tick) {
   const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (g >= G) return;
-  raft_damped::damped_group<P, WITH_CQ, WITH_LOSS>(
+  raft_damped::damped_group<P, WITH_CQ, WITH_LOSS, WITH_HEALTH>(
       g, G, t, round_base, rounds, election_tick, heartbeat_tick);
 }
 
@@ -33,8 +35,9 @@ extern "C" int damped_round_launch(
     const void* ts, const void* lead_term, const void* app, void* state_out,
     void* leader_id_out, void* hb_out, void* ee_out, void* li_out,
     void* lt_out, void* commit_out, void* matched_out, void* ra_out,
-    void* agree_out, long long G, int P, int round_base, int rounds,
-    int election_tick, int heartbeat_tick, int with_cq, int with_loss,
+    void* agree_out, const void* tsc, void* tsc_out, long long G, int P,
+    int round_base, int rounds, int election_tick, int heartbeat_tick,
+    int with_cq, int with_loss, int with_health,
     void* stream) {
   if (G <= 0) return (int)cudaSuccess;
   const raft_damped::DampedPlanes t = {
@@ -51,19 +54,24 @@ extern "C" int damped_round_launch(
       (int32_t*)ee_out,          (int32_t*)li_out,
       (int32_t*)lt_out,          (int32_t*)commit_out,
       (int32_t*)matched_out,     (uint8_t*)ra_out,
-      (int32_t*)agree_out};
-  const int flags = (with_cq ? 1 : 0) + (with_loss ? 2 : 0);
+      (int32_t*)agree_out,       (const int32_t*)tsc,
+      (int32_t*)tsc_out};
+  const int flags =
+      (with_cq ? 1 : 0) + (with_loss ? 2 : 0) + (with_health ? 4 : 0);
   if (with_loss && loss_rate == nullptr) return (int)cudaErrorInvalidValue;
+  if (with_health && (tsc == nullptr || tsc_out == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const unsigned blocks = (unsigned)((G + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
-#define RAFT_DAMPED_LAUNCH(NP, CQ, LOSS)                                  \
-  case NP * 4 + (CQ ? 1 : 0) + (LOSS ? 2 : 0):                            \
-    damped_round_kernel<NP, CQ, LOSS><<<blocks, kThreads, 0, s>>>(        \
+#define RAFT_DAMPED_LAUNCH(NP, CQ, LOSS, HEALTH)                          \
+  case NP * 8 + (CQ ? 1 : 0) + (LOSS ? 2 : 0) + (HEALTH ? 4 : 0):         \
+    damped_round_kernel<NP, CQ, LOSS, HEALTH><<<blocks, kThreads, 0, s>>>( \
         t, (int64_t)G, (int32_t)round_base, rounds, election_tick,        \
         heartbeat_tick);                                                  \
     break;
 #define RAFT_DAMPED_P(NP) RAFT_DAMPED_FOR_EACH_FLAG(RAFT_DAMPED_LAUNCH, NP)
-  switch (P * 4 + flags) {
+  switch (P * 8 + flags) {
     RAFT_FOR_EACH_P(RAFT_DAMPED_P)
     default:
       return (int)cudaErrorInvalidValue;

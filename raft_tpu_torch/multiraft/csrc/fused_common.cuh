@@ -1,7 +1,8 @@
 // Helpers shared by the fused kernel bodies (steady_body.cuh,
-// chaos_body.cuh): the __host__ __device__ marker, wrapping int32
-// arithmetic, the majority index by odd-even transposition, the per-link
-// loss draw and the pairwise agreement event.  Written once so the kernels
+// chaos_body.cuh, damped_body.cuh): the __host__ __device__ marker,
+// wrapping int32 arithmetic, the majority index by odd-even
+// transposition, the per-link loss draw, the pairwise agreement event and
+// the with_health variants' commit tracker.  Written once so the kernels
 // that use them cannot drift apart; each function works on one group's
 // values held in fully unrolled arrays, P a template parameter.
 //
@@ -122,9 +123,49 @@ RAFT_HD void agree_event(int32_t (&agree)[P][P], const bool (&in_set)[P],
   }
 }
 
+// ticks_since_commit, the one health plane a steady round moves (the
+// with_health variants; pallas_step.py:150-152, :224-231, :239-240 and
+// their chaos and damped twins).  Before round 1 the previous max commit
+// is the max over all P rows, crashed rows included; after each round's
+// last commit write, tsc = (the max grew) ? 0 : tsc + 1.  The
+// WITH_HEALTH = false tracker holds nothing and compiles away, so the
+// with_health=False kernels stay the code they were.
+template <int P, bool WITH_HEALTH>
+struct CommitTracker {
+  RAFT_HD CommitTracker(const int32_t*, int64_t, const int32_t (&)[P]) {}
+  RAFT_HD void round(const int32_t (&)[P]) {}
+  RAFT_HD void store(int32_t*, int64_t) const {}
+};
+
+template <int P>
+RAFT_HD int32_t max_of(const int32_t (&v)[P]) {
+  int32_t m = v[0];
+#pragma unroll
+  for (int p = 1; p < P; ++p) m = imax(m, v[p]);
+  return m;
+}
+
+template <int P>
+struct CommitTracker<P, true> {
+  int32_t tsc;
+  int32_t maxc_prev;
+  RAFT_HD CommitTracker(const int32_t* tsc_in, int64_t g,
+                        const int32_t (&commit)[P])
+      : tsc(tsc_in[g]), maxc_prev(max_of<P>(commit)) {}
+  RAFT_HD void round(const int32_t (&commit)[P]) {
+    const int32_t maxc = max_of<P>(commit);
+    tsc = maxc > maxc_prev ? 0 : wadd(tsc, 1);
+    maxc_prev = maxc;
+  }
+  RAFT_HD void store(int32_t* tsc_out, int64_t g) const { tsc_out[g] = tsc; }
+};
+
 }  // namespace raft_fused
 
 // Expands CASE(P) for every instantiated peer count, 1 through 7; the
 // Python wrappers reject any other P before calling in.
 #define RAFT_FOR_EACH_P(CASE) \
   CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7)
+
+// Expands CASE(NP, WITH_HEALTH) for both variants of peer count NP.
+#define RAFT_FOR_EACH_HEALTH(CASE, NP) CASE(NP, false) CASE(NP, true)

@@ -1,5 +1,5 @@
 // Per-group body of k fused steady protocol rounds: the arithmetic of
-// raft_tpu/multiraft/pallas_step.py:_steady_kernel (with_health=False),
+// raft_tpu/multiraft/pallas_step.py:_steady_kernel, both variants,
 // written once for both the CUDA grid wrapper (steady_round.cu) and the
 // host shim the CPU tests build with g++ (steady_host.cpp).
 //
@@ -14,6 +14,9 @@
 // [P, G]); voter, member, crashed (bool [P, G], one byte each, nonzero =
 // true); term_start of the acting leader and the append count (int32 [G]).
 // Outputs: ee, hb, li, lt, matched row, commit (int32 [P, G]).
+// WITH_HEALTH (the with_health variant) adds ticks_since_commit, int32 [G]
+// in (tsc_in) and out (tsc_out), tracked by fused_common.cuh's
+// CommitTracker.
 //
 // Integer sums and increments wrap modulo 2**32 like PyTorch's int32
 // arithmetic (fused_common.cuh's wadd).
@@ -29,7 +32,7 @@ using raft_fused::imax;
 using raft_fused::kRoleLeader;
 using raft_fused::wadd;
 
-template <int P>
+template <int P, bool WITH_HEALTH>
 RAFT_HD void steady_group(
     int64_t g, int64_t G,
     const int32_t* __restrict__ state_in, const int32_t* __restrict__ term_in,
@@ -40,10 +43,12 @@ RAFT_HD void steady_group(
     const uint8_t* __restrict__ voter_in, const uint8_t* __restrict__ member_in,
     const uint8_t* __restrict__ crashed_in,
     const int32_t* __restrict__ ts_in, const int32_t* __restrict__ app_in,
-    int32_t* __restrict__ ee_out, int32_t* __restrict__ hb_out,
+    const int32_t* __restrict__ tsc_in, int32_t* __restrict__ ee_out,
+    int32_t* __restrict__ hb_out,
     int32_t* __restrict__ li_out, int32_t* __restrict__ lt_out,
     int32_t* __restrict__ matched_out, int32_t* __restrict__ commit_out,
-    int rounds, int election_tick, int heartbeat_tick) {
+    int32_t* __restrict__ tsc_out, int rounds, int election_tick,
+    int heartbeat_tick) {
   int32_t term[P], ee[P], hb[P], li[P], lt[P], matched[P], commit[P];
   bool role_leader[P], is_leader[P], voter[P], alive_member[P];
   bool has_leader = false;
@@ -71,6 +76,7 @@ RAFT_HD void steady_group(
   const int32_t qpos = count / 2;
   const int32_t term_start = ts_in[g];
   const int32_t n_app = has_leader ? app_in[g] : 0;
+  raft_fused::CommitTracker<P, WITH_HEALTH> tsc(tsc_in, g, commit);
 
   for (int r = 0; r < rounds; ++r) {
     // --- tick (no campaigns by the steady invariant)
@@ -123,6 +129,7 @@ RAFT_HD void steady_group(
     for (int p = 0; p < P; ++p) {
       if ((is_leader[p] || sync[p]) && sent) commit[p] = lead_commit;
     }
+    tsc.round(commit);
   }
 
 #pragma unroll
@@ -135,6 +142,7 @@ RAFT_HD void steady_group(
     matched_out[i] = matched[p];
     commit_out[i] = commit[p];
   }
+  tsc.store(tsc_out, g);
 }
 
 }  // namespace raft_steady

@@ -12,26 +12,30 @@ extern "C" int steady_round_host(
     const void* voter, const void* member, const void* crashed,
     const void* ts, const void* app, void* ee_out, void* hb_out,
     void* li_out, void* lt_out, void* matched_out, void* commit_out,
-    long long G, int P, int rounds, int election_tick, int heartbeat_tick) {
-#define RAFT_STEADY_HOST(NP)                                                \
-  case NP:                                                                  \
+    const void* tsc, void* tsc_out, long long G, int P, int rounds,
+    int election_tick, int heartbeat_tick, int with_health) {
+  if (with_health && (tsc == nullptr || tsc_out == nullptr)) return 1;
+#define RAFT_STEADY_HOST(NP, HEALTH)                                        \
+  case NP * 2 + (HEALTH ? 1 : 0):                                           \
     for (int64_t g = 0; g < (int64_t)G; ++g) {                              \
-      raft_steady::steady_group<NP>(                                        \
+      raft_steady::steady_group<NP, HEALTH>(                                \
           g, (int64_t)G, (const int32_t*)state, (const int32_t*)term,       \
           (const int32_t*)ee, (const int32_t*)hb, (const int32_t*)li,       \
           (const int32_t*)lt, (const int32_t*)matched,                      \
           (const int32_t*)commit, (const uint8_t*)voter,                    \
           (const uint8_t*)member, (const uint8_t*)crashed,                  \
-          (const int32_t*)ts, (const int32_t*)app, (int32_t*)ee_out,        \
-          (int32_t*)hb_out, (int32_t*)li_out, (int32_t*)lt_out,             \
-          (int32_t*)matched_out, (int32_t*)commit_out, rounds,              \
-          election_tick, heartbeat_tick);                                   \
+          (const int32_t*)ts, (const int32_t*)app, (const int32_t*)tsc,     \
+          (int32_t*)ee_out, (int32_t*)hb_out, (int32_t*)li_out,             \
+          (int32_t*)lt_out, (int32_t*)matched_out, (int32_t*)commit_out,    \
+          (int32_t*)tsc_out, rounds, election_tick, heartbeat_tick);        \
     }                                                                       \
     return 0;
-  switch (P) {
-    RAFT_FOR_EACH_P(RAFT_STEADY_HOST)
+#define RAFT_STEADY_P(NP) RAFT_FOR_EACH_HEALTH(RAFT_STEADY_HOST, NP)
+  switch (P * 2 + (with_health ? 1 : 0)) {
+    RAFT_FOR_EACH_P(RAFT_STEADY_P)
     default:
       return 1;
   }
+#undef RAFT_STEADY_P
 #undef RAFT_STEADY_HOST
 }

@@ -2,8 +2,8 @@
 its plain PyTorch version, and the wrapper that picks between them by
 device.
 
-Replaces `raft_tpu/multiraft/pallas_step.py:_steady_damped_kernel` (the
-`with_health=False` variant, built by `_build_damped_round` at :1185).  It
+Replaces `raft_tpu/multiraft/pallas_step.py:_steady_damped_kernel`, every
+variant (built by `_build_damped_round` at :1185).  It
 computes k rounds of the damped round (`sim._damped_linked_step`) for
 groups in the steady state: the tick with the leader's election-timeout
 boundary, which with check_quorum (`with_cq`) clears the acting leader's
@@ -16,7 +16,9 @@ one stage later); the stage-A commit, the commit-advance re-broadcast, the
 stage-B commit and its propagation; then the round's append workload.
 With `with_loss` each round draws the per-link loss sample first, as the
 chaos kernel does.  Leases and low-term nudges are dormant on a steady
-horizon (no campaigns, uniform terms), so they need no state.
+horizon (no campaigns, uniform terms), so they need no state.  The
+with_health variant (`tsc` given) also carries ticks_since_commit, as the
+steady kernel's does (steady_kernel.py's CommitTracker).
 
 Bound on an H100 (`damped_work`, which counts what the outputs need): one
 call must read 8 int32 and 4 one-byte [P, G] planes, the int32 [P, P, G]
@@ -29,8 +31,8 @@ their leader-row gathers, the odd-even quorum network three times, some
 The design (csrc/damped_body.cuh): one thread per group holds its
 P-column of every plane, its `recent_active` row and its [P, P] `agree`
 block (and `loss_rate` with loss) in registers for all k rounds, P,
-with_cq and with_loss template parameters so every peer loop unrolls and
-the untaken arms compile away; loads and stores are peer-major, so
+with_cq, with_loss and with_health template parameters so every peer loop
+unrolls and the untaken arms compile away; loads and stores are peer-major, so
 neighbouring threads touch neighbouring words.
 
 On CPU tensors `damped_rounds` runs `damped_rounds_reference`; on CUDA
@@ -49,6 +51,7 @@ from .chaos_kernel import MAX_PEERS, check_round_base
 from .kernels import ROLE_FOLLOWER, ROLE_LEADER, link_loss_draw
 from .platform import check_operands
 from .sim import _merge_agree, _quorum_pick
+from .steady_kernel import CommitTracker, health_work
 
 I32 = torch.int32
 
@@ -61,15 +64,18 @@ OUTPUT_NAMES = (
 
 def damped_rounds_reference(
     state, leader_id, hb, ee, li, lt, commit, matched_row, ra, voter, member,
-    crashed, agree, loss_rate, ts, lead_term, app, *, round_base: int,
-    rounds: int, election_tick: int, heartbeat_tick: int, with_cq: bool,
+    crashed, agree, loss_rate, ts, lead_term, app, tsc=None, *,
+    round_base: int, rounds: int, election_tick: int, heartbeat_tick: int,
+    with_cq: bool,
 ) -> Outputs:
     """Plain PyTorch version of the kernel.  Planes [P, G] int32, the
     acting leader's recent_active row `ra` and the masks bool (or 0/1
     ints), agree [P, P, G] int32, loss_rate [P, P, G] int32 or None (no
-    loss), ts, lead_term and app [G] int32; round_base is the absolute
+    loss), ts, lead_term and app [G] int32, and for the with_health variant
+    tsc, the int32 [G] ticks_since_commit row; round_base is the absolute
     index of the first round (read only with loss).  Returns fresh (state,
-    leader_id, hb, ee, li, lt, commit, matched_row, ra, agree), ra bool."""
+    leader_id, hb, ee, li, lt, commit, matched_row, ra, agree), ra bool,
+    and tsc' last when tsc is given."""
     P = state.shape[0]
     dev = state.device
     voter, member, crashed, ra = voter != 0, member != 0, crashed != 0, ra != 0
@@ -86,6 +92,7 @@ def damped_rounds_reference(
     qpos = count // 2
     n_app = torch.where(has_leader, app, 0)
     sent_b = has_leader & (n_app > 0)
+    track = CommitTracker(tsc, commit)
 
     def lead_gather(plane):  # [P, G] -> [G]: the acting leader's value
         return (plane * lead_f).sum(0, dtype=I32)
@@ -220,11 +227,15 @@ def damped_rounds_reference(
         lead_commit = torch.where(ok_c, torch.maximum(c_new2, mci3), c_new2)
         commit = torch.where(is_lead, lead_commit, commit)
         commit = torch.where(sync_b, torch.maximum(commit, lead_commit), commit)
-    return state, leader_id, hb, ee, li, lt, commit, matched_row, ra, agree
+        track.round(commit)
+    return (
+        state, leader_id, hb, ee, li, lt, commit, matched_row, ra, agree
+    ) + track.outputs()
 
 
 def damped_work(
-    P: int, G: int, rounds: int, with_cq: bool = True, with_loss: bool = False
+    P: int, G: int, rounds: int, with_cq: bool = True, with_loss: bool = False,
+    with_health: bool = False,
 ) -> Tuple[int, int]:
     """(bytes, integer operations) the function needs for G groups that
     each have one acting leader, as every group of a fused block has.
@@ -249,6 +260,7 @@ def damped_work(
       quorum picks     3 × (3P + 2 per comparator of the network)
       commits          7 + P (stage A), 6 + P (stage B), 6 + 3P (workload)
       workload         25P + 1
+    The with_health variant adds health_work's bytes and operations.
     """
     links = 2 * (P - 1)
     nbytes = (
@@ -262,12 +274,16 @@ def damped_work(
     per_round += (10 + 12 * links + 12 * P) if with_loss else 2 * P
     if with_cq:
         per_round += 3 * P
-    return nbytes, per_round * rounds * G
+    ops = per_round * rounds * G
+    if with_health:
+        hb, hops = health_work(P, G, rounds)
+        nbytes, ops = nbytes + hb, ops + hops
+    return nbytes, ops
 
 
 def _launch(
     state, leader_id, hb, ee, li, lt, commit, matched_row, ra, voter, member,
-    crashed, agree, loss_rate, ts, lead_term, app, round_base: int,
+    crashed, agree, loss_rate, ts, lead_term, app, tsc, round_base: int,
     rounds: int, election_tick: int, heartbeat_tick: int, with_cq: bool,
 ) -> Outputs:
     P, G = state.shape
@@ -281,6 +297,8 @@ def _launch(
     if loss_rate is not None:
         pairs["loss_rate"] = loss_rate
     rows = dict(ts=ts, lead_term=lead_term, app=app)
+    if tsc is not None:
+        rows["tsc"] = tsc
     check_operands("damped_rounds", dev, (
         (planes, (P, G), I32), (masks, (P, G), torch.bool),
         (pairs, (P, P, G), I32), (rows, (G,), I32),
@@ -288,41 +306,50 @@ def _launch(
     outs = tuple(torch.empty((P, G), dtype=I32, device=dev) for _ in range(8))
     outs += (torch.empty((P, G), dtype=torch.bool, device=dev),
              torch.empty((P, P, G), dtype=I32, device=dev))
+    tsc_out = None if tsc is None else torch.empty((G,), dtype=I32, device=dev)
     lib = _build.load_damped_cuda()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [t.data_ptr() for t in (*planes.values(), *masks.values(), agree)]
         ptrs.append(None if loss_rate is None else loss_rate.data_ptr())
-        ptrs += [t.data_ptr() for t in (*rows.values(), *outs)]
+        ptrs += [t.data_ptr() for t in (ts, lead_term, app, *outs)]
+        ptrs += [None if t is None else t.data_ptr() for t in (tsc, tsc_out)]
         rc = lib.damped_round_launch(
             *ptrs, G, P, round_base, rounds, election_tick, heartbeat_tick,
-            int(with_cq), int(loss_rate is not None), stream,
+            int(with_cq), int(loss_rate is not None), int(tsc is not None),
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"damped_round_launch failed: CUDA error {rc}")
-    damped_rounds.launches += 1
-    return outs
+    if tsc is None:
+        damped_rounds.launches += 1
+    else:
+        damped_rounds.health_launches += 1
+    return outs + (() if tsc_out is None else (tsc_out,))
 
 
 def damped_rounds(
     state, leader_id, hb, ee, li, lt, commit, matched_row, ra, voter, member,
-    crashed, agree, loss_rate: Optional[torch.Tensor], ts, lead_term, app, *,
-    round_base: int, rounds: int, election_tick: int, heartbeat_tick: int,
-    with_cq: bool,
+    crashed, agree, loss_rate: Optional[torch.Tensor], ts, lead_term, app,
+    tsc: Optional[torch.Tensor] = None, *, round_base: int, rounds: int,
+    election_tick: int, heartbeat_tick: int, with_cq: bool,
 ) -> Outputs:
     """`rounds` fused damped steady rounds; returns (state, leader_id, hb,
-    ee, li, lt, commit, matched_row, ra, agree).  Planes [P, G] int32, ra
-    and the masks [P, G] bool, agree [P, P, G] int32, loss_rate [P, P, G]
-    int32 or None (no loss: round_base is not read), ts, lead_term and app
-    [G] int32.  With loss, every round index round_base + r must lie in
-    int32.
+    ee, li, lt, commit, matched_row, ra, agree), and with `tsc` (the
+    with_health variant) the updated ticks_since_commit row last.  Planes
+    [P, G] int32, ra and the masks [P, G] bool, agree [P, P, G] int32,
+    loss_rate [P, P, G] int32 or None (no loss: round_base is not read),
+    ts, lead_term, app and tsc [G] int32.  With loss, every round index
+    round_base + r must lie in int32.
 
     CUDA tensors launch the CUDA kernel (or raise); CPU tensors run the
-    plain version."""
+    plain version.  `damped_rounds.launches` counts launches of the
+    with_health=False variants, `damped_rounds.health_launches` those of
+    the with_health=True ones."""
     if loss_rate is not None:
         check_round_base(round_base, rounds)
     args = (state, leader_id, hb, ee, li, lt, commit, matched_row, ra, voter,
-            member, crashed, agree, loss_rate, ts, lead_term, app)
+            member, crashed, agree, loss_rate, ts, lead_term, app, tsc)
     kw = dict(round_base=round_base, rounds=rounds, election_tick=election_tick,
               heartbeat_tick=heartbeat_tick, with_cq=with_cq)
     if state.is_cuda:
@@ -333,3 +360,4 @@ def damped_rounds(
 
 
 damped_rounds.launches = 0
+damped_rounds.health_launches = 0

@@ -2,17 +2,19 @@
 when the steady invariant provably holds for all of them, else k general
 steps.  Both branches give the same state, bit for bit.
 
-Counterpart of the uninstrumented arms of
-`raft_tpu/multiraft/pallas_step.py`: `steady_mask` (:1355-1554, the plain,
-the link and the damped arm), `steady_predicate` (:1557), `steady_round`
-with its host wrapper `_run` (:549-718), `steady_round(with_chaos=True)`
-with its host wrapper `_build_chaos_round._run` (:806-863) as
-`chaos_round` here, the damped configs' `_build_damped_round._run`
-(:1240-1324, plain and with chaos) as `damped_round`, and
-`fast_multi_round` (:1605-1782: the plain arm at :1759-1782 and the chaos
-arm at :1654-1728, both with `count_fused`).  As in the reference, a
+Counterpart of `raft_tpu/multiraft/pallas_step.py`: `steady_mask`
+(:1355-1554, the plain, the link and the damped arm), `steady_predicate`
+(:1557), `steady_round` with its host wrapper `_run` (:549-749),
+`steady_round(with_chaos=True)` with its host wrapper
+`_build_chaos_round._run` (:806-886) as `chaos_round` here, the damped
+configs' `_build_damped_round._run` (:1240-1352, plain and with chaos) as
+`damped_round`, the closed-form instrumentation folds `_fold_counters`
+(:505) and `_steady_health_fold` (:530), and `fast_multi_round`
+(:1605-1782, every arm, with `count_fused`).  As in the reference, a
 damped config (check_quorum or pre_vote) routes every fused block to the
-damped kernel.
+damped kernel, and every fused round takes the counters and health extras
+after its other arguments, counters first: `with_health` runs the kernel's
+with_health variant, which carries ticks_since_commit.
 
 The reference's `lax.cond` on the predicate becomes a host `bool(pred)`:
 one device sync per k-round block.  The gathers of the acting leader's
@@ -32,8 +34,16 @@ from . import sim as sim_mod
 from . import kernels
 from .chaos_kernel import chaos_rounds, check_round_base
 from .damped_kernel import damped_rounds
-from .kernels import ROLE_LEADER, link_loss_draw
-from .sim import SimConfig, SimState
+from .kernels import (
+    CTR_COMMIT_ENTRIES,
+    CTR_HEARTBEATS,
+    HP_SINCE_COMMIT,
+    HP_TERM_BUMPS,
+    HP_VOTE_SPLITS,
+    ROLE_LEADER,
+    link_loss_draw,
+)
+from .sim import HealthState, SimConfig, SimState
 from .steady_kernel import steady_rounds
 
 I32 = torch.int32
@@ -163,26 +173,29 @@ def _scatter_matched(st: SimState, flag: torch.Tensor, row: torch.Tensor):
     return torch.where(flag[:, None, :] != 0, row[None, :, :], st.matched)
 
 
-def steady_operands(st: SimState, crashed: torch.Tensor, append_n: torch.Tensor):
+def steady_operands(
+    st: SimState, crashed: torch.Tensor, append_n: torch.Tensor, tsc=None
+):
     """The steady kernel's operands (steady_rounds' positional arguments):
-    the planes, the acting leader's tracker row and its term start."""
+    the planes, the acting leader's tracker row and its term start, and
+    `tsc` (the with_health variant's ticks_since_commit row) when given."""
     f = _leader_flag(st, crashed)
     return (
         st.state, st.term, st.election_elapsed, st.heartbeat_elapsed,
         st.last_index, st.last_term, _gather(st.matched, f), st.commit,
         st.voter_mask, st.voter_mask | st.learner_mask, crashed,
         _gather(st.term_start_index, f), append_n,
-    )
+    ) + (() if tsc is None else (tsc,))
 
 
 def chaos_operands(
     st: SimState, crashed: torch.Tensor, append_n: torch.Tensor,
-    loss_rate: torch.Tensor,
+    loss_rate: torch.Tensor, tsc=None,
 ):
     """The chaos kernel's operands (chaos_rounds' positional arguments):
     the planes as they are (the reference packs roles and masks into words;
     the kernel takes them unpacked), the acting leader's tracker row, term
-    start and term."""
+    start and term, and `tsc` when given."""
     f = _leader_flag(st, crashed)
     return (
         st.state, st.leader_id, st.heartbeat_elapsed, st.election_elapsed,
@@ -190,16 +203,17 @@ def chaos_operands(
         st.voter_mask, st.voter_mask | st.learner_mask, crashed, st.agree,
         loss_rate, _gather(st.term_start_index, f), _gather(st.term, f),
         append_n,
-    )
+    ) + (() if tsc is None else (tsc,))
 
 
 def damped_operands(
     st: SimState, crashed: torch.Tensor, append_n: torch.Tensor,
-    loss_rate=None,
+    loss_rate=None, tsc=None,
 ):
     """The damped kernel's operands (damped_rounds' positional arguments):
     the planes as they are, the acting leader's tracker row, its
-    recent_active row, term start and term, and `loss_rate` or None."""
+    recent_active row, term start and term, `loss_rate` or None, and `tsc`
+    when given."""
     if st.recent_active is None:
         raise ValueError(
             "the fused damped round needs the recent_active plane but the "
@@ -213,7 +227,7 @@ def damped_operands(
         ra_row, st.voter_mask, st.voter_mask | st.learner_mask, crashed,
         st.agree, loss_rate, _gather(st.term_start_index, f),
         _gather(st.term, f), append_n,
-    )
+    ) + (() if tsc is None else (tsc,))
 
 
 def _ticks(cfg: SimConfig, rounds: int) -> dict:
@@ -221,19 +235,94 @@ def _ticks(cfg: SimConfig, rounds: int) -> dict:
                 heartbeat_tick=cfg.heartbeat_tick)
 
 
-def steady_round(cfg: SimConfig, rounds: int = 1) -> Callable[..., SimState]:
+def _fold_counters(cfg: SimConfig, k: int, st_in: SimState, st_out: SimState,
+                   counters: torch.Tensor) -> torch.Tensor:
+    """Closed-form counter fold over a steady k-round horizon: no campaign
+    and no election (the predicate forbids both), (hb0 + k) //
+    heartbeat_tick heartbeat fires per role-leader (the timer resets on
+    every fire), and the commit deltas telescope because commit is
+    monotone; equal to threading the counters through k sim.steps."""
+    role_leader = st_in.state == ROLE_LEADER
+    fires = torch.where(
+        role_leader, (st_in.heartbeat_elapsed + k) // cfg.heartbeat_tick, 0
+    )
+    bump = torch.zeros_like(counters)
+    bump[CTR_HEARTBEATS] = fires.sum(dtype=I32)
+    bump[CTR_COMMIT_ENTRIES] = (st_out.commit - st_in.commit).sum(dtype=I32)
+    return counters + bump
+
+
+def _steady_health_fold(
+    cfg: SimConfig, rounds: int, health: HealthState, tsc_out: torch.Tensor
+) -> HealthState:
+    """Closed-form health fold over a steady horizon: a leader held all
+    rounds (leaderless 0), ticks_since_commit is the kernel's, the churn
+    window resets iff a round with window_pos == 0 falls inside [pos, pos +
+    rounds) and every in-horizon term bump is 0, and no vote split
+    happened."""
+    pos = health.window_pos
+    crossed = pos == 0 or pos + rounds > cfg.health_window
+    bumps = health.planes[HP_TERM_BUMPS]
+    planes = torch.stack([
+        torch.zeros_like(tsc_out),
+        tsc_out,
+        torch.zeros_like(bumps) if crossed else bumps,
+        health.planes[HP_VOTE_SPLITS],
+    ])
+    return HealthState(planes, (pos + rounds) % cfg.health_window)
+
+
+def _instrumented(cfg: SimConfig, rounds: int, run, n_lead: int,
+                  with_counters: bool, with_health: bool):
+    """fn(st, crashed, append_n, *lead, [counters], [health]) around
+    run(st, crashed, append_n, *lead, tsc) -> (SimState, tsc'): the
+    reference's extras layout.  It returns the SimState alone without
+    extras, else (SimState, counters', health') for the extras it takes;
+    with `with_health` the kernel gets the ticks_since_commit row."""
+
+    def fn(st: SimState, crashed: torch.Tensor, append_n: torch.Tensor, *rest):
+        lead, extras = rest[:n_lead], rest[n_lead:]
+        if len(extras) != with_counters + with_health:
+            raise TypeError(
+                f"expected {n_lead} arguments after append_n, then "
+                f"{'counters ' if with_counters else ''}"
+                f"{'health' if with_health else ''}; got {len(rest)}"
+            )
+        health = extras[-1] if with_health else None
+        tsc = None if health is None else health.planes[HP_SINCE_COMMIT]
+        out, tsc_out = run(st, crashed, append_n, *lead, tsc)
+        if not (with_counters or with_health):
+            return out
+        res = (out,)
+        if with_counters:
+            res += (_fold_counters(cfg, rounds, st, out, extras[0]),)
+        if with_health:
+            res += (_steady_health_fold(cfg, rounds, health, tsc_out),)
+        return res
+
+    return fn
+
+
+def steady_round(
+    cfg: SimConfig, rounds: int = 1, with_health: bool = False,
+    with_counters: bool = False,
+) -> Callable:
     """fn(st, crashed, append_n) -> SimState advancing `rounds` fused steady
     rounds (same crashed/append each round).  Valid only where
-    steady_predicate(cfg, st, crashed, horizon=rounds) holds.  A damped
-    config gets damped_round(cfg, rounds)."""
+    steady_predicate(cfg, st, crashed, horizon=rounds) holds.  With
+    `with_counters` and/or `with_health` the fn takes the [N_COUNTERS]
+    int32 plane and/or the HealthState after append_n, in that order, and
+    returns (SimState, counters', health'), equal to threading them through
+    `rounds` sim.steps.  A damped config gets damped_round(cfg, rounds)."""
     sim_mod.check_supported(cfg)
     if cfg.check_quorum or cfg.pre_vote:
-        return damped_round(cfg, rounds)
+        return damped_round(cfg, rounds, with_health=with_health,
+                            with_counters=with_counters)
     ticks = _ticks(cfg, rounds)
 
-    def fn(st: SimState, crashed: torch.Tensor, append_n: torch.Tensor) -> SimState:
-        ee, hb, li, lt, new_row, commit = steady_rounds(
-            *steady_operands(st, crashed, append_n), **ticks
+    def run(st, crashed, append_n, tsc):
+        ee, hb, li, lt, new_row, commit, *tsc_out = steady_rounds(
+            *steady_operands(st, crashed, append_n, tsc), **ticks
         )
         f = _leader_flag(st, crashed)
         is_leader = f != 0
@@ -244,7 +333,7 @@ def steady_round(cfg: SimConfig, rounds: int = 1) -> Callable[..., SimState]:
         in_s = (member & ~crashed) | is_leader
         lead_last = torch.where(is_leader, li, 0).amax(0)  # [G]
         agree = sim_mod._merge_agree(st.agree, in_s, lead_last, _gather(st.agree, f))
-        return st._replace(
+        out = st._replace(
             election_elapsed=ee,
             heartbeat_elapsed=hb,
             last_index=li,
@@ -253,36 +342,37 @@ def steady_round(cfg: SimConfig, rounds: int = 1) -> Callable[..., SimState]:
             commit=commit,
             agree=agree,
         )
+        return out, (tsc_out[0] if tsc_out else None)
 
-    return fn
+    return _instrumented(cfg, rounds, run, 0, with_counters, with_health)
 
 
-def chaos_round(cfg: SimConfig, rounds: int = 1) -> Callable[..., SimState]:
+def chaos_round(
+    cfg: SimConfig, rounds: int = 1, with_health: bool = False,
+    with_counters: bool = False,
+) -> Callable:
     """The reference's steady_round(with_chaos=True): fn(st, crashed,
     append_n, loss_rate, round_base) -> SimState advancing `rounds` fused
     loss-gated steady rounds.  loss_rate is the int32[P, P, G] per-link
     rate, round_base (a Python int) the absolute index of the first round,
     and the result equals `rounds` steps of sim.step(link=healed &
-    ~link_loss_draw(round, loss_rate)).  Valid where the predicate holds
+    ~link_loss_draw(round, loss_rate)).  The counters and health extras
+    follow round_base, as in steady_round.  Valid where the predicate holds
     with a healed link plane.  A damped config gets damped_round(cfg,
     rounds, with_chaos=True)."""
     sim_mod.check_supported(cfg)
     if cfg.check_quorum or cfg.pre_vote:
-        return damped_round(cfg, rounds, with_chaos=True)
+        return damped_round(cfg, rounds, with_chaos=True, with_health=with_health,
+                            with_counters=with_counters)
     ticks = _ticks(cfg, rounds)
 
-    def fn(
-        st: SimState,
-        crashed: torch.Tensor,
-        append_n: torch.Tensor,
-        loss_rate: torch.Tensor,
-        round_base: int,
-    ) -> SimState:
-        state, leader_id, hb, ee, li, lt, commit, new_row, agree = chaos_rounds(
-            *chaos_operands(st, crashed, append_n, loss_rate),
+    def run(st, crashed, append_n, loss_rate, round_base, tsc):
+        (state, leader_id, hb, ee, li, lt, commit, new_row, agree,
+         *tsc_out) = chaos_rounds(
+            *chaos_operands(st, crashed, append_n, loss_rate, tsc),
             round_base=round_base, **ticks,
         )
-        return st._replace(
+        out = st._replace(
             state=state,
             leader_id=leader_id,
             election_elapsed=ee,
@@ -293,35 +383,39 @@ def chaos_round(cfg: SimConfig, rounds: int = 1) -> Callable[..., SimState]:
             commit=commit,
             agree=agree,
         )
+        return out, (tsc_out[0] if tsc_out else None)
 
-    return fn
+    return _instrumented(cfg, rounds, run, 2, with_counters, with_health)
 
 
 def damped_round(
-    cfg: SimConfig, rounds: int = 1, with_chaos: bool = False
-) -> Callable[..., SimState]:
+    cfg: SimConfig, rounds: int = 1, with_chaos: bool = False,
+    with_health: bool = False, with_counters: bool = False,
+) -> Callable:
     """The reference's steady_round for a damped config: fn(st, crashed,
     append_n) -> SimState advancing `rounds` fused damped rounds, equal to
     `rounds` damped sim.steps; with `with_chaos`, fn(st, crashed, append_n,
-    loss_rate, round_base) as chaos_round.  The kernel's matched and
-    recent_active rows go back to the acting leader only: the rows of
-    crashed stale leaders stay as they are, as the general rounds leave
-    them.  Valid where the predicate holds (with a healed link plane and
-    `loss_rate` when chaos is on)."""
+    loss_rate, round_base) as chaos_round; the counters and health extras
+    follow, as in steady_round.  The kernel's matched and recent_active
+    rows go back to the acting leader only: the rows of crashed stale
+    leaders stay as they are, as the general rounds leave them.  Valid
+    where the predicate holds (with a healed link plane and `loss_rate`
+    when chaos is on)."""
     sim_mod.check_supported(cfg)
     if not (cfg.check_quorum or cfg.pre_vote):
         raise ValueError("damped_round needs check_quorum or pre_vote")
     ticks = dict(_ticks(cfg, rounds), with_cq=cfg.check_quorum)
 
-    def fn(st: SimState, crashed: torch.Tensor, append_n: torch.Tensor, *rest):
-        loss_rate, round_base = rest if with_chaos else (None, 0)
-        (state, leader_id, hb, ee, li, lt, commit, new_row, ra,
-         agree) = damped_rounds(
-            *damped_operands(st, crashed, append_n, loss_rate),
+    def run(st, crashed, append_n, *rest):
+        *lead, tsc = rest
+        loss_rate, round_base = lead if with_chaos else (None, 0)
+        (state, leader_id, hb, ee, li, lt, commit, new_row, ra, agree,
+         *tsc_out) = damped_rounds(
+            *damped_operands(st, crashed, append_n, loss_rate, tsc),
             round_base=round_base, **ticks,
         )
         f = _leader_flag(st, crashed)
-        return st._replace(
+        out = st._replace(
             state=state,
             leader_id=leader_id,
             election_elapsed=ee,
@@ -335,12 +429,16 @@ def damped_round(
                 f[:, None, :] != 0, ra[None, :, :], st.recent_active
             ),
         )
+        return out, (tsc_out[0] if tsc_out else None)
 
-    return fn
+    return _instrumented(cfg, rounds, run, 2 if with_chaos else 0,
+                         with_counters, with_health)
 
 
 def fast_multi_round(
-    cfg: SimConfig, k: int = 16, with_chaos: bool = False, count_fused: bool = False
+    cfg: SimConfig, k: int = 16, with_chaos: bool = False,
+    count_fused: bool = False, with_health: bool = False,
+    with_counters: bool = False,
 ):
     """Dispatcher advancing k protocol rounds per call (same crashed/append
     every round): the fused kernel when provably steady for the whole
@@ -356,34 +454,54 @@ def fast_multi_round(
     every round index must lie in int32.  A damped config runs
     damped_round on its fused branch and damped sim.steps on the other.
 
-    With `count_fused`, fn takes one more argument, the fused group-round
-    count so far (a Python int), and returns (SimState, count + k *
-    n_groups if the fused branch ran, else count)."""
-    fused_fn = chaos_round(cfg, k) if with_chaos else steady_round(cfg, k)
+    With `with_counters` and/or `with_health`, fn takes the [N_COUNTERS]
+    int32 plane and/or the HealthState next, in that order, both branches
+    thread them, and it returns (SimState, counters', health').
+
+    With `count_fused`, fn takes one more argument last, the fused
+    group-round count so far (a Python int), and returns it last,
+    increased by k * n_groups if the fused branch ran."""
+    fused_fn = (chaos_round if with_chaos else steady_round)(
+        cfg, k, with_health=with_health, with_counters=with_counters
+    )
+    n_extra = int(with_counters) + int(with_health)
+
+    def general(st, crashed, append_n, link, loss_rate, round_base, extras):
+        """k sim.steps threading the extras; (SimState, *extras')."""
+        res = (st,) + tuple(extras)
+        for r in range(k):
+            kw = {}
+            if with_counters:
+                kw["counters"] = res[1]
+            if with_health:
+                kw["health"] = res[-1]
+            if with_chaos:
+                kw["link"] = link & ~link_loss_draw(round_base + r, loss_rate)
+            out = sim_mod.step(cfg, res[0], crashed, append_n, **kw)
+            # SimState is itself a tuple: wrap by flag, not by isinstance.
+            res = out if n_extra else (out,)
+        return res
 
     def fn(st: SimState, crashed, append_n, *rest):
         if count_fused:
             rest, acc = rest[:-1], rest[-1]
         link = loss_rate = round_base = None
         if with_chaos:
-            link, loss_rate, round_base = rest
+            (link, loss_rate, round_base), rest = rest[:3], rest[3:]
             check_round_base(round_base, k)
+        if len(rest) != n_extra:
+            raise TypeError(f"expected {n_extra} extras, got {len(rest)}")
         pred = bool(steady_predicate(
             cfg, st, crashed, horizon=k, link=link, loss_rate=loss_rate
         ))
-        if pred and with_chaos:
-            out = fused_fn(st, crashed, append_n, loss_rate, round_base)
-        elif pred:
-            out = fused_fn(st, crashed, append_n)
+        if pred:
+            lead = (loss_rate, round_base) if with_chaos else ()
+            res = fused_fn(st, crashed, append_n, *lead, *rest)
+            res = res if n_extra else (res,)
         else:
-            out = st
-            for r in range(k):
-                kw = {}
-                if with_chaos:
-                    kw["link"] = link & ~link_loss_draw(round_base + r, loss_rate)
-                out = sim_mod.step(cfg, out, crashed, append_n, **kw)
-        if not count_fused:
-            return out
-        return out, acc + (k * cfg.n_groups if pred else 0)
+            res = general(st, crashed, append_n, link, loss_rate, round_base, rest)
+        if count_fused:
+            return res + (acc + (k * cfg.n_groups if pred else 0),)
+        return res if n_extra else res[0]
 
     return fn

@@ -1,0 +1,116 @@
+"""HealthMonitor: the host-side consumer of fleet-health summaries.
+
+Counterpart of `raft_tpu/multiraft/health.py` (:35-117, :387-399): the
+summary formatter, `record`, `last`, `summary_ring` and `__len__`.  The
+device planes (kernels.HP_* rows, maintained by sim.step) reduce on their
+device to one fixed-size summary dict::
+
+    {"counts": {"leaderless": n, "stalled_leaderless": n,
+                "commit_stalled": n, "churning": n},
+     "lag_hist": [kernels.N_LAG_BUCKETS counts],
+     "worst": [{"group": id, "score": s}, ...]}
+
+This module is where those summaries land on the host: the monitor hands
+each one to `metrics` (any object with `on_health_summary(summary)` and
+`trace(event, **fields)`), and keeps a fixed-size ring of recent summaries
+with a state snapshot of each worst group for post-mortems
+(ClusterSim.explain installs itself as the snapshot hook).  Summaries
+arrive as plain host dicts; nothing here touches a device tensor.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Callable, Deque, Dict, List, Optional
+
+from .kernels import HEALTH_COUNT_NAMES
+
+__all__ = ["HealthMonitor"]
+
+
+class HealthMonitor:
+    """Flight recorder and metrics bridge for health summaries.
+
+    metrics:       optional object with on_health_summary(summary) and
+                   trace(event, **fields); each recorded summary is
+                   published and traced through it.
+    recorder_size: ring capacity.
+    snapshot_fn:   optional group_id -> dict hook; when set, worst-offender
+                   groups with a non-zero score get a state snapshot stored
+                   beside the summary.
+    """
+
+    def __init__(
+        self,
+        metrics=None,
+        recorder_size: int = 64,
+        snapshot_fn: Optional[Callable[[int], dict]] = None,
+    ):
+        self.metrics = metrics
+        self.snapshot_fn = snapshot_fn
+        self._summary_ring: Deque[dict] = deque(maxlen=recorder_size)
+        self._seq = 0
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def summary_dict(counts, lag_hist, worst_ids, worst_scores) -> dict:
+        """The summary shape (module docstring) from the four reduction
+        vectors, in kernels.health_summary's return order: the one
+        formatter every producer goes through."""
+        return {
+            "counts": dict(zip(HEALTH_COUNT_NAMES, (int(v) for v in counts))),
+            "lag_hist": [int(v) for v in lag_hist],
+            "worst": [
+                {"group": int(g), "score": int(s)}
+                for g, s in zip(worst_ids, worst_scores)
+            ],
+        }
+
+    def record(self, summary: dict) -> dict:
+        """Fold one summary into the ring, the metrics and the trace;
+        returns the ring entry (with its seq, ts and snapshots)."""
+        snapshots: Dict[int, dict] = {}
+        fn = self.snapshot_fn
+        if fn is not None:
+            for w in summary.get("worst", ()):
+                if w["score"] > 0:
+                    snapshots[w["group"]] = fn(w["group"])
+        with self._lock:
+            entry = {"seq": self._seq, "ts": time.time(), "summary": summary}
+            if snapshots:
+                entry["worst_snapshots"] = snapshots
+            self._seq += 1
+            self._summary_ring.append(entry)
+        m = self.metrics
+        if m is not None:
+            m.on_health_summary(summary)
+            counts = summary.get("counts", {})
+            m.trace("health.summary", **counts)
+            if counts.get("stalled_leaderless", 0) or counts.get(
+                "commit_stalled", 0
+            ):
+                m.trace(
+                    "health.stall",
+                    stalled_leaderless=counts.get("stalled_leaderless", 0),
+                    commit_stalled=counts.get("commit_stalled", 0),
+                    worst=summary.get("worst", []),
+                )
+            if counts.get("churning", 0):
+                m.trace("health.churn", churning=counts.get("churning", 0))
+        return entry
+
+    def last(self) -> Optional[dict]:
+        """Most recent ring entry, or None."""
+        with self._lock:
+            return self._summary_ring[-1] if self._summary_ring else None
+
+    def summary_ring(self) -> List[dict]:
+        """Oldest-to-newest copy of the ring."""
+        with self._lock:
+            return list(self._summary_ring)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._summary_ring)

@@ -12,6 +12,10 @@ Counterparts (reference file `raft_tpu/multiraft/kernels.py`):
   cq_boundary_safe     :1178
   timeout_draw         :1258
   ROLE_*               :1280-1283
+  CTR_*, N_COUNTERS, COUNTER_NAMES, zero_counters, count_events  :1294-1336
+  HP_*, N_HEALTH_PLANES, HEALTH_PLANE_NAMES, LAG_BUCKET_BOUNDS,
+  N_LAG_BUCKETS, HS_*, HEALTH_COUNT_NAMES, zero_health, update_health,
+  health_summary       :1349-1461
   tick_kernel          :1628
 
 The reference computes the timeout and loss PRNGs in uint32.  PyTorch's uint32
@@ -28,6 +32,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from .platform import DeviceLike, resolve_device
+
+I32 = torch.int32
 
 INF = 2**31 - 1
 
@@ -185,6 +193,147 @@ def timeout_draw(
     # uint32 -> int32 reinterpretation, as the reference's astype does.
     out = torch.where(out >= 2**31, out - 2**32, out)
     return out.to(torch.int32)
+
+
+# --- the event-counter plane: indices into the [N_COUNTERS] int32
+# accumulator that `sim.step` sums when given `counters`.
+CTR_CAMPAIGNS = 0  # election timers fired (scalar: Raft.campaign calls)
+CTR_HEARTBEATS = 1  # leader heartbeat timers fired (scalar: MsgBeat steps)
+CTR_ELECTIONS_WON = 2  # leaders elected (scalar: become_leader calls)
+CTR_COMMIT_ENTRIES = 3  # sum of per-peer commit-index advances
+N_COUNTERS = 4
+
+COUNTER_NAMES = (
+    "campaigns",
+    "heartbeats",
+    "elections_won",
+    "commit_entries",
+)
+
+
+def zero_counters(device: DeviceLike = None) -> torch.Tensor:
+    """Fresh [N_COUNTERS] int32 accumulator plane, on `cuda` unless
+    `device` says otherwise."""
+    return torch.zeros((N_COUNTERS,), dtype=I32, device=resolve_device(device))
+
+
+def count_events(
+    counters: torch.Tensor,  # int32[N_COUNTERS]
+    want_campaign: torch.Tensor,  # bool[...]
+    want_heartbeat: torch.Tensor,  # bool[...]
+    won: torch.Tensor,  # bool[...]
+    commit_delta: torch.Tensor,  # int32[...]
+) -> torch.Tensor:
+    """Fold one round's event masks into the accumulator plane; every sum
+    is int32 (it wraps modulo 2**32, as the reference's does)."""
+    events = torch.stack([
+        want_campaign.sum(dtype=I32),
+        want_heartbeat.sum(dtype=I32),
+        won.sum(dtype=I32),
+        commit_delta.sum(dtype=I32),
+    ]).to(counters.dtype)
+    return counters + events
+
+
+# --- the fleet-health planes: row indices into the [N_HEALTH_PLANES, G]
+# int32 stack that `sim.step` maintains when given a health state.
+HP_LEADERLESS = 0  # consecutive rounds the group ended with no alive leader
+HP_SINCE_COMMIT = 1  # consecutive rounds the group's max commit was flat
+HP_TERM_BUMPS = 2  # max-term growth inside the current churn window
+HP_VOTE_SPLITS = 3  # cumulative election rounds that elected nobody
+N_HEALTH_PLANES = 4
+
+HEALTH_PLANE_NAMES = (
+    "leaderless_ticks",
+    "ticks_since_commit",
+    "term_bumps_in_window",
+    "vote_splits",
+)
+
+# Commit-lag histogram bucket lower bounds (ticks_since_commit); bucket i
+# counts groups with LAG_BUCKET_BOUNDS[i-1] <= lag < LAG_BUCKET_BOUNDS[i],
+# bucket 0 is lag == 0 and the last bucket is lag >= 64.
+LAG_BUCKET_BOUNDS = (1, 2, 4, 8, 16, 32, 64)
+N_LAG_BUCKETS = len(LAG_BUCKET_BOUNDS) + 1
+
+# health_summary count-vector indices.
+HS_LEADERLESS = 0  # groups currently leaderless (any duration)
+HS_STALLED_LEADERLESS = 1  # leaderless at/over the stall threshold
+HS_COMMIT_STALLED = 2  # commit-flat at/over the stall threshold
+HS_CHURNING = 3  # term bumps in window at/over the churn threshold
+N_HEALTH_COUNTS = 4
+
+HEALTH_COUNT_NAMES = (
+    "leaderless",
+    "stalled_leaderless",
+    "commit_stalled",
+    "churning",
+)
+
+
+def zero_health(n_groups: int, device: DeviceLike = None) -> torch.Tensor:
+    """Fresh [N_HEALTH_PLANES, n_groups] int32 health-plane stack, on `cuda`
+    unless `device` says otherwise."""
+    return torch.zeros(
+        (N_HEALTH_PLANES, n_groups), dtype=I32, device=resolve_device(device)
+    )
+
+
+def update_health(
+    planes: torch.Tensor,  # int32[N_HEALTH_PLANES, G]
+    window_pos: int,
+    window: int,
+    has_leader: torch.Tensor,  # bool[G]
+    commit_advanced: torch.Tensor,  # bool[G]
+    term_bump: torch.Tensor,  # int32[G]
+    vote_split: torch.Tensor,  # bool[G]
+) -> Tuple[torch.Tensor, int]:
+    """Fold one protocol round into the health planes; returns (planes',
+    window_pos').  The churn window resets at the start of the round whose
+    window_pos is 0.  The reference keeps window_pos as a device int32
+    scalar; every change to it is host-known arithmetic, so here it is a
+    Python int and the fold needs no device sync."""
+    leaderless = torch.where(has_leader, 0, planes[HP_LEADERLESS] + 1)
+    since = torch.where(commit_advanced, 0, planes[HP_SINCE_COMMIT] + 1)
+    kept = torch.zeros_like(term_bump) if window_pos == 0 else planes[HP_TERM_BUMPS]
+    bumps = kept + term_bump
+    splits = planes[HP_VOTE_SPLITS] + vote_split.to(I32)
+    return torch.stack([leaderless, since, bumps, splits]), (window_pos + 1) % window
+
+
+def health_summary(
+    planes: torch.Tensor,  # int32[N_HEALTH_PLANES, G]
+    stall_ticks: int,
+    commit_stall_ticks: int,
+    churn_bumps: int,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The planes reduced to a fixed-size summary on their device: (counts
+    [N_HEALTH_COUNTS], lag_hist [N_LAG_BUCKETS], worst_ids [k],
+    worst_scores [k]), all int32.  The worst-offender score is
+    max(ticks_since_commit, leaderless_ticks); ties go to the lower group
+    id, as `lax.top_k` breaks them, by a stable descending sort."""
+    leaderless = planes[HP_LEADERLESS]
+    lag = planes[HP_SINCE_COMMIT]
+    bumps = planes[HP_TERM_BUMPS]
+    counts = torch.stack([
+        (leaderless > 0).sum(dtype=I32),
+        (leaderless >= stall_ticks).sum(dtype=I32),
+        (lag >= commit_stall_ticks).sum(dtype=I32),
+        (bumps >= churn_bumps).sum(dtype=I32),
+    ])
+    bounds = torch.tensor(LAG_BUCKET_BOUNDS, dtype=I32, device=planes.device)
+    bucket = (lag[:, None] >= bounds[None, :]).sum(1, dtype=I32)
+    hist = torch.zeros((N_LAG_BUCKETS,), dtype=I32, device=planes.device)
+    hist = hist.scatter_add(0, bucket.to(torch.int64), torch.ones_like(bucket))
+    score = torch.maximum(lag, leaderless)
+    ordered = torch.sort(score, descending=True, stable=True)
+    return (
+        counts,
+        hist,
+        ordered.indices[:k].to(I32),
+        ordered.values[:k].to(I32),
+    )
 
 
 def tick_kernel(

@@ -2,23 +2,25 @@
 tensors, advanced one lockstep protocol round at a time.
 
 Counterpart of `raft_tpu/multiraft/sim.py`, reduced to what the ported
-paths run: `SimConfig` (:117), `SimState` (:226), `_node_key` (:511),
-`init_state` (:528), `_sort_rows_desc` (:621), `_quorum_index` (:635), the
-plain arm of `step` (:1209-1716: undamped, `link=None`, no extras), the
-link-gated round `_linked_step` (:1792-2379, undamped, no extras) behind
-`step(link=)`, the damped round `_damped_linked_step` (:2451-3572: check
-quorum and pre-vote, no extras) that `step` runs for every config with
-either flag, and `ClusterSim` with `__init__`, `run_round` (:3950) and
-`run` (:4005).  Each round is the reference's round exactly, plane by
-plane: tick, campaign, election resolution (vote grants, joint tallies,
-commit fast-forward via vote traffic), the solo crashed-campaigner win,
-then replication and quorum commit; the linked and damped rounds replay
-the same protocol wave by wave over the directed delivery plane.
+paths run: `SimConfig` (:117), `SimState` (:226), `HealthState` (:287),
+`init_health` (:302), `_node_key` (:511), `init_state` (:528),
+`_sort_rows_desc` (:621), `_quorum_index` (:635), the plain arm of `step`
+(:1209-1773: undamped, `link=None`), the link-gated round `_linked_step`
+(:1792-2428, undamped) behind `step(link=)`, the damped round
+`_damped_linked_step` (:2451-3548: check quorum and pre-vote) that `step`
+runs for every config with either flag, each with the `counters` and
+`health` extras, and `ClusterSim` with `__init__` (:3657-3785),
+`run_round` (:3950), `run` (:4005), the counter drain (:3851-3948) and the
+counter and health accessors (:4639-4745).  Each round is the reference's
+round exactly, plane by plane: tick, campaign, election resolution (vote
+grants, joint tallies, commit fast-forward via vote traffic), the solo
+crashed-campaigner win, then replication and quorum commit; the linked and
+damped rounds replay the same protocol wave by wave over the directed
+delivery plane.
 
 Options that this port does not implement yet raise NotImplementedError
-instead of being ignored: the SimConfig flags `transfer`, `lease_read`,
-`collect_counters`, `collect_health` and `blackbox`, and the step
-arguments `group_ids`, `counters`, `health`, `reconfig_propose`,
+instead of being ignored: the SimConfig flags `transfer`, `lease_read` and
+`blackbox`, and the step arguments `group_ids`, `reconfig_propose`,
 `transfer_propose`, `campaign_kick`, `read_propose` and `blackbox`.
 
 The reference gates the election phase behind `lax.cond(any(req))`.
@@ -45,6 +47,7 @@ from .kernels import (
     ROLE_LEADER,
     ROLE_PRE_CANDIDATE,
 )
+from .health import HealthMonitor
 from .platform import DeviceLike, resolve_device
 
 I32 = torch.int32
@@ -52,9 +55,9 @@ I32 = torch.int32
 
 class SimConfig(NamedTuple):
     """Static per-sim configuration; same fields, order and defaults as the
-    reference's SimConfig.  The uninstrumented arms are implemented,
-    undamped and damped (`check_quorum`, `pre_vote`): see
-    `check_supported`."""
+    reference's SimConfig.  The undamped and damped (`check_quorum`,
+    `pre_vote`) rounds are implemented, with the counters and health
+    instrumentation: see `check_supported`."""
 
     n_groups: int
     n_peers: int
@@ -91,8 +94,6 @@ class SimConfig(NamedTuple):
 _UNSUPPORTED_FLAGS = (
     "transfer",
     "lease_read",
-    "collect_counters",
-    "collect_health",
     "blackbox",
 )
 
@@ -104,7 +105,8 @@ def check_supported(cfg: SimConfig, **extras) -> None:
     if on:
         raise NotImplementedError(
             f"raft_tpu_torch does not implement SimConfig({', '.join(on)}) "
-            "yet; only the uninstrumented step (damped or not) is ported"
+            "yet; only the step (damped or not) with counters and health is "
+            "ported"
         )
     given = [k for k, v in extras.items() if v is not None]
     if given:
@@ -137,6 +139,41 @@ class SimState(NamedTuple):
     learner_mask: torch.Tensor  # bool[P, G]
     recent_active: Optional[torch.Tensor] = None  # bool[P, P, G] — per-owner
     transferee: Optional[torch.Tensor] = None
+
+
+class HealthState(NamedTuple):
+    """Fleet-health telemetry carried beside SimState.
+
+    planes:     [kernels.N_HEALTH_PLANES, G] int32 per-group planes (row
+                indices kernels.HP_*), updated once a round by
+                kernels.update_health on the state's device; only the
+                kernels.health_summary reduction crosses to the host.
+    window_pos: rounds into the current churn window, a Python int (the
+                reference's device int32 scalar; every change to it is
+                host-known arithmetic, so it needs no device sync)."""
+
+    planes: torch.Tensor  # int32[N_HEALTH_PLANES, G]
+    window_pos: int
+
+
+def init_health(cfg: SimConfig, device: DeviceLike = None) -> HealthState:
+    """Fresh all-zero health state for cfg.n_groups groups, on `cuda`
+    unless `device` says otherwise."""
+    return HealthState(kernels.zero_health(cfg.n_groups, device), 0)
+
+
+class _RoundFacts(NamedTuple):
+    """What a round's counters and health fold read besides the (pre,
+    post) state pair."""
+
+    want_campaign: torch.Tensor  # bool[P, G]: election timers fired
+    beats: torch.Tensor  # bool[P, G]: heartbeat timers fired and sent
+    won: torch.Tensor  # bool[G]: a leader was elected this round
+    # bool[P, G]: the pre-vote winners' real campaign() calls, or None.
+    real_campaigns: Optional[torch.Tensor] = None
+    # The health fold reads `won` off the end-of-round state instead: a
+    # winner deposed later in the same round does not count.
+    observed_won: bool = False
 
 
 _BOOL_FIELDS = ("voter_mask", "outgoing_mask", "learner_mask", "recent_active")
@@ -301,19 +338,23 @@ def step(
     campaign_kick=None,
     read_propose=None,
     blackbox=None,
-) -> SimState:
+):
     """One lockstep protocol round for every group.  crashed: bool[P, G]
     peers isolated this round (they keep ticking, exchange no messages);
     append_n: int32[G] entries proposed at each group's leader; link:
     optional bool[P, P, G] directed reachability plane, which routes the
     round through `_linked_step`.  A damped config (check_quorum or
     pre_vote) always runs `_damped_linked_step`, under an all-up plane
-    when `link` is None.  Returns the next SimState."""
+    when `link` is None.
+
+    counters: optional int32[N_COUNTERS] event accumulator; health:
+    optional HealthState.  Returns the next SimState alone when neither is
+    given, else (SimState, counters', health') with the given ones in that
+    order, as the reference's extras."""
     check_supported(
-        cfg, group_ids=group_ids, counters=counters, health=health,
-        reconfig_propose=reconfig_propose, transfer_propose=transfer_propose,
-        campaign_kick=campaign_kick, read_propose=read_propose,
-        blackbox=blackbox,
+        cfg, group_ids=group_ids, reconfig_propose=reconfig_propose,
+        transfer_propose=transfer_propose, campaign_kick=campaign_kick,
+        read_propose=read_propose, blackbox=blackbox,
     )
     if cfg.check_quorum or cfg.pre_vote:
         if link is None:
@@ -321,9 +362,58 @@ def step(
                 (cfg.n_peers, cfg.n_peers, cfg.n_groups), dtype=torch.bool,
                 device=st.term.device,
             )
-        return _damped_linked_step(cfg, st, crashed, append_n, link)
-    if link is not None:
-        return _linked_step(cfg, st, crashed, append_n, link)
+        out, facts = _damped_linked_step(cfg, st, crashed, append_n, link)
+    elif link is not None:
+        out, facts = _linked_step(cfg, st, crashed, append_n, link)
+    else:
+        out, facts = _plain_step(cfg, st, crashed, append_n)
+    if counters is None and health is None:
+        return out
+    return (out,) + _extras(cfg, st, out, crashed, facts, counters, health)
+
+
+def _extras(cfg, st, out, crashed, facts: _RoundFacts, counters, health):
+    """The reference's counters and health folds of one round from the
+    (pre, post) state pair and the round's facts: (counters',) and/or
+    (health',), in that order, for the extras that are not None."""
+    extras = ()
+    if counters is not None:
+        counters = kernels.count_events(
+            counters, facts.want_campaign, facts.beats, facts.won,
+            out.commit - st.commit,
+        )
+        if facts.real_campaigns is not None:
+            bump = torch.zeros_like(counters)
+            bump[kernels.CTR_CAMPAIGNS] = facts.real_campaigns.sum(dtype=I32)
+            counters = counters + bump
+        extras += (counters,)
+    if health is not None:
+        lead_end = out.state == ROLE_LEADER
+        has_lead_end = (lead_end & ~crashed).any(0)
+        commit_adv = out.commit.amax(0) > st.commit.amax(0)
+        term_bump = out.term.amax(0) - st.term.amax(0)
+        campaigned = facts.want_campaign.any(0)
+        won = facts.won
+        if facts.observed_won:
+            won = (
+                lead_end & ((st.state != ROLE_LEADER) | (out.term > st.term))
+            ).any(0)
+        planes, pos = kernels.update_health(
+            health.planes, health.window_pos, cfg.health_window,
+            has_lead_end, commit_adv, term_bump, campaigned & ~won,
+        )
+        extras += (HealthState(planes, pos),)
+    return extras
+
+
+def _plain_step(
+    cfg: SimConfig,
+    st: SimState,
+    crashed: torch.Tensor,  # bool[P, G]
+    append_n: torch.Tensor,  # int32[G]
+):
+    """The undamped round without a link plane (the reference's `step`
+    body); returns (SimState, _RoundFacts)."""
     G, P = cfg.n_groups, cfg.n_peers
     dev = st.term.device
     self_id = torch.arange(P, dtype=I32, device=dev)[:, None] + 1  # [P, 1]
@@ -584,7 +674,7 @@ def step(
     commit = torch.where(is_acting_leader, lead_commit, commit_c)
     commit = torch.where(sync, torch.maximum(commit, lead_commit), commit)
 
-    return SimState(
+    out = SimState(
         term=term_d,
         state=state_d,
         vote=vote_d,
@@ -601,6 +691,11 @@ def step(
         voter_mask=st.voter_mask,
         outgoing_mask=st.outgoing_mask,
         learner_mask=st.learner_mask,
+    )
+    # A group wins at most one election a round, and the solo crashed
+    # campaigner excludes the networked win: become_leader's count.
+    return out, _RoundFacts(
+        want_campaign, want_heartbeat, winner_exists | solo_win.any(0)
     )
 
 
@@ -695,9 +790,10 @@ def _linked_step(
     crashed: torch.Tensor,  # bool[P, G]
     append_n: torch.Tensor,  # int32[G]
     link: torch.Tensor,  # bool[P, P, G]
-) -> SimState:
+):
     """The link-gated protocol round behind `step(..., link=)`: the
-    reference's `_linked_step` (sim.py:1792-2379) without its extras.
+    reference's `_linked_step` (sim.py:1792-2428); returns (SimState,
+    _RoundFacts) for `step`'s extras.
 
     Every exchange is gated per directed link: the delivery plane is
     `E[src, dst, g] = link & alive(src) & alive(dst)`, self edges excluded.
@@ -993,7 +1089,7 @@ def _linked_step(
     C = torch.where(is_acting_leader, lead_commit, C)
     C = torch.where(sync_b, torch.maximum(C, lead_commit), C)
 
-    return SimState(
+    out = SimState(
         term=T,
         state=St,
         vote=V,
@@ -1011,6 +1107,7 @@ def _linked_step(
         outgoing_mask=st.outgoing_mask,
         learner_mask=st.learner_mask,
     )
+    return out, _RoundFacts(want_campaign, want_heartbeat, won.any(0))
 
 
 def _damped_linked_step(
@@ -1019,9 +1116,10 @@ def _damped_linked_step(
     crashed: torch.Tensor,  # bool[P, G]
     append_n: torch.Tensor,  # int32[G]
     link: torch.Tensor,  # bool[P, P, G]
-) -> SimState:
+):
     """The damped (check-quorum / pre-vote) round: the reference's
-    `_damped_linked_step` (sim.py:2451-3572) without its extras.
+    `_damped_linked_step` (sim.py:2451-3548); returns (SimState,
+    _RoundFacts) for `step`'s extras.
 
     It extends `_linked_step`'s wave replay with the damping mechanisms,
     all in receipt order:
@@ -1621,7 +1719,7 @@ def _damped_linked_step(
     HB = torch.where(dw, 0, HB)
     RT = torch.where(dw, draw(T), RT)
 
-    return SimState(
+    out = SimState(
         term=T,
         state=St,
         vote=V,
@@ -1640,12 +1738,29 @@ def _damped_linked_step(
         learner_mask=st.learner_mask,
         recent_active=RA,
     )
+    # campaign() calls: the tick-time campaigns plus, with pre-vote, the
+    # pre-winners' real campaigns; heartbeats exclude the ones the
+    # check-quorum boundary suppressed (hb_send).
+    return out, _RoundFacts(
+        want_campaign, hb_send, won.any(0), real_req if pv else None,
+        observed_won=True,
+    )
 
 
 class ClusterSim:
     """Host-side runner over `step`: holds the state and advances it one
     round per `run_round`.  Planes are peer-major [P, G] on `device`
-    (`cuda` unless the caller asks for the CPU)."""
+    (`cuda` unless the caller asks for the CPU).
+
+    With SimConfig(collect_counters=True) every round folds its events
+    into an int32 [N_COUNTERS] plane on the device, which drains into
+    unbounded host totals on an adaptive cadence; with collect_health=True
+    every round updates the HealthState, and an attached `health_monitor`
+    (health.HealthMonitor, or anything with its `record`) receives the
+    fixed-size summary on the same cadence.  Only the [N_COUNTERS] plane
+    and the summary cross to the host, never a [., G] plane."""
+
+    _DRAIN_MAX = 128  # never let a window exceed this many rounds
 
     def __init__(
         self,
@@ -1653,6 +1768,7 @@ class ClusterSim:
         voter_mask: Optional[torch.Tensor] = None,
         outgoing_mask: Optional[torch.Tensor] = None,
         learner_mask: Optional[torch.Tensor] = None,
+        health_monitor=None,
         device: DeviceLike = None,
     ):
         self.cfg = cfg
@@ -1660,6 +1776,83 @@ class ClusterSim:
         self.state = init_state(
             cfg, voter_mask, outgoing_mask, learner_mask, device=self.device
         )
+        self._counters: Optional[torch.Tensor] = None
+        self._health: Optional[HealthState] = None
+        self.health_monitor = health_monitor
+        if (
+            health_monitor is not None
+            and cfg.collect_health
+            and health_monitor.snapshot_fn is None
+        ):
+            # Post-mortems snapshot the worst groups through explain().
+            health_monitor.snapshot_fn = self.explain
+        self._rounds_since_drain = 0
+        self._drain_every = self._DRAIN_MAX
+        if cfg.collect_counters:
+            # The device plane is int32, so it drains into these host
+            # totals every _drain_every rounds.  The cadence starts at one
+            # round and doubles toward a G-scaled cap while the windows
+            # stay far below 2**31 events (halving back under pressure).
+            self._counters = kernels.zero_counters(self.device)
+            self._host_counters = [0] * kernels.N_COUNTERS
+            self._drain_every = 1
+            self._drain_cap = max(
+                1, min(self._DRAIN_MAX, (1 << 31) // (256 * cfg.n_groups))
+            )
+        if cfg.collect_health:
+            self._health = init_health(cfg, self.device)
+
+    def _summary(self, planes: torch.Tensor):
+        """kernels.health_summary at this config's thresholds, on the
+        planes' device."""
+        cfg = self.cfg
+        return kernels.health_summary(
+            planes, cfg.leaderless_stall_ticks, cfg.commit_stall_ticks,
+            cfg.churn_bumps, min(cfg.health_topk, cfg.n_groups),
+        )
+
+    @staticmethod
+    def _download_summary(summary) -> dict:
+        """The four summary vectors in one device-to-host copy, as the
+        summary dict."""
+        sizes = [t.numel() for t in summary]
+        flat = torch.cat(summary).tolist()
+        parts, at = [], 0
+        for n in sizes:
+            parts.append(flat[at:at + n])
+            at += n
+        return HealthMonitor.summary_dict(*parts)
+
+    def _drain(self, summary: bool = True) -> None:
+        """The host boundary, synchronous: the counter plane (a fresh zero
+        plane takes its place) folds into the host totals, with the wrap
+        check and the cadence adaptation; with `summary` and a monitor
+        attached, the health summary goes to it.  run_round drains on the
+        cadence, counters() with summary=False."""
+        counters = self._counters
+        self._rounds_since_drain = 0
+        if counters is not None:
+            self._counters = kernels.zero_counters(self.device)
+            peak = 0
+            for i, v in enumerate(counters.tolist()):
+                if v < 0:
+                    raise RuntimeError(
+                        "device event counter wrapped int32 within one drain "
+                        "window; totals are corrupt — rerun with more frequent "
+                        "ClusterSim.counters() calls or fewer events per round"
+                    )
+                peak = max(peak, v)
+                self._host_counters[i] += v
+            # Stay well clear of 2**31 a window without syncing more often
+            # than needed.
+            if peak > (1 << 29) and self._drain_every > 1:
+                self._drain_every //= 2
+            elif peak < (1 << 26) and self._drain_every < self._drain_cap:
+                self._drain_every *= 2
+        if summary and self._health is not None and self.health_monitor is not None:
+            self.health_monitor.record(
+                self._download_summary(self._summary(self._health.planes))
+            )
 
     def run_round(self, crashed=None, append_n=None, link=None) -> SimState:
         """One protocol round; crashed bool[P, G] and append_n int32[G]
@@ -1675,10 +1868,100 @@ class ClusterSim:
         append_n = append_n.to(device=self.device, dtype=I32)
         if link is not None:
             link = link.to(device=self.device, dtype=torch.bool)
-        self.state = step(self.cfg, self.state, crashed, append_n, link=link)
+        cc, ch = self._counters is not None, self._health is not None
+        if not (cc or ch):
+            self.state = step(self.cfg, self.state, crashed, append_n, link=link)
+            return self.state
+        res = step(
+            self.cfg, self.state, crashed, append_n, counters=self._counters,
+            health=self._health, link=link,
+        )
+        self.state = res[0]
+        if cc:
+            self._counters = res[1]
+        if ch:
+            self._health = res[-1]
+        self._rounds_since_drain += 1
+        if self._rounds_since_drain >= self._drain_every:
+            self._drain()
         return self.state
 
     def run(self, rounds: int, crashed=None, append_n=None) -> SimState:
         for _ in range(rounds):
             self.run_round(crashed, append_n)
         return self.state
+
+    def counters(self) -> dict:
+        """The event totals as {name: count}: the device plane drains into
+        the host totals here (with the wrap check), on demand.  Requires
+        SimConfig(collect_counters=True)."""
+        if self._counters is None:
+            raise RuntimeError(
+                "counters disabled; construct with "
+                "SimConfig(collect_counters=True)"
+            )
+        self._drain(summary=False)
+        return dict(zip(kernels.COUNTER_NAMES, self._host_counters))
+
+    def reset_counters(self) -> None:
+        if self._counters is not None:
+            self._counters = kernels.zero_counters(self.device)
+            self._host_counters = [0] * kernels.N_COUNTERS
+            self._rounds_since_drain = 0
+
+    # --- fleet health (requires SimConfig(collect_health=True)) ---
+
+    def _require_health(self) -> HealthState:
+        if self._health is None:
+            raise RuntimeError(
+                "health planes disabled; construct with "
+                "SimConfig(collect_health=True)"
+            )
+        return self._health
+
+    def health(self) -> dict:
+        """The current fleet-health summary as a plain dict (counts,
+        lag_hist, worst: see health.HealthMonitor), reduced on the device;
+        only the summary crosses to the host.  It also goes to the attached
+        HealthMonitor, if any."""
+        summary = self._download_summary(
+            self._summary(self._require_health().planes)
+        )
+        if self.health_monitor is not None:
+            self.health_monitor.record(summary)
+        return summary
+
+    def explain(self, group_id: int) -> dict:
+        """Post-mortem for one group: its health-plane column and every
+        peer's consensus cursors, O(P) values in one host copy."""
+        h = self._require_health()
+        g = int(group_id)
+        st = self.state
+        planes = h.planes[:, g].tolist()
+        cols = torch.stack([
+            st.term[:, g],
+            st.state[:, g],
+            st.commit[:, g],
+            st.last_index[:, g],
+            st.leader_id[:, g],
+            (st.voter_mask[:, g] | st.outgoing_mask[:, g]).to(I32),
+            st.learner_mask[:, g].to(I32),
+        ]).tolist()
+        term, role, commit, last_index, leader_id, voter, learner = cols
+        return {
+            "group": g,
+            "health": dict(zip(kernels.HEALTH_PLANE_NAMES, planes)),
+            "peers": {
+                "term": term,
+                "state": role,
+                "commit": commit,
+                "last_index": last_index,
+                "leader_id": leader_id,
+                "voter": [bool(v) for v in voter],
+                "learner": [bool(v) for v in learner],
+            },
+        }
+
+    def reset_health(self) -> None:
+        if self._health is not None:
+            self._health = init_health(self.cfg, self.device)

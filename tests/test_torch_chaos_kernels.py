@@ -59,18 +59,24 @@ def test_link_loss_draw_matches_jax(P, round_idx, with_ids):
     assert not want[:, :, :5].any() and want[:, :, 5:10].all()
 
 
-def _host_rounds(args, round_base, rounds, election_tick, heartbeat_tick):
+def _host_rounds(args, round_base, rounds, election_tick, heartbeat_tick,
+                 tsc=None):
+    """The g++ build of the body; with `tsc`, its with_health instance,
+    tsc' appended to the outputs."""
     lib = _build.load_chaos_host()
     P, G = args[0].shape
     args = [a.contiguous() for a in args]
     outs = [torch.empty((P, G), dtype=torch.int32) for _ in range(8)]
     outs.append(torch.empty((P, P, G), dtype=torch.int32))
+    tsc_out = None if tsc is None else torch.empty(G, dtype=torch.int32)
     rc = lib.chaos_round_host(
         *[t.data_ptr() for t in (*args, *outs)],
+        *[None if t is None else t.data_ptr() for t in (tsc, tsc_out)],
         G, P, round_base, rounds, election_tick, heartbeat_tick,
+        int(tsc is not None),
     )
     assert rc == 0
-    return outs
+    return outs + ([] if tsc is None else [tsc_out])
 
 
 def random_inputs(P, G, seed):
@@ -165,7 +171,7 @@ def test_host_body_every_instantiated_peer_count(P):
 def test_host_body_rejects_unsupported_peer_count():
     lib = _build.load_chaos_host()
     null = ctypes.c_void_p(0)
-    assert lib.chaos_round_host(*([null] * 25), 4, 8, 0, 1, 10, 1) != 0
+    assert lib.chaos_round_host(*([null] * 27), 4, 8, 0, 1, 10, 1, 0) != 0
 
 
 def test_wrapper_on_cpu_tensors_runs_the_plain_version():

@@ -232,9 +232,9 @@ def test_damped_state_round_trip_and_errors():
     undamped = tsim.init_state(tsim.SimConfig(n_groups=4, n_peers=3), device="cpu")
     with pytest.raises(ValueError, match="recent_active"):
         tsim.step(cfg, undamped, crashed, append)
-    for extra in ("counters", "health", "campaign_kick", "read_propose"):
+    for extra in ("group_ids", "campaign_kick", "read_propose"):
         with pytest.raises(NotImplementedError):
             tsim.step(cfg, st, crashed, append, **{extra: torch.zeros(4)})
-    for flag in ("transfer", "lease_read", "collect_health"):
+    for flag in ("transfer", "lease_read", "blackbox"):
         with pytest.raises(NotImplementedError):
             tsim.init_state(cfg._replace(**{flag: True}), device="cpu")

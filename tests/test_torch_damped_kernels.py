@@ -236,20 +236,25 @@ def test_damped_round_needs_recent_active():
 # --- the CUDA body, built with g++, against the plain version --------------
 
 
-def _host_rounds(args, kw):
+def _host_rounds(args, kw, tsc=None):
+    """The g++ build of the body; with `tsc`, its with_health instance,
+    tsc' appended to the outputs."""
     lib = _build.load_damped_host()
     P, G = args[0].shape
     outs = [torch.empty((P, G), dtype=torch.int32) for _ in range(8)]
     outs.append(torch.empty((P, G), dtype=torch.bool))
     outs.append(torch.empty((P, P, G), dtype=torch.int32))
+    tsc_out = None if tsc is None else torch.empty(G, dtype=torch.int32)
     ptrs = [None if a is None else a.contiguous().data_ptr() for a in args]
     rc = lib.damped_round_host(
-        *ptrs, *[t.data_ptr() for t in outs], G, P, kw["round_base"],
-        kw["rounds"], kw["election_tick"], kw["heartbeat_tick"],
-        int(kw["with_cq"]), int(args[13] is not None),
+        *ptrs, *[t.data_ptr() for t in outs],
+        *[None if t is None else t.data_ptr() for t in (tsc, tsc_out)],
+        G, P, kw["round_base"], kw["rounds"], kw["election_tick"],
+        kw["heartbeat_tick"], int(kw["with_cq"]), int(args[13] is not None),
+        int(tsc is not None),
     )
     assert rc == 0
-    return outs
+    return outs + ([] if tsc is None else [tsc_out])
 
 
 def random_operands(P, G, seed, loss):
@@ -324,9 +329,10 @@ def test_host_body_every_instantiated_peer_count(P):
 def test_host_body_rejects_what_it_cannot_take():
     lib = _build.load_damped_host()
     null = ctypes.c_void_p(0)
-    assert lib.damped_round_host(*([null] * 27), 4, 8, 0, 1, 10, 1, 1, 0) != 0
-    # with_loss needs the loss_rate pointer
-    assert lib.damped_round_host(*([null] * 27), 4, 3, 0, 1, 10, 1, 1, 1) != 0
+    assert lib.damped_round_host(*([null] * 29), 4, 8, 0, 1, 10, 1, 1, 0, 0) != 0
+    # with_loss needs the loss_rate pointer, with_health the tsc pointers
+    assert lib.damped_round_host(*([null] * 29), 4, 3, 0, 1, 10, 1, 1, 1, 0) != 0
+    assert lib.damped_round_host(*([null] * 29), 4, 3, 0, 1, 10, 1, 1, 0, 1) != 0
 
 
 def test_wrapper_on_cpu_tensors_runs_the_plain_version():

@@ -160,6 +160,6 @@ def test_fused_dispatch_rejects_unported_options():
         with pytest.raises(NotImplementedError):
             tfs.steady_mask(cfg, st, crashed, **{extra: torch.zeros(4, dtype=torch.bool)})
     with pytest.raises(NotImplementedError):
-        tfs.fast_multi_round(cfg._replace(collect_health=True), k=4)
+        tfs.fast_multi_round(cfg._replace(blackbox=True), k=4)
     with pytest.raises(NotImplementedError):
-        tfs.fast_multi_round(cfg._replace(collect_health=True), k=4, with_chaos=True)
+        tfs.fast_multi_round(cfg._replace(transfer=True), k=4, with_chaos=True)

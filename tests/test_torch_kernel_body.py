@@ -20,17 +20,21 @@ pytestmark = pytest.mark.skipif(
 )
 
 
-def _host_rounds(args, rounds, election_tick, heartbeat_tick):
+def _host_rounds(args, rounds, election_tick, heartbeat_tick, tsc=None):
+    """The g++ build of the body; with `tsc`, its with_health instance,
+    tsc' appended to the outputs."""
     lib = _build.load_steady_host()
     P, G = args[0].shape
     args = [a.contiguous() for a in args]
     outs = [torch.empty((P, G), dtype=torch.int32) for _ in range(6)]
+    tsc_out = None if tsc is None else torch.empty(G, dtype=torch.int32)
     rc = lib.steady_round_host(
         *[t.data_ptr() for t in (*args, *outs)],
-        G, P, rounds, election_tick, heartbeat_tick,
+        *[None if t is None else t.data_ptr() for t in (tsc, tsc_out)],
+        G, P, rounds, election_tick, heartbeat_tick, int(tsc is not None),
     )
     assert rc == 0
-    return outs
+    return outs + ([] if tsc is None else [tsc_out])
 
 
 def _random_inputs(P, G, seed):
@@ -97,7 +101,7 @@ def test_host_body_every_instantiated_peer_count(P):
 def test_host_body_rejects_unsupported_peer_count():
     lib = _build.load_steady_host()
     null = ctypes.c_void_p(0)
-    assert lib.steady_round_host(*([null] * 19), 4, 8, 1, 10, 1) != 0
+    assert lib.steady_round_host(*([null] * 21), 4, 8, 1, 10, 1, 0) != 0
 
 
 def test_wrapper_on_cpu_tensors_runs_the_plain_version():

@@ -132,8 +132,7 @@ def test_state_planes_stay_int32_or_bool():
 
 
 @pytest.mark.parametrize(
-    "field", ["transfer", "lease_read", "collect_counters", "collect_health",
-              "blackbox"],
+    "field", ["transfer", "lease_read", "blackbox"],
 )
 def test_unported_config_flags_raise(field):
     cfg = tsim.SimConfig(n_groups=4, n_peers=3, **{field: True})
@@ -146,8 +145,8 @@ def test_unported_config_flags_raise(field):
 
 
 @pytest.mark.parametrize(
-    "arg", ["group_ids", "counters", "health", "link", "reconfig_propose",
-            "transfer_propose", "campaign_kick", "read_propose", "blackbox"],
+    "arg", ["group_ids", "link", "reconfig_propose", "transfer_propose",
+            "campaign_kick", "read_propose", "blackbox"],
 )
 def test_unported_step_args_raise(arg):
     """Every step extra not ported yet raises, on the plain round and on
@@ -160,7 +159,7 @@ def test_unported_step_args_raise(arg):
     if arg == "link":
         tsim.step(*args, link=link)
         with pytest.raises(NotImplementedError):
-            tsim.step(*args, link=link, counters=torch.zeros(4))
+            tsim.step(*args, link=link, group_ids=torch.zeros(4))
         return
     with pytest.raises(NotImplementedError):
         tsim.step(*args, **{arg: torch.zeros(4)})
