@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Three paths, all at 100,000 groups × 5 peers with one append per group
-per round (bench.py's bench_device), each bare and instrumented (bench.py
---health: the counter plane and the health planes ride every round, and the
-fused blocks run each kernel's with_health variant):
+Five paths, all at 100,000 groups × 5 peers.  Three with one append per
+group per round (bench.py's bench_device), each bare and instrumented
+(bench.py --health: the counter plane and the health planes ride every
+round, and the fused blocks run each kernel's with_health variant):
 
   steady  election_tick 10: ClusterSim settles 30 general rounds, then
           fast_multi_round(k=32) advances one 32-round block at a time on
@@ -23,8 +23,24 @@ fused blocks run each kernel's with_health variant):
           check-quorum boundary proof) holds, any other block 32 damped
           general steps.
 
+and two more:
+
+  chaos     bench.py --chaos examples/chaos/partition_heal.json [--check-
+            quorum]: ClusterSim(chaos=plan).run_plan(), the repo's P=5 plan
+            (120 rounds: settle, partition, directed link overrides with 50%
+            loss on two links, a crash on even groups, heal) on the general
+            step with the health planes, the safety invariants folded every
+            round;
+  composed  bench.py --lossy 0.01 --check-quorum: the check-quorum fleet
+            under 1% loss on every directed link through
+            hybrid_multi_round(k=32, with_chaos=True): per block, the fused
+            damped kernel's with_loss instance when no group storms, the
+            storm groups gathered into a general sub-batch beside it when at
+            most 4,096 do, and 32 general damped steps otherwise.
+
 Phases, in order, each with its wall seconds; any failure raises and the
-script exits nonzero.  Every parity phase holds both variants of its
+script exits nonzero.  The CPU runs of phases 13 and 16 go to a worker
+process at phase 13's start and run while the card works.  Every parity phase holds both variants of its
 kernel, with_health=False and with_health=True (the latter with a random
 ticks_since_commit row), against the plain version on the same cases.
 Every path phase runs its path on the card bare and instrumented
@@ -87,8 +103,31 @@ printed as bench.py --health-out writes it.
                    the health planes threaded as bench.py --health does
                    (fused_frac must be 1.0), and the lossy with_health
                    kernel's device time cold and hot
- 13. report        one JSON line of the six kernel variants, then the device
-                   line last
+ 13. chaos scenario the plan with check_quorum off and on on the card, at
+                   G=8,192 and at G=100,000 (no fused launch, zero safety
+                   counts), timed as bench_chaos does (G x rounds / wall
+                   from a fresh state, median of 3 reps, fused_frac 0) with
+                   the busy share of its first 4 rounds; then held to the
+                   CPU run at G=8,192: equal reports, every field and the
+                   health planes, and the 100k run's first 8,192 groups
+ 14. composed timing as phase 5 for the composed path from phase 9's settled
+                   state as it is (3 reps of one scan; fused_frac as
+                   measured; the busy share of 4 of the general rounds its
+                   blocks run), with the damped kernel's with_loss instance
+                   against its bound
+ 15. steady hybrid one hybrid_multi_round(k=32) block on the steady path from
+                   phase 4's state with the acting leader crashed in 1% of
+                   groups (split), card == CPU
+ 16. composed      from phase 9's settled state with the leaders' boundary
+                   phases aligned, three blocks on the card: no boundary in
+                   the horizon (pure), every boundary in it (slow), the
+                   acting leader crashed in 1% of groups (split); held to
+                   the CPU run on every field and the fused count; then the
+                   damped kernel against its plain version on the split
+                   block's operands, storm groups included
+ 17. report        one JSON line of the seven kernel rows (the six variants
+                   and the damped kernel's with_loss instance), then the
+                   device line last
 
 With --quick it runs phases 1 to 3, 6 and 9 only (the builds and every
 kernel against its plain version) and prints no result.  Exits 2 without a
@@ -97,16 +136,17 @@ result when no CUDA device is available.
 
 import argparse
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import torch
 
-from raft_tpu_torch.multiraft import _build, fused_step, kernels as pk, sim
+from raft_tpu_torch.multiraft import _build, chaos, fused_step, kernels as pk, sim
 from raft_tpu_torch.multiraft.health import HealthMonitor
 from raft_tpu_torch.multiraft.chaos_kernel import (
     OUTPUT_NAMES as CHAOS_OUTPUTS,
@@ -138,6 +178,13 @@ CQ_TICK = 64  # bench.py --check-quorum: the damped bound is free-running too
 CQ_SETTLE = 3 * CQ_TICK
 CQ_SMALL_G, CQ_SMALL_BLOCKS = 8192, 4
 CQ_FUSED_BLOCKS, CQ_CRASH_BLOCKS = 2, 3
+CHAOS_PLAN_NAME = "examples/chaos/partition_heal.json"
+CHAOS_PLAN = os.path.join(os.path.dirname(os.path.abspath(__file__)), CHAOS_PLAN_NAME)
+CHAOS_SMALL_G, CHAOS_REPS, CHAOS_PROFILE_ROUNDS = 8192, 3, 4
+STORM_EVERY = 100  # the acting leader crashed in 1% of groups
+# The composed path's parity blocks from the aligned state: no boundary in
+# the first horizon, every boundary in the second, then 1% of leaders down.
+COMPOSED_BRANCHES, COMPOSED_CRASH_BLOCK, COMPOSED_REPS = ("pure", "slow", "split"), 2, 3
 ROUNDS_PER_SCAN, SCANS, REPS = 64, 6, 5
 SLEEP_CYCLES = 4_000_000  # about 2 ms at the H100's 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
@@ -552,56 +599,60 @@ def device_profile(run):
 
 
 def time_path(dev, label, st, rb, block, operands, kernel, reference, kernel_name,
-              fused_round, predicate, work, compare_methods=False):
+              fused_round, predicate, work, compare_methods=False, reps=REPS,
+              scans=SCANS, part_reps=10, profile=None):
     """The bench's timed loop over `block(st, rb, fused) -> (st, fused)`
     (rb the absolute round of the block's first round; `st` is the loop's
-    carry: a SimState, or (SimState, HealthState) on a health path), then
-    the parts of
-    one block from the loop's final state: the kernel (`kernel(*args,
-    **kw)` with `operands(st, rb) -> (args, kw)`), its plain version, the
-    fused round and the predicate, and a profile of one rep.  With
-    `compare_methods`, the kernel's time by each timing method as well."""
+    carry: a SimState, or (SimState, HealthState) on a health path), `reps`
+    reps of `scans` scans, then the parts of one block from the loop's final
+    state: the kernel (`kernel(*args, **kw)` with `operands(st, rb) ->
+    (args, kw)`), its plain version, the fused round, the predicate and the
+    block (`part_reps` calls each), and a profile of one rep, or with
+    `profile` = (what, fn) of fn(st, rb).  With `compare_methods`, the
+    kernel's time by each timing method as well."""
     blocks_per_scan = ROUNDS_PER_SCAN // K
     for _ in range(blocks_per_scan):  # warm-up scan, as the bench does
         st, _ = block(st, rb, 0)
         rb += K
     torch.cuda.synchronize()
     samples, fused_total = [], 0
-    ticks = G * ROUNDS_PER_SCAN * SCANS
-    for _ in range(REPS):
+    ticks = G * ROUNDS_PER_SCAN * scans
+    for _ in range(reps):
         fused = 0
         t0 = time.perf_counter()
-        for _ in range(SCANS * blocks_per_scan):
+        for _ in range(scans * blocks_per_scan):
             st, fused = block(st, rb, fused)
             rb += K
         torch.cuda.synchronize()
         samples.append(ticks / (time.perf_counter() - t0))
         fused_total += fused
-    fused_frac = fused_total / (ticks * REPS)
+    fused_frac = fused_total / (ticks * reps)
 
     args, kw = operands(st, rb)
     t = kernel_times(dev, kernel, reference, args, kw, work, parts=dict(
         fused_round_ms=lambda: fused_round(st, rb),
         predicate_ms=lambda: bool(predicate(st)),
         block_ms=lambda: block(st, rb, 0)),
-        methods_of=kernel_name if compare_methods else None)
+        methods_of=kernel_name if compare_methods else None, part_reps=part_reps)
 
     def one_rep():
         s, r = st, rb
-        for _ in range(SCANS * blocks_per_scan):
+        for _ in range(scans * blocks_per_scan):
             s, _ = block(s, r, 0)
             r += K
 
-    prof = device_profile(one_rep)
+    what, run = profile or (f"one {label} rep ({scans * blocks_per_scan} blocks)", None)
+    prof = device_profile(one_rep if run is None else lambda: run(st, rb))
     loop_block_ms = statistics.median(ticks / x for x in samples) * 1e3 / (
-        SCANS * blocks_per_scan)
+        scans * blocks_per_scan)
 
     med = statistics.median(samples)
     t.update(ticks_per_s=samples, ticks_per_s_median=med, fused_frac=fused_frac,
              loop_block_ms=loop_block_ms, profile=prof,
              wrapper_ms=t["fused_round_ms"] - t["call_ms"])
     print(f"timing {label} {G}x{P} k={K} [{t['card']}]: ticks/s median {med:.1f} "
-          f"(min {min(samples):.1f}, max {max(samples):.1f}, {REPS} reps), "
+          f"(min {min(samples):.1f}, max {max(samples):.1f}, {reps} reps of {scans} "
+          f"scans), "
           f"fused_frac {fused_frac:.4f}; {kernel_name} {t['ms']:.4f} ms cold "
           f"({t['hot_ms']:.4f} ms hot; a wrapper call {t['call_ms']:.4f} ms), "
           f"plain version {t['plain_ms']:.3f} ms; "
@@ -610,7 +661,7 @@ def time_path(dev, label, st, rb, block, operands, kernel, reference, kernel_nam
           f"(wrapper {t['wrapper_ms']:.3f} + the kernel call); bound "
           f"{t['bound_ms']:.4f} ms (bytes {t['bytes_bound_ms']:.4f}, operations "
           f"{t['ops_bound_ms']:.4f})")
-    print(f"profile of one {label} rep ({SCANS * blocks_per_scan} blocks): device "
+    print(f"profile of {what}: device "
           f"busy {prof['busy_us']:.1f} of {prof['wall_us']:.1f} us "
           f"({100 * prof['busy_share']:.1f}%)")
     for row in prof["kernels"][:8]:
@@ -619,11 +670,12 @@ def time_path(dev, label, st, rb, block, operands, kernel, reference, kernel_nam
 
 
 def kernel_times(dev, kernel, reference, args, kw, work, parts=None,
-                 methods_of=None):
+                 methods_of=None, part_reps=10):
     """`kernel(*args, **kw)`'s device time cold (L2 flushed before each
     launch) and hot, a wrapper call and its plain version on the same
-    operands, each of `parts` ({name: fn}, 10 calls, L2 flushed before
-    each) by CUDA events, and the bound of `work` (bytes, operations).
+    operands, each of `parts` ({name: fn}, `part_reps` calls, L2 flushed
+    before each) by CUDA events, and the bound of `work` (bytes,
+    operations).
     With `methods_of` (the kernel's name), also timing_methods on the same
     operands."""
     scratch = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
@@ -638,7 +690,7 @@ def kernel_times(dev, kernel, reference, args, kw, work, parts=None,
              call_ms=cuda_ms(launch, 30, flush),
              plain_ms=cuda_ms(lambda: reference(*args, **kw), 5, flush))
     for name, fn in (parts or {}).items():
-        t[name] = cuda_ms(fn, 10, flush)
+        t[name] = cuda_ms(fn, part_reps, flush)
     if methods_of is not None:
         t["methods"] = timing_methods(dev, launch, methods_of, flush)
     del scratch
@@ -903,9 +955,10 @@ def compare_damped(args, note, with_cq=True, round_base=CQ_SETTLE,
 
 @phase("damped parity")
 def phase_damped_parity(dev):
-    """Returns ((plain, with_health) max |difference|, the settled 100k × 5
-    damped state)."""
-    err, settled = (0, 0), None
+    """Returns ((plain, with_health) max |difference| over every case, the
+    same over the with_loss cases alone, the settled 100k × 5 damped
+    state)."""
+    err, loss_err, settled = (0, 0), (0, 0), None
     for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3)):
         st = damped_settle(dev, n_groups, n_peers)
         if (n_groups, n_peers) == (G, P):
@@ -922,23 +975,31 @@ def phase_damped_parity(dev):
                 args = fused_step.damped_operands(
                     st, crashed, append, make_loss(n_groups, n_peers, dev))
                 for rb in (CQ_SETTLE, 2**31 - K):
-                    err = worst(err, compare_damped(
+                    loss_err = worst(loss_err, compare_damped(
                         args, f"{note} {loss_name} loss", round_base=rb))
     st = damped_settle(dev, G, P, pre_vote=True)
     append = torch.ones(G, dtype=torch.int32, device=dev)
     crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
     for loss in (None, uniform_loss(G, P, dev)):
-        err = worst(err, compare_damped(
+        e = compare_damped(
             fused_step.damped_operands(st, crashed, append, loss),
-            f"pre-vote-settled G={G} P={P} loss={loss is not None}", with_cq=False))
+            f"pre-vote-settled G={G} P={P} loss={loss is not None}", with_cq=False)
+        if loss is None:
+            err = worst(err, e)
+        else:
+            loss_err = worst(loss_err, e)
     for n_peers in (3, 5, 7):
         for with_cq in (False, True):
             for loss in (False, True):
                 args = random_damped_inputs(n_peers, G + 3, 20 + n_peers, dev, loss)
-                err = worst(err, compare_damped(
+                e = compare_damped(
                     args, f"random planes G={G + 3} P={n_peers} loss={loss}",
-                    with_cq=with_cq, round_base=2**31 - K, election_tick=6))
-    return err, settled
+                    with_cq=with_cq, round_base=2**31 - K, election_tick=6)
+                if loss:
+                    loss_err = worst(loss_err, e)
+                else:
+                    err = worst(err, e)
+    return worst(err, loss_err), loss_err, settled
 
 
 def run_damped_path(device, n_groups, blocks, start=None, crash_blocks=0):
@@ -1291,6 +1352,341 @@ def kernel_timing(dev, label, st, health):
     return t
 
 
+# --- the chaos scenario (bench.py --chaos) -----------------------------------
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def prefix(st, n):
+    """The first n groups of every plane."""
+    return sim.SimState(*(None if v is None else v[..., :n] for v in st))
+
+
+def chaos_cfg(n_groups, check_quorum):
+    """bench.py --chaos's config: the plan's peers, health planes on."""
+    return sim.SimConfig(n_groups=n_groups, n_peers=P, collect_health=True,
+                         check_quorum=check_quorum)
+
+
+def run_scenario(device, n_groups, check_quorum):
+    """ClusterSim(chaos=the plan).run_plan() from init_state: (report, final
+    state, final health, run_plan's wall seconds, which end with the
+    report's download)."""
+    s = sim.ClusterSim(chaos_cfg(n_groups, check_quorum),
+                       chaos=chaos.load_plan(CHAOS_PLAN), device=device)
+    sync()
+    t0 = time.perf_counter()
+    report = s.run_plan()
+    return report, s.state, s._health, time.perf_counter() - t0
+
+
+def same_scenario(a, b, note, n_groups=None):
+    """Run b's state and health planes equal to the first n_groups groups
+    (default all) of run a's."""
+    n = b[1].term.shape[1] if n_groups is None else n_groups
+    assert_same(prefix(a[1], n), b[1], note)
+    if a[2].window_pos != b[2].window_pos or not torch.equal(
+            a[2].planes[:, :n].cpu(), b[2].planes.cpu()):
+        raise AssertionError(f"{note}: health planes or window_pos differ")
+
+
+def worker_threads():
+    """CPU threads for the reference worker: all but two, which drive the
+    card meanwhile."""
+    torch.set_num_threads(max(1, torch.get_num_threads() - 2))
+
+
+def cpu_scenarios():
+    """In the reference worker: the plan on the CPU at CHAOS_SMALL_G with
+    check_quorum off and on, {check_quorum: (report, state arrays, health
+    planes, window_pos, seconds)}."""
+    worker_threads()
+    out = {}
+    for check_quorum in (False, True):
+        report, st, health, secs = run_scenario("cpu", CHAOS_SMALL_G, check_quorum)
+        out[check_quorum] = (report, sim.state_to_numpy(st), health.planes.numpy(),
+                             health.window_pos, secs)
+    return out
+
+
+def scenario_parity(dev, check_quorum):
+    """The plan on the card at CHAOS_SMALL_G, then at G with its launch
+    counts zeroed just before and read just after (the scenario runs on the
+    general step: no fused kernel may launch) and zero safety counts.
+    Returns (the small run, the G run, check(cpu)), where check(cpu) holds
+    them to the CPU run (cpu_scenarios' entry): equal report, state and
+    health planes at CHAOS_SMALL_G, and the G run's first CHAOS_SMALL_G
+    groups equal to it."""
+    name = "check_quorum" if check_quorum else "undamped"
+    small = run_scenario(dev, CHAOS_SMALL_G, check_quorum)
+    zero_launches()
+    full = run_scenario(dev, G, check_quorum)
+    counts = launch_counts()
+    if any(a or b for a, b in counts.values()):
+        raise AssertionError(f"chaos {name}: a fused kernel launched: {counts}")
+    if any(full[0]["safety"].values()):
+        raise AssertionError(f"chaos {name} G={G}: safety violations {full[0]['safety']}")
+    check_state(full[1])
+
+    def check(cpu_entry):
+        report, arrays, planes, window_pos, t_cpu = cpu_entry
+        cpu = (report, sim.state_from_numpy(arrays, "cpu"),
+               sim.HealthState(torch.from_numpy(planes), window_pos))
+        if small[0] != cpu[0]:
+            raise AssertionError(f"chaos {name} G={CHAOS_SMALL_G}: reports differ: "
+                                 f"card {small[0]}, CPU {cpu[0]}")
+        same_scenario(small, cpu, f"chaos {name} G={CHAOS_SMALL_G}")
+        same_scenario(full, cpu, f"chaos {name}: the first {CHAOS_SMALL_G} of {G} "
+                      "groups", CHAOS_SMALL_G)
+        print(f"chaos scenario {name} ({CHAOS_PLAN_NAME}, {full[0]['rounds']} rounds): "
+              f"card == CPU at {CHAOS_SMALL_G}x{P} (report, every field, the health "
+              f"planes); at {G}x{P} safety all 0, the first {CHAOS_SMALL_G} groups == "
+              f"the CPU run; card {full[3]:.2f}s at G={G}, CPU {t_cpu:.2f}s at "
+              f"G={CHAOS_SMALL_G} (in the reference worker)")
+        print(f"  report at G={G}: {json.dumps(full[0])}")
+        print(f"  report at G={CHAOS_SMALL_G}: {json.dumps(cpu[0])}")
+        return t_cpu
+
+    return small, full, check
+
+
+def scenario_timing(dev, check_quorum, first_s):
+    """bench_chaos: G x rounds / wall of the whole plan from a fresh state,
+    the median of CHAOS_REPS reps, the parity run's run_plan (`first_s`
+    seconds; the host loop compiles nothing, so it needs no warm-up) the
+    first of them; fused_frac 0; and the device's busy share over the first
+    CHAOS_PROFILE_ROUNDS rounds."""
+    cfg = chaos_cfg(G, check_quorum)
+    compiled = chaos.compile_plan(chaos.load_plan(CHAOS_PLAN), G, dev)
+    runner = chaos.make_runner(cfg, compiled)
+    samples = [G * compiled.n_rounds / first_s]
+    for _ in range(CHAOS_REPS - 1):
+        st, health = sim.init_state(cfg, device=dev), sim.init_health(cfg, dev)
+        sync()
+        t0 = time.perf_counter()
+        runner(st, health)
+        sync()
+        samples.append(G * compiled.n_rounds / (time.perf_counter() - t0))
+    head = chaos.make_runner(cfg, compiled._replace(
+        phase_of_round=compiled.phase_of_round[:CHAOS_PROFILE_ROUNDS]))
+    st, health = sim.init_state(cfg, device=dev), sim.init_health(cfg, dev)
+    prof = device_profile(lambda: head(st, health))
+    med = statistics.median(samples)
+    name = "check_quorum" if check_quorum else "undamped"
+    print(f"timing chaos scenario {name} {G}x{P} [{card_line()}]: ticks/s median "
+          f"{med:.1f} (min {min(samples):.1f}, max {max(samples):.1f}, {CHAOS_REPS} "
+          f"reps), fused_frac 0; a round {1e3 * G / med:.2f} ms; profile of rounds "
+          f"0-{CHAOS_PROFILE_ROUNDS - 1}: device busy {prof['busy_us']:.1f} of "
+          f"{prof['wall_us']:.1f} us ({100 * prof['busy_share']:.1f}%), "
+          f"{sum(r['count'] for r in prof['kernels'])} kernel launches")
+    for row in prof["kernels"][:6]:
+        print(f"  {row['us']:10.1f} us {row['count']:6d}x  {row['name']}")
+    return dict(ticks_per_s=samples, ticks_per_s_median=med, fused_frac=0.0,
+                profile=prof, card=card_line())
+
+
+@phase("chaos scenario")
+def phase_chaos_scenario(dev, cpu_runs):
+    """bench.py --chaos examples/chaos/partition_heal.json [--check-quorum]
+    at G on the card and timed, then held to the CPU runs (`cpu_runs`, the
+    reference worker's future of cpu_scenarios())."""
+    card = {}
+    for check_quorum in (False, True):
+        _, full, check = scenario_parity(dev, check_quorum)
+        card[check_quorum] = (check, full, scenario_timing(dev, check_quorum, full[3]))
+    cpu = cpu_runs.result()
+    out = {}
+    for check_quorum, (check, full, timing) in card.items():
+        t_cpu = check(cpu[check_quorum])
+        out["check_quorum" if check_quorum else "undamped"] = dict(
+            report=full[0], card_s=full[3], cpu_s=t_cpu, **timing)
+    return out
+
+
+# --- the per-group split (bench.py --lossy 0.01 --check-quorum) --------------
+
+
+def crash_leaders(st, crashed):
+    """`crashed` with each group's acting leader down in every STORM_EVERY-th
+    group."""
+    lead = st.state.eq(ROLE_LEADER).to(torch.int64).argmax(0)
+    idx = torch.arange(st.term.shape[1], device=st.term.device)[::STORM_EVERY]
+    crashed = crashed.clone()
+    crashed[lead[::STORM_EVERY], idx] = True
+    return crashed
+
+
+def align_leader_phases(st):
+    """Every leader's election_elapsed set to 0, the value a check-quorum
+    boundary round leaves it at, so that the fleet's boundaries fall
+    together (after the settle they are spread over most of the 64-round
+    interval)."""
+    return st._replace(election_elapsed=torch.where(
+        st.state == ROLE_LEADER, 0, st.election_elapsed))
+
+
+def run_composed(start):
+    """len(COMPOSED_BRANCHES) blocks of hybrid_multi_round(k=32,
+    with_chaos=True, count_fused=True) over the all-up link plane with 1%
+    loss from `start` at round CQ_SETTLE, the acting leader crashed in
+    every STORM_EVERY-th group from block COMPOSED_CRASH_BLOCK on.  Returns
+    (state, fused group-rounds, [(branch, fused delta)], the damped
+    kernel's operands and keywords at the crash block)."""
+    cfg = damped_cfg(G)
+    st = start
+    dev = st.term.device
+    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    link = torch.ones((P, P, G), dtype=torch.bool, device=dev)
+    loss = uniform_loss(G, P, dev)
+    fn = fused_step.hybrid_multi_round(cfg, k=K, with_chaos=True, count_fused=True,
+                                       device=dev)
+    fused, rb, branches, at_crash = 0, CQ_SETTLE, [], None
+    for b in range(len(COMPOSED_BRANCHES)):
+        if b == COMPOSED_CRASH_BLOCK:
+            crashed = crash_leaders(st, crashed)
+            at_crash = (fused_step.damped_operands(st, crashed, append, loss), rb)
+        prev = fused
+        st, fused = fn(st, crashed, append, link, loss, rb, fused)
+        branches.append((fn.last_branch, fused - prev))
+        rb += K
+    return st, fused, branches, at_crash
+
+
+def cpu_composed(settled):
+    """In the reference worker: run_composed on the CPU from the settled
+    state's arrays, aligned as on the card: (state arrays, fused count,
+    branches, seconds)."""
+    worker_threads()
+    t0 = time.perf_counter()
+    st, fused, branches, _ = run_composed(
+        align_leader_phases(sim.state_from_numpy(settled, "cpu")))
+    return sim.state_to_numpy(st), fused, branches, time.perf_counter() - t0
+
+
+@phase("composed")
+def phase_composed(dev, settled, cpu_run):
+    """The composed path at G from phase 9's damped-settled state with the
+    leaders' boundary phases aligned: a pure, a slow and a split block on
+    the card, the launch counts zeroed just before and read just after,
+    then held to the CPU run (`cpu_run`, the reference worker's future of
+    cpu_composed()); every field equal, recent_active and the fused count
+    included.  Then the damped kernel against its plain version on the
+    split block's operands (storm groups with no acting leader included).
+    Returns (the card's launches of the damped kernel, all with_loss, the
+    with_loss parity error, the branches)."""
+    start = align_leader_phases(settled)
+    zero_launches()
+    t0 = time.perf_counter()
+    card = run_composed(start)
+    counts = launch_counts()
+    sync()
+    t_gpu = time.perf_counter() - t0
+    launches = counts["damped_rounds"][0]
+    if launches < 1 or counts["damped_rounds"][1] or any(
+            counts[k.__name__] != (0, 0) for k in (steady_rounds, chaos_rounds)):
+        raise AssertionError(f"composed: unexpected launches {counts}")
+    if [b for b, _ in card[2]] != list(COMPOSED_BRANCHES):
+        raise AssertionError(f"composed: branches {card[2]}, want {COMPOSED_BRANCHES}")
+    check_state(card[0])
+    arrays, fused, branches, t_cpu = cpu_run.result()
+    assert_same(card[0], sim.state_from_numpy(arrays, "cpu"), "composed")
+    if (card[1], card[2]) != (fused, branches):
+        raise AssertionError(f"composed: fused counts or branches differ: card "
+                             f"{card[1:3]}, CPU {(fused, branches)}")
+    args, rb = card[3]
+    err = compare_damped(args, "composed split block (1% of leaders crashed)",
+                         round_base=rb)
+    print(f"composed path {G}x{P} (--lossy 0.01 --check-quorum, from the damped-settled "
+          f"state with the leaders' boundary phases aligned): blocks "
+          f"{', '.join(f'{b} (fused {d})' for b, d in card[2])}; card == CPU on all "
+          f"{len(settled._fields)} fields, recent_active and the fused count "
+          f"({card[1]}) included; damped kernel (with_loss) launches {launches}; card "
+          f"{t_gpu:.2f}s, CPU {t_cpu:.2f}s (in the reference worker)")
+    return launches, err, card[2]
+
+
+@phase("steady hybrid")
+def phase_steady_hybrid(dev, start):
+    """One hybrid_multi_round(k=32) block on the steady path at G from the
+    main path's final state, the acting leader crashed in 1% of groups: the
+    split branch (elections in the gathered sub-batch), card == CPU."""
+    cfg = sim.SimConfig(n_groups=G, n_peers=P)
+
+    def block(st):
+        dev = st.term.device
+        crashed = crash_leaders(st, torch.zeros((P, G), dtype=torch.bool, device=dev))
+        fn = fused_step.hybrid_multi_round(cfg, k=K, count_fused=True, device=dev)
+        out, fused = fn(st, crashed, torch.ones(G, dtype=torch.int32, device=dev), 0)
+        return out, fused, fn.last_branch
+
+    zero_launches()
+    card = block(start)
+    counts = launch_counts()
+    if counts["steady_rounds"] != (1, 0) or any(
+            counts[k.__name__] != (0, 0) for k in (chaos_rounds, damped_rounds)):
+        raise AssertionError(f"steady hybrid: unexpected launches {counts}")
+    cpu = block(on_cpu(start))
+    assert_same(card[0], cpu[0], "steady hybrid")
+    if card[1:] != cpu[1:] or card[2] != "split":
+        raise AssertionError(f"steady hybrid: card {card[1:]}, CPU {cpu[1:]}")
+    elected = int((card[0].term.amax(0) > start.term.amax(0))[::STORM_EVERY].sum())
+    print(f"steady hybrid block {G}x{P}: {card[2]}, fused {card[1]} of {K * G}, "
+          f"{elected} of {len(range(0, G, STORM_EVERY))} storm groups elected; "
+          f"card == CPU on all {len(start._fields)} fields; steady kernel launches "
+          f"{counts['steady_rounds'][0]}")
+    return card[1]
+
+
+@phase("composed timing")
+def phase_composed_timing(dev, settled):
+    """bench.py --lossy 0.01 --check-quorum's timed loop from the settled
+    state as it is (the natural boundary phases), COMPOSED_REPS reps of one
+    64-round scan: ticks/s, the measured fused_frac, the block's parts, the
+    busy share of the general rounds every such block runs, and the damped
+    kernel's with_loss instance against its bound."""
+    cfg = damped_cfg(G)
+    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    link = torch.ones((P, P, G), dtype=torch.bool, device=dev)
+    loss = uniform_loss(G, P, dev)
+    fn = fused_step.hybrid_multi_round(cfg, k=K, with_chaos=True, count_fused=True,
+                                       device=dev)
+    round_fn = fused_step.chaos_round(cfg, rounds=K)
+    storms = int((~fused_step.steady_mask(cfg, settled, crashed, K, link,
+                                          loss_rate=loss)).sum())
+    print(f"composed timing: {storms} of {G} groups storm at the settled state "
+          f"(storm slots 4096)")
+
+    def operands(s, rb):
+        return fused_step.damped_operands(s, crashed, append, loss), dict(
+            round_base=rb, rounds=K, election_tick=cfg.election_tick,
+            heartbeat_tick=cfg.heartbeat_tick, with_cq=True)
+
+    def general_rounds(s, rb):
+        """The slow branch's work, which every block of the settled state
+        takes, for its first CHAOS_PROFILE_ROUNDS rounds."""
+        for r in range(CHAOS_PROFILE_ROUNDS):
+            s = sim.step(cfg, s, crashed, append,
+                         link=link & ~link_loss_draw(rb + r, loss))
+
+    return time_path(
+        dev, "composed", settled, CQ_SETTLE,
+        block=lambda s, rb, f: fn(s, crashed, append, link, loss, rb, f),
+        operands=operands, kernel=damped_rounds, reference=damped_rounds_reference,
+        kernel_name="damped_round_kernel",
+        fused_round=lambda s, rb: round_fn(s, crashed, append, loss, rb),
+        predicate=lambda s: int((~fused_step.steady_mask(
+            cfg, s, crashed, K, link, loss_rate=loss)).sum()),
+        work=damped_work(P, G, K, with_loss=True), reps=COMPOSED_REPS, scans=1,
+        part_reps=1, profile=(f"{CHAOS_PROFILE_ROUNDS} of the slow branch's general "
+                              "rounds", general_rounds),
+    )
+
+
 def kernel_entry(name, source, replaces, launches, err, t):
     return {
         "name": name,
@@ -1335,16 +1731,26 @@ def main(argv=None):
         phase_damped_parity(dev)
         print("quick: every kernel variant equals its plain version on the card")
         return 0
-    cfg, st, steady_launches, steady_run, steady_h_launches = phase_main(dev)
-    steady = phase_timing(dev, cfg, st)
+    cfg, st_main, steady_launches, steady_run, steady_h_launches = phase_main(dev)
+    steady = phase_timing(dev, cfg, st_main)
     chaos_err, settled = phase_chaos_parity(dev)
     st, chaos_launches, lossy_run, chaos_h_launches = phase_lossy(dev, settled)
     lossy = phase_lossy_timing(dev, st)
-    damped_err, settled = phase_damped_parity(dev)
+    damped_err, damped_loss_err, settled = phase_damped_parity(dev)
     st, damped_launches, damped_run, damped_h_launches = phase_damped(dev, settled)
     damped = phase_damped_timing(dev, st)
     steady_h, damped_h, lossy_h = phase_health_timing(
         dev, {"steady": steady_run, "lossy": lossy_run, "damped": damped_run})
+    # This slice's CPU references run in a worker process while the card
+    # runs its side of the same phases.
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_runs = pool.submit(cpu_scenarios)
+        cpu_run = pool.submit(cpu_composed, sim.state_to_numpy(settled))
+        scenario = phase_chaos_scenario(dev, cpu_runs)
+        composed = phase_composed_timing(dev, settled)
+        steady_hybrid_fused = phase_steady_hybrid(dev, st_main)
+        composed_launches, composed_err, composed_branches = phase_composed(
+            dev, settled, cpu_run)
 
     rows = (
         ("steady_rounds", STEADY_SOURCE, STEADY_REPLACES, steady_err,
@@ -1359,14 +1765,20 @@ def main(argv=None):
                      f"{replaces} (with_health={flag})", launches, errs[flag], t)
         for kname, source, replaces, errs, *variants in rows
         for flag, (launches, t) in zip((False, True), variants)
-    ]}
+    ] + [kernel_entry(
+        "damped_rounds with_loss=True with_health=False", DAMPED_SOURCE,
+        f"{DAMPED_REPLACES} (with_loss=True, with_health=False)", composed_launches,
+        worst(damped_loss_err, composed_err)[0], composed)]}
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w", encoding="utf-8") as fh:
             json.dump({**kernels, "ptxas": PTXAS, "timing": {
                 "steady": steady, "lossy": lossy, "damped": damped,
                 "steady_health": steady_h, "damped_health": damped_h,
-                "lossy_health_kernel": lossy_h}}, fh, indent=1, default=str)
+                "lossy_health_kernel": lossy_h, "chaos_scenario": scenario,
+                "composed": composed}, "composed_branches": composed_branches,
+                "steady_hybrid_fused": steady_hybrid_fused}, fh, indent=1,
+                default=str)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -5,19 +5,28 @@ Modules:
   platform      — resolve_device: `cuda` by default, the CPU on request
   kernels       — elementwise protocol kernels (timeout and loss PRNGs, tick,
                   quorum index, check-quorum liveness and boundary bound, the
-                  event counters and the health planes)
+                  event counters and the health planes, the packed schedule
+                  words, the safety invariants)
   sim           — SimConfig, SimState, HealthState, init_state, init_health,
-                  the plain, link-gated and damped steps, ClusterSim
-  health        — HealthMonitor, the host consumer of health summaries
+                  the plain, link-gated and damped steps (with group_ids),
+                  ClusterSim (with chaos= and run_plan)
+  chaos         — chaos plans, their compiled schedules, the scenario runner
+  health        — HealthMonitor, the host consumer of health summaries and
+                  chaos scenario reports
   steady_kernel — k fused steady rounds: the CUDA kernel and its plain version
   chaos_kernel  — k fused loss-gated rounds: the CUDA kernel and its plain version
   damped_kernel — k fused check-quorum/pre-vote rounds: the CUDA kernel and its
                   plain version
   fused_step    — steady_mask/steady_predicate, steady_round, chaos_round,
-                  damped_round, fast_multi_round
+                  damped_round, fast_multi_round, hybrid_multi_round
 """
 
-from .fused_step import fast_multi_round, steady_predicate, steady_round
+from .fused_step import (
+    fast_multi_round,
+    hybrid_multi_round,
+    steady_predicate,
+    steady_round,
+)
 from .health import HealthMonitor
 from .sim import (
     ClusterSim,
@@ -36,6 +45,7 @@ __all__ = [
     "SimConfig",
     "SimState",
     "fast_multi_round",
+    "hybrid_multi_round",
     "init_health",
     "init_state",
     "steady_predicate",

@@ -9,18 +9,20 @@ Counterpart of `raft_tpu/multiraft/pallas_step.py`: `steady_mask`
 `_build_chaos_round._run` (:806-886) as `chaos_round` here, the damped
 configs' `_build_damped_round._run` (:1240-1352, plain and with chaos) as
 `damped_round`, the closed-form instrumentation folds `_fold_counters`
-(:505) and `_steady_health_fold` (:530), and `fast_multi_round`
-(:1605-1782, every arm, with `count_fused`).  As in the reference, a
-damped config (check_quorum or pre_vote) routes every fused block to the
-damped kernel, and every fused round takes the counters and health extras
-after its other arguments, counters first: `with_health` runs the kernel's
-with_health variant, which carries ticks_since_commit.
+(:505) and `_steady_health_fold` (:530), `fast_multi_round` (:1605-1782,
+every arm, with `count_fused`) and the per-group split
+`hybrid_multi_round` (:1785-1952, with `with_chaos` and `count_fused`).
+As in the reference, a damped config (check_quorum or pre_vote) routes
+every fused block to the damped kernel, and every fused round takes the
+counters and health extras after its other arguments, counters first:
+`with_health` runs the kernel's with_health variant, which carries
+ticks_since_commit.
 
-The reference's `lax.cond` on the predicate becomes a host `bool(pred)`:
-one device sync per k-round block.  The gathers of the acting leader's
-rows before the kernel and the scatters after it (and, on the plain path,
-the `agree` update) stay plain PyTorch, as the reference leaves them to
-XLA; at 100k groups × 5 peers they move more bytes than the steady kernel
+The reference's `lax.cond` on the predicate becomes a host `bool(pred)`
+(in hybrid_multi_round, an `int` of the storm count): one device sync per
+k-round block.  The gathers of the acting leader's rows before the kernel
+and the scatters after it (and, on the plain path, the `agree` update)
+stay plain PyTorch, as the reference leaves them to XLA; at 100k groups × 5 peers they move more bytes than the steady kernel
 itself.
 """
 
@@ -43,6 +45,7 @@ from .kernels import (
     ROLE_LEADER,
     link_loss_draw,
 )
+from .platform import DeviceLike, resolve_device
 from .sim import HealthState, SimConfig, SimState
 from .steady_kernel import steady_rounds
 
@@ -504,4 +507,102 @@ def fast_multi_round(
             return res + (acc + (k * cfg.n_groups if pred else 0),)
         return res if n_extra else res[0]
 
+    return fn
+
+
+def hybrid_multi_round(
+    cfg: SimConfig, k: int = 16, storm_slots: int = 4096,
+    with_chaos: bool = False, count_fused: bool = False,
+    device: DeviceLike = None,
+):
+    """k protocol rounds with a PER-GROUP steady/general split, the
+    reference's hybrid_multi_round.  fast_multi_round sends the whole batch
+    down k general steps when any group is not steady; this dispatcher
+    gathers the (few) non-steady "storm" groups into a [., storm_slots]
+    sub-batch (a stable argsort of steady_mask, storm groups first),
+    advances it with k general sim.steps keyed by the groups' global ids,
+    runs the fused kernel over the whole batch, and scatters the sub-batch
+    results over the storm groups' discarded fused outputs.  Groups are
+    independent, so the split equals k sequential sim.steps bit for bit.
+
+    fn(st, crashed, append_n) -> SimState; with `with_chaos`, fn(st,
+    crashed, append_n, link, loss_rate, round_base) as fast_multi_round's,
+    the storm sub-batch drawing its loss with link_loss_draw(group_ids=)
+    and the fused branch running chaos_round (damped_round for a damped
+    config).  With `count_fused`, one more argument last, the fused
+    group-round count so far (a Python int), is returned last, increased by
+    k * (the number of groups that ran fused).
+
+    Three branches, chosen on the host from one count of the storm groups
+    (one device sync a block), where the reference's lax.cond picks:
+    "pure", the fused kernel alone, when no group storms; "split" when at
+    most storm_slots groups storm; "slow", k general steps on the whole
+    batch, otherwise.  `fn.last_branch` names the branch of the last call.
+    As in the reference, the health planes are not threaded.  The fn runs
+    on `cuda` unless `device` says otherwise; the state must lie there."""
+    dev = resolve_device(device)
+    G = cfg.n_groups
+    S = min(storm_slots, G)
+    fused_fn = (chaos_round if with_chaos else steady_round)(cfg, k)
+    sub_cfg = cfg._replace(n_groups=S)
+
+    def steps(c, st, crashed, append_n, link, loss_rate, round_base, group_ids=None):
+        for r in range(k):
+            kw = {}
+            if with_chaos:
+                kw["link"] = link & ~link_loss_draw(
+                    round_base + r, loss_rate, group_ids=group_ids
+                )
+            st = sim_mod.step(c, st, crashed, append_n, group_ids=group_ids, **kw)
+        return st
+
+    def fn(st: SimState, crashed, append_n, *rest):
+        if count_fused:
+            rest, acc = rest[:-1], rest[-1]
+        link = loss_rate = round_base = None
+        if with_chaos:
+            (link, loss_rate, round_base), rest = rest[:3], rest[3:]
+            check_round_base(round_base, k)
+        if rest:
+            raise TypeError(f"unexpected arguments after append_n: {len(rest)}")
+        if st.term.device.type != dev.type:
+            raise ValueError(f"hybrid_multi_round on {dev}: the state lies on "
+                             f"{st.term.device}")
+        mask = steady_mask(cfg, st, crashed, horizon=k, link=link,
+                           loss_rate=loss_rate)
+        n_storm = int((~mask).sum())
+        lead = (loss_rate, round_base) if with_chaos else ()
+        if n_storm == 0:
+            fn.last_branch = "pure"
+            out = fused_fn(st, crashed, append_n, *lead)
+        elif n_storm <= S:
+            fn.last_branch = "split"
+            # A stable sort keeps the original order: storm groups (False)
+            # first, then steady padding, which keeps its fused result.
+            idx = torch.argsort(mask.to(torch.int8), stable=True)[:S]
+            take_sub = ~mask[idx]
+            sub = SimState(*(None if v is None else v[..., idx] for v in st))
+            sub_link = sub_loss = None
+            if with_chaos:
+                sub_link, sub_loss = link[..., idx], loss_rate[..., idx]
+            sub = steps(sub_cfg, sub, crashed[:, idx], append_n[idx], sub_link,
+                        sub_loss, round_base, group_ids=idx)
+            fast = fused_fn(st, crashed, append_n, *lead)
+
+            def merge(whole, part):
+                if whole is None:
+                    return None
+                merged = whole.clone()
+                merged[..., idx] = torch.where(take_sub, part, whole[..., idx])
+                return merged
+
+            out = SimState(*map(merge, fast, sub))
+        else:
+            fn.last_branch = "slow"
+            out = steps(cfg, st, crashed, append_n, link, loss_rate, round_base)
+        if count_fused:
+            return out, acc + k * (G - n_storm if n_storm <= S else 0)
+        return out
+
+    fn.last_branch = None
     return fn

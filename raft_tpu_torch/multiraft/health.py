@@ -1,9 +1,10 @@
 """HealthMonitor: the host-side consumer of fleet-health summaries.
 
-Counterpart of `raft_tpu/multiraft/health.py` (:35-117, :387-399): the
-summary formatter, `record`, `last`, `summary_ring` and `__len__`.  The
-device planes (kernels.HP_* rows, maintained by sim.step) reduce on their
-device to one fixed-size summary dict::
+Counterpart of `raft_tpu/multiraft/health.py` (:35-163, :324-345,
+:387-399): the summary formatter, `record`, the chaos scenario report
+`chaos_report` and `record_scenario`, `last`, `summary_ring` and
+`__len__`.  The device planes (kernels.HP_* rows, maintained by sim.step)
+reduce on their device to one fixed-size summary dict::
 
     {"counts": {"leaderless": n, "stalled_leaderless": n,
                 "commit_stalled": n, "churning": n},
@@ -25,7 +26,7 @@ import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional
 
-from .kernels import HEALTH_COUNT_NAMES
+from .kernels import HEALTH_COUNT_NAMES, SAFETY_NAMES
 
 __all__ = ["HealthMonitor"]
 
@@ -101,13 +102,74 @@ class HealthMonitor:
                 m.trace("health.churn", churning=counts.get("churning", 0))
         return entry
 
+    @staticmethod
+    def chaos_report(stats, safety, rounds: int) -> dict:
+        """Per-scenario chaos summary off the run's accumulators (host
+        sequences of ints): `stats` the [chaos.N_CHAOS_STATS] time-to-
+        reelect facts (CS_* indices), `safety` the [kernels.N_SAFETY]
+        violation counts (SV_* indices, all zero on a correct run), `rounds`
+        the rounds the plan ran.  Returns the scenario-summary dict that
+        bench.py --chaos writes::
+
+            {"rounds": R,
+             "mttr_rounds": mean leaderless-episode length (None when no
+                            episode ended),
+             "reelections": episodes that ended with a leader regained,
+             "max_leaderless_streak": worst streak observed anywhere,
+             "leaderless_group_rounds": leaderless (group, round) pairs,
+             "safety": {"dual_leader": 0, ...}}
+        """
+        from .chaos import (
+            CS_HEALED_ROUNDS,
+            CS_LEADERLESS_ROUNDS,
+            CS_MAX_STREAK,
+            CS_REELECTIONS,
+        )
+
+        reelections = int(stats[CS_REELECTIONS])
+        healed = int(stats[CS_HEALED_ROUNDS])
+        return {
+            "rounds": int(rounds),
+            "mttr_rounds": (
+                round(healed / reelections, 3) if reelections else None
+            ),
+            "reelections": reelections,
+            "max_leaderless_streak": int(stats[CS_MAX_STREAK]),
+            "leaderless_group_rounds": int(stats[CS_LEADERLESS_ROUNDS]),
+            "safety": {
+                name: int(v) for name, v in zip(SAFETY_NAMES, safety)
+            },
+        }
+
+    def record_scenario(self, report: dict) -> dict:
+        """Fold a chaos scenario report (chaos_report's shape) into the ring
+        and the trace; safety violations raise a `chaos.safety` trace event
+        so they can never scroll by silently."""
+        with self._lock:
+            entry = {"seq": self._seq, "ts": time.time(), "chaos": report}
+            self._seq += 1
+            self._summary_ring.append(entry)
+        m = self.metrics
+        if m is not None:
+            m.trace(
+                "chaos.scenario",
+                rounds=report.get("rounds", 0),
+                mttr_rounds=report.get("mttr_rounds"),
+                reelections=report.get("reelections", 0),
+                max_leaderless_streak=report.get("max_leaderless_streak", 0),
+            )
+            if any(report.get("safety", {}).values()):
+                m.trace("chaos.safety", **report["safety"])
+        return entry
+
     def last(self) -> Optional[dict]:
         """Most recent ring entry, or None."""
         with self._lock:
             return self._summary_ring[-1] if self._summary_ring else None
 
     def summary_ring(self) -> List[dict]:
-        """Oldest-to-newest copy of the ring."""
+        """Oldest-to-newest copy of the ring (health summaries and chaos
+        scenario reports)."""
         with self._lock:
             return list(self._summary_ring)
 

@@ -8,6 +8,8 @@ Counterparts (reference file `raft_tpu/multiraft/kernels.py`):
   _mix32               :331
   LOSS_SCALE           :342
   link_loss_draw       :345
+  pack_bits, unpack_bits, pack_u16_pairs, unpack_u16_pairs  :382-432
+  SV_*, N_SAFETY, SAFETY_NAMES, check_safety  :471-807
   check_quorum_active  :1147
   cq_boundary_safe     :1178
   timeout_draw         :1258
@@ -176,6 +178,210 @@ def link_loss_draw(
     x = x[None, None, :]
     x = _mix32(x ^ _mul32(lane, 0x85EBCA6B))
     return (x % LOSS_SCALE).to(torch.int32) < loss_rate
+
+
+def _word_bits(acc: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) as int32 tensors of the same bits (the
+    reference's uint32 words)."""
+    return torch.where(acc >= 2**31, acc - 2**32, acc).to(I32)
+
+
+def pack_bits(planes: torch.Tensor) -> torch.Tensor:
+    """Pack K bool planes along axis 0 into ceil(K/32) 32-bit word planes:
+    word w's bit j holds plane 32*w + j.  The words are int32 tensors
+    holding the reference's uint32 bit patterns (bit 31 is the sign bit);
+    they are built in int64, which every backend shifts and ORs."""
+    k = planes.shape[0]
+    bits = planes.to(torch.int64)
+    words = []
+    for w in range((k + 31) // 32):
+        acc = torch.zeros(planes.shape[1:], dtype=torch.int64, device=planes.device)
+        for j in range(min(32, k - 32 * w)):
+            acc = acc | (bits[32 * w + j] << j)
+        words.append(_word_bits(acc))
+    return torch.stack(words)
+
+
+def unpack_bits(words: torch.Tensor, k: int) -> torch.Tensor:
+    """Inverse of pack_bits: int32[ceil(k/32), ...] words -> bool[k, ...].
+    The arithmetic right shift of a word with bit 31 set copies the sign,
+    which the `& 1` drops."""
+    return torch.stack(
+        [((words[j // 32] >> (j % 32)) & 1) != 0 for j in range(k)]
+    )
+
+
+def pack_u16_pairs(vals: torch.Tensor) -> torch.Tensor:
+    """Pack K int32 planes of values below 2**16 (loss rates are at most
+    LOSS_SCALE) into ceil(K/2) 32-bit word planes, even indices in the low
+    halfword and odd ones in the high; int32 bit patterns as pack_bits'."""
+    k = vals.shape[0]
+    v = vals.to(torch.int64) & _MASK32
+    words = []
+    for w in range((k + 1) // 2):
+        lo = v[2 * w]
+        acc = lo | (v[2 * w + 1] << 16) if 2 * w + 1 < k else lo
+        words.append(_word_bits(acc & _MASK32))
+    return torch.stack(words)
+
+
+def unpack_u16_pairs(words: torch.Tensor, k: int) -> torch.Tensor:
+    """Inverse of pack_u16_pairs: int32[ceil(k/2), ...] words -> int32[k,
+    ...]."""
+    return torch.stack(
+        [(words[j // 2] >> (16 * (j % 2))) & 0xFFFF for j in range(k)]
+    ).to(I32)
+
+
+# check_safety violation-count vector indices.
+SV_DUAL_LEADER = 0  # two leaders share a term in one group
+SV_COMMIT_DIVERGED = 1  # two peers' committed prefixes disagree
+SV_COMMIT_REGRESSED = 2  # some peer's commit index decreased
+SV_CURSOR_INVALID = 3  # agree/commit cursors exceed log bounds
+# Joint-window slots: checked only when the optional mask arguments are
+# given; they stay zero otherwise, so every accumulator has one shape.
+SV_LEADER_NOT_IN_CONFIG = 4  # a non-follower outside voter|outgoing
+SV_COMMIT_NO_QUORUM = 5  # a commit advance lacking either joint majority
+SV_CONF_DOUBLE_CHANGE = 6  # an illegal single-step membership transition
+# Linearizability slots: checked only when the lease-read arguments are
+# given (the same rule).
+SV_STALE_READ = 7  # a lease-served read older than a fleet-committed index
+SV_DUAL_LEASE = 8  # two peers hold a live read lease for one group at once
+N_SAFETY = 9
+
+SAFETY_NAMES = (
+    "dual_leader",
+    "commit_diverged",
+    "commit_regressed",
+    "cursor_invalid",
+    "leader_not_in_config",
+    "commit_no_quorum",
+    "conf_double_change",
+    "stale_read",
+    "dual_lease",
+)
+
+
+def check_safety(
+    state: torch.Tensor,  # int32[P, G]
+    term: torch.Tensor,  # int32[P, G]
+    commit: torch.Tensor,  # int32[P, G]
+    last_index: torch.Tensor,  # int32[P, G]
+    agree: torch.Tensor,  # int32[P, P, G]
+    prev_commit: torch.Tensor,  # int32[P, G]
+    voter_mask: Optional[torch.Tensor] = None,  # bool[P, G]
+    outgoing_mask: Optional[torch.Tensor] = None,  # bool[P, G]
+    matched: Optional[torch.Tensor] = None,  # int32[P, P, G]
+    crashed: Optional[torch.Tensor] = None,  # bool[P, G]
+    prev_voter_mask: Optional[torch.Tensor] = None,  # bool[P, G]
+    prev_outgoing_mask: Optional[torch.Tensor] = None,  # bool[P, G]
+    lease_holder: Optional[torch.Tensor] = None,  # bool[P, G]
+    lease_fire: Optional[torch.Tensor] = None,  # bool[G]
+) -> torch.Tensor:
+    """Raft's safety invariants over one round boundary: int32[N_SAFETY]
+    counts of violating groups (SV_* indices), all zero on every reachable
+    state.
+
+      * election safety: at most one leader per (group, term);
+      * log matching at commit: min(commit_a, commit_b) <= agree[a, b];
+      * commit monotonicity: no peer's commit index decreases;
+      * cursor sanity: commit <= last_index and agree[a, b] <=
+        min(last_a, last_b).
+
+    With `voter_mask`, `outgoing_mask` and `matched` (the joint window):
+    no non-follower outside both config halves; no commit past the round's
+    starting high-water mark that the committing leader's own tracker row
+    does not back under both majorities (crashed leaders and the max-term
+    alive leaders are checked; a stale alive leader may learn a commit).
+    With `prev_voter_mask` and `prev_outgoing_mask` as well: no illegal
+    single-step membership change.  With `lease_holder` (and
+    `lease_fire`): at most one live lease per group, and no lease-served
+    read older than an index committed anywhere at serve time.  Every count
+    is int32."""
+    P = state.shape[0]
+    dev = state.device
+    off_diag = ~torch.eye(P, dtype=torch.bool, device=dev)[:, :, None]
+    is_lead = state == ROLE_LEADER
+    dual = (
+        is_lead[:, None, :]
+        & is_lead[None, :, :]
+        & (term[:, None, :] == term[None, :, :])
+        & off_diag
+    )
+    cmin = torch.minimum(commit[:, None, :], commit[None, :, :])
+    diverged = (cmin > agree) & off_diag
+    regressed = commit < prev_commit
+    lmin = torch.minimum(last_index[:, None, :], last_index[None, :, :])
+    invalid = ((agree > lmin) & off_diag) | (commit > last_index)[:, None, :]
+    zero = torch.zeros((), dtype=I32, device=dev)
+    if voter_mask is not None:
+        if outgoing_mask is None or matched is None:
+            raise ValueError(
+                "joint-window checks need voter_mask, outgoing_mask AND "
+                "matched together"
+            )
+        non_follower = state != ROLE_FOLLOWER
+        outside = non_follower & ~(voter_mask | outgoing_mask)
+        sv_outside = outside.any(0).sum(dtype=I32)
+        alive = ~crashed if crashed is not None else torch.ones_like(is_lead)
+        lead_alive = is_lead & alive
+        max_alive_term = torch.where(lead_alive, term, -1).amax(0)
+        checked = is_lead & (~alive | (term == max_alive_term[None, :]))
+        owner_rows = matched.transpose(1, 2)  # [P_owner, G, P_target]
+
+        def half(mask):
+            return committed_index(
+                owner_rows,
+                mask.transpose(0, 1)[None, :, :].expand(owner_rows.shape),
+            )
+
+        mci = torch.minimum(half(voter_mask), half(outgoing_mask))  # [P, G]
+        prev_high = prev_commit.amax(0)
+        unbacked = checked & (commit > prev_high[None, :]) & (commit > mci)
+        sv_unbacked = unbacked.any(0).sum(dtype=I32)
+    else:
+        sv_outside = sv_unbacked = zero
+    if prev_voter_mask is not None:
+        if voter_mask is None or prev_outgoing_mask is None:
+            raise ValueError(
+                "the double-change check needs prev AND current masks"
+            )
+        was_j = prev_outgoing_mask.any(0)
+        now_j = outgoing_mask.any(0)
+        vm_delta = (prev_voter_mask ^ voter_mask).sum(0, dtype=I32)
+        om_moved = (prev_outgoing_mask ^ outgoing_mask).any(0)
+        enter_bad = (~was_j & now_j) & (outgoing_mask ^ prev_voter_mask).any(0)
+        leave_bad = (was_j & ~now_j) & (vm_delta > 0)
+        stay_bad = (was_j & now_j) & ((vm_delta > 0) | om_moved)
+        simple_bad = (~was_j & ~now_j) & (vm_delta > 1)
+        sv_double = (enter_bad | leave_bad | stay_bad | simple_bad).sum(dtype=I32)
+    else:
+        sv_double = zero
+    if lease_holder is not None:
+        sv_dual_lease = (lease_holder.sum(0, dtype=I32) >= 2).sum(dtype=I32)
+        if lease_fire is not None:
+            fleet_high = prev_commit.amax(0)  # [G] at serve time
+            stale = lease_holder & (prev_commit < fleet_high[None, :])
+            sv_stale = (lease_fire & stale.any(0)).sum(dtype=I32)
+        else:
+            sv_stale = zero
+    else:
+        if lease_fire is not None:
+            raise ValueError(
+                "the stale-read check needs lease_holder alongside lease_fire"
+            )
+        sv_dual_lease = sv_stale = zero
+    return torch.stack([
+        dual.any(0).any(0).sum(dtype=I32),
+        diverged.any(0).any(0).sum(dtype=I32),
+        regressed.any(0).sum(dtype=I32),
+        invalid.any(0).any(0).sum(dtype=I32),
+        sv_outside,
+        sv_unbacked,
+        sv_double,
+        sv_stale,
+        sv_dual_lease,
+    ])
 
 
 def timeout_draw(

@@ -3,25 +3,27 @@ tensors, advanced one lockstep protocol round at a time.
 
 Counterpart of `raft_tpu/multiraft/sim.py`, reduced to what the ported
 paths run: `SimConfig` (:117), `SimState` (:226), `HealthState` (:287),
-`init_health` (:302), `_node_key` (:511), `init_state` (:528),
-`_sort_rows_desc` (:621), `_quorum_index` (:635), the plain arm of `step`
-(:1209-1773: undamped, `link=None`), the link-gated round `_linked_step`
-(:1792-2428, undamped) behind `step(link=)`, the damped round
-`_damped_linked_step` (:2451-3548: check quorum and pre-vote) that `step`
-runs for every config with either flag, each with the `counters` and
-`health` extras, and `ClusterSim` with `__init__` (:3657-3785),
-`run_round` (:3950), `run` (:4005), the counter drain (:3851-3948) and the
-counter and health accessors (:4639-4745).  Each round is the reference's
-round exactly, plane by plane: tick, campaign, election resolution (vote
-grants, joint tallies, commit fast-forward via vote traffic), the solo
-crashed-campaigner win, then replication and quorum commit; the linked and
-damped rounds replay the same protocol wave by wave over the directed
-delivery plane.
+`init_health` (:302), `_node_key` with `group_ids` (:511), `init_state`
+(:528), `_sort_rows_desc` (:621), `_quorum_index` (:635), the plain arm of
+`step` (:1209-1773: undamped, `link=None`), the link-gated round
+`_linked_step` (:1792-2428, undamped) behind `step(link=)`, the damped
+round `_damped_linked_step` (:2451-3548: check quorum and pre-vote) that
+`step` runs for every config with either flag, each with the `counters`
+and `health` extras and `group_ids` (a gathered sub-batch keyed by its
+global ids), and `ClusterSim` with `__init__` (:3657-3785, with `chaos=`),
+`run_round` (:3950), `run` (:4005), the counter drain (:3851-3948), the
+chaos scenario runner `_chaos_runner_for` and `run_plan` (:4227-4295) and
+the counter and health accessors (:4639-4745).  Each round is the
+reference's round exactly, plane by plane: tick, campaign, election
+resolution (vote grants, joint tallies, commit fast-forward via vote
+traffic), the solo crashed-campaigner win, then replication and quorum
+commit; the linked and damped rounds replay the same protocol wave by wave
+over the directed delivery plane.
 
 Options that this port does not implement yet raise NotImplementedError
 instead of being ignored: the SimConfig flags `transfer`, `lease_read` and
-`blackbox`, and the step arguments `group_ids`, `reconfig_propose`,
-`transfer_propose`, `campaign_kick`, `read_propose` and `blackbox`.
+`blackbox`, and the step arguments `reconfig_propose`, `transfer_propose`,
+`campaign_kick`, `read_propose` and `blackbox`.
 
 The reference gates the election phase behind `lax.cond(any(req))`.
 Here that is a host-side `if`, one device sync per general round; with
@@ -215,10 +217,18 @@ def state_to_numpy(st: SimState) -> Dict[str, np.ndarray]:
     }
 
 
-def _node_key(cfg: SimConfig, device: torch.device) -> torch.Tensor:
+def _node_key(
+    cfg: SimConfig, device: torch.device, group_ids: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """node_key[p, g] = g * 2**16 + (p + 1) mod 2**32 (the reference's
-    uint32 arithmetic, which wraps for g >= 65536), as int64 words."""
-    g = torch.arange(cfg.n_groups, dtype=torch.int64, device=device)[None, :]
+    uint32 arithmetic, which wraps for g >= 65536), as int64 words.
+    `group_ids` (the GLOBAL ids of a gathered sub-batch) replace the
+    iota, so each group keeps its own timeout stream."""
+    if group_ids is None:
+        g = torch.arange(cfg.n_groups, dtype=torch.int64, device=device)
+    else:
+        g = group_ids.to(device=device, dtype=torch.int64) & 0xFFFFFFFF
+    g = g[None, :]
     p = torch.arange(cfg.n_peers, dtype=torch.int64, device=device)[:, None]
     return (g * (1 << 16) + (p + 1)) & 0xFFFFFFFF
 
@@ -345,28 +355,32 @@ def step(
     optional bool[P, P, G] directed reachability plane, which routes the
     round through `_linked_step`.  A damped config (check_quorum or
     pre_vote) always runs `_damped_linked_step`, under an all-up plane
-    when `link` is None.
+    when `link` is None.  group_ids: optional int[G] GLOBAL group ids when
+    `st` is a gathered sub-batch (cfg.n_groups is then the sub-batch
+    width): they key the timeout draws, so each group's stream is the one
+    it has in the whole batch.
 
     counters: optional int32[N_COUNTERS] event accumulator; health:
     optional HealthState.  Returns the next SimState alone when neither is
     given, else (SimState, counters', health') with the given ones in that
     order, as the reference's extras."""
     check_supported(
-        cfg, group_ids=group_ids, reconfig_propose=reconfig_propose,
+        cfg, reconfig_propose=reconfig_propose,
         transfer_propose=transfer_propose, campaign_kick=campaign_kick,
         read_propose=read_propose, blackbox=blackbox,
     )
+    node_key = _node_key(cfg, st.term.device, group_ids)
     if cfg.check_quorum or cfg.pre_vote:
         if link is None:
             link = torch.ones(
                 (cfg.n_peers, cfg.n_peers, cfg.n_groups), dtype=torch.bool,
                 device=st.term.device,
             )
-        out, facts = _damped_linked_step(cfg, st, crashed, append_n, link)
+        out, facts = _damped_linked_step(cfg, st, crashed, append_n, link, node_key)
     elif link is not None:
-        out, facts = _linked_step(cfg, st, crashed, append_n, link)
+        out, facts = _linked_step(cfg, st, crashed, append_n, link, node_key)
     else:
-        out, facts = _plain_step(cfg, st, crashed, append_n)
+        out, facts = _plain_step(cfg, st, crashed, append_n, node_key)
     if counters is None and health is None:
         return out
     return (out,) + _extras(cfg, st, out, crashed, facts, counters, health)
@@ -411,6 +425,7 @@ def _plain_step(
     st: SimState,
     crashed: torch.Tensor,  # bool[P, G]
     append_n: torch.Tensor,  # int32[G]
+    node_key: torch.Tensor,  # int64[P, G]
 ):
     """The undamped round without a link plane (the reference's `step`
     body); returns (SimState, _RoundFacts)."""
@@ -419,7 +434,6 @@ def _plain_step(
     self_id = torch.arange(P, dtype=I32, device=dev)[:, None] + 1  # [P, 1]
     p_idx = self_id - 1  # [P, 1]
     alive = ~crashed
-    node_key = _node_key(cfg, dev)
     lo = torch.full((P, G), cfg.min_timeout, dtype=I32, device=dev)
     hi = torch.full((P, G), cfg.max_timeout, dtype=I32, device=dev)
 
@@ -790,6 +804,7 @@ def _linked_step(
     crashed: torch.Tensor,  # bool[P, G]
     append_n: torch.Tensor,  # int32[G]
     link: torch.Tensor,  # bool[P, P, G]
+    node_key: torch.Tensor,  # int64[P, G]
 ):
     """The link-gated protocol round behind `step(..., link=)`: the
     reference's `_linked_step` (sim.py:1792-2428); returns (SimState,
@@ -813,7 +828,6 @@ def _linked_step(
     eye = torch.eye(P, dtype=torch.bool, device=dev)[:, :, None]
     E = link & alive[:, None, :] & alive[None, :, :] & ~eye
     Erev = E.transpose(0, 1)  # Erev[s, v, g]: v -> s delivery
-    node_key = _node_key(cfg, dev)
     lo = torch.full((P, G), cfg.min_timeout, dtype=I32, device=dev)
     hi = torch.full((P, G), cfg.max_timeout, dtype=I32, device=dev)
 
@@ -1116,6 +1130,7 @@ def _damped_linked_step(
     crashed: torch.Tensor,  # bool[P, G]
     append_n: torch.Tensor,  # int32[G]
     link: torch.Tensor,  # bool[P, P, G]
+    node_key: torch.Tensor,  # int64[P, G]
 ):
     """The damped (check-quorum / pre-vote) round: the reference's
     `_damped_linked_step` (sim.py:2451-3548); returns (SimState,
@@ -1156,7 +1171,6 @@ def _damped_linked_step(
     eye = torch.eye(P, dtype=torch.bool, device=dev)[:, :, None]
     E = link & alive[:, None, :] & alive[None, :, :] & ~eye
     Erev = E.transpose(0, 1)  # Erev[s, v, g]: v -> s delivery
-    node_key = _node_key(cfg, dev)
     lo = torch.full((P, G), cfg.min_timeout, dtype=I32, device=dev)
     hi = torch.full((P, G), cfg.max_timeout, dtype=I32, device=dev)
     no = torch.zeros((P, G), dtype=torch.bool, device=dev)
@@ -1758,7 +1772,8 @@ class ClusterSim:
     every round updates the HealthState, and an attached `health_monitor`
     (health.HealthMonitor, or anything with its `record`) receives the
     fixed-size summary on the same cadence.  Only the [N_COUNTERS] plane
-    and the summary cross to the host, never a [., G] plane."""
+    and the summary cross to the host, never a [., G] plane.  With
+    `chaos` (a chaos.ChaosPlan) attached, run_plan() runs the scenario."""
 
     _DRAIN_MAX = 128  # never let a window exceed this many rounds
 
@@ -1769,6 +1784,7 @@ class ClusterSim:
         outgoing_mask: Optional[torch.Tensor] = None,
         learner_mask: Optional[torch.Tensor] = None,
         health_monitor=None,
+        chaos=None,
         device: DeviceLike = None,
     ):
         self.cfg = cfg
@@ -1776,6 +1792,12 @@ class ClusterSim:
         self.state = init_state(
             cfg, voter_mask, outgoing_mask, learner_mask, device=self.device
         )
+        # The attached chaos plan (a chaos.ChaosPlan, or a CompiledChaos on
+        # this sim's device); run_plan() runs it, compiling a plan lazily at
+        # this sim's batch shape and caching the schedule and its runner.
+        self._chaos = chaos
+        self._chaos_compiled = None
+        self._chaos_runner = None
         self._counters: Optional[torch.Tensor] = None
         self._health: Optional[HealthState] = None
         self.health_monitor = health_monitor
@@ -1890,6 +1912,46 @@ class ClusterSim:
         for _ in range(rounds):
             self.run_round(crashed, append_n)
         return self.state
+
+    def _chaos_runner_for(self, plan=None):
+        """(CompiledChaos, runner) for `plan` (default: the attached one);
+        the attached plan's are cached, so repeated run_plan() calls
+        compile its schedule once."""
+        from . import chaos as chaos_mod
+
+        plan = plan if plan is not None else self._chaos
+        if plan is None:
+            raise RuntimeError("no chaos plan; construct with chaos= or pass one")
+        if plan is self._chaos and self._chaos_runner is not None:
+            return self._chaos_compiled, self._chaos_runner
+        if isinstance(plan, chaos_mod.CompiledChaos):
+            compiled = plan
+        else:
+            compiled = chaos_mod.compile_plan(plan, self.cfg.n_groups, self.device)
+        runner = chaos_mod.make_runner(self.cfg, compiled)
+        if plan is self._chaos:
+            self._chaos_compiled, self._chaos_runner = compiled, runner
+        return compiled, runner
+
+    def run_plan(self, plan=None) -> dict:
+        """Run the attached (or given) chaos plan over every round of its
+        schedule and return the scenario report (HealthMonitor.chaos_report:
+        MTTR and time to re-elect off the health planes, and the per-round
+        safety-invariant counts), which also goes to the attached monitor's
+        record_scenario.  The state and health planes advance in place.
+        Requires SimConfig(collect_health=True): the stats ride on the
+        HP_LEADERLESS plane.  The two result vectors cross to the host in
+        one copy at the end of the run."""
+        compiled, runner = self._chaos_runner_for(plan)
+        health = self._require_health()
+        self.state, self._health, stats, safety = runner(self.state, health)
+        both = torch.cat([stats, safety]).tolist()
+        report = HealthMonitor.chaos_report(
+            both[: stats.numel()], both[stats.numel():], compiled.n_rounds
+        )
+        if self.health_monitor is not None:
+            self.health_monitor.record_scenario(report)
+        return report
 
     def counters(self) -> dict:
         """The event totals as {name: count}: the device plane drains into

@@ -232,7 +232,11 @@ def test_damped_state_round_trip_and_errors():
     undamped = tsim.init_state(tsim.SimConfig(n_groups=4, n_peers=3), device="cpu")
     with pytest.raises(ValueError, match="recent_active"):
         tsim.step(cfg, undamped, crashed, append)
-    for extra in ("group_ids", "campaign_kick", "read_propose"):
+    # group_ids is ported: the iota as global ids is the whole batch.
+    whole = tsim.step(cfg, st, crashed, append)
+    gathered = tsim.step(cfg, st, crashed, append, group_ids=torch.arange(4))
+    assert all(torch.equal(a, b) for a, b in zip(whole, gathered) if a is not None)
+    for extra in ("campaign_kick", "read_propose"):
         with pytest.raises(NotImplementedError):
             tsim.step(cfg, st, crashed, append, **{extra: torch.zeros(4)})
     for flag in ("transfer", "lease_read", "blackbox"):

@@ -82,5 +82,6 @@ def test_importing_the_port_loads_no_reference_module():
     new = json.loads(res.stdout.strip().splitlines()[-1])
     assert "raft_tpu_torch.multiraft.steady_kernel" in new
     assert "raft_tpu_torch.multiraft.chaos_kernel" in new
+    assert "raft_tpu_torch.multiraft.chaos" in new
     bad = [m for m in new if _forbidden(m)]
     assert not bad, bad

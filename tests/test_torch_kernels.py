@@ -150,16 +150,17 @@ def test_unported_config_flags_raise(field):
 )
 def test_unported_step_args_raise(arg):
     """Every step extra not ported yet raises, on the plain round and on
-    the link-gated one (`link` itself is ported: it must raise only beside
-    an unported extra)."""
+    the link-gated one (`link` and `group_ids` are ported: each must raise
+    only beside an unported extra)."""
     cfg = tsim.SimConfig(n_groups=4, n_peers=3)
     st = tsim.init_state(cfg, device="cpu")
     args = (cfg, st, torch.zeros((3, 4), dtype=torch.bool), torch.zeros(4, dtype=torch.int32))
     link = torch.ones((3, 3, 4), dtype=torch.bool)
-    if arg == "link":
-        tsim.step(*args, link=link)
+    if arg in ("link", "group_ids"):
+        ported = {"link": link, "group_ids": torch.arange(4)}[arg]
+        tsim.step(*args, **{arg: ported})
         with pytest.raises(NotImplementedError):
-            tsim.step(*args, link=link, group_ids=torch.zeros(4))
+            tsim.step(*args, **{arg: ported}, reconfig_propose=torch.zeros(4))
         return
     with pytest.raises(NotImplementedError):
         tsim.step(*args, **{arg: torch.zeros(4)})
