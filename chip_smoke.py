@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Five paths, all at 100,000 groups × 5 peers.  Three with one append per
+Seven paths, all at 100,000 groups × 5 peers.  Three with one append per
 group per round (bench.py's bench_device), each bare and instrumented
 (bench.py --health: the counter plane and the health planes ride every
 round, and the fused blocks run each kernel's with_health variant):
@@ -23,7 +23,7 @@ round, and the fused blocks run each kernel's with_health variant):
           check-quorum boundary proof) holds, any other block 32 damped
           general steps.
 
-and two more:
+and four more:
 
   chaos     bench.py --chaos examples/chaos/partition_heal.json [--check-
             quorum]: ClusterSim(chaos=plan).run_plan(), the repo's P=5 plan
@@ -36,11 +36,23 @@ and two more:
             hybrid_multi_round(k=32, with_chaos=True): per block, the fused
             damped kernel's with_loss instance when no group storms, the
             storm groups gathered into a general sub-batch beside it when at
-            most 4,096 do, and 32 general damped steps otherwise.
+            most 4,096 do, and 32 general damped steps otherwise;
+  reconfig  bench.py --reconfig examples/reconfig/joint_churn.json
+            [--check-quorum]: ClusterSim.run_reconfig(plan), 88 rounds of
+            joint-consensus membership change from the plan's bootstrap
+            config on the general step, each group's conf entries proposed,
+            gated on their dual-majority commit and applied to the mask
+            planes, the joint-window safety invariants folded every round;
+  prod-fused bench.py --prod-fused examples/reconfig/prod_fused.json: after
+            a 192-round settle, reconfig.make_split_runner(k=8) over 256
+            rounds of health, counters, a lossy chaos phase, check-quorum,
+            pre-vote and three conf changes: op windows on the general step,
+            8-round blocks between them on the damped kernel's with_loss
+            with_health instance whenever the whole batch is steady.
 
 Phases, in order, each with its wall seconds; any failure raises and the
-script exits nonzero.  The CPU runs of phases 13 and 16 go to a worker
-process at phase 13's start and run while the card works.  Every parity phase holds both variants of its
+script exits nonzero.  The CPU runs of phases 13, 16, 17 and 18 go to a
+worker process at phase 13's start and run while the card works.  Every parity phase holds both variants of its
 kernel, with_health=False and with_health=True (the latter with a random
 ticks_since_commit row), against the plain version on the same cases.
 Every path phase runs its path on the card bare and instrumented
@@ -125,9 +137,30 @@ printed as bench.py --health-out writes it.
                    the CPU run on every field and the fused count; then the
                    damped kernel against its plain version on the split
                    block's operands, storm groups included
- 17. report        one JSON line of the seven kernel rows (the six variants
-                   and the damped kernel's with_loss instance), then the
-                   device line last
+ 17. reconfig      joint_churn.json with check_quorum off and on on the card,
+                   at G=8,192 and at G (no fused launch, zero safety
+                   counts), then split=True (k=8) at G, equal to the unsplit
+                   run, its fused kernel launches counted; timed as
+                   bench_reconfig does (G x rounds / wall from the bootstrap
+                   state, median of 3 reps) with the busy share of its first
+                   4 rounds; then held to the CPU run at G=8,192 (report,
+                   every field, the health planes) and the G run's first
+                   8,192 groups to it
+ 18. prod-fused    the settle at G on the card, the split runner (k=8, window
+                   4, counters) from its first 8,192 groups and at G, the
+                   launch counts zeroed just before the G run and read just
+                   after; card == CPU at 8,192 (the CPU from its own
+                   settle; every field, the op-protocol state, the stats,
+                   counters, fused count and segments), the G run's first
+                   8,192 groups equal to it, zero safety counts; the damped
+                   with_loss with_health k=8 instance against its plain
+                   version on the settled and the final state; timed (3 reps
+                   from the settled state, fused_frac as measured, the busy
+                   share of the plan's first 4 rounds) and the kernel
+                   against its bound
+ 19. report        one JSON line of the eight kernel rows (the six variants,
+                   the damped kernel's with_loss instance, and its with_loss
+                   with_health instance at k=8), then the device line last
 
 With --quick it runs phases 1 to 3, 6 and 9 only (the builds and every
 kernel against its plain version) and prints no result.  Exits 2 without a
@@ -144,9 +177,10 @@ import sys
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
+import numpy as np
 import torch
 
-from raft_tpu_torch.multiraft import _build, chaos, fused_step, kernels as pk, sim
+from raft_tpu_torch.multiraft import _build, chaos, fused_step, kernels as pk, reconfig, sim
 from raft_tpu_torch.multiraft.health import HealthMonitor
 from raft_tpu_torch.multiraft.chaos_kernel import (
     OUTPUT_NAMES as CHAOS_OUTPUTS,
@@ -181,6 +215,18 @@ CQ_FUSED_BLOCKS, CQ_CRASH_BLOCKS = 2, 3
 CHAOS_PLAN_NAME = "examples/chaos/partition_heal.json"
 CHAOS_PLAN = os.path.join(os.path.dirname(os.path.abspath(__file__)), CHAOS_PLAN_NAME)
 CHAOS_SMALL_G, CHAOS_REPS, CHAOS_PROFILE_ROUNDS = 8192, 3, 4
+HERE = os.path.dirname(os.path.abspath(__file__))
+RECONFIG_PLAN_NAME = "examples/reconfig/joint_churn.json"
+RECONFIG_PLAN = os.path.join(HERE, RECONFIG_PLAN_NAME)
+RECONFIG_SMALL_G, RECONFIG_REPS = 8192, 3
+PROD_PLAN_NAME = "examples/reconfig/prod_fused.json"
+PROD_PLAN = os.path.join(HERE, PROD_PLAN_NAME)
+# bench_prod_fused: election_tick 64, a 3 x 64-round settle, k=8, window 4.
+PROD_TICK, PROD_K, PROD_WINDOW, PROD_REPS = 64, 8, 4, 3
+# The profile covers 4 rounds, as the other general-step profiles do: a
+# general round here is some 6,800 launches, and the plan's first 72 rounds
+# gave the profiler 272,614 records to process.
+PROD_SETTLE, PROD_PROFILE_ROUNDS = 3 * 64, 4
 STORM_EVERY = 100  # the acting leader crashed in 1% of groups
 # The composed path's parity blocks from the aligned state: no boundary in
 # the first horizon, every boundary in the second, then 1% of leaders down.
@@ -1687,6 +1733,391 @@ def phase_composed_timing(dev, settled):
     )
 
 
+# --- membership change (bench.py --reconfig and --prod-fused) ----------------
+
+
+def plan_docs(path):
+    """(reconfig plan, chaos plan or None) of a bench.py plan file."""
+    with open(path, encoding="utf-8") as fh:
+        doc = json.load(fh)
+    chaos_doc = doc.get("chaos")
+    return (reconfig.plan_from_dict(doc.get("reconfig", doc)),
+            None if chaos_doc is None else chaos.plan_from_dict(chaos_doc))
+
+
+def reconfig_cfg(n_groups, check_quorum):
+    """bench.py --reconfig's config: the plan's peers, health planes on."""
+    return sim.SimConfig(n_groups=n_groups, n_peers=P, collect_health=True,
+                         check_quorum=check_quorum)
+
+
+def run_reconfig_plan(device, n_groups, check_quorum, split=False):
+    """ClusterSim.run_reconfig of the plan from its bootstrap masks: (report,
+    final state, final health, run_reconfig's wall seconds, which end with
+    the report's download, and with `split` the rejected blocks' first
+    rounds)."""
+    plan, _ = plan_docs(RECONFIG_PLAN)
+    s = sim.ClusterSim(reconfig_cfg(n_groups, check_quorum),
+                       *reconfig.initial_masks(plan, n_groups, device), device=device)
+    sync()
+    t0 = time.perf_counter()
+    report = s.run_reconfig(plan, split=split, split_k=PROD_K, split_window=PROD_WINDOW)
+    secs = time.perf_counter() - t0
+    return report, s.state, s._health, secs, (
+        rejected(s._reconfig_runner[3]) if split else None)
+
+
+def rejected(runner):
+    """The first rounds of a split runner's planned blocks that its last call
+    ran on the general step."""
+    return [r0 for r0, ran in runner.blocks if not ran]
+
+
+def cpu_reconfig():
+    """In the reference worker: the plan on the CPU at RECONFIG_SMALL_G with
+    check_quorum off and on, as cpu_scenarios' entries."""
+    worker_threads()
+    out = {}
+    for check_quorum in (False, True):
+        report, st, health, secs, _ = run_reconfig_plan("cpu", RECONFIG_SMALL_G,
+                                                     check_quorum)
+        out[check_quorum] = (report, sim.state_to_numpy(st), health.planes.numpy(),
+                             health.window_pos, secs)
+    return out
+
+
+def same_run(a, b, note):
+    """Two runs on one device (run_reconfig_plan's tuples): every state field,
+    the health planes and window_pos equal."""
+    for f in sim.SimState._fields:
+        x, y = getattr(a[1], f), getattr(b[1], f)
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+            raise AssertionError(f"{note}: {f} differs")
+    if a[2].window_pos != b[2].window_pos or not torch.equal(a[2].planes, b[2].planes):
+        raise AssertionError(f"{note}: health planes or window_pos differ")
+
+
+def unfused(report):
+    return {k: v for k, v in report.items()
+            if k not in ("fused_rounds", "total_rounds", "fused_frac")}
+
+
+def reconfig_parity(dev, check_quorum):
+    """The plan on the card at RECONFIG_SMALL_G, then unsplit at G with its
+    launch counts zeroed just before and read just after (no fused kernel may
+    launch) and zero safety counts, then split (k=8) at G, which must end
+    equal to it.  Returns (the G run, the split run's fused kernel launches,
+    its report, check(cpu)), check as scenario_parity's."""
+    name = "check_quorum" if check_quorum else "undamped"
+    small = run_reconfig_plan(dev, RECONFIG_SMALL_G, check_quorum)
+    zero_launches()
+    full = run_reconfig_plan(dev, G, check_quorum)
+    counts = launch_counts()
+    if any(a or b for a, b in counts.values()):
+        raise AssertionError(f"reconfig {name}: a fused kernel launched: {counts}")
+    if any(full[0]["safety"].values()):
+        raise AssertionError(f"reconfig {name} G={G}: safety violations "
+                             f"{full[0]['safety']}")
+    check_state(full[1])
+    zero_launches()
+    split = run_reconfig_plan(dev, G, check_quorum, split=True)
+    counts = launch_counts()
+    kernel = damped_rounds if check_quorum else steady_rounds
+    for kname, (plain, health) in counts.items():
+        if plain or (health and kname != kernel.__name__):
+            raise AssertionError(f"reconfig {name} split: unexpected launches {counts}")
+    fused_launches = counts[kernel.__name__][1]
+    if unfused(split[0]) != full[0] or split[0]["fused_rounds"] != fused_launches * PROD_K * G:
+        raise AssertionError(f"reconfig {name}: split report {split[0]} != {full[0]}")
+    same_run(full, split, f"reconfig {name} G={G}: split against unsplit")
+
+    def check(cpu_entry):
+        report, arrays, planes, window_pos, t_cpu = cpu_entry
+        cpu = (report, sim.state_from_numpy(arrays, "cpu"),
+               sim.HealthState(torch.from_numpy(planes), window_pos))
+        if small[0] != cpu[0]:
+            raise AssertionError(f"reconfig {name} G={RECONFIG_SMALL_G}: reports "
+                                 f"differ: card {small[0]}, CPU {cpu[0]}")
+        same_scenario(small, cpu, f"reconfig {name} G={RECONFIG_SMALL_G}")
+        same_scenario(full, cpu, f"reconfig {name}: the first {RECONFIG_SMALL_G} of "
+                      f"{G} groups", RECONFIG_SMALL_G)
+        print(f"reconfig {name} ({RECONFIG_PLAN_NAME}, {full[0]['rounds']} rounds): "
+              f"card == CPU at {RECONFIG_SMALL_G}x{P} (report, every field, the "
+              f"health planes); at {G}x{P} safety all 0, the first "
+              f"{RECONFIG_SMALL_G} groups == the CPU run, split=True (k={PROD_K}) == "
+              f"unsplit with fused_frac {split[0]['fused_frac']} ({kernel.__name__} "
+              f"with_health launches {fused_launches}; planned blocks rejected at "
+              f"rounds {split[4]}); card {full[3]:.2f}s unsplit, "
+              f"{split[3]:.2f}s split at G={G}, CPU {t_cpu:.2f}s at "
+              f"G={RECONFIG_SMALL_G} (in the reference worker)")
+        print(f"  report at G={G}: {json.dumps(full[0])}")
+        return t_cpu
+
+    return full, fused_launches, split[0], check
+
+
+def reconfig_timing(dev, check_quorum, first_s):
+    """bench_reconfig: G x rounds / wall of the whole plan from the bootstrap
+    state (make_runner, unsplit: fused_frac 0), the median of RECONFIG_REPS
+    reps, the parity run's run_reconfig (`first_s`) the first of them; and
+    the device's busy share over the first CHAOS_PROFILE_ROUNDS rounds."""
+    cfg = reconfig_cfg(G, check_quorum)
+    plan, _ = plan_docs(RECONFIG_PLAN)
+    compiled = reconfig.compile_plan(plan, G, dev)
+    runner = reconfig.make_runner(cfg, compiled)
+
+    def fresh():
+        st = sim.init_state(cfg, *reconfig.initial_masks(plan, G, dev), device=dev)
+        return st, sim.init_health(cfg, dev), reconfig.init_reconfig_state(st)
+
+    samples = [G * compiled.n_rounds / first_s]
+    for _ in range(RECONFIG_REPS - 1):
+        carry = fresh()
+        sync()
+        t0 = time.perf_counter()
+        runner(*carry)
+        sync()
+        samples.append(G * compiled.n_rounds / (time.perf_counter() - t0))
+    head = reconfig.make_runner(cfg, compiled._replace(
+        phase_of_round=compiled.phase_of_round[:CHAOS_PROFILE_ROUNDS]))
+    carry = fresh()
+    prof = device_profile(lambda: head(*carry))
+    med = statistics.median(samples)
+    name = "check_quorum" if check_quorum else "undamped"
+    print(f"timing reconfig {name} {G}x{P} [{card_line()}]: ticks/s median "
+          f"{med:.1f} (min {min(samples):.1f}, max {max(samples):.1f}, "
+          f"{RECONFIG_REPS} reps), fused_frac 0; a round {1e3 * G / med:.2f} ms; "
+          f"profile of rounds 0-{CHAOS_PROFILE_ROUNDS - 1}: device busy "
+          f"{prof['busy_us']:.1f} of {prof['wall_us']:.1f} us "
+          f"({100 * prof['busy_share']:.1f}%), "
+          f"{sum(r['count'] for r in prof['kernels'])} kernel launches")
+    for row in prof["kernels"][:6]:
+        print(f"  {row['us']:10.1f} us {row['count']:6d}x  {row['name']}")
+    return dict(ticks_per_s=samples, ticks_per_s_median=med, fused_frac=0.0,
+                profile=prof, card=card_line())
+
+
+@phase("reconfig")
+def phase_reconfig(dev, cpu_runs):
+    """bench.py --reconfig examples/reconfig/joint_churn.json [--check-quorum]
+    at G on the card, split and unsplit, and timed, then held to the CPU runs
+    (`cpu_runs`, the reference worker's future of cpu_reconfig())."""
+    card = {}
+    for check_quorum in (False, True):
+        full, launches, split, check = reconfig_parity(dev, check_quorum)
+        card[check_quorum] = (check, full, launches, split,
+                              reconfig_timing(dev, check_quorum, full[3]))
+    cpu = cpu_runs.result()
+    out = {}
+    for check_quorum, (check, full, launches, split, timing) in card.items():
+        t_cpu = check(cpu[check_quorum])
+        out["check_quorum" if check_quorum else "undamped"] = dict(
+            report=full[0], card_s=full[3], cpu_s=t_cpu, split_report=split,
+            split_launches=launches, **timing)
+    return out
+
+
+def prod_cfg(n_groups):
+    """bench_prod_fused's config: election_tick 64, health, counters,
+    check-quorum and pre-vote."""
+    return sim.SimConfig(n_groups=n_groups, n_peers=P, election_tick=PROD_TICK,
+                         collect_health=True, collect_counters=True,
+                         check_quorum=True, pre_vote=True)
+
+
+def prod_settle(device, n_groups):
+    """bench_prod_fused's settle: init_state from the plan's bootstrap masks,
+    then PROD_SETTLE general rounds of one append a group (no extras)."""
+    plan, _ = plan_docs(PROD_PLAN)
+    cfg = prod_cfg(n_groups)
+    st = sim.init_state(cfg, *reconfig.initial_masks(plan, n_groups, device),
+                        device=device)
+    crashed = torch.zeros((P, n_groups), dtype=torch.bool, device=device)
+    append = torch.ones(n_groups, dtype=torch.int32, device=device)
+    for _ in range(PROD_SETTLE):
+        st = sim.step(cfg, st, crashed, append)
+    return st
+
+
+def prod_runner(start, rounds=None):
+    """make_split_runner(k=8, window=4, with_counters=True) over the plan and
+    its chaos overlay at the state's width and device (the first `rounds`
+    rounds of both when given), and a fn() running it from `start` with fresh
+    health, op-protocol state and counters (nothing is updated in place, so
+    every run starts from the same settled state)."""
+    plan, chaos_plan = plan_docs(PROD_PLAN)
+    n_groups, dev = start.term.shape[1], start.term.device
+    cfg = prod_cfg(n_groups)
+    compiled = reconfig.compile_plan(plan, n_groups, dev)
+    cc = chaos.compile_plan(chaos_plan, n_groups, dev)
+    if rounds is not None:
+        compiled = compiled._replace(phase_of_round=compiled.phase_of_round[:rounds])
+        cc = cc._replace(phase_of_round=cc.phase_of_round[:rounds])
+    runner = reconfig.make_split_runner(cfg, compiled, cc, k=PROD_K,
+                                        window=PROD_WINDOW, with_counters=True)
+
+    def run():
+        return runner(start, sim.init_health(cfg, dev),
+                      reconfig.init_reconfig_state(start), pk.zero_counters(dev))
+
+    return runner, run
+
+
+def prod_result(out, runner):
+    """A split run's outputs as host values: (state arrays, health planes,
+    window_pos, op-protocol arrays, stats, rstats, safety, fused, counters,
+    the rejected blocks' first rounds)."""
+    st, hl, rst, stats, rstats, safety, fused, ctrs = out
+    return (sim.state_to_numpy(st), hl.planes.cpu().numpy(), hl.window_pos,
+            {f: v.cpu().numpy() for f, v in rst._asdict().items()},
+            stats.tolist(), rstats.tolist(), safety.tolist(), fused, ctrs.tolist(),
+            rejected(runner))
+
+
+def cpu_prod():
+    """In the reference worker: the settle and the split run on the CPU at
+    RECONFIG_SMALL_G: (prod_result, segments, seconds)."""
+    worker_threads()
+    t0 = time.perf_counter()
+    runner, run = prod_runner(prod_settle("cpu", RECONFIG_SMALL_G))
+    return prod_result(run(), runner), runner.segments, time.perf_counter() - t0
+
+
+def same_prod(a, b, note, n_groups=None):
+    """Two prod_result tuples: every state field, the health planes and
+    window_pos (the first n_groups groups of a, default all); with n_groups
+    None also the op-protocol state, the accumulators, the fused count, the
+    counters and the rejected blocks."""
+    n = n_groups
+    cut = (lambda v: v) if n is None else (lambda v: v[..., :n])
+    for f in sim.SimState._fields:
+        x, y = a[0].get(f), b[0].get(f)
+        if (x is None) != (y is None) or (x is not None and not np.array_equal(cut(x), y)):
+            raise AssertionError(f"{note}: state field {f} differs")
+    if not np.array_equal(cut(a[1]), b[1]) or a[2] != b[2]:
+        raise AssertionError(f"{note}: health planes or window_pos differ")
+    if n is not None:
+        return
+    for f in a[3]:
+        if not np.array_equal(a[3][f], b[3][f]):
+            raise AssertionError(f"{note}: op-protocol field {f} differs")
+    if a[4:] != b[4:]:
+        raise AssertionError(f"{note}: accumulators, fused count, counters or "
+                             f"rejected blocks differ: {a[4:]} != {b[4:]}")
+
+
+@phase("prod-fused")
+def phase_prod_fused(dev, cpu_run):
+    """bench.py --prod-fused examples/reconfig/prod_fused.json: the settle at
+    G on the card, the split runner from its first RECONFIG_SMALL_G groups,
+    then at G with the launch counts zeroed just before the run and read
+    just after, held to the CPU run (`cpu_run`, the reference worker's future of cpu_prod()):
+    every field, the op-protocol state, the accumulators, the counters, the
+    fused count and the segments at RECONFIG_SMALL_G, and the G run's first
+    RECONFIG_SMALL_G groups; zero safety counts.  Then the damped kernel's
+    with_loss with_health instance at k=8 against its plain version on a
+    lossy block's operands, the timing (PROD_REPS reps from the settled
+    state, fused_frac as measured), the busy share of the plan's first 4
+    rounds, and the kernel against its bound.  Returns (launches, parity
+    error, timing)."""
+    t0 = time.perf_counter()
+    settled = prod_settle(dev, G)
+    sync()
+    t_settle = time.perf_counter() - t0
+    # The small run starts from the G settle's first groups (every seeded
+    # stream keys on the global group id), the CPU from its own settle.
+    runner_s, run_s = prod_runner(sim.SimState(*(
+        None if v is None else v[..., :RECONFIG_SMALL_G].contiguous() for v in settled)))
+    small = prod_result(run_s(), runner_s)
+    runner, run = prod_runner(settled)
+    zero_launches()
+    t0 = time.perf_counter()
+    out = run()
+    sync()
+    first_s = time.perf_counter() - t0
+    counts = launch_counts()
+    launches = counts["damped_rounds"][1]
+    if launches < 1 or any(counts[k.__name__] != (0, 0) for k in (steady_rounds, chaos_rounds)) \
+            or counts["damped_rounds"][0]:
+        raise AssertionError(f"prod-fused: unexpected launches {counts}")
+    if out[6] != launches * PROD_K * G:
+        raise AssertionError(f"prod-fused: fused {out[6]} for {launches} launches")
+    if any(out[5].tolist()):
+        raise AssertionError(f"prod-fused G={G}: safety violations {out[5].tolist()}")
+    check_state(out[0])
+    full = prod_result(out, runner)
+    cpu, segments, t_cpu = cpu_run.result()
+    same_prod(small, cpu, f"prod-fused G={RECONFIG_SMALL_G}")
+    if runner_s.segments != segments or runner.segments != segments:
+        raise AssertionError(f"prod-fused: segments differ {runner.segments} {segments}")
+    same_prod(full, cpu, f"prod-fused: the first {RECONFIG_SMALL_G} of {G} groups",
+              RECONFIG_SMALL_G)
+    rounds = sum(sg.rounds for sg in segments)
+    total = G * rounds
+    print(f"prod-fused {G}x{P} ({PROD_PLAN_NAME}, {rounds} rounds after a "
+          f"{PROD_SETTLE}-round settle, k={PROD_K}, window {PROD_WINDOW}): card == CPU "
+          f"at {RECONFIG_SMALL_G}x{P} (every field, the op-protocol state, stats "
+          f"{small[4]}, rstats {small[5]}, counters {small[8]}, fused {small[7]}, "
+          f"{len(segments)} segments, {len(runner.blocks)} planned blocks, rejected at "
+          f"rounds {small[9]}); at {G}x{P} safety all 0, the first "
+          f"{RECONFIG_SMALL_G} groups == the CPU run; fused_frac "
+          f"{out[6] / total:.4f} ({out[6]} of {total}); damped kernel (with_loss, "
+          f"with_health) launches {launches}; card {t_settle:.2f}s settle + "
+          f"{first_s:.2f}s run, CPU {t_cpu:.2f}s (in the reference worker)")
+    print(f"  rstats at G={G} {full[5]}, stats {full[4]}, counters {full[8]}, planned "
+          f"blocks rejected at rounds {full[9]}")
+    # The kernel against its plain version on the lossy phase's operands.
+    plan, chaos_plan = plan_docs(PROD_PLAN)
+    cc = chaos.compile_plan(chaos_plan, G, dev)
+    lossy_r0 = int(torch.nonzero(cc.phase_of_round == 1)[0])
+    _, loss, crashed, _ = chaos.schedule_planes(cc, lossy_r0)
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    kw = dict(round_base=lossy_r0, rounds=PROD_K, election_tick=PROD_TICK,
+              heartbeat_tick=1, with_cq=True)
+    err = 0
+    for st, tsc, note in ((settled, random_tsc(G, 6, dev), "settled"),
+                          (out[0], out[1].planes[pk.HP_SINCE_COMMIT], "after the plan")):
+        err = max(err, compare(damped_rounds, damped_rounds_reference, DAMPED_OUTPUTS,
+                               fused_step.damped_operands(st, crashed, append, loss),
+                               kw, f"prod-fused {note}", tsc))
+    print(f"parity prod-fused damped with_loss with_health k={PROD_K}: exact on the "
+          f"settled state and the plan's end state at G={G}, round base {lossy_r0}, "
+          "2% loss on every directed link")
+    samples = [total / first_s]
+    fused_total = out[6]
+    for _ in range(PROD_REPS - 1):
+        sync()
+        t0 = time.perf_counter()
+        res = run()
+        sync()
+        samples.append(total / (time.perf_counter() - t0))
+        fused_total += res[6]
+    fused_frac = fused_total / (total * PROD_REPS)
+    _, head = prod_runner(settled, PROD_PROFILE_ROUNDS)
+    prof = device_profile(head)
+    args = fused_step.damped_operands(settled, crashed, append, loss,
+                                      random_tsc(G, 6, dev))
+    t = kernel_times(dev, damped_rounds, damped_rounds_reference, args, kw,
+                     damped_work(P, G, PROD_K, with_loss=True, with_health=True))
+    med = statistics.median(samples)
+    t.update(ticks_per_s=samples, ticks_per_s_median=med, fused_frac=fused_frac,
+             profile=prof, segments=[list(sg) for sg in segments])
+    print(f"timing prod-fused {G}x{P} k={PROD_K} [{t['card']}]: ticks/s median "
+          f"{med:.1f} (min {min(samples):.1f}, max {max(samples):.1f}, {PROD_REPS} reps "
+          f"from the settled state), fused_frac {fused_frac:.4f}; damped_round_kernel "
+          f"(with_loss, with_health) {t['ms']:.4f} ms cold ({t['hot_ms']:.4f} ms hot; "
+          f"a wrapper call {t['call_ms']:.4f} ms), plain version {t['plain_ms']:.3f} ms; "
+          f"bound {t['bound_ms']:.4f} ms (bytes {t['bytes_bound_ms']:.4f}, operations "
+          f"{t['ops_bound_ms']:.4f})")
+    print(f"profile of the plan's first {PROD_PROFILE_ROUNDS} rounds: device busy "
+          f"{prof['busy_us']:.1f} of {prof['wall_us']:.1f} us "
+          f"({100 * prof['busy_share']:.1f}%), "
+          f"{sum(r['count'] for r in prof['kernels'])} kernel launches")
+    for row in prof["kernels"][:8]:
+        print(f"  {row['us']:10.1f} us {row['count']:6d}x  {row['name']}")
+    return launches, err, t
+
+
 def kernel_entry(name, source, replaces, launches, err, t):
     return {
         "name": name,
@@ -1746,11 +2177,15 @@ def main(argv=None):
     with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
         cpu_runs = pool.submit(cpu_scenarios)
         cpu_run = pool.submit(cpu_composed, sim.state_to_numpy(settled))
+        cpu_reconfig_runs = pool.submit(cpu_reconfig)
+        cpu_prod_run = pool.submit(cpu_prod)
         scenario = phase_chaos_scenario(dev, cpu_runs)
         composed = phase_composed_timing(dev, settled)
         steady_hybrid_fused = phase_steady_hybrid(dev, st_main)
         composed_launches, composed_err, composed_branches = phase_composed(
             dev, settled, cpu_run)
+        reconfig_out = phase_reconfig(dev, cpu_reconfig_runs)
+        prod_launches, prod_err, prod = phase_prod_fused(dev, cpu_prod_run)
 
     rows = (
         ("steady_rounds", STEADY_SOURCE, STEADY_REPLACES, steady_err,
@@ -1768,7 +2203,10 @@ def main(argv=None):
     ] + [kernel_entry(
         "damped_rounds with_loss=True with_health=False", DAMPED_SOURCE,
         f"{DAMPED_REPLACES} (with_loss=True, with_health=False)", composed_launches,
-        worst(damped_loss_err, composed_err)[0], composed)]}
+        worst(damped_loss_err, composed_err)[0], composed), kernel_entry(
+        f"damped_rounds with_loss=True with_health=True k={PROD_K}", DAMPED_SOURCE,
+        f"{DAMPED_REPLACES} (with_loss=True, with_health=True, k={PROD_K})",
+        prod_launches, prod_err, prod)]}
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w", encoding="utf-8") as fh:
@@ -1776,7 +2214,8 @@ def main(argv=None):
                 "steady": steady, "lossy": lossy, "damped": damped,
                 "steady_health": steady_h, "damped_health": damped_h,
                 "lossy_health_kernel": lossy_h, "chaos_scenario": scenario,
-                "composed": composed}, "composed_branches": composed_branches,
+                "composed": composed, "reconfig": reconfig_out, "prod_fused": prod},
+                "composed_branches": composed_branches,
                 "steady_hybrid_fused": steady_hybrid_fused}, fh, indent=1,
                 default=str)
     print(json.dumps(kernels))

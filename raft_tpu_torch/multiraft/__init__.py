@@ -9,10 +9,13 @@ Modules:
                   words, the safety invariants)
   sim           — SimConfig, SimState, HealthState, init_state, init_health,
                   the plain, link-gated and damped steps (with group_ids),
-                  ClusterSim (with chaos= and run_plan)
+                  ClusterSim (with chaos=, run_plan and run_reconfig)
   chaos         — chaos plans, their compiled schedules, the scenario runner
+  reconfig      — membership-change plans compiled through the scalar
+                  Changer, the op-protocol runner and the split-horizon
+                  runner (ClusterSim.run_reconfig)
   health        — HealthMonitor, the host consumer of health summaries and
-                  chaos scenario reports
+                  chaos and reconfig scenario reports
   steady_kernel — k fused steady rounds: the CUDA kernel and its plain version
   chaos_kernel  — k fused loss-gated rounds: the CUDA kernel and its plain version
   damped_kernel — k fused check-quorum/pre-vote rounds: the CUDA kernel and its

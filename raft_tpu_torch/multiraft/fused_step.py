@@ -3,9 +3,9 @@ when the steady invariant provably holds for all of them, else k general
 steps.  Both branches give the same state, bit for bit.
 
 Counterpart of `raft_tpu/multiraft/pallas_step.py`: `steady_mask`
-(:1355-1554, the plain, the link and the damped arm), `steady_predicate`
-(:1557), `steady_round` with its host wrapper `_run` (:549-749),
-`steady_round(with_chaos=True)` with its host wrapper
+(:1355-1554, the plain, the link, the damped and the reconfig arm),
+`steady_predicate` (:1557), `steady_round` with its host wrapper `_run`
+(:549-749), `steady_round(with_chaos=True)` with its host wrapper
 `_build_chaos_round._run` (:806-886) as `chaos_round` here, the damped
 configs' `_build_damped_round._run` (:1240-1352, plain and with chaos) as
 `damped_round`, the closed-form instrumentation folds `_fold_counters`
@@ -64,7 +64,9 @@ def steady_mask(
 ) -> torch.Tensor:
     """bool[G]: per-group steady invariant for the next `horizon` rounds —
     no election timer can fire, exactly one alive leader, every alive peer
-    already at the leader's term, not in joint config.
+    already at the leader's term, not in joint config, and, with
+    `reconfig_pending` (bool[G], reconfig.pending_in_horizon), no conf
+    change in flight or due inside the horizon.
 
     With `link` (the bool[P, P, G] reachability plane) every directed link
     among alive peers must also be up, and the election-timer bound is the
@@ -79,9 +81,7 @@ def steady_mask(
     with `link` and `loss_rate` (int32[P, P, G]), the same per group, the
     groups with a nonzero rate anywhere held to the no-boundary bound; with
     `link` alone, no role-leader may reach its boundary."""
-    sim_mod.check_supported(
-        cfg, reconfig_pending=reconfig_pending, read_pending=read_pending,
-    )
+    sim_mod.check_supported(cfg, read_pending=read_pending)
     damped = cfg.check_quorum or cfg.pre_vote
     if damped and cfg.election_tick <= cfg.heartbeat_tick:
         # The saturation argument needs a full heartbeat interval strictly
@@ -111,6 +111,9 @@ def steady_mask(
     # 4. not joint
     not_joint = ~st.outgoing_mask.any(0)
     ok = no_campaign & one_leader & terms_ok & not_joint
+    if reconfig_pending is not None:
+        # 4b. no conf change is in flight or due inside the horizon.
+        ok = ok & ~reconfig_pending
     if link is not None:
         # 5. every directed link among alive peers is up.
         eye = torch.eye(cfg.n_peers, dtype=torch.bool, device=link.device)

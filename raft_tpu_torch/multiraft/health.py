@@ -1,9 +1,10 @@
 """HealthMonitor: the host-side consumer of fleet-health summaries.
 
-Counterpart of `raft_tpu/multiraft/health.py` (:35-163, :324-345,
+Counterpart of `raft_tpu/multiraft/health.py` (:35-272, :324-345,
 :387-399): the summary formatter, `record`, the chaos scenario report
-`chaos_report` and `record_scenario`, `last`, `summary_ring` and
-`__len__`.  The device planes (kernels.HP_* rows, maintained by sim.step)
+`chaos_report` and `record_scenario`, the reconfig scenario report
+`reconfig_stall_groups`, `reconfig_report` and `record_reconfig`, `last`,
+`summary_ring` and `__len__`.  The device planes (kernels.HP_* rows, maintained by sim.step)
 reduce on their device to one fixed-size summary dict::
 
     {"counts": {"leaderless": n, "stalled_leaderless": n,
@@ -25,6 +26,8 @@ import threading
 import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional
+
+import numpy as np
 
 from .kernels import HEALTH_COUNT_NAMES, SAFETY_NAMES
 
@@ -160,6 +163,92 @@ class HealthMonitor:
             )
             if any(report.get("safety", {}).values()):
                 m.trace("chaos.safety", **report["safety"])
+        return entry
+
+    @staticmethod
+    def reconfig_stall_groups(
+        outgoing_mask, since_commit, election_tick: int,
+        stall_timeouts: int = 4, topk: int = 8,
+    ):
+        """The reconfig-stall rule, on host arrays: a group still inside a
+        joint config (outgoing half non-empty, `outgoing_mask` bool[P, G])
+        whose commit has been flat (`since_commit`, the HP_SINCE_COMMIT
+        plane, int[G]) for `stall_timeouts * election_tick` rounds.
+        Returns (stalled_count, worst_group_ids), worst ranked by staleness
+        as the reference ranks it (numpy's argsort of the masked staleness,
+        reversed), capped at `topk`."""
+        joint = np.any(np.asarray(outgoing_mask), axis=0)
+        since = np.asarray(since_commit)
+        stuck = joint & (since >= stall_timeouts * election_tick)
+        n_stuck = int(stuck.sum())
+        order = np.argsort(np.where(stuck, since, -1))[::-1]
+        return n_stuck, [int(g) for g in order[: min(n_stuck, topk)]]
+
+    @staticmethod
+    def reconfig_report(
+        stats, rstats, safety, rounds: int, stalled_groups: int,
+        stalled_worst=(),
+    ) -> dict:
+        """Per-scenario reconfig summary off the run's accumulators (host
+        sequences of ints): `stats` the [chaos.N_CHAOS_STATS] MTTR facts,
+        `rstats` the [reconfig.N_RECONFIG_STATS] op-protocol counts (RC_*:
+        proposals, applies, retries, joint group-rounds), `safety` the
+        [kernels.N_SAFETY] violation counts with the joint-window slots,
+        `rounds` the rounds run, and the stalled groups from
+        reconfig_stall_groups.  Returns the dict bench.py --reconfig
+        writes."""
+        from .chaos import CS_HEALED_ROUNDS, CS_MAX_STREAK, CS_REELECTIONS
+        from .reconfig import RECONFIG_STAT_NAMES
+
+        reelections = int(stats[CS_REELECTIONS])
+        healed = int(stats[CS_HEALED_ROUNDS])
+        return {
+            "rounds": int(rounds),
+            **{name: int(v) for name, v in zip(RECONFIG_STAT_NAMES, rstats)},
+            "mttr_rounds": (
+                round(healed / reelections, 3) if reelections else None
+            ),
+            "reelections": reelections,
+            "max_leaderless_streak": int(stats[CS_MAX_STREAK]),
+            "reconfig_stalled_groups": int(stalled_groups),
+            "reconfig_stalled_worst": [int(g) for g in stalled_worst],
+            "safety": {
+                name: int(v) for name, v in zip(SAFETY_NAMES, safety)
+            },
+        }
+
+    def record_reconfig(self, report: dict) -> dict:
+        """Fold a reconfig scenario report (reconfig_report's shape) into
+        the ring and the trace; stalled groups raise a
+        `health.reconfig_stall` event and safety violations a
+        `reconfig.safety` event.  A metrics object with a
+        `health_reconfig_stalled` gauge gets the stalled count set."""
+        with self._lock:
+            entry = {"seq": self._seq, "ts": time.time(), "reconfig": report}
+            self._seq += 1
+            self._summary_ring.append(entry)
+        m = self.metrics
+        if m is not None:
+            stalled = report.get("reconfig_stalled_groups", 0)
+            gauge = getattr(m, "health_reconfig_stalled", None)
+            if gauge is not None:
+                gauge.set(stalled)
+            m.trace(
+                "reconfig.scenario",
+                rounds=report.get("rounds", 0),
+                proposals=report.get("proposals", 0),
+                ops_applied=report.get("ops_applied", 0),
+                retries=report.get("retries", 0),
+                joint_group_rounds=report.get("joint_group_rounds", 0),
+            )
+            if stalled:
+                m.trace(
+                    "health.reconfig_stall",
+                    stalled=stalled,
+                    worst=report.get("reconfig_stalled_worst", []),
+                )
+            if any(report.get("safety", {}).values()):
+                m.trace("reconfig.safety", **report["safety"])
         return entry
 
     def last(self) -> Optional[dict]:

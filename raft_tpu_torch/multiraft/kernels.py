@@ -10,6 +10,7 @@ Counterparts (reference file `raft_tpu/multiraft/kernels.py`):
   link_loss_draw       :345
   pack_bits, unpack_bits, pack_u16_pairs, unpack_u16_pairs  :382-432
   SV_*, N_SAFETY, SAFETY_NAMES, check_safety  :471-807
+  apply_confchange     :949-1070 (without the transferee arm)
   check_quorum_active  :1147
   cq_boundary_safe     :1178
   timeout_draw         :1258
@@ -382,6 +383,75 @@ def check_safety(
         sv_stale,
         sv_dual_lease,
     ])
+
+
+def apply_confchange(
+    state: torch.Tensor,  # int32[P, G]
+    leader_id: torch.Tensor,  # int32[P, G]
+    commit: torch.Tensor,  # int32[P, G]
+    term_start_index: torch.Tensor,  # int32[P, G]
+    matched: torch.Tensor,  # int32[P, P, G]
+    voter_mask: torch.Tensor,  # bool[P, G]
+    outgoing_mask: torch.Tensor,  # bool[P, G]
+    learner_mask: torch.Tensor,  # bool[P, G]
+    new_voter: torch.Tensor,  # bool[P, G]
+    new_outgoing: torch.Tensor,  # bool[P, G]
+    new_learner: torch.Tensor,  # bool[P, G]
+    added: torch.Tensor,  # bool[P, G]
+    removed: torch.Tensor,  # bool[P, G]
+    apply_mask: torch.Tensor,  # bool[G]
+    recent_active: Optional[torch.Tensor] = None,  # bool[P, P, G]
+    transferee: Optional[torch.Tensor] = None,  # int32[P, G]
+):
+    """Commit one validated conf change in each group of `apply_mask`: swap
+    the config mask planes for the pre-validated targets (new_voter,
+    new_outgoing, new_learner; reconfig.compile_plan computes them with the
+    scalar Changer) and run raft.rs's post_conf_change reactions.  Added
+    and removed members (`added`, `removed`) get fresh tracker rows: their
+    `matched` column is zeroed under every owner, and recent_active is
+    granted to an added member and cleared for a removed one.  A peer
+    acting above follower that lands outside voter|outgoing steps down
+    (follower, leader_id 0).  A surviving leader picks up commits when the
+    quorum shrinks: its joint commit bound under the new masks, the min of
+    the two halves' committed_index over its own tracker row (an empty
+    outgoing half gives INF), gated on its term start as
+    raft_log.maybe_commit is.
+
+    Returns (state', leader_id', commit', matched', voter', outgoing',
+    learner', recent_active', transferee'); recent_active passes through as
+    None when absent.  The transferee plane (leader transfer) is not ported:
+    it must be None, and None comes back."""
+    if transferee is not None:
+        raise NotImplementedError(
+            "raft_tpu_torch does not implement the transferee plane yet"
+        )
+    ap = apply_mask[None, :]  # [1, G]
+    vm = torch.where(ap, new_voter, voter_mask)
+    om = torch.where(ap, new_outgoing, outgoing_mask)
+    lm = torch.where(ap, new_learner, learner_mask)
+    ap3 = apply_mask[None, None, :]
+    matched2 = torch.where(ap3 & (added | removed)[None, :, :], 0, matched)
+    ra = None
+    if recent_active is not None:
+        ra = torch.where(
+            ap3 & added[None, :, :], True,
+            torch.where(ap3 & removed[None, :, :], False, recent_active),
+        )
+    step_down = ap & (state != ROLE_FOLLOWER) & ~(vm | om)
+    state2 = torch.where(step_down, ROLE_FOLLOWER, state)
+    leader2 = torch.where(step_down, 0, leader_id)
+    # Each owner's own tracker row against the new masks: [P_owner, G,
+    # P_target].
+    owner_rows = matched2.transpose(1, 2)
+    mci = torch.minimum(
+        committed_index(owner_rows, vm.t()[None].expand(owner_rows.shape)),
+        committed_index(owner_rows, om.t()[None].expand(owner_rows.shape)),
+    )  # [P_owner, G]
+    pickup = (
+        ap & (state2 == ROLE_LEADER) & (mci >= term_start_index) & (mci < INF)
+    )
+    commit2 = torch.where(pickup, torch.maximum(commit, mci), commit)
+    return state2, leader2, commit2, matched2, vm, om, lm, ra, None
 
 
 def timeout_draw(

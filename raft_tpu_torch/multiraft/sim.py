@@ -9,21 +9,23 @@ paths run: `SimConfig` (:117), `SimState` (:226), `HealthState` (:287),
 `_linked_step` (:1792-2428, undamped) behind `step(link=)`, the damped
 round `_damped_linked_step` (:2451-3548: check quorum and pre-vote) that
 `step` runs for every config with either flag, each with the `counters`
-and `health` extras and `group_ids` (a gathered sub-batch keyed by its
-global ids), and `ClusterSim` with `__init__` (:3657-3785, with `chaos=`),
-`run_round` (:3950), `run` (:4005), the counter drain (:3851-3948), the
-chaos scenario runner `_chaos_runner_for` and `run_plan` (:4227-4295) and
-the counter and health accessors (:4639-4745).  Each round is the
-reference's round exactly, plane by plane: tick, campaign, election
-resolution (vote grants, joint tallies, commit fast-forward via vote
-traffic), the solo crashed-campaigner win, then replication and quorum
-commit; the linked and damped rounds replay the same protocol wave by wave
-over the directed delivery plane.
+and `health` extras, the `reconfig_propose` extra (`ReconfigProposal`,
+:342) and `group_ids` (a gathered sub-batch keyed by its global ids), and
+`ClusterSim` with `__init__` (:3657-3785, with `chaos=`), `run_round`
+(:3950), `run` (:4005), the counter drain (:3851-3948), the chaos scenario
+runner `_chaos_runner_for` and `run_plan` (:4227-4295), `run_reconfig`
+(:4299-4505, without the mesh placement) and the counter and health
+accessors (:4639-4745).  Each round is the reference's round exactly,
+plane by plane: tick, campaign, election resolution (vote grants, joint
+tallies, commit fast-forward via vote traffic), the solo
+crashed-campaigner win, then replication and quorum commit; the linked and
+damped rounds replay the same protocol wave by wave over the directed
+delivery plane.
 
 Options that this port does not implement yet raise NotImplementedError
 instead of being ignored: the SimConfig flags `transfer`, `lease_read` and
-`blackbox`, and the step arguments `reconfig_propose`, `transfer_propose`,
-`campaign_kick`, `read_propose` and `blackbox`.
+`blackbox`, and the step arguments `transfer_propose`, `campaign_kick`,
+`read_propose` and `blackbox`.
 
 The reference gates the election phase behind `lax.cond(any(req))`.
 Here that is a host-side `if`, one device sync per general round; with
@@ -164,6 +166,20 @@ def init_health(cfg: SimConfig, device: DeviceLike = None) -> HealthState:
     return HealthState(kernels.zero_health(cfg.n_groups, device), 0)
 
 
+class ReconfigProposal(NamedTuple):
+    """Where this round's conf-change entry landed, per group (the step
+    extra behind `step(reconfig_propose=)`): owner is the acting leader's
+    peer id (0 = no alive leader, nothing proposed), index the entry's log
+    index (the round's workload plus the conf entry, appended last), term
+    the owner's term at propose time.  The reconfig runner records them as
+    the pending entry whose commit under both majorities gates the mask
+    swap."""
+
+    owner: torch.Tensor  # int32[G]
+    index: torch.Tensor  # int32[G]
+    term: torch.Tensor  # int32[G]
+
+
 class _RoundFacts(NamedTuple):
     """What a round's counters and health fold read besides the (pre,
     post) state pair."""
@@ -176,6 +192,10 @@ class _RoundFacts(NamedTuple):
     # The health fold reads `won` off the end-of-round state instead: a
     # winner deposed later in the same round does not count.
     observed_won: bool = False
+    # (has_leader bool[G], first_l int32[G] (0-based), lead_last int32[G],
+    # lead_term int32[G]): the acting leader and its log tip after the
+    # round's appends, which step(reconfig_propose=) reports.
+    lead: Optional[tuple] = None
 
 
 _BOOL_FIELDS = ("voter_mask", "outgoing_mask", "learner_mask", "recent_active")
@@ -361,12 +381,16 @@ def step(
     it has in the whole batch.
 
     counters: optional int32[N_COUNTERS] event accumulator; health:
-    optional HealthState.  Returns the next SimState alone when neither is
-    given, else (SimState, counters', health') with the given ones in that
-    order, as the reference's extras."""
+    optional HealthState.  reconfig_propose: optional bool[G], the groups
+    whose pending conf-change op proposes its entry at the acting leader
+    this round; the caller adds the +1 entry to `append_n`, and the step
+    reports where the entry landed as a ReconfigProposal (owner 0 where no
+    alive leader acted, so the op retries).  Returns the next SimState
+    alone when no extra is given, else (SimState, counters', health',
+    proposal) with the given ones in that order, as the reference's
+    extras."""
     check_supported(
-        cfg, reconfig_propose=reconfig_propose,
-        transfer_propose=transfer_propose, campaign_kick=campaign_kick,
+        cfg, transfer_propose=transfer_propose, campaign_kick=campaign_kick,
         read_propose=read_propose, blackbox=blackbox,
     )
     node_key = _node_key(cfg, st.term.device, group_ids)
@@ -381,9 +405,16 @@ def step(
         out, facts = _linked_step(cfg, st, crashed, append_n, link, node_key)
     else:
         out, facts = _plain_step(cfg, st, crashed, append_n, node_key)
-    if counters is None and health is None:
-        return out
-    return (out,) + _extras(cfg, st, out, crashed, facts, counters, health)
+    extras = _extras(cfg, st, out, crashed, facts, counters, health)
+    if reconfig_propose is not None:
+        has_leader, first_l, lead_last, lead_term = facts.lead
+        prop = has_leader & reconfig_propose
+        extras += (ReconfigProposal(
+            owner=torch.where(prop, first_l + 1, 0),
+            index=torch.where(prop, lead_last, 0),
+            term=torch.where(prop, lead_term, 0),
+        ),)
+    return (out,) + extras if extras else out
 
 
 def _extras(cfg, st, out, crashed, facts: _RoundFacts, counters, health):
@@ -709,7 +740,8 @@ def _plain_step(
     # A group wins at most one election a round, and the solo crashed
     # campaigner excludes the networked win: become_leader's count.
     return out, _RoundFacts(
-        want_campaign, want_heartbeat, winner_exists | solo_win.any(0)
+        want_campaign, want_heartbeat, winner_exists | solo_win.any(0),
+        lead=(has_leader, first_l, lead_last, lead_term),
     )
 
 
@@ -1121,7 +1153,8 @@ def _linked_step(
         outgoing_mask=st.outgoing_mask,
         learner_mask=st.learner_mask,
     )
-    return out, _RoundFacts(want_campaign, want_heartbeat, won.any(0))
+    return out, _RoundFacts(want_campaign, want_heartbeat, won.any(0),
+                            lead=(has_leader, first_l, lead_last, lead_term))
 
 
 def _damped_linked_step(
@@ -1754,10 +1787,14 @@ def _damped_linked_step(
     )
     # campaign() calls: the tick-time campaigns plus, with pre-vote, the
     # pre-winners' real campaigns; heartbeats exclude the ones the
-    # check-quorum boundary suppressed (hb_send).
+    # check-quorum boundary suppressed (hb_send).  A conf-change proposal
+    # is recorded at the workload stage, where the entry is appended last
+    # in the round's batch: a nudge that deposes the acting leader
+    # afterwards does not unrecord it (the reconfig runner's gate sees the
+    # deposed owner and retries).
     return out, _RoundFacts(
         want_campaign, hb_send, won.any(0), real_req if pv else None,
-        observed_won=True,
+        observed_won=True, lead=(has_leader, first_l, lead_last, lead_term),
     )
 
 
@@ -1773,7 +1810,8 @@ class ClusterSim:
     (health.HealthMonitor, or anything with its `record`) receives the
     fixed-size summary on the same cadence.  Only the [N_COUNTERS] plane
     and the summary cross to the host, never a [., G] plane.  With
-    `chaos` (a chaos.ChaosPlan) attached, run_plan() runs the scenario."""
+    `chaos` (a chaos.ChaosPlan) attached, run_plan() runs the scenario;
+    run_reconfig() runs a membership-change plan."""
 
     _DRAIN_MAX = 128  # never let a window exceed this many rounds
 
@@ -1798,6 +1836,10 @@ class ClusterSim:
         self._chaos = chaos
         self._chaos_compiled = None
         self._chaos_runner = None
+        # run_reconfig's cache: (plan, chaos_plan, compiled, runner, mode),
+        # and the op-protocol state its last run ended in.
+        self._reconfig_runner = None
+        self._reconfig_state = None
         self._counters: Optional[torch.Tensor] = None
         self._health: Optional[HealthState] = None
         self.health_monitor = health_monitor
@@ -1951,6 +1993,128 @@ class ClusterSim:
         )
         if self.health_monitor is not None:
             self.health_monitor.record_scenario(report)
+        return report
+
+    def run_reconfig(
+        self, plan, chaos_plan=None, stall_timeouts: int = 4,
+        split: bool = False, split_k: int = 8, split_window: int = 4,
+    ) -> dict:
+        """Run a membership-change plan (reconfig.ReconfigPlan or
+        CompiledReconfig on this sim's device) over every round of its
+        schedule, optionally composed with a chaos plan of equal length
+        (reconfig during partitions, loss and crashes), and return the
+        scenario report (HealthMonitor.reconfig_report), which also goes to
+        the attached monitor's record_reconfig.
+
+        Requires SimConfig(collect_health=True).  The state and health
+        planes advance in place, and the config masks end in the plan's
+        final configuration; a plan must start from its bootstrap masks
+        (reconfig.initial_masks).  The compiled schedules and the runner
+        are cached while the same plan objects come back.  A group still
+        joint whose commit has been flat for `stall_timeouts *
+        election_tick` rounds counts as reconfig-stalled.
+
+        `split=True` runs the plan through reconfig.make_split_runner: the
+        steady stretches between op windows (`split_window` rounds around
+        each op) run the fused kernel in `split_k`-round blocks, the rest
+        the general rounds, with the same result; the report then also
+        holds `fused_rounds`, `total_rounds` (group-rounds) and
+        `fused_frac`.  With collect_counters on, the counter plane threads
+        through the split run and drains into the host totals after it."""
+        from . import chaos as chaos_mod
+        from . import reconfig as reconfig_mod
+
+        health = self._require_health()
+        G = self.cfg.n_groups
+        if isinstance(plan, reconfig_mod.ReconfigPlan):
+            # Plans apply absolute target masks walked from the bootstrap
+            # config, so the sim must start in exactly that config.
+            want = reconfig_mod.initial_masks(plan, G, self.device)
+            cur = (self.state.voter_mask, self.state.outgoing_mask,
+                   self.state.learner_mask)
+            if not all(torch.equal(c, w) for c, w in zip(cur, want)):
+                raise ValueError(
+                    "sim state masks do not match the plan's bootstrap "
+                    "config (voters/learners); start from "
+                    "ClusterSim(cfg, *reconfig.initial_masks(plan, G)) — "
+                    "plans apply absolute target masks, not deltas"
+                )
+        # The cache compares plan objects with `is`, like the chaos cache.
+        wc = split and self._counters is not None
+        mode = ("split", split_k, split_window, wc) if split else "unsplit"
+        cached = self._reconfig_runner
+        if (
+            cached is None
+            or cached[0] is not plan
+            or cached[1] is not chaos_plan
+            or cached[4] != mode
+        ):
+            if isinstance(plan, reconfig_mod.CompiledReconfig):
+                compiled = plan
+            else:
+                compiled = reconfig_mod.compile_plan(plan, G, self.device)
+            if chaos_plan is None or isinstance(chaos_plan, chaos_mod.CompiledChaos):
+                chaos_compiled = chaos_plan
+            else:
+                chaos_compiled = chaos_mod.compile_plan(chaos_plan, G, self.device)
+            if split:
+                runner = reconfig_mod.make_split_runner(
+                    self.cfg, compiled, chaos_compiled, k=split_k,
+                    window=split_window, with_counters=wc,
+                )
+            else:
+                runner = reconfig_mod.make_runner(self.cfg, compiled, chaos_compiled)
+            self._reconfig_runner = (plan, chaos_plan, compiled, runner, mode)
+        else:
+            compiled, runner = cached[2], cached[3]
+        rst = reconfig_mod.init_reconfig_state(self.state)
+        fused = None
+        if split:
+            if wc:
+                # One counter window spans the whole plan, so the int32 wrap
+                # bound must hold for it: settle any open run_round window
+                # first, and refuse plans longer than the per-window cap.
+                if self._rounds_since_drain:
+                    self._drain(summary=False)
+                if compiled.n_rounds > self._drain_cap:
+                    raise ValueError(
+                        f"plan spans {compiled.n_rounds} rounds but the "
+                        f"counter drain cap at this batch size is "
+                        f"{self._drain_cap} rounds per undrained window; run "
+                        "reconfig.make_split_runner directly, managing the "
+                        "counter plane yourself, or split the plan"
+                    )
+            out = runner(self.state, health, rst,
+                         *((self._counters,) if wc else ()))
+            (self.state, self._health, self._reconfig_state,
+             stats, rstats, safety, fused) = out[:7]
+            if wc:
+                self._counters = out[7]
+                self._drain(summary=False)
+        else:
+            (self.state, self._health, self._reconfig_state,
+             stats, rstats, safety) = runner(self.state, health, rst)
+        # One copy for the three result vectors, one each for the two planes
+        # the stall rule reads.
+        ns, nr = stats.numel(), rstats.numel()
+        flat = torch.cat([stats, rstats, safety]).tolist()
+        n_stuck, worst = HealthMonitor.reconfig_stall_groups(
+            self.state.outgoing_mask.cpu().numpy(),
+            self._health.planes[kernels.HP_SINCE_COMMIT].cpu().numpy(),
+            self.cfg.election_tick, stall_timeouts=stall_timeouts,
+            topk=min(self.cfg.health_topk, G),
+        )
+        report = HealthMonitor.reconfig_report(
+            flat[:ns], flat[ns:ns + nr], flat[ns + nr:], compiled.n_rounds,
+            n_stuck, worst,
+        )
+        if fused is not None:
+            total = compiled.n_rounds * G
+            report["fused_rounds"] = fused
+            report["total_rounds"] = total
+            report["fused_frac"] = round(fused / total, 4)
+        if self.health_monitor is not None:
+            self.health_monitor.record_reconfig(report)
         return report
 
     def counters(self) -> dict:

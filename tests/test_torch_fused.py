@@ -156,9 +156,19 @@ def test_fused_dispatch_rejects_unported_options():
     cfg = tsim.SimConfig(n_groups=4, n_peers=3)
     st = tsim.init_state(cfg, device="cpu")
     crashed = torch.zeros((3, 4), dtype=torch.bool)
-    for extra in ("reconfig_pending", "read_pending"):
-        with pytest.raises(NotImplementedError):
-            tfs.steady_mask(cfg, st, crashed, **{extra: torch.zeros(4, dtype=torch.bool)})
+    with pytest.raises(NotImplementedError):
+        tfs.steady_mask(cfg, st, crashed, read_pending=torch.zeros(4, dtype=torch.bool))
+    # reconfig_pending is ported: it rejects exactly the pending groups.
+    sim = tsim.ClusterSim(cfg, device="cpu")
+    sim.run(25, None, torch.ones(4, dtype=torch.int32))
+    st = sim.state
+    base = tfs.steady_mask(cfg, st, crashed)
+    assert base.all()
+    pending = torch.tensor([True, False, True, False])
+    assert torch.equal(tfs.steady_mask(cfg, st, crashed, reconfig_pending=pending),
+                       base & ~pending)
+    assert torch.equal(tfs.steady_mask(cfg, st, crashed, reconfig_pending=~pending),
+                       base & pending)
     with pytest.raises(NotImplementedError):
         tfs.fast_multi_round(cfg._replace(blackbox=True), k=4)
     with pytest.raises(NotImplementedError):

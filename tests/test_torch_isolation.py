@@ -83,5 +83,10 @@ def test_importing_the_port_loads_no_reference_module():
     assert "raft_tpu_torch.multiraft.steady_kernel" in new
     assert "raft_tpu_torch.multiraft.chaos_kernel" in new
     assert "raft_tpu_torch.multiraft.chaos" in new
+    assert "raft_tpu_torch.multiraft.reconfig" in new
+    for sub in ("eraftpb", "errors", "util", "confchange.changer",
+                "confchange.restore", "quorum.joint", "quorum.majority",
+                "tracker.inflights", "tracker.progress", "tracker.state"):
+        assert "raft_tpu_torch.scalar." + sub in new
     bad = [m for m in new if _forbidden(m)]
     assert not bad, bad

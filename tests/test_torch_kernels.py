@@ -150,17 +150,27 @@ def test_unported_config_flags_raise(field):
 )
 def test_unported_step_args_raise(arg):
     """Every step extra not ported yet raises, on the plain round and on
-    the link-gated one (`link` and `group_ids` are ported: each must raise
-    only beside an unported extra)."""
+    the link-gated one (`link`, `group_ids` and `reconfig_propose` are
+    ported: each must raise only beside an unported extra, and
+    `reconfig_propose` adds a ReconfigProposal to the result)."""
     cfg = tsim.SimConfig(n_groups=4, n_peers=3)
     st = tsim.init_state(cfg, device="cpu")
     args = (cfg, st, torch.zeros((3, 4), dtype=torch.bool), torch.zeros(4, dtype=torch.int32))
     link = torch.ones((3, 3, 4), dtype=torch.bool)
-    if arg in ("link", "group_ids"):
-        ported = {"link": link, "group_ids": torch.arange(4)}[arg]
-        tsim.step(*args, **{arg: ported})
+    if arg in ("link", "group_ids", "reconfig_propose"):
+        ported = {"link": link, "group_ids": torch.arange(4),
+                  "reconfig_propose": torch.ones(4, dtype=torch.bool)}[arg]
+        out = tsim.step(*args, **{arg: ported})
+        if arg == "reconfig_propose":
+            for kw in ({}, {"link": link}):
+                _, prop = tsim.step(*args, reconfig_propose=ported, **kw)
+                assert isinstance(prop, tsim.ReconfigProposal)
+                for f in prop:  # no leader yet: nothing proposed
+                    assert f.dtype == torch.int32 and not f.any()
+        else:
+            assert isinstance(out, tsim.SimState)
         with pytest.raises(NotImplementedError):
-            tsim.step(*args, **{arg: ported}, reconfig_propose=torch.zeros(4))
+            tsim.step(*args, **{arg: ported}, transfer_propose=torch.zeros(4))
         return
     with pytest.raises(NotImplementedError):
         tsim.step(*args, **{arg: torch.zeros(4)})
