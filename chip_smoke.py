@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Seven paths, all at 100,000 groups × 5 peers.  Three with one append per
+Eight paths, all at 100,000 groups × 5 peers.  Three with one append per
 group per round (bench.py's bench_device), each bare and instrumented
 (bench.py --health: the counter plane and the health planes ride every
 round, and the fused blocks run each kernel's with_health variant):
@@ -23,7 +23,7 @@ round, and the fused blocks run each kernel's with_health variant):
           check-quorum boundary proof) holds, any other block 32 damped
           general steps.
 
-and four more:
+and five more:
 
   chaos     bench.py --chaos examples/chaos/partition_heal.json [--check-
             quorum]: ClusterSim(chaos=plan).run_plan(), the repo's P=5 plan
@@ -48,18 +48,28 @@ and four more:
             rounds of health, counters, a lossy chaos phase, check-quorum,
             pre-vote and three conf changes: op windows on the general step,
             8-round blocks between them on the damped kernel's with_loss
-            with_health instance whenever the whole batch is steady.
+            with_health instance whenever the whole batch is steady;
+  reads     bench.py --reads examples/reads/zipf_mixed.json: after a
+            192-round settle, workload.make_split_runner(k=8) over 256
+            rounds of Zipf writes, lease reads and Safe (ReadIndex) reads
+            under check-quorum, pre-vote and lease reads: blocks of pure
+            lease reads on the damped kernel's no-loss with_health instance
+            whenever the whole batch is steady and every acting leader holds
+            its lease, the rest on the general step with the read phase.
 
 Phases, in order, each with its wall seconds; any failure raises and the
-script exits nonzero.  The CPU runs of phases 13, 16, 17 and 18 go to a
-worker process at phase 13's start and run while the card works.  Every parity phase holds both variants of its
+script exits nonzero.  Every CPU run goes to one of two worker processes
+(spawned at the start) and runs while the card works: those that need
+nothing of the card are queued first, the others as their input exists;
+phases 13 and 16 to 19 wait for theirs, and the checks of phases 4, 7 and
+10 wait until phase 20.  Every parity phase holds both variants of its
 kernel, with_health=False and with_health=True (the latter with a random
 ticks_since_commit row), against the plain version on the same cases.
-Every path phase runs its path on the card bare and instrumented
+Phases 4, 7 and 10 run their path on the card bare and instrumented
 (ClusterSim(collect_counters=True, collect_health=True) for the settle,
 fast_multi_round(k=32, with_health=True, with_counters=True) for the
 blocks), each with the launch counts of both variants zeroed just before it
-and read just after, then once on the CPU, instrumented: the reference for
+and read just after, and once on the CPU, instrumented: the reference for
 both, since the extras never change the state.  Every SimState field, the
 four health planes, window_pos, the counters, the health summary and the
 fused and general block counts must be equal; the end-of-run summary is
@@ -158,9 +168,28 @@ printed as bench.py --health-out writes it.
                    from the settled state, fused_frac as measured, the busy
                    share of the plan's first 4 rounds) and the kernel
                    against its bound
- 19. report        one JSON line of the eight kernel rows (the six variants,
-                   the damped kernel's with_loss instance, and its with_loss
-                   with_health instance at k=8), then the device line last
+ 19. reads         the settle at G on the card, the split runner (k=8) from
+                   its first 8,192 groups with the plan compiled at 8,192,
+                   then at G with the launch counts zeroed just before the
+                   run and read just after, make_runner at G (equal to it on
+                   every output), the stale-read trap on the card (clock
+                   paused: the stale-read and dual-lease slots fire; no
+                   drift: none); card == CPU at 8,192 on every output and
+                   the fused count, the G run's first 8,192 groups equal to
+                   the CPU run over the G schedule's first 8,192 columns (the
+                   Zipf draws depend on the width), zero safety counts, the
+                   trap's counts and receipts equal; the damped no-loss
+                   with_health k=8 instance against its plain version on the
+                   settled and the final state; timed (3 reps from the
+                   settled state, fused_frac and the latency percentiles as
+                   measured, the busy share and launches of 4 general rounds
+                   of the Safe-read phase) and the kernel against its bound
+ 20. references    the held-back checks of phases 4, 7 and 10 against their
+                   CPU runs
+ 21. report        one JSON line of the nine kernel rows (the six variants,
+                   the damped kernel's with_loss instance, its with_loss
+                   with_health instance at k=8 and its no-loss with_health
+                   instance at k=8), then the device line last
 
 With --quick it runs phases 1 to 3, 6 and 9 only (the builds and every
 kernel against its plain version) and prints no result.  Exits 2 without a
@@ -180,7 +209,9 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 import numpy as np
 import torch
 
-from raft_tpu_torch.multiraft import _build, chaos, fused_step, kernels as pk, reconfig, sim
+from raft_tpu_torch.multiraft import (
+    _build, chaos, fused_step, kernels as pk, reconfig, sim, workload,
+)
 from raft_tpu_torch.multiraft.health import HealthMonitor
 from raft_tpu_torch.multiraft.chaos_kernel import (
     OUTPUT_NAMES as CHAOS_OUTPUTS,
@@ -227,11 +258,19 @@ PROD_TICK, PROD_K, PROD_WINDOW, PROD_REPS = 64, 8, 4, 3
 # general round here is some 6,800 launches, and the plan's first 72 rounds
 # gave the profiler 272,614 records to process.
 PROD_SETTLE, PROD_PROFILE_ROUNDS = 3 * 64, 4
+READS_PLAN_NAME = "examples/reads/zipf_mixed.json"
+READS_PLAN = os.path.join(HERE, READS_PLAN_NAME)
+# bench_reads: election_tick 64, a 3 x 64-round settle, k=8.
+READS_TICK, READS_K, READS_SETTLE, READS_REPS = 64, 8, 3 * 64, 3
+READS_SMALL_G, READS_PROFILE_ROUNDS = 8192, 4
+# The first rounds of the plan's first lease phase and of its Safe-read phase.
+READS_LEASE_AT, READS_SAFE_AT = 64, 160
 STORM_EVERY = 100  # the acting leader crashed in 1% of groups
 # The composed path's parity blocks from the aligned state: no boundary in
 # the first horizon, every boundary in the second, then 1% of leaders down.
 COMPOSED_BRANCHES, COMPOSED_CRASH_BLOCK, COMPOSED_REPS = ("pure", "slow", "split"), 2, 3
 ROUNDS_PER_SCAN, SCANS, REPS = 64, 6, 5
+WORKERS = 2  # reference worker processes for the CPU runs
 SLEEP_CYCLES = 4_000_000  # about 2 ms at the H100's 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 # H100 SXM INT32 rate: the published 67 TFLOP/s float32 counts an FMA as two
@@ -456,11 +495,12 @@ def assert_same(st_gpu, st_cpu, note):
 
 
 @phase("main")
-def phase_main(dev):
-    """The steady path on the card, bare and instrumented, then once on the
-    CPU (instrumented), the reference for both.  Returns (cfg, the bare
-    final state, its steady kernel launches, the instrumented card run, its
-    with_health launches)."""
+def phase_main(dev, pool):
+    """The steady path on the card, bare and instrumented; the CPU's
+    instrumented run (the reference for both) goes to a reference worker.
+    Returns (cfg, the bare final state, its steady kernel launches, the
+    instrumented card run, its with_health launches, check), check() holding
+    both card runs to the CPU run."""
     zero_launches()
     t0 = time.perf_counter()
     cfg, st_gpu, fused = run_main_path(dev)
@@ -468,15 +508,20 @@ def phase_main(dev):
     t_gpu = time.perf_counter() - t0
     launches = bare_launches(steady_rounds, "the steady main path")
     check_state(st_gpu)
-    run, ref, h_launches = instrumented_pair(
-        dev, "steady", steady_rounds, (MAIN_BLOCKS, 0), cfg=cfg, blocks=MAIN_BLOCKS,
-        settle=SETTLE)
-    same_as_reference((st_gpu, fused, 0), ref, "steady main path")
-    print(f"main path {G}x{P}: {SETTLE} settle rounds + {MAIN_BLOCKS} blocks of "
-          f"{K}: card == CPU on all {len(st_gpu._fields)} fields (commit max "
-          f"{int(st_gpu.commit.max())}); steady kernel launches {launches}; "
-          f"fused {fused}/{MAIN_BLOCKS * K * G}; card {t_gpu:.2f}s")
-    return cfg, st_gpu, launches, run, h_launches
+    kw = dict(cfg=cfg, blocks=MAIN_BLOCKS, settle=SETTLE)
+    run, check_run, h_launches = instrumented_pair(
+        dev, "steady", steady_rounds, (MAIN_BLOCKS, 0), pool.submit(cpu_health_path, kw),
+        **kw)
+
+    def check():
+        ref = check_run()
+        same_as_reference((st_gpu, fused, 0), ref, "steady main path")
+        print(f"main path {G}x{P}: {SETTLE} settle rounds + {MAIN_BLOCKS} blocks of "
+              f"{K}: card == CPU on all {len(st_gpu._fields)} fields (commit max "
+              f"{int(st_gpu.commit.max())}); steady kernel launches {launches}; "
+              f"fused {fused}/{MAIN_BLOCKS * K * G}; card {t_gpu:.2f}s")
+
+    return cfg, st_gpu, launches, run, h_launches, check
 
 
 # --- timing helpers ----------------------------------------------------------
@@ -885,13 +930,24 @@ def run_lossy_path(device, n_groups, blocks, start=None, cut_last=False):
     return st, fused, general
 
 
+def cpu_lossy_small():
+    """In a reference worker: the lossy path at LOSSY_SMALL_G from init_state
+    on the CPU, (state arrays, fused, general blocks, seconds)."""
+    worker_threads()
+    t0 = time.perf_counter()
+    st, fused, general = run_lossy_path("cpu", LOSSY_SMALL_G, LOSSY_SMALL_BLOCKS)
+    return sim.state_to_numpy(st), fused, general, time.perf_counter() - t0
+
+
 @phase("lossy")
-def phase_lossy(dev, settled):
-    """The lossy path: at G=8,192 from init_state on the card and the CPU;
-    at G=100,000 from the settled state on the card, bare and
-    instrumented, then once on the CPU (instrumented), the reference for
-    both.  Returns (the bare 100k state, its chaos kernel launches, the
-    instrumented card run, its with_health launches)."""
+def phase_lossy(dev, settled, pool, small_ref):
+    """The lossy path: at G=8,192 from init_state and at G=100,000 from the
+    settled state on the card, bare and instrumented; the CPU's runs (the
+    small one, `small_ref`, a reference worker's future of
+    cpu_lossy_small(), and the instrumented 100k one, the reference for
+    both 100k runs) in a reference worker.  Returns (the bare 100k state,
+    its chaos kernel launches, the instrumented card run, its with_health
+    launches, check)."""
     t0 = time.perf_counter()
     zero_launches()
     small = run_lossy_path(dev, LOSSY_SMALL_G, LOSSY_SMALL_BLOCKS)
@@ -906,28 +962,30 @@ def phase_lossy(dev, settled):
         raise AssertionError(f"the lossy path at G={G} never ran the general branch")
     check_state(small[0], LOSSY_SMALL_G)
     check_state(full[0])
-    t0 = time.perf_counter()
-    small_cpu = run_lossy_path("cpu", LOSSY_SMALL_G, LOSSY_SMALL_BLOCKS)
-    t_cpu = time.perf_counter() - t0
-    assert_same(small[0], small_cpu[0], f"lossy G={LOSSY_SMALL_G}")
-    if small[1:] != small_cpu[1:]:
-        raise AssertionError(f"lossy G={LOSSY_SMALL_G}: fused/general counts differ "
-                             f"{small[1:]} {small_cpu[1:]}")
     cfg = lossy_cfg(G)
-    run, ref, h_launches = instrumented_pair(
+    kw = dict(cfg=cfg, blocks=3, chaos=True, round_base=LOSSY_SETTLE, cut_last=True)
+    run, check_run, h_launches = instrumented_pair(
         dev, "lossy", chaos_rounds, (2, 1),
-        cpu_start=fresh_start(on_cpu(settled), cfg), cfg=cfg, blocks=3,
-        start=fresh_start(settled, cfg), chaos=True, round_base=LOSSY_SETTLE,
-        cut_last=True)
-    same_as_reference(full, ref, f"lossy G={G}")
-    print(f"lossy path {LOSSY_SMALL_G}x{P} (init, {LOSSY_SETTLE} settle rounds, "
-          f"{LOSSY_SMALL_BLOCKS} blocks; fused {small[1]}, general blocks {small[2]}) "
-          f"and {G}x{P} (settled, 3 blocks, the last with a link down in 1% of "
-          f"groups; fused {full[1]}, general blocks {full[2]}): card == CPU on all "
-          f"{len(settled._fields)} fields; chaos kernel launches {small_launches} "
-          f"at G={LOSSY_SMALL_G} and {launches} at G={G} (the main path's count); "
-          f"card {t_gpu:.2f}s, CPU (G={LOSSY_SMALL_G}) {t_cpu:.2f}s")
-    return full[0], launches, run, h_launches
+        pool.submit(cpu_health_path, kw, sim.state_to_numpy(settled)),
+        start=fresh_start(settled, cfg), **kw)
+
+    def check():
+        arrays, fused, general, t_cpu = small_ref.result()
+        assert_same(small[0], sim.state_from_numpy(arrays, "cpu"), f"lossy G={LOSSY_SMALL_G}")
+        if small[1:] != (fused, general):
+            raise AssertionError(f"lossy G={LOSSY_SMALL_G}: fused/general counts differ "
+                                 f"{small[1:]} {(fused, general)}")
+        same_as_reference(full, check_run(), f"lossy G={G}")
+        print(f"lossy path {LOSSY_SMALL_G}x{P} (init, {LOSSY_SETTLE} settle rounds, "
+              f"{LOSSY_SMALL_BLOCKS} blocks; fused {small[1]}, general blocks {small[2]}) "
+              f"and {G}x{P} (settled, 3 blocks, the last with a link down in 1% of "
+              f"groups; fused {full[1]}, general blocks {full[2]}): card == CPU on all "
+              f"{len(settled._fields)} fields; chaos kernel launches {small_launches} "
+              f"at G={LOSSY_SMALL_G} and {launches} at G={G} (the main path's count); "
+              f"card {t_gpu:.2f}s, CPU (G={LOSSY_SMALL_G}) {t_cpu:.2f}s (in a "
+              "reference worker)")
+
+    return full[0], launches, run, h_launches, check
 
 
 @phase("lossy timing")
@@ -1075,13 +1133,14 @@ def run_damped_path(device, n_groups, blocks, start=None, crash_blocks=0):
 
 
 @phase("damped")
-def phase_damped(dev, settled):
+def phase_damped(dev, settled, pool, small_ref):
     """The check-quorum path on the card, bare and instrumented: at G=8,192
     from one instrumented settle, and at G=100,000 from the settled state
-    (fused blocks, then crash blocks); then each once on the CPU
-    (instrumented), the reference for both.  Returns (the bare 100k state
-    before the crash blocks, its damped kernel launches, the instrumented
-    card run, its with_health launches)."""
+    (fused blocks, then crash blocks); the CPU's instrumented runs, the
+    reference for both, in a reference worker (`small_ref`, the future of
+    cpu_health_path for the small run).  Returns (the bare 100k state before
+    the crash blocks, its damped kernel launches, the instrumented card run,
+    its with_health launches, check)."""
     t0 = time.perf_counter()
     small_cfg = damped_cfg(CQ_SMALL_G)
     small_start = instrumented_settle(dev, small_cfg, CQ_SETTLE)
@@ -1105,27 +1164,30 @@ def phase_damped(dev, settled):
                    > full[3].term.amax(0)[crashed_groups]).sum())
     if elected <= 0:
         raise AssertionError("no election in the groups whose leader crashed")
-    _, small_ref, _ = instrumented_pair(
+    _, check_small, _ = instrumented_pair(
         dev, f"check-quorum G={CQ_SMALL_G}", damped_rounds, (CQ_SMALL_BLOCKS, 0),
-        cpu_start=instrumented_settle("cpu", small_cfg, CQ_SETTLE), cfg=small_cfg,
-        blocks=CQ_SMALL_BLOCKS, start=small_start)
-    same_as_reference(small, small_ref, f"check-quorum G={CQ_SMALL_G}")
+        small_ref, cfg=small_cfg, blocks=CQ_SMALL_BLOCKS, start=small_start)
     cfg = damped_cfg(G)
-    run, ref, h_launches = instrumented_pair(
+    kw = dict(cfg=cfg, blocks=CQ_FUSED_BLOCKS, crash_blocks=CQ_CRASH_BLOCKS)
+    run, check_run, h_launches = instrumented_pair(
         dev, "check-quorum", damped_rounds, (CQ_FUSED_BLOCKS, CQ_CRASH_BLOCKS),
-        cpu_start=fresh_start(on_cpu(settled), cfg), cfg=cfg, blocks=CQ_FUSED_BLOCKS,
-        crash_blocks=CQ_CRASH_BLOCKS, start=fresh_start(settled, cfg))
-    same_as_reference(full, ref, f"check-quorum G={G}")
-    print(f"check-quorum path {CQ_SMALL_G}x{P} (init, {CQ_SETTLE} instrumented settle "
-          f"rounds, {CQ_SMALL_BLOCKS} blocks; fused {small[1]}, general blocks {small[2]}) "
-          f"and {G}x{P} (settled, {CQ_FUSED_BLOCKS} blocks, then {CQ_CRASH_BLOCKS} "
-          f"with the acting leader crashed in 1% of groups, {elected} of "
-          f"{len(range(0, G, 100))} of which elected a new leader; fused "
-          f"{full[1]}, general blocks {full[2]}): card == CPU "
-          f"on all {len(settled._fields)} fields, recent_active included; damped "
-          f"kernel launches {small_launches} at G={CQ_SMALL_G} and {launches} at "
-          f"G={G} (the main path's count); card {t_gpu:.2f}s")
-    return full[3], launches, run, h_launches
+        pool.submit(cpu_health_path, kw, sim.state_to_numpy(settled)),
+        start=fresh_start(settled, cfg), **kw)
+
+    def check():
+        same_as_reference(small, check_small(), f"check-quorum G={CQ_SMALL_G}")
+        same_as_reference(full, check_run(), f"check-quorum G={G}")
+        print(f"check-quorum path {CQ_SMALL_G}x{P} (init, {CQ_SETTLE} instrumented settle "
+              f"rounds, {CQ_SMALL_BLOCKS} blocks; fused {small[1]}, general blocks "
+              f"{small[2]}) and {G}x{P} (settled, {CQ_FUSED_BLOCKS} blocks, then "
+              f"{CQ_CRASH_BLOCKS} with the acting leader crashed in 1% of groups, "
+              f"{elected} of {len(range(0, G, 100))} of which elected a new leader; fused "
+              f"{full[1]}, general blocks {full[2]}): card == CPU "
+              f"on all {len(settled._fields)} fields, recent_active included; damped "
+              f"kernel launches {small_launches} at G={CQ_SMALL_G} and {launches} at "
+              f"G={G} (the main path's count); card {t_gpu:.2f}s")
+
+    return full[3], launches, run, h_launches, check
 
 
 @phase("damped timing")
@@ -1283,14 +1345,46 @@ def same_as_reference(bare, ref, note):
                              f"{(ref['fused'], ref['general'])}")
 
 
-def instrumented_pair(dev, name, kernel, expect, cpu_start=None, **kw):
+def host_run(run):
+    """A run_health_path dict with host arrays in place of its tensors, to
+    cross the process boundary."""
+    def health(h):
+        return h.planes.cpu().numpy(), h.window_pos
+
+    return dict(run, state=sim.state_to_numpy(run["state"]), health=health(run["health"]),
+                mid=(sim.state_to_numpy(run["mid"][0]), health(run["mid"][1])))
+
+
+def cpu_run(host):
+    """host_run's inverse, on the CPU."""
+    def health(h):
+        return sim.HealthState(torch.from_numpy(h[0]), h[1])
+
+    return dict(host, state=sim.state_from_numpy(host["state"], "cpu"),
+                health=health(host["health"]),
+                mid=(sim.state_from_numpy(host["mid"][0], "cpu"), health(host["mid"][1])))
+
+
+def cpu_health_path(kw, start=None):
+    """In a reference worker: run_health_path(**kw) on the CPU, from the
+    arrays of a settled state (`start`, with fresh counters and health) when
+    given; (host_run of it, seconds)."""
+    worker_threads()
+    t0 = time.perf_counter()
+    if start is not None:
+        kw = dict(kw, start=fresh_start(sim.state_from_numpy(start, "cpu"), kw["cfg"]))
+    return host_run(run_health_path("cpu", **kw)), time.perf_counter() - t0
+
+
+def instrumented_pair(dev, name, kernel, expect, cpu_ref, **kw):
     """A path run instrumented (run_health_path's `kw`) on the card, its
-    launch counts zeroed just before it and read just after, then on the
-    CPU (from `cpu_start` in place of kw's start): every field, the four
-    health planes, window_pos, the counters, the summary and the (fused,
-    general) block counts, which must be `expect`, equal.  Prints the
-    end-of-run summary as bench.py --health-out writes it.  Returns (card
-    run, CPU run, with_health launches)."""
+    launch counts zeroed just before it and read just after, its (fused,
+    general) block counts `expect`.  `cpu_ref` is a reference worker's future
+    of cpu_health_path for the same schedule.  Returns (card run, check,
+    with_health launches): check() holds the card run to the CPU run (every
+    field, the four health planes, window_pos, the counters, the summary and
+    the block counts), prints the end-of-run summary as bench.py
+    --health-out writes it, and returns the CPU run."""
     t0 = time.perf_counter()
     zero_launches()
     got = run_health_path(dev, **kw)
@@ -1302,22 +1396,26 @@ def instrumented_pair(dev, name, kernel, expect, cpu_start=None, **kw):
             raise AssertionError(f"{name} --health: unexpected launches {counts}")
     n_groups = kw["cfg"].n_groups
     check_state(got["state"], n_groups)
-    t0 = time.perf_counter()
-    want = run_health_path("cpu", **(kw if cpu_start is None else dict(kw, start=cpu_start)))
-    t_cpu = time.perf_counter() - t0
-    assert_same_health(got, want, f"{name} --health")
     fused_blocks, general_blocks = expect
     if (got["fused"], got["general"]) != (fused_blocks * K * n_groups, general_blocks):
         raise AssertionError(f"{name} --health: fused {got['fused']}, general blocks "
                              f"{got['general']}")
-    origin = "settled" if "start" in kw else f"{kw['settle']} instrumented settle rounds"
-    print(f"health path {name} ({n_groups}x{P}, {origin}, {fused_blocks + general_blocks} "
-          f"blocks of {K}, general {got['general']}): card == CPU on every field, the "
-          f"four health planes, window_pos (={got['health'].window_pos}), the counters "
-          f"{got['counters']}, the summary and the fused count ({got['fused']}); "
-          f"launches by variant {counts}; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s")
-    print(f"  end-of-run health summary: {json.dumps(got['summary'])}")
-    return got, want, counts[kernel.__name__][1]
+
+    def check():
+        host, t_cpu = cpu_ref.result()
+        want = cpu_run(host)
+        assert_same_health(got, want, f"{name} --health")
+        origin = "settled" if "start" in kw else f"{kw['settle']} instrumented settle rounds"
+        print(f"health path {name} ({n_groups}x{P}, {origin}, "
+              f"{fused_blocks + general_blocks} blocks of {K}, general {got['general']}): "
+              f"card == CPU on every field, the four health planes, window_pos "
+              f"(={got['health'].window_pos}), the counters {got['counters']}, the "
+              f"summary and the fused count ({got['fused']}); launches by variant "
+              f"{counts}; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s (in a reference worker)")
+        print(f"  end-of-run health summary: {json.dumps(got['summary'])}")
+        return want
+
+    return got, check, counts[kernel.__name__][1]
 
 
 def health_time_path(dev, label, cfg, start, rb, fused_round, operands, kernel,
@@ -1440,13 +1538,13 @@ def same_scenario(a, b, note, n_groups=None):
 
 
 def worker_threads():
-    """CPU threads for the reference worker: all but two, which drive the
-    card meanwhile."""
-    torch.set_num_threads(max(1, torch.get_num_threads() - 2))
+    """CPU threads for a reference worker: its share of all but two, which
+    drive the card meanwhile."""
+    torch.set_num_threads(max(1, (torch.get_num_threads() - 2) // WORKERS))
 
 
 def cpu_scenarios():
-    """In the reference worker: the plan on the CPU at CHAOS_SMALL_G with
+    """In a reference worker: the plan on the CPU at CHAOS_SMALL_G with
     check_quorum off and on, {check_quorum: (report, state arrays, health
     planes, window_pos, seconds)}."""
     worker_threads()
@@ -1491,7 +1589,7 @@ def scenario_parity(dev, check_quorum):
               f"card == CPU at {CHAOS_SMALL_G}x{P} (report, every field, the health "
               f"planes); at {G}x{P} safety all 0, the first {CHAOS_SMALL_G} groups == "
               f"the CPU run; card {full[3]:.2f}s at G={G}, CPU {t_cpu:.2f}s at "
-              f"G={CHAOS_SMALL_G} (in the reference worker)")
+              f"G={CHAOS_SMALL_G} (in a reference worker)")
         print(f"  report at G={G}: {json.dumps(full[0])}")
         print(f"  report at G={CHAOS_SMALL_G}: {json.dumps(cpu[0])}")
         return t_cpu
@@ -1603,7 +1701,7 @@ def run_composed(start):
 
 
 def cpu_composed(settled):
-    """In the reference worker: run_composed on the CPU from the settled
+    """In a reference worker: run_composed on the CPU from the settled
     state's arrays, aligned as on the card: (state arrays, fused count,
     branches, seconds)."""
     worker_threads()
@@ -1618,7 +1716,7 @@ def phase_composed(dev, settled, cpu_run):
     """The composed path at G from phase 9's damped-settled state with the
     leaders' boundary phases aligned: a pure, a slow and a split block on
     the card, the launch counts zeroed just before and read just after,
-    then held to the CPU run (`cpu_run`, the reference worker's future of
+    then held to the CPU run (`cpu_run`, a reference worker's future of
     cpu_composed()); every field equal, recent_active and the fused count
     included.  Then the damped kernel against its plain version on the
     split block's operands (storm groups with no acting leader included).
@@ -1651,7 +1749,7 @@ def phase_composed(dev, settled, cpu_run):
           f"{', '.join(f'{b} (fused {d})' for b, d in card[2])}; card == CPU on all "
           f"{len(settled._fields)} fields, recent_active and the fused count "
           f"({card[1]}) included; damped kernel (with_loss) launches {launches}; card "
-          f"{t_gpu:.2f}s, CPU {t_cpu:.2f}s (in the reference worker)")
+          f"{t_gpu:.2f}s, CPU {t_cpu:.2f}s (in a reference worker)")
     return launches, err, card[2]
 
 
@@ -1774,7 +1872,7 @@ def rejected(runner):
 
 
 def cpu_reconfig():
-    """In the reference worker: the plan on the CPU at RECONFIG_SMALL_G with
+    """In a reference worker: the plan on the CPU at RECONFIG_SMALL_G with
     check_quorum off and on, as cpu_scenarios' entries."""
     worker_threads()
     out = {}
@@ -1849,7 +1947,7 @@ def reconfig_parity(dev, check_quorum):
               f"with_health launches {fused_launches}; planned blocks rejected at "
               f"rounds {split[4]}); card {full[3]:.2f}s unsplit, "
               f"{split[3]:.2f}s split at G={G}, CPU {t_cpu:.2f}s at "
-              f"G={RECONFIG_SMALL_G} (in the reference worker)")
+              f"G={RECONFIG_SMALL_G} (in a reference worker)")
         print(f"  report at G={G}: {json.dumps(full[0])}")
         return t_cpu
 
@@ -1901,7 +1999,7 @@ def reconfig_timing(dev, check_quorum, first_s):
 def phase_reconfig(dev, cpu_runs):
     """bench.py --reconfig examples/reconfig/joint_churn.json [--check-quorum]
     at G on the card, split and unsplit, and timed, then held to the CPU runs
-    (`cpu_runs`, the reference worker's future of cpu_reconfig())."""
+    (`cpu_runs`, a reference worker's future of cpu_reconfig())."""
     card = {}
     for check_quorum in (False, True):
         full, launches, split, check = reconfig_parity(dev, check_quorum)
@@ -1975,7 +2073,7 @@ def prod_result(out, runner):
 
 
 def cpu_prod():
-    """In the reference worker: the settle and the split run on the CPU at
+    """In a reference worker: the settle and the split run on the CPU at
     RECONFIG_SMALL_G: (prod_result, segments, seconds)."""
     worker_threads()
     t0 = time.perf_counter()
@@ -2011,7 +2109,7 @@ def phase_prod_fused(dev, cpu_run):
     """bench.py --prod-fused examples/reconfig/prod_fused.json: the settle at
     G on the card, the split runner from its first RECONFIG_SMALL_G groups,
     then at G with the launch counts zeroed just before the run and read
-    just after, held to the CPU run (`cpu_run`, the reference worker's future of cpu_prod()):
+    just after, held to the CPU run (`cpu_run`, a reference worker's future of cpu_prod()):
     every field, the op-protocol state, the accumulators, the counters, the
     fused count and the segments at RECONFIG_SMALL_G, and the G run's first
     RECONFIG_SMALL_G groups; zero safety counts.  Then the damped kernel's
@@ -2063,7 +2161,7 @@ def phase_prod_fused(dev, cpu_run):
           f"{RECONFIG_SMALL_G} groups == the CPU run; fused_frac "
           f"{out[6] / total:.4f} ({out[6]} of {total}); damped kernel (with_loss, "
           f"with_health) launches {launches}; card {t_settle:.2f}s settle + "
-          f"{first_s:.2f}s run, CPU {t_cpu:.2f}s (in the reference worker)")
+          f"{first_s:.2f}s run, CPU {t_cpu:.2f}s (in a reference worker)")
     print(f"  rstats at G={G} {full[5]}, stats {full[4]}, counters {full[8]}, planned "
           f"blocks rejected at rounds {full[9]}")
     # The kernel against its plain version on the lossy phase's operands.
@@ -2118,6 +2216,310 @@ def phase_prod_fused(dev, cpu_run):
     return launches, err, t
 
 
+# --- client reads (bench.py --reads) ------------------------------------------
+
+
+def reads_cfg(n_groups):
+    """bench_reads' config: election_tick 64, health, check-quorum, pre-vote
+    and lease reads."""
+    return sim.SimConfig(n_groups=n_groups, n_peers=P, election_tick=READS_TICK,
+                         collect_health=True, check_quorum=True, pre_vote=True,
+                         lease_read=True)
+
+
+def reads_settle(device, n_groups):
+    """bench_reads' settle: init_state, then READS_SETTLE steps of one append
+    a group (no extras)."""
+    cfg = reads_cfg(n_groups)
+    st = sim.init_state(cfg, device=device)
+    crashed = torch.zeros((P, n_groups), dtype=torch.bool, device=device)
+    append = torch.ones(n_groups, dtype=torch.int32, device=device)
+    for _ in range(READS_SETTLE):
+        st = sim.step(cfg, st, crashed, append)
+    return st
+
+
+def sliced_schedule(plan, n_groups, n, device):
+    """The plan's schedule compiled for n_groups groups, cut to its first n
+    columns and packed again.  The Zipf draws depend on the width, so this
+    is not compile_plan(plan, n): it is what the first n groups of an
+    n_groups-wide run see."""
+    host = workload.HostClientSchedule(plan, n_groups)
+
+    def cut(a):
+        return torch.from_numpy(np.ascontiguousarray(a[..., :n])).to(device)
+
+    return workload.CompiledClient(
+        phase_of_round=torch.from_numpy(host.phase_of_round),
+        read_fire_packed=pk.pack_bits_g(cut(host.read_fire)),
+        read_mode=cut(host.read_mode), append=cut(host.append), n_peers=host.n_peers)
+
+
+def reads_run(start, compiled, split=True):
+    """make_split_runner(k=8) (make_runner without `split`) over `compiled`
+    at the state's width and device, and a fn() running it from `start` with
+    fresh health, op-protocol state and read carry."""
+    n_groups, dev = start.term.shape[1], start.term.device
+    cfg = reads_cfg(n_groups)
+    runner = (workload.make_split_runner(cfg, compiled, k=READS_K) if split
+              else workload.make_runner(cfg, compiled))
+
+    def run():
+        return runner(start, sim.init_health(cfg, dev), reconfig.init_reconfig_state(start),
+                      workload.init_read_carry(n_groups, dev))
+
+    return runner, run
+
+
+def reads_result(out):
+    """A workload run's outputs as host values: the state arrays, the health
+    planes and window_pos, the read carry, the chaos, reconfig and read
+    stats, the safety counts, the latency histogram, its p50/p90/p99 (as
+    latency_percentiles reduces it on the device) and the fused count (None
+    for make_runner)."""
+    st, hl, _, stats, rstats, safety, rcar, rdstats, lat = out[:9]
+    return dict(
+        state=sim.state_to_numpy(st), planes=hl.planes.cpu().numpy(),
+        window_pos=hl.window_pos,
+        carry={f: v.cpu().numpy() for f, v in rcar._asdict().items()},
+        stats=stats.tolist(), rstats=rstats.tolist(), safety=safety.tolist(),
+        read_stats=rdstats.tolist(), lat_hist=lat.tolist(),
+        percentiles=workload.latency_percentiles(lat).tolist(),
+        fused=out[9] if len(out) > 9 else None)
+
+
+def same_reads(a, b, note, n=None, fused=True):
+    """Two reads_result dicts: every state field, the health planes,
+    window_pos and the read carry (of a's first n groups when n is given);
+    without n also every accumulator, the percentiles and (with `fused`) the
+    fused count."""
+    cut = (lambda v: v) if n is None else (lambda v: v[..., :n])
+    for f in sim.SimState._fields:
+        x, y = a["state"].get(f), b["state"].get(f)
+        if (x is None) != (y is None) or (x is not None and not np.array_equal(cut(x), y)):
+            raise AssertionError(f"{note}: state field {f} differs")
+    if not np.array_equal(cut(a["planes"]), b["planes"]) or a["window_pos"] != b["window_pos"]:
+        raise AssertionError(f"{note}: health planes or window_pos differ")
+    for f, v in a["carry"].items():
+        if not np.array_equal(cut(v), b["carry"][f]):
+            raise AssertionError(f"{note}: read carry {f} differs")
+    if n is not None:
+        return
+    keys = ["stats", "rstats", "safety", "read_stats", "lat_hist", "percentiles"]
+    for key in keys + (["fused"] if fused else []):
+        if a[key] != b[key]:
+            raise AssertionError(f"{note}: {key} differ: {a[key]} != {b[key]}")
+
+
+def stale_read_trap(device, paused):
+    """tests/test_read_lease.py's stale-read trap through the port: a settled
+    2-group check-quorum lease fleet (P=3), each leader cut off from its
+    followers for 3 election ticks, its clock held at 0 with `paused` (the
+    clock drift LeaseBased cannot survive), and one lease read forced on the
+    last round; the linearizability slots audited every round on the
+    round-entry lease holders.  Returns (safety counts, the receipts of
+    every round as lists, the final state's arrays)."""
+    n_groups, n_peers = 2, 3
+    cfg = sim.SimConfig(n_groups=n_groups, n_peers=n_peers, election_tick=10,
+                        check_quorum=True, lease_read=True)
+    st = sim.init_state(cfg, device=device)
+    app = torch.ones(n_groups, dtype=torch.int32, device=device)
+    none = torch.zeros((n_peers, n_groups), dtype=torch.bool, device=device)
+    for _ in range(30):
+        st = sim.step(cfg, st, none, app)
+    leads = st.state.argmax(0)
+    cut = torch.arange(n_peers, device=device)[:, None] == leads[None, :]
+    # Every link between the leader and the rest down, both ways.
+    link = ~(cut[:, None, :] ^ cut[None, :, :])
+    safety = torch.zeros(pk.N_SAFETY, dtype=torch.int32, device=device)
+    receipts = []
+    for r in range(3 * cfg.election_tick):
+        if paused:
+            st = st._replace(election_elapsed=torch.where(
+                cut & (st.state == ROLE_LEADER), 0, st.election_elapsed))
+        fire = r == 3 * cfg.election_tick - 1
+        modes = torch.full((n_groups,), sim.READ_LEASE if fire else 0, dtype=torch.int32,
+                           device=device)
+        holder, _, _ = pk.lease_read(
+            st.state, st.term, st.leader_id, st.election_elapsed, st.commit,
+            st.term_start_index, none, cfg.election_tick, True, st.transferee,
+            st.recent_active, st.voter_mask, st.outgoing_mask)
+        st2, receipt = sim.step(cfg, st, none, app, link=link, read_propose=modes)
+        safety = safety + pk.check_safety(
+            st2.state, st2.term, st2.commit, st2.last_index, st2.agree, st.commit,
+            lease_holder=holder, lease_fire=modes > 0)
+        receipts.append([v.tolist() for v in receipt])
+        st = st2
+    return safety.tolist(), receipts, sim.state_to_numpy(st)
+
+
+def cpu_reads():
+    """In a reference worker: bench.py --reads' procedure on the CPU at
+    READS_SMALL_G (its own settle and the plan compiled at that width), the
+    split run over the G-wide schedule's first READS_SMALL_G columns from the
+    same settled state, and the stale-read trap with the clock paused and
+    not: (small result, sliced result, {paused: trap}, seconds)."""
+    worker_threads()
+    t0 = time.perf_counter()
+    plan = workload.load_plan(READS_PLAN)
+    start = reads_settle("cpu", READS_SMALL_G)
+    _, run = reads_run(start, workload.compile_plan(plan, READS_SMALL_G, "cpu"))
+    small = reads_result(run())
+    _, run = reads_run(start, sliced_schedule(plan, G, READS_SMALL_G, "cpu"))
+    sliced = reads_result(run())
+    traps = {paused: stale_read_trap("cpu", paused) for paused in (True, False)}
+    return small, sliced, traps, time.perf_counter() - t0
+
+
+@phase("reads")
+def phase_reads(dev, cpu_ref):
+    """bench.py --reads examples/reads/zipf_mixed.json: the 192-round settle
+    at G on the card; the split runner (k=8) at READS_SMALL_G from the
+    settle's first groups with the plan compiled at that width, then at G
+    with the launch counts zeroed just before the run and read just after;
+    make_runner at G, which must equal it; the stale-read trap on the card;
+    all held to the CPU runs (`cpu_ref`, a reference worker's future of
+    cpu_reads()): card == CPU at READS_SMALL_G on every output, the G run's
+    first READS_SMALL_G groups equal to the CPU run over the sliced G
+    schedule, zero safety counts, the trap's counts and receipts.  Then the
+    damped kernel's no-loss with_health instance at k=8 against its plain
+    version on the settled and the final state, the timing (READS_REPS reps
+    from the settled state, the parity run the first), the busy share and
+    launches of 4 general rounds of the Safe-read phase, and the kernel
+    against its bound.  Returns (launches, parity error, timing)."""
+    plan = workload.load_plan(READS_PLAN)
+    t0 = time.perf_counter()
+    settled = reads_settle(dev, G)
+    sync()
+    t_settle = time.perf_counter() - t0
+    # The small run starts from the G settle's first groups (every seeded
+    # stream keys on the global group id), the CPU from its own settle.
+    start_s = sim.SimState(*(
+        None if v is None else v[..., :READS_SMALL_G].contiguous() for v in settled))
+    _, run_s = reads_run(start_s, workload.compile_plan(plan, READS_SMALL_G, dev))
+    small = reads_result(run_s())
+    compiled = workload.compile_plan(plan, G, dev)
+    runner, run = reads_run(settled, compiled)
+    zero_launches()
+    t0 = time.perf_counter()
+    out = run()
+    sync()
+    first_s = time.perf_counter() - t0
+    counts = launch_counts()
+    launches = counts["damped_rounds"][1]
+    if launches < 1 or any(counts[k.__name__] != (0, 0) for k in (steady_rounds, chaos_rounds)) \
+            or counts["damped_rounds"][0]:
+        raise AssertionError(f"reads: unexpected launches {counts}")
+    if out[9] != launches * READS_K * G:
+        raise AssertionError(f"reads: fused {out[9]} for {launches} launches")
+    if any(out[5].tolist()):
+        raise AssertionError(f"reads G={G}: safety violations {out[5].tolist()}")
+    check_state(out[0])
+    full = reads_result(out)
+    rejected_blocks = [r0 for r0, ran in runner.blocks if not ran]
+    _, run_u = reads_run(settled, compiled, split=False)
+    zero_launches()
+    t0 = time.perf_counter()
+    unsplit = reads_result(run_u())
+    t_unsplit = time.perf_counter() - t0
+    if any(a or b for a, b in launch_counts().values()):
+        raise AssertionError(f"reads unsplit: a fused kernel launched: {launch_counts()}")
+    same_reads(full, unsplit, f"reads G={G}: split against unsplit", fused=False)
+    traps = {paused: stale_read_trap(dev, paused) for paused in (True, False)}
+    fired = [traps[True][0][i] for i in (pk.SV_STALE_READ, pk.SV_DUAL_LEASE)]
+    if min(fired) <= 0 or traps[True][0][pk.SV_DUAL_LEADER]:
+        raise AssertionError(f"reads trap, clock paused: safety {traps[True][0]}")
+    if any(traps[False][0]):
+        raise AssertionError(f"reads trap, no drift: safety {traps[False][0]}")
+    cpu_small, cpu_sliced, cpu_traps, t_cpu = cpu_ref.result()
+    same_reads(small, cpu_small, f"reads G={READS_SMALL_G}")
+    same_reads(full, cpu_sliced, f"reads: the first {READS_SMALL_G} of {G} groups "
+               "against the sliced schedule", n=READS_SMALL_G)
+    for paused, trap in traps.items():
+        cpu_trap = cpu_traps[paused]
+        if trap[:2] != cpu_trap[:2] or any(
+                not np.array_equal(v, cpu_trap[2][f]) for f, v in trap[2].items()):
+            raise AssertionError(f"reads trap paused={paused}: card and CPU differ")
+    total = G * compiled.n_rounds
+    report = workload.read_report(full["read_stats"], full["percentiles"], full["safety"],
+                                  full["stats"], compiled.n_rounds)
+    print(f"reads {G}x{P} ({READS_PLAN_NAME}, {compiled.n_rounds} rounds after a "
+          f"{READS_SETTLE}-round settle, k={READS_K}): card == CPU at {READS_SMALL_G}x{P} "
+          f"(every field, the health planes, the read carry, read stats "
+          f"{small['read_stats']}, latency p50/p90/p99 {small['percentiles']}, stats "
+          f"{small['stats']}, safety, fused {small['fused']}); at {G}x{P} safety all 0, "
+          f"the first {READS_SMALL_G} groups == the CPU run over the sliced schedule, "
+          f"split == unsplit on every output; fused_frac {out[9] / total:.4f} ({out[9]} "
+          f"of {total}; planned blocks rejected at rounds {rejected_blocks}); damped kernel "
+          f"(with_health) launches {launches}; stale-read trap on the card == CPU, clock "
+          f"paused: stale_read {fired[0]}, dual_lease {fired[1]}, no drift: all 0; card "
+          f"{t_settle:.2f}s settle + {first_s:.2f}s split run + {t_unsplit:.2f}s unsplit, "
+          f"CPU {t_cpu:.2f}s (in a reference worker)")
+    print(f"  report at G={G}: {json.dumps(report)}")
+    # The kernel against its plain version on a lease block's operands.
+    kw = dict(round_base=0, rounds=READS_K, election_tick=READS_TICK, heartbeat_tick=1,
+              with_cq=True)
+    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    append = compiled.append[int(compiled.phase_of_round[READS_LEASE_AT])]
+    err = 0
+    for st, tsc, note in ((settled, random_tsc(G, 7, dev), "settled"),
+                          (out[0], out[1].planes[pk.HP_SINCE_COMMIT], "after the plan")):
+        err = max(err, compare(damped_rounds, damped_rounds_reference, DAMPED_OUTPUTS,
+                               fused_step.damped_operands(st, crashed, append, None),
+                               kw, f"reads {note}", tsc))
+    print(f"parity reads damped with_health k={READS_K} (no loss): exact on the settled "
+          f"state and the plan's end state at G={G}, the lease phase's Zipf appends")
+    samples = [total / first_s]
+    fused_total = out[9]
+    for _ in range(READS_REPS - 1):
+        sync()
+        t0 = time.perf_counter()
+        res = run()
+        sync()
+        samples.append(total / (time.perf_counter() - t0))
+        fused_total += res[9]
+    fused_frac = fused_total / (total * READS_REPS)
+    # 4 general rounds of the Safe-read phase, where every block runs general.
+    at = READS_SAFE_AT
+    head = compiled._replace(
+        phase_of_round=compiled.phase_of_round[at:at + READS_PROFILE_ROUNDS],
+        read_fire_packed=compiled.read_fire_packed[at:at + READS_PROFILE_ROUNDS])
+    _, run_h = reads_run(settled, head, split=False)
+    prof = device_profile(run_h)
+    n_launch = sum(r["count"] for r in prof["kernels"])
+    args = fused_step.damped_operands(settled, crashed, append, None, random_tsc(G, 7, dev))
+    t = kernel_times(dev, damped_rounds, damped_rounds_reference, args, kw,
+                     damped_work(P, G, READS_K, with_health=True))
+    med = statistics.median(samples)
+    t.update(ticks_per_s=samples, ticks_per_s_median=med, fused_frac=fused_frac,
+             profile=prof, report=report, rejected_blocks=rejected_blocks,
+             launches_per_general_round=n_launch / READS_PROFILE_ROUNDS)
+    print(f"timing reads {G}x{P} k={READS_K} [{t['card']}]: ticks/s median {med:.1f} "
+          f"(min {min(samples):.1f}, max {max(samples):.1f}, {READS_REPS} reps from the "
+          f"settled state), fused_frac {fused_frac:.4f}; read latency p50/p90/p99 "
+          f"{full['percentiles']} rounds; damped_round_kernel (with_health) "
+          f"{t['ms']:.4f} ms cold ({t['hot_ms']:.4f} ms hot; a wrapper call "
+          f"{t['call_ms']:.4f} ms), plain version {t['plain_ms']:.3f} ms; bound "
+          f"{t['bound_ms']:.4f} ms (bytes {t['bytes_bound_ms']:.4f}, operations "
+          f"{t['ops_bound_ms']:.4f})")
+    print(f"profile of {READS_PROFILE_ROUNDS} general rounds of the Safe-read phase (rounds "
+          f"{at}-{at + READS_PROFILE_ROUNDS - 1}, and the tail audit): device busy "
+          f"{prof['busy_us']:.1f} of {prof['wall_us']:.1f} us "
+          f"({100 * prof['busy_share']:.1f}%), {n_launch} kernel launches, "
+          f"{n_launch / READS_PROFILE_ROUNDS:.0f} a round")
+    for row in prof["kernels"][:8]:
+        print(f"  {row['us']:10.1f} us {row['count']:6d}x  {row['name']}")
+    return launches, err, t
+
+
+@phase("references")
+def phase_references(checks):
+    """The deferred checks of the steady, lossy and check-quorum phases:
+    each card run against its CPU run from a reference worker."""
+    for check in checks:
+        check()
+
+
 def kernel_entry(name, source, replaces, launches, err, t):
     return {
         "name": name,
@@ -2162,23 +2564,37 @@ def main(argv=None):
         phase_damped_parity(dev)
         print("quick: every kernel variant equals its plain version on the card")
         return 0
-    cfg, st_main, steady_launches, steady_run, steady_h_launches = phase_main(dev)
-    steady = phase_timing(dev, cfg, st_main)
-    chaos_err, settled = phase_chaos_parity(dev)
-    st, chaos_launches, lossy_run, chaos_h_launches = phase_lossy(dev, settled)
-    lossy = phase_lossy_timing(dev, st)
-    damped_err, damped_loss_err, settled = phase_damped_parity(dev)
-    st, damped_launches, damped_run, damped_h_launches = phase_damped(dev, settled)
-    damped = phase_damped_timing(dev, st)
-    steady_h, damped_h, lossy_h = phase_health_timing(
-        dev, {"steady": steady_run, "lossy": lossy_run, "damped": damped_run})
-    # This slice's CPU references run in a worker process while the card
-    # runs its side of the same phases.
-    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+    # The CPU references run in reference worker processes while the card
+    # works: first the ones that need nothing of the card, in the order the
+    # card's phases wait for them, then each as its input exists.  The
+    # steady, lossy and check-quorum phases' checks wait for the end.
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(WORKERS, mp_context=spawn) as pool:
         cpu_runs = pool.submit(cpu_scenarios)
-        cpu_run = pool.submit(cpu_composed, sim.state_to_numpy(settled))
         cpu_reconfig_runs = pool.submit(cpu_reconfig)
         cpu_prod_run = pool.submit(cpu_prod)
+        cpu_reads_run = pool.submit(cpu_reads)
+        lossy_small = pool.submit(cpu_lossy_small)
+        damped_small = pool.submit(cpu_health_path, dict(
+            cfg=damped_cfg(CQ_SMALL_G), blocks=CQ_SMALL_BLOCKS, settle=CQ_SETTLE))
+        checks = []
+        cfg, st_main, steady_launches, steady_run, steady_h_launches, check = phase_main(
+            dev, pool)
+        checks.append(check)
+        steady = phase_timing(dev, cfg, st_main)
+        chaos_err, settled = phase_chaos_parity(dev)
+        st, chaos_launches, lossy_run, chaos_h_launches, check = phase_lossy(
+            dev, settled, pool, lossy_small)
+        checks.append(check)
+        lossy = phase_lossy_timing(dev, st)
+        damped_err, damped_loss_err, settled = phase_damped_parity(dev)
+        cpu_run = pool.submit(cpu_composed, sim.state_to_numpy(settled))
+        st, damped_launches, damped_run, damped_h_launches, check = phase_damped(
+            dev, settled, pool, damped_small)
+        checks.append(check)
+        damped = phase_damped_timing(dev, st)
+        steady_h, damped_h, lossy_h = phase_health_timing(
+            dev, {"steady": steady_run, "lossy": lossy_run, "damped": damped_run})
         scenario = phase_chaos_scenario(dev, cpu_runs)
         composed = phase_composed_timing(dev, settled)
         steady_hybrid_fused = phase_steady_hybrid(dev, st_main)
@@ -2186,6 +2602,8 @@ def main(argv=None):
             dev, settled, cpu_run)
         reconfig_out = phase_reconfig(dev, cpu_reconfig_runs)
         prod_launches, prod_err, prod = phase_prod_fused(dev, cpu_prod_run)
+        reads_launches, reads_err, reads = phase_reads(dev, cpu_reads_run)
+        phase_references(checks)
 
     rows = (
         ("steady_rounds", STEADY_SOURCE, STEADY_REPLACES, steady_err,
@@ -2206,7 +2624,10 @@ def main(argv=None):
         worst(damped_loss_err, composed_err)[0], composed), kernel_entry(
         f"damped_rounds with_loss=True with_health=True k={PROD_K}", DAMPED_SOURCE,
         f"{DAMPED_REPLACES} (with_loss=True, with_health=True, k={PROD_K})",
-        prod_launches, prod_err, prod)]}
+        prod_launches, prod_err, prod), kernel_entry(
+        f"damped_rounds with_loss=False with_health=True k={READS_K}", DAMPED_SOURCE,
+        f"{DAMPED_REPLACES} (with_loss=False, with_health=True, k={READS_K})",
+        reads_launches, reads_err, reads)]}
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w", encoding="utf-8") as fh:
@@ -2214,7 +2635,8 @@ def main(argv=None):
                 "steady": steady, "lossy": lossy, "damped": damped,
                 "steady_health": steady_h, "damped_health": damped_h,
                 "lossy_health_kernel": lossy_h, "chaos_scenario": scenario,
-                "composed": composed, "reconfig": reconfig_out, "prod_fused": prod},
+                "composed": composed, "reconfig": reconfig_out, "prod_fused": prod,
+                "reads": reads},
                 "composed_branches": composed_branches,
                 "steady_hybrid_fused": steady_hybrid_fused}, fh, indent=1,
                 default=str)

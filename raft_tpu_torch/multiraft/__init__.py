@@ -6,16 +6,22 @@ Modules:
   kernels       — elementwise protocol kernels (timeout and loss PRNGs, tick,
                   quorum index, check-quorum liveness and boundary bound, the
                   event counters and the health planes, the packed schedule
-                  words, the safety invariants)
+                  words, the safety invariants, the lease gate)
   sim           — SimConfig, SimState, HealthState, init_state, init_health,
-                  the plain, link-gated and damped steps (with group_ids),
-                  ClusterSim (with chaos=, run_plan and run_reconfig)
+                  the plain, link-gated and damped steps (with group_ids and
+                  the client reads' read_propose), read_index, ClusterSim
+                  (with chaos=, run_plan, run_reconfig, run_reads and the
+                  read probes)
   chaos         — chaos plans, their compiled schedules, the scenario runner
   reconfig      — membership-change plans compiled through the scalar
                   Changer, the op-protocol runner and the split-horizon
                   runner (ClusterSim.run_reconfig)
+  workload      — client read/write plans, their compiled schedules, the
+                  workload runner and the fused split runner
+                  (ClusterSim.run_reads)
+  autopilot     — the no-op op schedule the workload runners compose
   health        — HealthMonitor, the host consumer of health summaries and
-                  chaos and reconfig scenario reports
+                  chaos, reconfig and read scenario reports
   steady_kernel — k fused steady rounds: the CUDA kernel and its plain version
   chaos_kernel  — k fused loss-gated rounds: the CUDA kernel and its plain version
   damped_kernel — k fused check-quorum/pre-vote rounds: the CUDA kernel and its

@@ -3,9 +3,9 @@ when the steady invariant provably holds for all of them, else k general
 steps.  Both branches give the same state, bit for bit.
 
 Counterpart of `raft_tpu/multiraft/pallas_step.py`: `steady_mask`
-(:1355-1554, the plain, the link, the damped and the reconfig arm),
-`steady_predicate` (:1557), `steady_round` with its host wrapper `_run`
-(:549-749), `steady_round(with_chaos=True)` with its host wrapper
+(:1355-1554, the plain, the link, the damped, the reconfig and the read
+arm), `steady_predicate` (:1557), `steady_round` with its host wrapper
+`_run` (:549-749), `steady_round(with_chaos=True)` with its host wrapper
 `_build_chaos_round._run` (:806-886) as `chaos_round` here, the damped
 configs' `_build_damped_round._run` (:1240-1352, plain and with chaos) as
 `damped_round`, the closed-form instrumentation folds `_fold_counters`
@@ -64,9 +64,11 @@ def steady_mask(
 ) -> torch.Tensor:
     """bool[G]: per-group steady invariant for the next `horizon` rounds —
     no election timer can fire, exactly one alive leader, every alive peer
-    already at the leader's term, not in joint config, and, with
-    `reconfig_pending` (bool[G], reconfig.pending_in_horizon), no conf
-    change in flight or due inside the horizon.
+    already at the leader's term, not in joint config, with
+    `reconfig_pending` (bool[G], reconfig.pending_in_horizon) no conf
+    change in flight or due inside the horizon, and with `read_pending`
+    (bool[G], workload.reads_pending_in_horizon) no quorum-round read work
+    inside it (lease fires stay fusable; the caller folds them).
 
     With `link` (the bool[P, P, G] reachability plane) every directed link
     among alive peers must also be up, and the election-timer bound is the
@@ -81,7 +83,7 @@ def steady_mask(
     with `link` and `loss_rate` (int32[P, P, G]), the same per group, the
     groups with a nonzero rate anywhere held to the no-boundary bound; with
     `link` alone, no role-leader may reach its boundary."""
-    sim_mod.check_supported(cfg, read_pending=read_pending)
+    sim_mod.check_supported(cfg)
     damped = cfg.check_quorum or cfg.pre_vote
     if damped and cfg.election_tick <= cfg.heartbeat_tick:
         # The saturation argument needs a full heartbeat interval strictly
@@ -114,6 +116,9 @@ def steady_mask(
     if reconfig_pending is not None:
         # 4b. no conf change is in flight or due inside the horizon.
         ok = ok & ~reconfig_pending
+    if read_pending is not None:
+        # 4c. no quorum-round read work touches the horizon.
+        ok = ok & ~read_pending
     if link is not None:
         # 5. every directed link among alive peers is up.
         eye = torch.eye(cfg.n_peers, dtype=torch.bool, device=link.device)

@@ -1,10 +1,11 @@
 """HealthMonitor: the host-side consumer of fleet-health summaries.
 
-Counterpart of `raft_tpu/multiraft/health.py` (:35-272, :324-345,
+Counterpart of `raft_tpu/multiraft/health.py` (:35-272, :299-345,
 :387-399): the summary formatter, `record`, the chaos scenario report
 `chaos_report` and `record_scenario`, the reconfig scenario report
-`reconfig_stall_groups`, `reconfig_report` and `record_reconfig`, `last`,
-`summary_ring` and `__len__`.  The device planes (kernels.HP_* rows, maintained by sim.step)
+`reconfig_stall_groups`, `reconfig_report` and `record_reconfig`, the
+client-read report's `record_reads`, `last`, `summary_ring` and
+`__len__`.  The device planes (kernels.HP_* rows, maintained by sim.step)
 reduce on their device to one fixed-size summary dict::
 
     {"counts": {"leaderless": n, "stalled_leaderless": n,
@@ -143,6 +144,31 @@ class HealthMonitor:
                 name: int(v) for name, v in zip(SAFETY_NAMES, safety)
             },
         }
+
+    def record_reads(self, report: dict) -> dict:
+        """Fold a client-read workload report (workload.read_report's
+        shape) into the ring and the trace; a nonzero safety count, the
+        linearizability slots included, raises a `reads.safety` event so a
+        stale read can never scroll by silently."""
+        with self._lock:
+            entry = {"seq": self._seq, "ts": time.time(), "reads": report}
+            self._seq += 1
+            self._summary_ring.append(entry)
+        m = self.metrics
+        if m is not None:
+            m.trace(
+                "reads.scenario",
+                rounds=report.get("rounds", 0),
+                reads_issued=report.get("reads_issued", 0),
+                served_lease=report.get("served_lease", 0),
+                served_quorum=report.get("served_quorum", 0),
+                degraded_serves=report.get("degraded_serves", 0),
+                read_p50=report.get("read_p50", -1),
+                read_p99=report.get("read_p99", -1),
+            )
+            if any(report.get("safety", {}).values()):
+                m.trace("reads.safety", **report["safety"])
+        return entry
 
     def record_scenario(self, report: dict) -> dict:
         """Fold a chaos scenario report (chaos_report's shape) into the ring

@@ -9,8 +9,11 @@ Counterparts (reference file `raft_tpu/multiraft/kernels.py`):
   LOSS_SCALE           :342
   link_loss_draw       :345
   pack_bits, unpack_bits, pack_u16_pairs, unpack_u16_pairs  :382-432
+  pack_bits_g, unpack_bits_g  :435-470
   SV_*, N_SAFETY, SAFETY_NAMES, check_safety  :471-807
+  lease_read           :500-604
   apply_confchange     :949-1070 (without the transferee arm)
+  acting_leader_id     :1128
   check_quorum_active  :1147
   cq_boundary_safe     :1178
   timeout_draw         :1258
@@ -76,6 +79,23 @@ def committed_index(
     idx = torch.clamp(p - majority_of(count), 0, p - 1).to(torch.int64)
     quorum_idx = torch.gather(srt, -1, idx[..., None])[..., 0]
     return torch.where(count == 0, INF, quorum_idx)
+
+
+def acting_leader_id(
+    state: torch.Tensor,  # int32[P, G]
+    term: torch.Tensor,  # int32[P, G]
+    crashed: torch.Tensor,  # bool[P, G]
+) -> torch.Tensor:
+    """Per-group acting-leader peer id, int32[G] (1-based; 0 = no alive
+    leader): the alive leader with the highest term, the lowest peer index
+    on a tie."""
+    P = state.shape[0]
+    is_lead = (state == ROLE_LEADER) & ~crashed
+    lead_term = torch.where(is_lead, term, -1).amax(0)
+    acting = is_lead & (term == lead_term[None, :])
+    p_idx = torch.arange(P, dtype=I32, device=state.device)[:, None]
+    first = torch.where(acting, p_idx, P).amin(0)
+    return torch.where(is_lead.any(0), first + 1, 0).to(I32)
 
 
 def check_quorum_active(
@@ -234,6 +254,31 @@ def unpack_u16_pairs(words: torch.Tensor, k: int) -> torch.Tensor:
     ).to(I32)
 
 
+def pack_bits_g(plane: torch.Tensor) -> torch.Tensor:
+    """Pack a bool plane 32:1 along its last (group) axis: bool[..., G] ->
+    int32[..., ceil(G/32)], word w's bit j holding group 32*w + j (groups
+    past G pad with zeros).  The words are int32 tensors holding the
+    reference's uint32 bit patterns, built in int64 as pack_bits' are."""
+    g = plane.shape[-1]
+    n_words = (g + 31) // 32
+    bits = plane.to(torch.int64)
+    pad = n_words * 32 - g
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    bits = bits.reshape(plane.shape[:-1] + (n_words, 32))
+    lanes = torch.arange(32, dtype=torch.int64, device=plane.device)
+    # The bits are disjoint, so the shifted sum is a bitwise OR below 2**32.
+    return _word_bits((bits << lanes).sum(-1))
+
+
+def unpack_bits_g(words: torch.Tensor, g: int) -> torch.Tensor:
+    """Inverse of pack_bits_g: int32[..., ceil(g/32)] -> bool[..., g]."""
+    lanes = torch.arange(32, dtype=words.dtype, device=words.device)
+    bits = (words[..., :, None] >> lanes) & 1
+    flat = bits.reshape(words.shape[:-1] + (words.shape[-1] * 32,))
+    return flat[..., :g] != 0
+
+
 # check_safety violation-count vector indices.
 SV_DUAL_LEADER = 0  # two leaders share a term in one group
 SV_COMMIT_DIVERGED = 1  # two peers' committed prefixes disagree
@@ -261,6 +306,67 @@ SAFETY_NAMES = (
     "stale_read",
     "dual_lease",
 )
+
+
+def lease_read(
+    state: torch.Tensor,  # int32[P, G]
+    term: torch.Tensor,  # int32[P, G]
+    leader_id: torch.Tensor,  # int32[P, G]
+    election_elapsed: torch.Tensor,  # int32[P, G]
+    commit: torch.Tensor,  # int32[P, G]
+    term_start_index: torch.Tensor,  # int32[P, G]
+    crashed: torch.Tensor,  # bool[P, G]
+    election_tick: int,
+    check_quorum: bool,
+    transferee: Optional[torch.Tensor] = None,  # int32[P, G]
+    recent_active: Optional[torch.Tensor] = None,  # bool[P, P, G]
+    voter_mask: Optional[torch.Tensor] = None,  # bool[P, G]
+    outgoing_mask: Optional[torch.Tensor] = None,  # bool[P, G]
+):
+    """The batched LeaseBased read gate (read_only.rs LeaseBased and raft.rs
+    step_leader's MsgReadIndex arm): which peers could serve a
+    linearizable read locally, with zero message rounds, under the
+    check-quorum leader lease, and what the group's acting leader would
+    answer.
+
+    A peer holds a live lease when `check_quorum` is on (static: without it
+    the gate is constant-false, the undamped arm) and it is an uncrashed
+    leader naming itself leader, inside its lease window (election_elapsed
+    < election_tick), whose current recent_active row holds an active
+    quorum of each config half, which has committed in its own term
+    (commit >= term_start_index), and, when the `transferee` plane exists,
+    with no leader transfer pending.
+
+    Returns (holder bool[P, G], served bool[G], index int32[G]): the holder
+    mask (at most one holder per group on every reachable state), whether
+    the group's acting leader (acting_leader_id) holds one, and the commit
+    index it would serve (0 where not served)."""
+    P = state.shape[0]
+    if not check_quorum:
+        G, dev = state.shape[1], state.device
+        return (
+            torch.zeros((P, G), dtype=torch.bool, device=dev),
+            torch.zeros((G,), dtype=torch.bool, device=dev),
+            torch.zeros((G,), dtype=I32, device=dev),
+        )
+    if recent_active is None or voter_mask is None or outgoing_mask is None:
+        raise ValueError(
+            "the check-quorum lease gate needs recent_active, voter_mask "
+            "and outgoing_mask (the damping planes)"
+        )
+    self_id = torch.arange(P, dtype=I32, device=state.device)[:, None] + 1
+    holder = (
+        (state == ROLE_LEADER)
+        & ~crashed
+        & (leader_id == self_id)
+        & (election_elapsed < election_tick)
+        & (commit >= term_start_index)
+        & check_quorum_active(recent_active, voter_mask, outgoing_mask)
+    )
+    if transferee is not None:
+        holder = holder & (transferee == 0)
+    serving = holder & (self_id == acting_leader_id(state, term, crashed)[None, :])
+    return holder, serving.any(0), torch.where(serving, commit, 0).sum(0, dtype=I32)
 
 
 def check_safety(

@@ -2,9 +2,10 @@
 per-group schedules on the device, and the runners that drive a whole plan
 through the batched step.
 
-Counterpart of `raft_tpu/multiraft/reconfig.py` (all of it) and of the two
-runners built for it in `raft_tpu/multiraft/runner.py`: `_make_reconfig`
-(:208-290) as :func:`make_runner` and `_make_reconfig_split` (:292-491) as
+Counterpart of `raft_tpu/multiraft/reconfig.py` (all of it but the
+autopilot `actions` of `_runner_body`) and of the two runners built for it
+in `raft_tpu/multiraft/runner.py`: `_make_reconfig` (:208-290) as
+:func:`make_runner` and `_make_reconfig_split` (:292-491) as
 :func:`make_split_runner`, both the blackbox=False arm.
 
 A :class:`ReconfigPlan` is a list of phases; a phase may carry ONE
@@ -786,20 +787,32 @@ def _runner_body(
     body(carry, r) -> carry' for the absolute round index r (a Python int):
     the single source of the op propose/gate/apply protocol, shared by
     make_runner and make_split_runner's general segments and rejected fused
-    blocks.  Carry: (state, health, rstate, stats, rstats, safety), with the
-    [N_COUNTERS] int32 plane appended when `with_counters`.  The autopilot
-    actions, the client workload and the black box are not ported: `actions`
-    and `client` must be None, and SimConfig(blackbox=True) raises."""
-    if actions is not None or client is not None:
+    blocks, and by the client-workload runners.  Carry: (state, health,
+    rstate, stats, rstats, safety), with the [N_COUNTERS] int32 plane
+    appended when `with_counters`.
+
+    `client` (a workload.CompiledClient) appends (read_carry,
+    read_stats[workload.N_READ_STATS], lat_hist[workload.N_LAT_BUCKETS]) to
+    the carry: each round adds the phase's append skew, fires the
+    schedule's reads (one read in flight a group: a fire finding one
+    outstanding is dropped), retries outstanding reads through
+    `sim.step(read_propose=)`, folds each served read's latency in rounds
+    into the histogram, and runs check_safety's linearizability slots on
+    the round-entry lease-holder mask beside the joint-window audit.  The
+    autopilot actions and the black box are not ported: `actions` must be
+    None, and SimConfig(blackbox=True) raises."""
+    if actions is not None:
         raise NotImplementedError(
-            "raft_tpu_torch does not implement the autopilot actions or the "
-            "client workload of the reconfig runner yet"
+            "raft_tpu_torch does not implement the autopilot actions of the "
+            "reconfig runner yet"
         )
     sim_mod.check_supported(cfg)
     P, G = cfg.n_peers, cfg.n_groups
     no_crash = torch.zeros((P, G), dtype=torch.bool, device=sched.append.device)
 
     def body(carry, r: int):
+        if client is not None:
+            carry, (rcar, rdstats, lat_hist) = carry[:-3], carry[-3:]
         if with_counters:
             st, hl, rst, stats, rstats, safety, ctrs = carry
         else:
@@ -811,6 +824,30 @@ def _runner_body(
             append = append + capp
         else:
             link, crashed = None, no_crash
+        read_propose = lease_holder = lease_fire = None
+        if client is not None:
+            # The round's client traffic: the phase's append skew and the
+            # read fires; an outstanding read retries every round until
+            # served, and a fire finding one outstanding is dropped.
+            cph = int(client.phase_of_round[r])
+            append = append + client.append[cph]
+            mode_row = client.read_mode[cph]
+            fire = kernels.unpack_bits_g(client.read_fire_packed[r], G) & (mode_row > 0)
+            fresh = fire & (rcar.pending_mode == 0)
+            dropped = fire & (rcar.pending_mode > 0)
+            pmode = torch.where(fresh, mode_row, rcar.pending_mode)
+            psince = torch.where(fresh, r, rcar.pending_since)
+            read_propose = pmode
+            # The linearizability audit's inputs, off the round-entry
+            # (serve-time) state: the lease holders and the groups with a
+            # lease-mode read live this round.
+            lease_holder, _, _ = kernels.lease_read(
+                st.state, st.term, st.leader_id, st.election_elapsed,
+                st.commit, st.term_start_index, crashed, cfg.election_tick,
+                cfg.check_quorum and cfg.lease_read, st.transferee,
+                st.recent_active, st.voter_mask, st.outgoing_mask,
+            )
+            lease_fire = pmode == sim_mod.READ_LEASE
         # Op eligibility: the next unapplied op, once its phase starts.
         start = _gather_op(sched.op_start, rst.op_ptr)
         active = (rst.op_ptr < sched.n_ops) & (start <= r)
@@ -819,7 +856,10 @@ def _runner_body(
         out = sim_mod.step(
             cfg, st, crashed, append + want_prop.to(I32),
             counters=ctrs, health=hl, link=link, reconfig_propose=want_prop,
+            read_propose=read_propose,
         )
+        if client is not None:
+            out, receipt = out[:-1], out[-1]
         if with_counters:
             st2, ctrs2, hl2, prop = out
         else:
@@ -858,6 +898,8 @@ def _runner_body(
             crashed=crashed,
             prev_voter_mask=rst.prev_voter,
             prev_outgoing_mask=rst.prev_outgoing,
+            lease_holder=lease_holder,
+            lease_fire=lease_fire,
         )
         # The gated swap: the target masks of the op being applied.
         (
@@ -898,7 +940,32 @@ def _runner_body(
             prev_outgoing=st2.outgoing_mask,
         )
         out = (st3, hl2, rst2, stats, rstats, safety)
-        return out + (ctrs2,) if with_counters else out
+        if with_counters:
+            out = out + (ctrs2,)
+        if client is not None:
+            # Serve accounting: a non-negative receipt closes the group's
+            # outstanding read, its latency (r - issue round, capped at the
+            # histogram's last bucket) folded into the histogram.
+            lat_cap = lat_hist.shape[0] - 1
+            served = (receipt.index >= 0) & (pmode > 0)
+            lat = torch.clamp(r - psince, 0, lat_cap)
+            lat_hist = lat_hist.scatter_add(
+                0, torch.where(served, lat, 0).to(torch.int64), served.to(I32)
+            )
+            rdstats = rdstats + torch.stack([
+                fresh.sum(dtype=I32),
+                (served & receipt.lease).sum(dtype=I32),
+                (served & ~receipt.lease).sum(dtype=I32),
+                (served & receipt.degraded).sum(dtype=I32),
+                ((pmode > 0) & ~served).sum(dtype=I32),
+                dropped.sum(dtype=I32),
+            ])
+            rcar = type(rcar)(
+                pending_mode=torch.where(served, 0, pmode),
+                pending_since=torch.where(served, 0, psince),
+            )
+            out = out + (rcar, rdstats, lat_hist)
+        return out
 
     return body
 

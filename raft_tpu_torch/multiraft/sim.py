@@ -10,12 +10,17 @@ paths run: `SimConfig` (:117), `SimState` (:226), `HealthState` (:287),
 round `_damped_linked_step` (:2451-3548: check quorum and pre-vote) that
 `step` runs for every config with either flag, each with the `counters`
 and `health` extras, the `reconfig_propose` extra (`ReconfigProposal`,
-:342) and `group_ids` (a gathered sub-batch keyed by its global ids), and
-`ClusterSim` with `__init__` (:3657-3785, with `chaos=`), `run_round`
-(:3950), `run` (:4005), the counter drain (:3851-3948), the chaos scenario
-runner `_chaos_runner_for` and `run_plan` (:4227-4295), `run_reconfig`
-(:4299-4505, without the mesh placement) and the counter and health
-accessors (:4639-4745).  Each round is the reference's round exactly,
+:342) and `group_ids` (a gathered sub-batch keyed by its global ids), the client
+reads behind `step(read_propose=)` on all three rounds (`READ_*` and
+`ReadReceipt`, :357-384; `_read_quorum_damped`, :387; `_read_phase`, :468;
+the Safe-mode barrier `read_index`, :3573), and `ClusterSim` with
+`__init__` (:3657-3785, with `chaos=`), `run_round` (:3950), `run`
+(:4005), the counter drain (:3851-3948), the chaos scenario runner
+`_chaos_runner_for` and `run_plan` (:4227-4295), `run_reconfig`
+(:4299-4505, without the mesh placement), the client-read workload
+`run_reads` (:4506-4638, without the mesh placement and the black box),
+the counter and health accessors (:4639-4745) and the read probes
+`read_index` and `lease_read` (:4822-4860).  Each round is the reference's round exactly,
 plane by plane: tick, campaign, election resolution (vote grants, joint
 tallies, commit fast-forward via vote traffic), the solo
 crashed-campaigner win, then replication and quorum commit; the linked and
@@ -23,9 +28,9 @@ damped rounds replay the same protocol wave by wave over the directed
 delivery plane.
 
 Options that this port does not implement yet raise NotImplementedError
-instead of being ignored: the SimConfig flags `transfer`, `lease_read` and
-`blackbox`, and the step arguments `transfer_propose`, `campaign_kick`,
-`read_propose` and `blackbox`.
+instead of being ignored: the SimConfig flags `transfer` and `blackbox`,
+and the step arguments `transfer_propose`, `campaign_kick` and
+`blackbox`.
 
 The reference gates the election phase behind `lax.cond(any(req))`.
 Here that is a host-side `if`, one device sync per general round; with
@@ -61,7 +66,8 @@ class SimConfig(NamedTuple):
     """Static per-sim configuration; same fields, order and defaults as the
     reference's SimConfig.  The undamped and damped (`check_quorum`,
     `pre_vote`) rounds are implemented, with the counters and health
-    instrumentation: see `check_supported`."""
+    instrumentation and lease reads (`lease_read`, which needs
+    `check_quorum`): see `check_supported`."""
 
     n_groups: int
     n_peers: int
@@ -97,7 +103,6 @@ class SimConfig(NamedTuple):
 # SimConfig flags whose device paths are not ported yet.
 _UNSUPPORTED_FLAGS = (
     "transfer",
-    "lease_read",
     "blackbox",
 )
 
@@ -109,8 +114,8 @@ def check_supported(cfg: SimConfig, **extras) -> None:
     if on:
         raise NotImplementedError(
             f"raft_tpu_torch does not implement SimConfig({', '.join(on)}) "
-            "yet; only the step (damped or not) with counters and health is "
-            "ported"
+            "yet; only the step (damped or not) with counters, health and "
+            "lease reads is ported"
         )
     given = [k for k, v in extras.items() if v is not None]
     if given:
@@ -178,6 +183,29 @@ class ReconfigProposal(NamedTuple):
     owner: torch.Tensor  # int32[G]
     index: torch.Tensor  # int32[G]
     term: torch.Tensor  # int32[G]
+
+
+# Read-request modes for step(read_propose=): int32[G] per-group commands,
+# ReadOnlyOption + 1 (0 is "no read this round").
+READ_NONE = 0
+READ_SAFE = 1  # the ReadIndex quorum round (ReadOnlyOption::Safe)
+READ_LEASE = 2  # local serve under the lease (ReadOnlyOption::LeaseBased)
+
+
+class ReadReceipt(NamedTuple):
+    """What this round's client reads returned, per group (the step extra
+    behind `step(read_propose=)`): `index` is the commit index the acting
+    leader served (-1: the read did not complete this round and the caller
+    retries it), `lease` marks reads served locally under the check-quorum
+    lease (kernels.lease_read), and `degraded` marks LeaseBased requests
+    that fell back to the ReadIndex quorum round (the decision, recorded
+    even when the fallback failed too).  Reads are probes: the receipt is
+    computed on the round-entry state, and the round's protocol phases
+    never see the read traffic."""
+
+    index: torch.Tensor  # int32[G]
+    lease: torch.Tensor  # bool[G]
+    degraded: torch.Tensor  # bool[G]
 
 
 class _RoundFacts(NamedTuple):
@@ -385,21 +413,38 @@ def step(
     whose pending conf-change op proposes its entry at the acting leader
     this round; the caller adds the +1 entry to `append_n`, and the step
     reports where the entry landed as a ReconfigProposal (owner 0 where no
-    alive leader acted, so the op retries).  Returns the next SimState
-    alone when no extra is given, else (SimState, counters', health',
-    proposal) with the given ones in that order, as the reference's
-    extras."""
+    alive leader acted, so the op retries).  read_propose: optional int32[G]
+    client-read commands (READ_* modes), evaluated by `_read_phase` on the
+    round-entry state and reported as a ReadReceipt; the round itself is
+    unchanged by them.  Returns the next SimState alone when no extra is
+    given, else (SimState, counters', health', proposal, receipt) with the
+    given ones in that order, as the reference's extras."""
     check_supported(
         cfg, transfer_propose=transfer_propose, campaign_kick=campaign_kick,
-        read_propose=read_propose, blackbox=blackbox,
+        blackbox=blackbox,
     )
+    if cfg.lease_read and not cfg.check_quorum:
+        # Config.validate's rule: without the check-quorum boundary
+        # deposal a lease proves nothing.
+        raise ValueError(
+            "SimConfig(lease_read=True) requires check_quorum=True "
+            "(reference: Config.validate — read_only_option == LeaseBased "
+            "requires check_quorum); undamped sims serve reads through "
+            "the ReadIndex quorum round only"
+        )
     node_key = _node_key(cfg, st.term.device, group_ids)
-    if cfg.check_quorum or cfg.pre_vote:
-        if link is None:
-            link = torch.ones(
-                (cfg.n_peers, cfg.n_peers, cfg.n_groups), dtype=torch.bool,
-                device=st.term.device,
-            )
+    damped = cfg.check_quorum or cfg.pre_vote
+    if damped and link is None:
+        link = torch.ones(
+            (cfg.n_peers, cfg.n_peers, cfg.n_groups), dtype=torch.bool,
+            device=st.term.device,
+        )
+    # The client-read phase: a probe of the round-entry state.
+    receipt = (
+        None if read_propose is None
+        else _read_phase(cfg, st, crashed, read_propose, link)
+    )
+    if damped:
         out, facts = _damped_linked_step(cfg, st, crashed, append_n, link, node_key)
     elif link is not None:
         out, facts = _linked_step(cfg, st, crashed, append_n, link, node_key)
@@ -414,7 +459,145 @@ def step(
             index=torch.where(prop, lead_last, 0),
             term=torch.where(prop, lead_term, 0),
         ),)
+    if receipt is not None:
+        extras += (receipt,)
     return (out,) + extras if extras else out
+
+
+def _lead_commit(st: SimState, acting: torch.Tensor):
+    """(servable bool[G], lead_commit int32[G]) of a read at the acting
+    leader `acting` (bool[P, G]): whether it exists and has committed in
+    its own term, and its commit index."""
+    lead_commit = torch.where(acting, st.commit, 0).sum(0, dtype=I32)
+    lead_ts = torch.where(acting, st.term_start_index, 0).sum(0, dtype=I32)
+    return acting.any(0) & (lead_commit >= lead_ts), lead_commit
+
+
+def read_index(
+    cfg: SimConfig,
+    st: SimState,
+    crashed: torch.Tensor,  # bool[P, G]
+    link: Optional[torch.Tensor] = None,  # bool[P, P, G]
+) -> torch.Tensor:
+    """The batched linearizable ReadIndex barrier, Safe mode (read_only.rs
+    and raft.rs step_leader's MsgReadIndex arm with
+    handle_heartbeat_response's ack quorum): per group, the index a read
+    issued at the acting leader at this round boundary returns, or -1 when
+    it cannot complete: no alive leader, no commit in the leader's own term
+    yet, or no ack quorum (alive members at a term <= the leader's ack the
+    ctx heartbeat; joint configs need both majorities, at least one other
+    member must respond, and a singleton group answers at once).  With
+    `link`, an ack needs the leader -> member link and the member -> leader
+    link.  A pure probe; int32[G]."""
+    is_lead = (st.state == ROLE_LEADER) & ~crashed
+    lead_term = torch.where(is_lead, st.term, -1).amax(0)
+    acting = is_lead & (st.term == lead_term[None, :])
+    servable, lead_commit = _lead_commit(st, acting)
+    member = st.voter_mask | st.outgoing_mask | st.learner_mask
+    n_i = st.voter_mask.sum(0, dtype=I32)
+    n_o = st.outgoing_mask.sum(0, dtype=I32)
+    singleton = (n_i == 1) & (n_o == 0)
+    acker = (~crashed & member & (st.term <= lead_term[None, :])) | acting
+    if link is not None:
+        reach = (link & acting[:, None, :]).any(0)  # leader -> member
+        ret = (link & acting[None, :, :]).any(1)  # member -> leader
+        acker = (acker & reach & ret) | acting
+
+    def half_quorum(mask):
+        n = mask.sum(0, dtype=I32)
+        return ((acker & mask).sum(0, dtype=I32) >= n // 2 + 1) | (n == 0)
+
+    quorum = half_quorum(st.voter_mask) & half_quorum(st.outgoing_mask)
+    # The ack quorum is only evaluated on a response, so a joint config
+    # whose quorum is the leader alone hangs until some other member acks.
+    any_other = (acker & ~acting).any(0)
+    ok = servable & (singleton | (quorum & any_other))
+    return torch.where(ok, lead_commit, -1)
+
+
+def _read_quorum_damped(
+    cfg: SimConfig,
+    st: SimState,
+    crashed: torch.Tensor,  # bool[P, G]
+    link: Optional[torch.Tensor],  # bool[P, P, G]
+) -> torch.Tensor:
+    """The Safe-mode ReadIndex barrier under damping: read_index's, but a
+    ctx heartbeat reaching a higher-term member draws a deposing nudge
+    (check_quorum/pre-vote's low-term arm), and become_follower wipes the
+    pending read, so the read completes only if a quorum of acks lands
+    strictly before the first deposing nudge in the response stream
+    (peer-id order, the harness pump's).  The ack quorum is evaluated per
+    processed ack, which gives the joint self-quorum hang and the
+    one-responder rule.  A pure probe; int32[G] (-1 = not served)."""
+    G, P = cfg.n_groups, cfg.n_peers
+    dev = st.term.device
+    alive = ~crashed
+    member = st.voter_mask | st.outgoing_mask | st.learner_mask
+    is_lead = (st.state == ROLE_LEADER) & alive
+    lead_term = torch.where(is_lead, st.term, -1).amax(0)
+    lead_id = kernels.acting_leader_id(st.state, st.term, crashed)
+    p_id = torch.arange(1, P + 1, dtype=I32, device=dev)[:, None]
+    acting = p_id == lead_id[None, :]
+    servable, lead_commit = _lead_commit(st, acting)
+    n_i = st.voter_mask.sum(0, dtype=I32)
+    n_o = st.outgoing_mask.sum(0, dtype=I32)
+    singleton = (n_i == 1) & (n_o == 0)
+    q_i, q_o = n_i // 2 + 1, n_o // 2 + 1
+    off_diag = ~torch.eye(P, dtype=torch.bool, device=dev)[:, :, None]
+    E = alive[:, None, :] & alive[None, :, :] & off_diag
+    if link is not None:
+        E = E & link
+    reach = (E & acting[:, None, :]).any(0)  # leader -> member
+    ret = (E & acting[None, :, :]).any(1)  # member -> leader
+    resp = member & reach & ret & ~acting  # a delivered response
+    ack_v = resp & (st.term <= lead_term[None, :])
+    ndg_v = resp & (st.term > lead_term[None, :])  # the deposing nudge
+    # The leader's own ack (add_request seeds the acks with itself).
+    cnt_i = (acting & st.voter_mask).sum(0, dtype=I32)
+    cnt_o = (acting & st.outgoing_mask).sum(0, dtype=I32)
+    served = torch.zeros((G,), dtype=torch.bool, device=dev)
+    dead = torch.zeros((G,), dtype=torch.bool, device=dev)
+    # Sequential in peer-id order: a nudge at position v deposes a leader
+    # not yet served, and every later response is ignored.
+    for v in range(P):
+        dead = dead | (ndg_v[v] & ~served)
+        a = ack_v[v] & ~dead
+        cnt_i = cnt_i + (a & st.voter_mask[v]).to(I32)
+        cnt_o = cnt_o + (a & st.outgoing_mask[v]).to(I32)
+        quorum = ((cnt_i >= q_i) | (n_i == 0)) & ((cnt_o >= q_o) | (n_o == 0))
+        served = served | (a & quorum)
+    ok = servable & (singleton | served)
+    return torch.where(ok, lead_commit, -1)
+
+
+def _read_phase(
+    cfg: SimConfig,
+    st: SimState,
+    crashed: torch.Tensor,  # bool[P, G]
+    read_propose: torch.Tensor,  # int32[G]
+    link: Optional[torch.Tensor],  # bool[P, P, G]
+) -> ReadReceipt:
+    """The client-read phase of all three rounds, on the round-entry state:
+    a READ_LEASE request serves locally where the lease gate passes
+    (kernels.lease_read, with cfg.lease_read on), and otherwise degrades to
+    the ReadIndex quorum round that a READ_SAFE request runs (read_index
+    undamped, _read_quorum_damped under damping), link-aware."""
+    want = read_propose > READ_NONE
+    lease_want = read_propose == READ_LEASE
+    _, lease_served, lease_idx = kernels.lease_read(
+        st.state, st.term, st.leader_id, st.election_elapsed, st.commit,
+        st.term_start_index, crashed, cfg.election_tick,
+        cfg.check_quorum and cfg.lease_read, st.transferee,
+        st.recent_active, st.voter_mask, st.outgoing_mask,
+    )
+    serve_l = lease_want & lease_served
+    fallback = want & ~serve_l
+    if cfg.check_quorum or cfg.pre_vote:
+        ri = _read_quorum_damped(cfg, st, crashed, link)
+    else:
+        ri = read_index(cfg, st, crashed, link)
+    index = torch.where(serve_l, lease_idx, torch.where(fallback, ri, -1))
+    return ReadReceipt(index=index, lease=serve_l, degraded=lease_want & ~serve_l)
 
 
 def _extras(cfg, st, out, crashed, facts: _RoundFacts, counters, health):
@@ -1811,7 +1994,8 @@ class ClusterSim:
     fixed-size summary on the same cadence.  Only the [N_COUNTERS] plane
     and the summary cross to the host, never a [., G] plane.  With
     `chaos` (a chaos.ChaosPlan) attached, run_plan() runs the scenario;
-    run_reconfig() runs a membership-change plan."""
+    run_reconfig() runs a membership-change plan and run_reads() a client
+    read/write workload; read_index() and lease_read() probe the state."""
 
     _DRAIN_MAX = 128  # never let a window exceed this many rounds
 
@@ -1840,6 +2024,10 @@ class ClusterSim:
         # and the op-protocol state its last run ended in.
         self._reconfig_runner = None
         self._reconfig_state = None
+        # run_reads' cache: (plan, chaos_plan, reconfig_plan, compiled,
+        # runner, mode), and the outstanding-read carry its last run ended in.
+        self._read_runner = None
+        self._read_carry = None
         self._counters: Optional[torch.Tensor] = None
         self._health: Optional[HealthState] = None
         self.health_monitor = health_monitor
@@ -2116,6 +2304,131 @@ class ClusterSim:
         if self.health_monitor is not None:
             self.health_monitor.record_reconfig(report)
         return report
+
+    def run_reads(
+        self, plan, chaos_plan=None, reconfig_plan=None,
+        split: bool = False, split_k: int = 8,
+    ) -> dict:
+        """Run a client-read workload (workload.ClientPlan, or a
+        CompiledClient on this sim's device) over every round of its
+        schedule, optionally composed with a chaos plan and a reconfig plan
+        of equal length, and return the scenario report
+        (workload.read_report: read counts, the p50/p90/p99 latency in
+        rounds, MTTR and the safety counts, the linearizability slots
+        included), which also goes to the attached monitor's record_reads.
+
+        Requires SimConfig(collect_health=True); lease-mode reads serve
+        locally only under SimConfig(lease_read=True, check_quorum=True) and
+        degrade to the ReadIndex round otherwise.  The state and health
+        planes advance in place; the compiled schedules and the runner are
+        cached while the same plan objects come back.
+
+        `split=True` runs a bare plan through workload.make_split_runner:
+        steady stretches whose reads are pure lease serves run the fused
+        kernel in `split_k`-round blocks (their receipts fold in closed
+        form), the rest the general rounds, with the same result; the
+        report then also holds `fused_rounds`, `total_rounds` (group-rounds)
+        and `fused_frac`.  The five result vectors cross to the host in one
+        copy at the end of the run."""
+        from . import chaos as chaos_mod
+        from . import reconfig as reconfig_mod
+        from . import workload as workload_mod
+
+        health = self._require_health()
+        G = self.cfg.n_groups
+        mode = ("split", split_k) if split else "unsplit"
+        cached = self._read_runner
+        if (
+            cached is None
+            or cached[0] is not plan
+            or cached[1] is not chaos_plan
+            or cached[2] is not reconfig_plan
+            or cached[5] != mode
+        ):
+            if isinstance(plan, workload_mod.CompiledClient):
+                compiled = plan
+            else:
+                compiled = workload_mod.compile_plan(plan, G, self.device)
+            if chaos_plan is None or isinstance(chaos_plan, chaos_mod.CompiledChaos):
+                chaos_compiled = chaos_plan
+            else:
+                chaos_compiled = chaos_mod.compile_plan(chaos_plan, G, self.device)
+            if reconfig_plan is None or isinstance(
+                reconfig_plan, reconfig_mod.CompiledReconfig
+            ):
+                reconfig_compiled = reconfig_plan
+            else:
+                reconfig_compiled = reconfig_mod.compile_plan(
+                    reconfig_plan, G, self.device
+                )
+            if split:
+                runner = workload_mod.make_split_runner(
+                    self.cfg, compiled, k=split_k, chaos_compiled=chaos_compiled,
+                    reconfig_compiled=reconfig_compiled,
+                )
+            else:
+                runner = workload_mod.make_runner(
+                    self.cfg, compiled, chaos_compiled, reconfig_compiled
+                )
+            self._read_runner = (
+                plan, chaos_plan, reconfig_plan, compiled, runner, mode,
+            )
+        else:
+            compiled, runner = cached[3], cached[4]
+        out = runner(
+            self.state, health, reconfig_mod.init_reconfig_state(self.state),
+            workload_mod.init_read_carry(G, self.device),
+        )
+        (self.state, self._health, _, stats, _, safety, self._read_carry,
+         rdstats, lat_hist) = out[:9]
+        vecs = (rdstats, workload_mod.latency_percentiles(lat_hist), safety, stats)
+        flat = torch.cat(vecs).tolist()
+        parts, at = [], 0
+        for v in vecs:
+            parts.append(flat[at:at + v.numel()])
+            at += v.numel()
+        report = workload_mod.read_report(*parts, compiled.n_rounds)
+        if split:
+            total = compiled.n_rounds * G
+            report["fused_rounds"] = out[9]
+            report["total_rounds"] = total
+            report["fused_frac"] = round(out[9] / total, 4)
+        if self.health_monitor is not None:
+            self.health_monitor.record_reads(report)
+        return report
+
+    def read_index(self, crashed=None, link=None) -> torch.Tensor:
+        """The batched linearizable ReadIndex barrier on the current state
+        (see read_index); `link` threads a reachability plane through the
+        ack quorum.  int32[G] on this sim's device."""
+        if crashed is None:
+            crashed = torch.zeros(
+                (self.cfg.n_peers, self.cfg.n_groups), dtype=torch.bool,
+                device=self.device,
+            )
+        return read_index(self.cfg, self.state, crashed, link)
+
+    def lease_read(self, crashed=None) -> torch.Tensor:
+        """The LeaseBased read probe (kernels.lease_read): int32[G], the
+        commit index each group's acting leader would serve locally under
+        the check-quorum lease right now, or -1 where the gate fails (no
+        lease-holding leader, an uncommitted term, or lease reads off:
+        SimConfig(lease_read=True, check_quorum=True) gives a non-trivial
+        answer).  Zero message rounds either way; for the full read path
+        use step(read_propose=) or workload.make_runner."""
+        if crashed is None:
+            crashed = torch.zeros(
+                (self.cfg.n_peers, self.cfg.n_groups), dtype=torch.bool,
+                device=self.device,
+            )
+        cfg, st = self.cfg, self.state
+        _, served, index = kernels.lease_read(
+            st.state, st.term, st.leader_id, st.election_elapsed, st.commit,
+            st.term_start_index, crashed, cfg.election_tick,
+            cfg.check_quorum and cfg.lease_read, st.transferee,
+            st.recent_active, st.voter_mask, st.outgoing_mask,
+        )
+        return torch.where(served, index, -1)
 
     def counters(self) -> dict:
         """The event totals as {name: count}: the device plane drains into

@@ -236,9 +236,16 @@ def test_damped_state_round_trip_and_errors():
     whole = tsim.step(cfg, st, crashed, append)
     gathered = tsim.step(cfg, st, crashed, append, group_ids=torch.arange(4))
     assert all(torch.equal(a, b) for a, b in zip(whole, gathered) if a is not None)
-    for extra in ("campaign_kick", "read_propose"):
-        with pytest.raises(NotImplementedError):
-            tsim.step(cfg, st, crashed, append, **{extra: torch.zeros(4)})
-    for flag in ("transfer", "lease_read", "blackbox"):
+    with pytest.raises(NotImplementedError):
+        tsim.step(cfg, st, crashed, append, campaign_kick=torch.zeros(4))
+    # read_propose is ported: the receipt comes last, the round unchanged.
+    read, receipt = tsim.step(cfg, st, crashed, append,
+                              read_propose=torch.zeros(4, dtype=torch.int32))
+    assert isinstance(receipt, tsim.ReadReceipt) and (receipt.index == -1).all()
+    assert all(torch.equal(a, b) for a, b in zip(whole, read) if a is not None)
+    for flag in ("transfer", "blackbox"):
         with pytest.raises(NotImplementedError):
             tsim.init_state(cfg._replace(**{flag: True}), device="cpu")
+    # lease_read is ported: it builds the same state as check_quorum alone.
+    leased = tsim.init_state(cfg._replace(lease_read=True), device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(st, leased) if a is not None)

@@ -157,14 +157,17 @@ def test_fused_dispatch_rejects_unported_options():
     st = tsim.init_state(cfg, device="cpu")
     crashed = torch.zeros((3, 4), dtype=torch.bool)
     with pytest.raises(NotImplementedError):
-        tfs.steady_mask(cfg, st, crashed, read_pending=torch.zeros(4, dtype=torch.bool))
-    # reconfig_pending is ported: it rejects exactly the pending groups.
+        tfs.steady_mask(cfg._replace(transfer=True), st, crashed)
+    # reconfig_pending and read_pending are ported: each rejects exactly the
+    # pending groups.
     sim = tsim.ClusterSim(cfg, device="cpu")
     sim.run(25, None, torch.ones(4, dtype=torch.int32))
     st = sim.state
     base = tfs.steady_mask(cfg, st, crashed)
     assert base.all()
     pending = torch.tensor([True, False, True, False])
+    assert torch.equal(tfs.steady_mask(cfg, st, crashed, read_pending=pending),
+                       base & ~pending)
     assert torch.equal(tfs.steady_mask(cfg, st, crashed, reconfig_pending=pending),
                        base & ~pending)
     assert torch.equal(tfs.steady_mask(cfg, st, crashed, reconfig_pending=~pending),

@@ -135,13 +135,20 @@ def test_state_planes_stay_int32_or_bool():
     "field", ["transfer", "lease_read", "blackbox"],
 )
 def test_unported_config_flags_raise(field):
+    """The unported flags raise NotImplementedError; lease_read is ported,
+    and without check_quorum the step refuses it as the reference does."""
     cfg = tsim.SimConfig(n_groups=4, n_peers=3, **{field: True})
+    st = tsim.init_state(tsim.SimConfig(n_groups=4, n_peers=3), device="cpu")
+    args = (torch.zeros((3, 4), dtype=torch.bool), torch.zeros(4, dtype=torch.int32))
+    if field == "lease_read":
+        assert tsim.init_state(cfg, device="cpu").recent_active is None
+        with pytest.raises(ValueError, match="check_quorum"):
+            tsim.step(cfg, st, *args)
+        return
     with pytest.raises(NotImplementedError):
         tsim.init_state(cfg, device="cpu")
-    st = tsim.init_state(tsim.SimConfig(n_groups=4, n_peers=3), device="cpu")
     with pytest.raises(NotImplementedError):
-        tsim.step(cfg, st, torch.zeros((3, 4), dtype=torch.bool),
-                  torch.zeros(4, dtype=torch.int32))
+        tsim.step(cfg, st, *args)
 
 
 @pytest.mark.parametrize(
@@ -150,16 +157,18 @@ def test_unported_config_flags_raise(field):
 )
 def test_unported_step_args_raise(arg):
     """Every step extra not ported yet raises, on the plain round and on
-    the link-gated one (`link`, `group_ids` and `reconfig_propose` are
-    ported: each must raise only beside an unported extra, and
-    `reconfig_propose` adds a ReconfigProposal to the result)."""
+    the link-gated one (`link`, `group_ids`, `reconfig_propose` and
+    `read_propose` are ported: each must raise only beside an unported
+    extra, `reconfig_propose` adds a ReconfigProposal to the result and
+    `read_propose` a ReadReceipt)."""
     cfg = tsim.SimConfig(n_groups=4, n_peers=3)
     st = tsim.init_state(cfg, device="cpu")
     args = (cfg, st, torch.zeros((3, 4), dtype=torch.bool), torch.zeros(4, dtype=torch.int32))
     link = torch.ones((3, 3, 4), dtype=torch.bool)
-    if arg in ("link", "group_ids", "reconfig_propose"):
+    if arg in ("link", "group_ids", "reconfig_propose", "read_propose"):
         ported = {"link": link, "group_ids": torch.arange(4),
-                  "reconfig_propose": torch.ones(4, dtype=torch.bool)}[arg]
+                  "reconfig_propose": torch.ones(4, dtype=torch.bool),
+                  "read_propose": torch.ones(4, dtype=torch.int32)}[arg]
         out = tsim.step(*args, **{arg: ported})
         if arg == "reconfig_propose":
             for kw in ({}, {"link": link}):
@@ -167,6 +176,12 @@ def test_unported_step_args_raise(arg):
                 assert isinstance(prop, tsim.ReconfigProposal)
                 for f in prop:  # no leader yet: nothing proposed
                     assert f.dtype == torch.int32 and not f.any()
+        elif arg == "read_propose":
+            for kw in ({}, {"link": link}):
+                _, receipt = tsim.step(*args, read_propose=ported, **kw)
+                assert isinstance(receipt, tsim.ReadReceipt)
+                # No leader yet: every Safe read fails, none degraded.
+                assert (receipt.index == -1).all() and not receipt.degraded.any()
         else:
             assert isinstance(out, tsim.SimState)
         with pytest.raises(NotImplementedError):
