@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Eight paths, all at 100,000 groups × 5 peers.  Three with one append per
+Nine paths, all at 100,000 groups × 5 peers.  Three with one append per
 group per round (bench.py's bench_device), each bare and instrumented
 (bench.py --health: the counter plane and the health planes ride every
 round, and the fused blocks run each kernel's with_health variant):
@@ -23,7 +23,7 @@ round, and the fused blocks run each kernel's with_health variant):
           check-quorum boundary proof) holds, any other block 32 damped
           general steps.
 
-and five more:
+and six more:
 
   chaos     bench.py --chaos examples/chaos/partition_heal.json [--check-
             quorum]: ClusterSim(chaos=plan).run_plan(), the repo's P=5 plan
@@ -55,14 +55,23 @@ and five more:
             under check-quorum, pre-vote and lease reads: blocks of pure
             lease reads on the damped kernel's no-loss with_health instance
             whenever the whole batch is steady and every acting leader holds
-            its lease, the rest on the general step with the read phase.
+            its lease, the rest on the general step with the read phase;
+  autopilot bench.py --autopilot: after a 192-round settle under a Zipf(1.8,
+            max 8) workload, Autopilot(fused=True).run_plan over 320 rounds
+            (192 steady, 32 with peer 2 crashed, 96 healed) in cadence
+            segments of 16: between segments the health summary crosses to
+            the host and the policy kicks leaderless groups and transfers
+            leadership off stalled leaders; a segment with no action and the
+            whole batch steady runs the chaos kernel's with_health instance
+            at k=16, the others the link-gated general step with the
+            transfer pump.
 
 Phases, in order, each with its wall seconds; any failure raises and the
 script exits nonzero.  Every CPU run goes to one of two worker processes
 (spawned at the start) and runs while the card works: those that need
 nothing of the card are queued first, the others as their input exists;
-phases 13 and 16 to 19 wait for theirs, and the checks of phases 4, 7 and
-10 wait until phase 20.  Every parity phase holds both variants of its
+phases 13 and 16 to 20 wait for theirs, and the checks of phases 4, 7 and
+10 wait until phase 21.  Every parity phase holds both variants of its
 kernel, with_health=False and with_health=True (the latter with a random
 ticks_since_commit row), against the plain version on the same cases.
 Phases 4, 7 and 10 run their path on the card bare and instrumented
@@ -184,12 +193,30 @@ printed as bench.py --health-out writes it.
                    settled state, fused_frac and the latency percentiles as
                    measured, the busy share and launches of 4 general rounds
                    of the Safe-read phase) and the kernel against its bound
- 20. references    the held-back checks of phases 4, 7 and 10 against their
+ 20. autopilot     the settle at G on the card; the autopilot run from its
+                   first 8,192 groups, held to the CPU's own procedure at
+                   8,192 (the end state with transferee, the health planes,
+                   the report and the action planes of every cadence); the
+                   run at G with the launch counts zeroed just before it and
+                   read just after, its first 8,192 groups held to a CPU
+                   replay of the settle's first columns through
+                   make_cadence_runner(fused=False) with the card's recorded
+                   actions cut to them; fused=False at G equal on every
+                   output but the fused count; zero safety counts; the chaos
+                   kernel's with_health k=16 instance against its plain
+                   version on the settled state and at the entry of the
+                   first fused heal segment; timed (3 reps after the parity
+                   run: ticks/s, fused_frac, the report's MTTR, re-elections,
+                   commit-stall group-rounds and actions; the busy share and
+                   launches of 4 general rounds of the crash phase) and the
+                   kernel against its bound
+ 21. references    the held-back checks of phases 4, 7 and 10 against their
                    CPU runs
- 21. report        one JSON line of the nine kernel rows (the six variants,
+ 22. report        one JSON line of the ten kernel rows (the six variants,
                    the damped kernel's with_loss instance, its with_loss
-                   with_health instance at k=8 and its no-loss with_health
-                   instance at k=8), then the device line last
+                   with_health instance at k=8, its no-loss with_health
+                   instance at k=8 and the chaos kernel's with_health instance
+                   at k=16), then the device line last
 
 With --quick it runs phases 1 to 3, 6 and 9 only (the builds and every
 kernel against its plain version) and prints no result.  Exits 2 without a
@@ -210,7 +237,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.multiraft import (
-    _build, chaos, fused_step, kernels as pk, reconfig, sim, workload,
+    _build, autopilot, chaos, fused_step, kernels as pk, reconfig, sim, workload,
 )
 from raft_tpu_torch.multiraft.health import HealthMonitor
 from raft_tpu_torch.multiraft.chaos_kernel import (
@@ -265,6 +292,15 @@ READS_TICK, READS_K, READS_SETTLE, READS_REPS = 64, 8, 3 * 64, 3
 READS_SMALL_G, READS_PROFILE_ROUNDS = 8192, 4
 # The first rounds of the plan's first lease phase and of its Safe-read phase.
 READS_LEASE_AT, READS_SAFE_AT = 64, 160
+# bench_autopilot: election_tick 64, a 3 x 64-round settle, cadence 16, and its
+# inline plan: 192 rounds steady, 32 with peer 2 crashed, 96 healed.
+AUTO_TICK, AUTO_CADENCE, AUTO_SETTLE, AUTO_REPS = 64, 16, 3 * 64, 3
+AUTO_SMALL_G, AUTO_PROFILE_ROUNDS = 8192, 4
+AUTO_DOC = {"name": "autopilot-bench", "peers": 5, "phases": [
+    {"rounds": 192, "append": 0},
+    {"rounds": 32, "crash": [2], "append": 0},
+    {"rounds": 96, "heal": True, "append": 0}]}
+AUTO_ROUNDS, AUTO_CRASH_AT, AUTO_HEAL_AT = 320, 192, 224
 STORM_EVERY = 100  # the acting leader crashed in 1% of groups
 # The composed path's parity blocks from the aligned state: no boundary in
 # the first horizon, every boundary in the second, then 1% of leaders down.
@@ -2512,6 +2548,290 @@ def phase_reads(dev, cpu_ref):
     return launches, err, t
 
 
+# --- leader transfer and the autopilot (bench.py --autopilot) ------------------
+
+
+def auto_cfg(n_groups):
+    """bench_autopilot's config: election_tick 64, health, leader transfer
+    and a commit-stall threshold of 8 rounds."""
+    return sim.SimConfig(n_groups=n_groups, n_peers=P, election_tick=AUTO_TICK,
+                         collect_health=True, transfer=True, commit_stall_ticks=8)
+
+
+def auto_append(n_groups, device):
+    """bench_autopilot's workload: min(Zipf(1.8), 8) appends a group a round,
+    from RandomState(0) (a draw of n values is the first n of a wider one)."""
+    rng = np.random.RandomState(0)
+    plane = np.minimum(rng.zipf(1.8, size=n_groups), 8).astype(np.int32)
+    return torch.from_numpy(plane).to(device)
+
+
+def auto_settle(device, n_groups):
+    """bench_autopilot's settle: init_state, then AUTO_SETTLE plain steps with
+    the workload plane (the transfer pump runs every round)."""
+    cfg = auto_cfg(n_groups)
+    st = sim.init_state(cfg, device=device)
+    crashed = torch.zeros((P, n_groups), dtype=torch.bool, device=device)
+    append = auto_append(n_groups, device)
+    for _ in range(AUTO_SETTLE):
+        st = sim.step(cfg, st, crashed, append)
+    return st
+
+
+def auto_run(start, fused=True, segments=None):
+    """One Autopilot.run_plan over bench_autopilot's plan from `start` with a
+    fresh sim, health planes and Autopilot (its policy state starts empty),
+    as a timed rep of the bench does.  The action planes of every cadence
+    are recorded by wrapping the instance's _decide; with `segments` (a
+    list), each segment's (first round, fused group-rounds, entry state,
+    entry health) is appended to it for the segments from the heal phase
+    on.  Returns (report, sim, [(round, transfer, kick)])."""
+    n_groups, dev = start.term.shape[1], start.term.device
+    cfg = auto_cfg(n_groups)
+    s = sim.ClusterSim(cfg, device=dev)
+    s.state = start
+    ap = autopilot.Autopilot(s, autopilot.AutopilotConfig(cadence=AUTO_CADENCE), fused=fused)
+    planes = []
+    decide = ap._decide
+
+    def recorded(summary, round_idx):
+        transfer, kick, inspected = decide(summary, round_idx)
+        planes.append((round_idx, transfer.copy(), kick.copy()))
+        return transfer, kick, inspected
+
+    ap._decide = recorded
+    if segments is not None:
+        runner_for = ap._runner_for
+
+        def watched(compiled, cc, rounds):
+            run = runner_for(compiled, cc, rounds)
+
+            def seg(*args):
+                out = run(*args)
+                if args[7] >= AUTO_HEAL_AT:
+                    segments.append((args[7], out[7], args[0], args[1]))
+                return out
+            return seg
+
+        ap._runner_for = watched
+    report = ap.run_plan(chaos.plan_from_dict(AUTO_DOC), append=auto_append(n_groups, dev))
+    return report, s, planes
+
+
+def auto_result(report, s, planes):
+    """A run as host values: the report, the state arrays, the health planes
+    and window_pos, and the action planes of every cadence."""
+    return dict(report=report, state=sim.state_to_numpy(s.state),
+                planes=s._health.planes.cpu().numpy(), window_pos=s._health.window_pos,
+                actions=planes)
+
+
+def same_auto(a, b, note, n=None, fused=True):
+    """Two auto_result dicts: every state field, the health planes and
+    window_pos (of a's first n groups when n is given); without n also the
+    report (without its fused keys unless `fused`) and the action planes."""
+    cut = (lambda v: v) if n is None else (lambda v: v[..., :n])
+    for f in sim.SimState._fields:
+        x, y = a["state"].get(f), b["state"].get(f)
+        if (x is None) != (y is None) or (x is not None and not np.array_equal(cut(x), y)):
+            raise AssertionError(f"{note}: state field {f} differs")
+    if not np.array_equal(cut(a["planes"]), b["planes"]) or a["window_pos"] != b["window_pos"]:
+        raise AssertionError(f"{note}: health planes or window_pos differ")
+    if n is not None:
+        return
+    drop = () if fused else ("fused_rounds", "total_rounds", "fused_frac")
+    ra, rb = ({k: v for k, v in r.items() if k not in drop} for r in (a["report"], b["report"]))
+    if ra != rb:
+        raise AssertionError(f"{note}: reports differ: {ra} != {rb}")
+    if len(a["actions"]) != len(b["actions"]) or any(
+            x[0] != y[0] or not np.array_equal(x[1], y[1]) or not np.array_equal(x[2], y[2])
+            for x, y in zip(a["actions"], b["actions"])):
+        raise AssertionError(f"{note}: the action planes differ")
+
+
+def cpu_autopilot():
+    """In a reference worker: bench.py --autopilot's procedure on the CPU at
+    AUTO_SMALL_G (its own settle, then the fused run): (result, seconds)."""
+    worker_threads()
+    t0 = time.perf_counter()
+    out = auto_result(*auto_run(auto_settle("cpu", AUTO_SMALL_G)))
+    return out, time.perf_counter() - t0
+
+
+def cpu_autopilot_replay(arrays, actions):
+    """In a reference worker: the plan from the given settled planes (the 100k
+    settle's first AUTO_SMALL_G columns) through make_cadence_runner
+    (fused=False), segment by segment, each segment carrying the recorded
+    action planes cut to these columns: (state arrays, health planes,
+    window_pos, safety, seconds)."""
+    worker_threads()
+    t0 = time.perf_counter()
+    n = AUTO_SMALL_G
+    cfg = auto_cfg(n)
+    st = sim.state_from_numpy(arrays, "cpu")
+    cc = chaos.compile_plan(chaos.plan_from_dict(AUTO_DOC), n, "cpu")
+    compiled = autopilot.empty_reconfig_schedule(cc.n_rounds, P, n, "cpu")
+    compiled = compiled._replace(append=compiled.append + auto_append(n, "cpu")[None, :])
+    run = autopilot.make_cadence_runner(cfg, compiled, cc, AUTO_CADENCE)
+    carry = (st, sim.init_health(cfg, "cpu"), reconfig.init_reconfig_state(st),
+             *reconfig._zero_accumulators("cpu"), torch.zeros((), dtype=torch.int32))
+    by_round = {r: (t, k) for r, t, k in actions}
+    for r0 in range(0, cc.n_rounds, AUTO_CADENCE):
+        transfer, kick = by_round.get(r0, (np.zeros(n, np.int32), np.zeros((P, n), bool)))
+        carry = run(*carry, r0, torch.from_numpy(np.ascontiguousarray(transfer)),
+                    torch.from_numpy(np.ascontiguousarray(kick)))[:7]
+    st, hl = carry[0], carry[1]
+    return (sim.state_to_numpy(st), hl.planes.numpy(), hl.window_pos, carry[5].tolist(),
+            time.perf_counter() - t0)
+
+
+@phase("autopilot")
+def phase_autopilot(dev, cpu_ref, pool):
+    """bench.py --autopilot: the 192-round settle at G on the card; the run
+    (fused cadence segments, k=16) from its first AUTO_SMALL_G groups, held to
+    the CPU's own procedure at that width (`cpu_ref`, a reference worker's
+    future of cpu_autopilot()): the end state, the health planes, the report
+    and the action planes of every cadence; then the run at G with the
+    launch counts zeroed just before it and read just after, its first
+    AUTO_SMALL_G groups held to a CPU replay of the settle's first columns
+    through make_cadence_runner(fused=False) with the card's recorded
+    actions cut to them; fused=False at G equal on every output but the
+    fused count; zero safety counts.  Then the chaos kernel's with_health
+    k=16 instance against its plain version on the settled state and on the
+    entry of the first fused segment of the heal phase, the timing
+    (AUTO_REPS reps from the settled state after the parity run), the busy
+    share and launches of 4 general rounds of the crash phase, and the
+    kernel against its bound.  Returns (launches, parity error, timing)."""
+    t0 = time.perf_counter()
+    settled = auto_settle(dev, G)
+    sync()
+    t_settle = time.perf_counter() - t0
+    start_s = sim.SimState(*(
+        None if v is None else v[..., :AUTO_SMALL_G].contiguous() for v in settled))
+    small = auto_result(*auto_run(start_s))
+    segments = []
+    zero_launches()
+    t0 = time.perf_counter()
+    report, s, planes = auto_run(settled, segments=segments)
+    sync()
+    first_s = time.perf_counter() - t0
+    counts = launch_counts()
+    launches = counts["chaos_rounds"][1]
+    if any(counts[k.__name__] != (0, 0) for k in (steady_rounds, damped_rounds)) \
+            or counts["chaos_rounds"][0]:
+        raise AssertionError(f"autopilot: unexpected launches {counts}")
+    if report["fused_rounds"] != launches * AUTO_CADENCE * G:
+        raise AssertionError(f"autopilot: fused {report['fused_rounds']} for {launches} "
+                             "launches")
+    if launches < 1:
+        raise AssertionError("autopilot: no segment ran the fused kernel")
+    if any(report["safety"].values()):
+        raise AssertionError(f"autopilot G={G}: safety violations {report['safety']}")
+    check_state(s.state)
+    full = auto_result(report, s, planes)
+    replay = pool.submit(cpu_autopilot_replay, {
+        f: v[..., :AUTO_SMALL_G] for f, v in sim.state_to_numpy(settled).items()},
+        [(r, t[:AUTO_SMALL_G], k[:, :AUTO_SMALL_G]) for r, t, k in planes])
+    t0 = time.perf_counter()
+    general = auto_result(*auto_run(settled, fused=False))
+    t_general = time.perf_counter() - t0
+    same_auto(full, general, f"autopilot G={G}: fused against general", fused=False)
+    # The k=16 instance against its plain version: the settled state and the
+    # entry of the first fused segment of the heal phase.
+    cc = chaos.compile_plan(chaos.plan_from_dict(AUTO_DOC), G, dev)
+    # (The kernel equals its plain version on any operands; a heal phase that
+    # fused nothing falls back to its first segment's entry.)
+    heal = [sg for sg in segments if sg[1]] or segments
+    r_heal, heal_fused, st_heal, hl_heal = heal[0]
+    append = auto_append(G, dev)
+    err = 0
+    for st, tsc, rb, note in ((settled, random_tsc(G, 8, dev), 0, "settled"),
+                              (st_heal, hl_heal.planes[pk.HP_SINCE_COMMIT], r_heal,
+                               f"entry of the heal segment at round {r_heal} "
+                               f"(fused: {bool(heal_fused)})")):
+        _, loss, crashed, _ = chaos.schedule_planes(cc, rb)
+        kw = dict(round_base=rb, rounds=AUTO_CADENCE, election_tick=AUTO_TICK,
+                  heartbeat_tick=1)
+        err = max(err, compare(chaos_rounds, chaos_rounds_reference, CHAOS_OUTPUTS,
+                               fused_step.chaos_operands(st, crashed, append, loss),
+                               kw, f"autopilot {note}", tsc))
+    del segments, heal, st_heal, hl_heal
+    print(f"parity autopilot chaos with_health k={AUTO_CADENCE}: exact on the settled "
+          f"state and at the entry of the heal segment from round {r_heal} (fused: "
+          f"{bool(heal_fused)}) at G={G}, an all-zero loss plane")
+    samples = [G * AUTO_ROUNDS / first_s]
+    fused_total = report["fused_rounds"]
+    for _ in range(AUTO_REPS):
+        sync()
+        t0 = time.perf_counter()
+        rep, _, _ = auto_run(settled)
+        sync()
+        samples.append(G * AUTO_ROUNDS / (time.perf_counter() - t0))
+        fused_total += rep["fused_rounds"]
+    fused_frac = fused_total / (G * AUTO_ROUNDS * (AUTO_REPS + 1))
+    # 4 general rounds of the crash phase.
+    compiled = autopilot.empty_reconfig_schedule(cc.n_rounds, P, G, dev)
+    compiled = compiled._replace(append=compiled.append + append[None, :])
+    cfg = auto_cfg(G)
+    head = autopilot.make_cadence_runner(cfg, compiled, cc, AUTO_PROFILE_ROUNDS)
+    no_t = torch.zeros(G, dtype=torch.int32, device=dev)
+    no_k = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    carry = (settled, sim.init_health(cfg, dev), reconfig.init_reconfig_state(settled),
+             *reconfig._zero_accumulators(dev), torch.zeros((), dtype=torch.int32, device=dev))
+    prof = device_profile(lambda: head(*carry, AUTO_CRASH_AT, no_t, no_k))
+    n_launch = sum(r["count"] for r in prof["kernels"])
+    _, loss, crashed, _ = chaos.schedule_planes(cc, 0)
+    args = fused_step.chaos_operands(settled, crashed, append, loss, random_tsc(G, 8, dev))
+    kw = dict(round_base=0, rounds=AUTO_CADENCE, election_tick=AUTO_TICK, heartbeat_tick=1)
+    t = kernel_times(dev, chaos_rounds, chaos_rounds_reference, args, kw,
+                     chaos_work(P, G, AUTO_CADENCE, with_health=True))
+    cpu_small, t_cpu = cpu_ref.result()
+    same_auto(small, cpu_small, f"autopilot G={AUTO_SMALL_G}")
+    t_wait = time.perf_counter()
+    st_r, planes_r, pos_r, safety_r, t_replay = replay.result()
+    t_wait = time.perf_counter() - t_wait
+    same_auto(full, dict(state=st_r, planes=planes_r, window_pos=pos_r),
+              f"autopilot: the first {AUTO_SMALL_G} of {G} groups against the CPU replay",
+              n=AUTO_SMALL_G)
+    if any(safety_r):
+        raise AssertionError(f"autopilot replay: safety violations {safety_r}")
+    med = statistics.median(samples)
+    acted = sum(1 for _, tr, k in planes if tr.any() or k.any())
+    print(f"autopilot {G}x{P} (bench.py --autopilot's plan: {AUTO_ROUNDS} rounds, "
+          f"{AUTO_ROUNDS // AUTO_CADENCE} cadence segments of {AUTO_CADENCE}, after a "
+          f"{AUTO_SETTLE}-round settle): card == CPU at {AUTO_SMALL_G}x{P} (every field, the "
+          f"health planes, the report, the action planes of every cadence; actions "
+          f"{small['report']['actions']}, fused {small['report']['fused_rounds']}); at "
+          f"{G}x{P} safety all 0, the first {AUTO_SMALL_G} groups == the CPU replay of the "
+          f"recorded actions, fused == general on every output but the fused count; "
+          f"chaos kernel (with_health, k={AUTO_CADENCE}) launches {launches}; {acted} of "
+          f"{len(planes)} boundaries acted; card {t_settle:.2f}s settle + {first_s:.2f}s "
+          f"run + {t_general:.2f}s general run, CPU {t_cpu:.2f}s and replay "
+          f"{t_replay:.2f}s (in reference workers; waited {t_wait:.1f}s)")
+    print(f"  report at G={G}: {json.dumps(report)}")
+    t.update(ticks_per_s=samples, ticks_per_s_median=med, fused_frac=fused_frac,
+             profile=prof, report=report,
+             launches_per_general_round=n_launch / AUTO_PROFILE_ROUNDS)
+    print(f"timing autopilot {G}x{P} k={AUTO_CADENCE} [{t['card']}]: ticks/s median "
+          f"{med:.1f} (min {min(samples):.1f}, max {max(samples):.1f}, {len(samples)} "
+          f"runs from the settled state, the parity run first), fused_frac "
+          f"{fused_frac:.4f}; mttr_rounds {report['mttr_rounds']}, reelections "
+          f"{report['reelections']}, commit_stall_group_rounds "
+          f"{report['commit_stall_group_rounds']}, actions {report['actions']}; "
+          f"chaos_round_kernel (with_health) {t['ms']:.4f} ms cold ({t['hot_ms']:.4f} ms "
+          f"hot; a wrapper call {t['call_ms']:.4f} ms), plain version {t['plain_ms']:.3f} "
+          f"ms; bound {t['bound_ms']:.4f} ms (bytes {t['bytes_bound_ms']:.4f}, operations "
+          f"{t['ops_bound_ms']:.4f})")
+    print(f"profile of {AUTO_PROFILE_ROUNDS} general rounds of the crash phase (rounds "
+          f"{AUTO_CRASH_AT}-{AUTO_CRASH_AT + AUTO_PROFILE_ROUNDS - 1}) [{t['card']}]: device "
+          f"busy {prof['busy_us']:.1f} of {prof['wall_us']:.1f} us "
+          f"({100 * prof['busy_share']:.1f}%), {n_launch} kernel launches, "
+          f"{n_launch / AUTO_PROFILE_ROUNDS:.0f} a round")
+    for row in prof["kernels"][:8]:
+        print(f"  {row['us']:10.1f} us {row['count']:6d}x  {row['name']}")
+    return launches, err, t
+
+
 @phase("references")
 def phase_references(checks):
     """The deferred checks of the steady, lossy and check-quorum phases:
@@ -2574,6 +2894,7 @@ def main(argv=None):
         cpu_reconfig_runs = pool.submit(cpu_reconfig)
         cpu_prod_run = pool.submit(cpu_prod)
         cpu_reads_run = pool.submit(cpu_reads)
+        cpu_auto_run = pool.submit(cpu_autopilot)
         lossy_small = pool.submit(cpu_lossy_small)
         damped_small = pool.submit(cpu_health_path, dict(
             cfg=damped_cfg(CQ_SMALL_G), blocks=CQ_SMALL_BLOCKS, settle=CQ_SETTLE))
@@ -2603,6 +2924,7 @@ def main(argv=None):
         reconfig_out = phase_reconfig(dev, cpu_reconfig_runs)
         prod_launches, prod_err, prod = phase_prod_fused(dev, cpu_prod_run)
         reads_launches, reads_err, reads = phase_reads(dev, cpu_reads_run)
+        auto_launches, auto_err, auto = phase_autopilot(dev, cpu_auto_run, pool)
         phase_references(checks)
 
     rows = (
@@ -2627,7 +2949,10 @@ def main(argv=None):
         prod_launches, prod_err, prod), kernel_entry(
         f"damped_rounds with_loss=False with_health=True k={READS_K}", DAMPED_SOURCE,
         f"{DAMPED_REPLACES} (with_loss=False, with_health=True, k={READS_K})",
-        reads_launches, reads_err, reads)]}
+        reads_launches, reads_err, reads), kernel_entry(
+        f"chaos_rounds with_health=True k={AUTO_CADENCE}", CHAOS_SOURCE,
+        f"{CHAOS_REPLACES} (with_health=True, k={AUTO_CADENCE})",
+        auto_launches, auto_err, auto)]}
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w", encoding="utf-8") as fh:
@@ -2636,7 +2961,7 @@ def main(argv=None):
                 "steady_health": steady_h, "damped_health": damped_h,
                 "lossy_health_kernel": lossy_h, "chaos_scenario": scenario,
                 "composed": composed, "reconfig": reconfig_out, "prod_fused": prod,
-                "reads": reads},
+                "reads": reads, "autopilot": auto},
                 "composed_branches": composed_branches,
                 "steady_hybrid_fused": steady_hybrid_fused}, fh, indent=1,
                 default=str)

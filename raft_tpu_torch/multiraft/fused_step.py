@@ -3,8 +3,8 @@ when the steady invariant provably holds for all of them, else k general
 steps.  Both branches give the same state, bit for bit.
 
 Counterpart of `raft_tpu/multiraft/pallas_step.py`: `steady_mask`
-(:1355-1554, the plain, the link, the damped, the reconfig and the read
-arm), `steady_predicate` (:1557), `steady_round` with its host wrapper
+(:1355-1554, the plain, the link, the damped, the transferee, the
+reconfig and the read arm), `steady_predicate` (:1557), `steady_round` with its host wrapper
 `_run` (:549-749), `steady_round(with_chaos=True)` with its host wrapper
 `_build_chaos_round._run` (:806-886) as `chaos_round` here, the damped
 configs' `_build_damped_round._run` (:1240-1352, plain and with chaos) as
@@ -64,7 +64,8 @@ def steady_mask(
 ) -> torch.Tensor:
     """bool[G]: per-group steady invariant for the next `horizon` rounds —
     no election timer can fire, exactly one alive leader, every alive peer
-    already at the leader's term, not in joint config, with
+    already at the leader's term, not in joint config, no leader transfer
+    pending anywhere in the group (with a transferee plane), with
     `reconfig_pending` (bool[G], reconfig.pending_in_horizon) no conf
     change in flight or due inside the horizon, and with `read_pending`
     (bool[G], workload.reads_pending_in_horizon) no quorum-round read work
@@ -113,6 +114,12 @@ def steady_mask(
     # 4. not joint
     not_joint = ~st.outgoing_mask.any(0)
     ok = no_campaign & one_leader & terms_ok & not_joint
+    if st.transferee is not None:
+        # 4a. no pending leader transfer: the fused kernel can neither pump
+        # the catch-up / MsgTimeoutNow protocol nor drop proposals behind
+        # it.  The plane rides through a fused block untouched (it is
+        # provably all-zero there).
+        ok = ok & ~(st.transferee > 0).any(0)
     if reconfig_pending is not None:
         # 4b. no conf change is in flight or due inside the horizon.
         ok = ok & ~reconfig_pending

@@ -1,11 +1,11 @@
 """HealthMonitor: the host-side consumer of fleet-health summaries.
 
-Counterpart of `raft_tpu/multiraft/health.py` (:35-272, :299-345,
-:387-399): the summary formatter, `record`, the chaos scenario report
-`chaos_report` and `record_scenario`, the reconfig scenario report
-`reconfig_stall_groups`, `reconfig_report` and `record_reconfig`, the
-client-read report's `record_reads`, `last`, `summary_ring` and
-`__len__`.  The device planes (kernels.HP_* rows, maintained by sim.step)
+Counterpart of `raft_tpu/multiraft/health.py` (:35-345, :387-399): the
+summary formatter, `record`, the chaos scenario report `chaos_report` and
+`record_scenario`, the reconfig scenario report `reconfig_stall_groups`,
+`reconfig_report` and `record_reconfig`, the autopilot report's
+`record_autopilot`, the client-read report's `record_reads`, `last`,
+`summary_ring` and `__len__`.  The device planes (kernels.HP_* rows, maintained by sim.step)
 reduce on their device to one fixed-size summary dict::
 
     {"counts": {"leaderless": n, "stalled_leaderless": n,
@@ -144,6 +144,31 @@ class HealthMonitor:
                 name: int(v) for name, v in zip(SAFETY_NAMES, safety)
             },
         }
+
+    def record_autopilot(self, report: dict) -> dict:
+        """Fold an autopilot run report (autopilot.Autopilot.run_plan's
+        shape: chaos_report plus commit_stall_group_rounds, end_counts and
+        actions) into the ring and the trace; a nonzero safety count raises
+        an `autopilot.safety` event, so a healing run can be audited from
+        the trace alone."""
+        with self._lock:
+            entry = {"seq": self._seq, "ts": time.time(), "autopilot": report}
+            self._seq += 1
+            self._summary_ring.append(entry)
+        m = self.metrics
+        if m is not None:
+            m.trace(
+                "autopilot.scenario",
+                rounds=report.get("rounds", 0),
+                mttr_rounds=report.get("mttr_rounds"),
+                commit_stall_group_rounds=report.get(
+                    "commit_stall_group_rounds", 0
+                ),
+                actions=report.get("actions", {}),
+            )
+            if any(report.get("safety", {}).values()):
+                m.trace("autopilot.safety", **report["safety"])
+        return entry
 
     def record_reads(self, report: dict) -> dict:
         """Fold a client-read workload report (workload.read_report's

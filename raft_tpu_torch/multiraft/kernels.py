@@ -12,7 +12,8 @@ Counterparts (reference file `raft_tpu/multiraft/kernels.py`):
   pack_bits_g, unpack_bits_g  :435-470
   SV_*, N_SAFETY, SAFETY_NAMES, check_safety  :471-807
   lease_read           :500-604
-  apply_confchange     :949-1070 (without the transferee arm)
+  apply_confchange     :949-1070
+  apply_transfer       :1071-1127
   acting_leader_id     :1128
   check_quorum_active  :1147
   cq_boundary_safe     :1178
@@ -523,14 +524,14 @@ def apply_confchange(
     outgoing half gives INF), gated on its term start as
     raft_log.maybe_commit is.
 
+    `transferee` (the lead_transferee plane of SimConfig(transfer=True))
+    gets post_conf_change's abort (raft.rs:1356): a pending transfer whose
+    target leaves the joint voter set, or whose owner the change steps
+    down, is abandoned.
+
     Returns (state', leader_id', commit', matched', voter', outgoing',
-    learner', recent_active', transferee'); recent_active passes through as
-    None when absent.  The transferee plane (leader transfer) is not ported:
-    it must be None, and None comes back."""
-    if transferee is not None:
-        raise NotImplementedError(
-            "raft_tpu_torch does not implement the transferee plane yet"
-        )
+    learner', recent_active', transferee'); recent_active and transferee
+    pass through as None when absent."""
     ap = apply_mask[None, :]  # [1, G]
     vm = torch.where(ap, new_voter, voter_mask)
     om = torch.where(ap, new_outgoing, outgoing_mask)
@@ -557,7 +558,58 @@ def apply_confchange(
         ap & (state2 == ROLE_LEADER) & (mci >= term_start_index) & (mci < INF)
     )
     commit2 = torch.where(pickup, torch.maximum(commit, mci), commit)
-    return state2, leader2, commit2, matched2, vm, om, lm, ra, None
+    tr = None
+    if transferee is not None:
+        # The pending target must stay in the joint voter set, and the
+        # owner must survive the change as leader.
+        P = transferee.shape[0]
+        idx = torch.clamp(transferee - 1, 0, P - 1).to(torch.int64)
+        tgt_in = torch.gather(vm | om, 0, idx)
+        tr = torch.where(
+            ap & (((transferee > 0) & ~tgt_in) | step_down), 0, transferee
+        )
+    return state2, leader2, commit2, matched2, vm, om, lm, ra, tr
+
+
+def apply_transfer(
+    transferee: torch.Tensor,  # int32[P, G]
+    election_elapsed: torch.Tensor,  # int32[P, G]
+    acting_leader: torch.Tensor,  # bool[P, G]
+    propose: torch.Tensor,  # int32[G]
+    member_mask: torch.Tensor,  # bool[P, G]
+    learner_mask: torch.Tensor,  # bool[P, G]
+):
+    """The batched MsgTransferLeader step at each group's acting leader
+    (raft.rs:1821-1889 handle_transfer_leader).  propose[g] is the round's
+    command: the 1-based target (0 = none).  The target must be a member,
+    not a learner and not the leader itself.  A pending transfer to the
+    same target is left as it is; a command to another target aborts it
+    and takes its place, and a command naming the leader itself aborts it
+    before the self check refuses the command (the abort comes first in
+    the reference).  An accepted command records the target in the
+    leader's slot and resets its election_elapsed (the transfer clock,
+    whose expiry aborts the transfer at tick time).  What the command
+    queues (the catch-up append or MsgTimeoutNow) is sim._transfer_phase's
+    pump.
+
+    Returns (transferee', election_elapsed', accepted bool[G]), accepted
+    marking the groups whose command was newly recorded."""
+    P = transferee.shape[0]
+    tgt = torch.clamp(propose - 1, 0, P - 1).to(torch.int64)[None, :]  # [1, G]
+    tgt_member = torch.gather(member_mask, 0, tgt)[0]
+    tgt_learner = torch.gather(learner_mask, 0, tgt)[0]
+    # The acting leader's peer id and current lead_transferee, per group.
+    p_id = torch.arange(P, dtype=I32, device=transferee.device)[:, None] + 1
+    lead_id = torch.where(acting_leader, p_id, 0).sum(0, dtype=I32)  # [G]
+    cur = torch.where(acting_leader, transferee, 0).sum(0, dtype=I32)  # [G]
+    checked = (propose > 0) & (lead_id > 0) & tgt_member & ~tgt_learner
+    accepted = checked & (propose != lead_id) & (propose != cur)
+    self_abort = checked & (propose == lead_id) & (cur > 0)
+    set_here = acting_leader & accepted[None, :]
+    transferee2 = torch.where(acting_leader & self_abort[None, :], 0, transferee)
+    transferee2 = torch.where(set_here, propose[None, :], transferee2)
+    ee2 = torch.where(set_here, 0, election_elapsed)
+    return transferee2, ee2, accepted
 
 
 def timeout_draw(

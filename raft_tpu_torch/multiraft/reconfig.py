@@ -3,7 +3,7 @@ per-group schedules on the device, and the runners that drive a whole plan
 through the batched step.
 
 Counterpart of `raft_tpu/multiraft/reconfig.py` (all of it but the
-autopilot `actions` of `_runner_body`) and of the two runners built for it
+black box) and of the two runners built for it
 in `raft_tpu/multiraft/runner.py`: `_make_reconfig` (:208-290) as
 :func:`make_runner` and `_make_reconfig_split` (:292-491) as
 :func:`make_split_runner`, both the blackbox=False arm.
@@ -798,17 +798,20 @@ def _runner_body(
     outstanding is dropped), retries outstanding reads through
     `sim.step(read_propose=)`, folds each served read's latency in rounds
     into the histogram, and runs check_safety's linearizability slots on
-    the round-entry lease-holder mask beside the joint-window audit.  The
-    autopilot actions and the black box are not ported: `actions` must be
-    None, and SimConfig(blackbox=True) raises."""
-    if actions is not None:
-        raise NotImplementedError(
-            "raft_tpu_torch does not implement the autopilot actions of the "
-            "reconfig runner yet"
-        )
+    the round-entry lease-holder mask beside the joint-window audit.
+
+    `actions` (the autopilot's actuation) is an (action_round, transfer
+    int32[G], kick bool[P, G]) triple: at the round whose absolute index
+    is action_round the transfer commands and campaign kicks go to
+    sim.step, and every other round passes all-zero planes.  The black box
+    is not ported: SimConfig(blackbox=True) raises."""
     sim_mod.check_supported(cfg)
     P, G = cfg.n_peers, cfg.n_groups
-    no_crash = torch.zeros((P, G), dtype=torch.bool, device=sched.append.device)
+    dev = sched.append.device
+    no_crash = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    if actions is not None:
+        act_round, act_transfer, act_kick = actions
+        no_transfer = torch.zeros((G,), dtype=I32, device=dev)
 
     def body(carry, r: int):
         if client is not None:
@@ -824,6 +827,11 @@ def _runner_body(
             append = append + capp
         else:
             link, crashed = None, no_crash
+        transfer_propose = campaign_kick = None
+        if actions is not None:
+            fire = r == act_round
+            transfer_propose = act_transfer if fire else no_transfer
+            campaign_kick = act_kick if fire else no_crash
         read_propose = lease_holder = lease_fire = None
         if client is not None:
             # The round's client traffic: the phase's append skew and the
@@ -856,6 +864,7 @@ def _runner_body(
         out = sim_mod.step(
             cfg, st, crashed, append + want_prop.to(I32),
             counters=ctrs, health=hl, link=link, reconfig_propose=want_prop,
+            transfer_propose=transfer_propose, campaign_kick=campaign_kick,
             read_propose=read_propose,
         )
         if client is not None:
@@ -903,7 +912,7 @@ def _runner_body(
         )
         # The gated swap: the target masks of the op being applied.
         (
-            state3, leader3, commit3, matched3, vm3, om3, lm3, ra3, _,
+            state3, leader3, commit3, matched3, vm3, om3, lm3, ra3, tr3,
         ) = kernels.apply_confchange(
             st2.state, st2.leader_id, st2.commit, st2.term_start_index,
             st2.matched, st2.voter_mask, st2.outgoing_mask,
@@ -915,11 +924,12 @@ def _runner_body(
             _gather_op(sched.removed, rst.op_ptr),
             apply_mask,
             st2.recent_active,
+            st2.transferee,
         )
         st3 = st2._replace(
             state=state3, leader_id=leader3, commit=commit3,
             matched=matched3, voter_mask=vm3, outgoing_mask=om3,
-            learner_mask=lm3, recent_active=ra3,
+            learner_mask=lm3, recent_active=ra3, transferee=tr3,
         )
         stats = chaos_mod.update_chaos_stats(
             stats, prev_leaderless, hl2.planes[HP_LEADERLESS]

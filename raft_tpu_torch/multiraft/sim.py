@@ -20,7 +20,10 @@ the Safe-mode barrier `read_index`, :3573), and `ClusterSim` with
 (:4299-4505, without the mesh placement), the client-read workload
 `run_reads` (:4506-4638, without the mesh placement and the black box),
 the counter and health accessors (:4639-4745) and the read probes
-`read_index` and `lease_read` (:4822-4860).  Each round is the reference's round exactly,
+`read_index` and `lease_read` (:4822-4860).  Leader transfer
+(SimConfig(transfer=True)) adds the `transferee` plane and the pre-tick
+pump `_transfer_phase` (:651-1067) behind `step(transfer_propose=,
+campaign_kick=)` on all three rounds.  Each round is the reference's round exactly,
 plane by plane: tick, campaign, election resolution (vote grants, joint
 tallies, commit fast-forward via vote traffic), the solo
 crashed-campaigner win, then replication and quorum commit; the linked and
@@ -28,9 +31,8 @@ damped rounds replay the same protocol wave by wave over the directed
 delivery plane.
 
 Options that this port does not implement yet raise NotImplementedError
-instead of being ignored: the SimConfig flags `transfer` and `blackbox`,
-and the step arguments `transfer_propose`, `campaign_kick` and
-`blackbox`.
+instead of being ignored: the SimConfig flag `blackbox` and the step
+argument `blackbox`.
 
 The reference gates the election phase behind `lax.cond(any(req))`.
 Here that is a host-side `if`, one device sync per general round; with
@@ -66,8 +68,9 @@ class SimConfig(NamedTuple):
     """Static per-sim configuration; same fields, order and defaults as the
     reference's SimConfig.  The undamped and damped (`check_quorum`,
     `pre_vote`) rounds are implemented, with the counters and health
-    instrumentation and lease reads (`lease_read`, which needs
-    `check_quorum`): see `check_supported`."""
+    instrumentation, lease reads (`lease_read`, which needs
+    `check_quorum`) and leader transfer (`transfer`): see
+    `check_supported`."""
 
     n_groups: int
     n_peers: int
@@ -101,10 +104,7 @@ class SimConfig(NamedTuple):
 
 
 # SimConfig flags whose device paths are not ported yet.
-_UNSUPPORTED_FLAGS = (
-    "transfer",
-    "blackbox",
-)
+_UNSUPPORTED_FLAGS = ("blackbox",)
 
 
 def check_supported(cfg: SimConfig, **extras) -> None:
@@ -114,8 +114,8 @@ def check_supported(cfg: SimConfig, **extras) -> None:
     if on:
         raise NotImplementedError(
             f"raft_tpu_torch does not implement SimConfig({', '.join(on)}) "
-            "yet; only the step (damped or not) with counters, health and "
-            "lease reads is ported"
+            "yet; only the step (damped or not) with counters, health, "
+            "lease reads and leader transfer is ported"
         )
     given = [k for k, v in extras.items() if v is not None]
     if given:
@@ -127,8 +127,9 @@ def check_supported(cfg: SimConfig, **extras) -> None:
 class SimState(NamedTuple):
     """SoA state, peer-major [P, G] int32/bool; same fields and order as the
     reference's SimState.  `recent_active` is the damped configs' plane
-    (None for undamped ones, as in the reference); `transferee` belongs
-    to leader transfer, not ported yet, and is always None."""
+    (None for undamped ones, as in the reference); `transferee` is each
+    peer's lead_transferee slot (0 = none, else the 1-based target), only
+    with SimConfig(transfer=True) and None otherwise."""
 
     term: torch.Tensor  # int32[P, G]
     state: torch.Tensor  # int32[P, G] — ROLE_* codes
@@ -147,7 +148,7 @@ class SimState(NamedTuple):
     outgoing_mask: torch.Tensor  # bool[P, G] — all False = not joint
     learner_mask: torch.Tensor  # bool[P, G]
     recent_active: Optional[torch.Tensor] = None  # bool[P, P, G] — per-owner
-    transferee: Optional[torch.Tensor] = None
+    transferee: Optional[torch.Tensor] = None  # int32[P, G]
 
 
 class HealthState(NamedTuple):
@@ -224,6 +225,9 @@ class _RoundFacts(NamedTuple):
     # lead_term int32[G]): the acting leader and its log tip after the
     # round's appends, which step(reconfig_propose=) reports.
     lead: Optional[tuple] = None
+    # bool[G]: groups whose proposals a pending transfer dropped, or None
+    # without a transferee plane.
+    blocked: Optional[torch.Tensor] = None
 
 
 _BOOL_FIELDS = ("voter_mask", "outgoing_mask", "learner_mask", "recent_active")
@@ -248,10 +252,6 @@ def state_from_numpy(
         fields[name] = torch.from_numpy(
             np.array(a, dtype=np_dtype, order="C", copy=True)
         ).to(dev)
-    if fields["transferee"] is not None:
-        raise NotImplementedError(
-            "raft_tpu_torch does not implement the transferee plane yet"
-        )
     return SimState(**fields)
 
 
@@ -290,7 +290,8 @@ def init_state(
 ) -> SimState:
     """All peers start as followers at term 0 with their deterministic
     timeout draw (mirrors Raft.__init__ -> become_follower(0)); damped
-    configs get an all-False recent_active plane.  Runs on `cuda` unless
+    configs get an all-False recent_active plane, and transfer configs an
+    all-zero transferee plane.  Runs on `cuda` unless
     `device` says otherwise."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -333,6 +334,7 @@ def init_state(
             if cfg.check_quorum or cfg.pre_vote
             else None
         ),
+        transferee=zeros() if cfg.transfer else None,
     )
 
 
@@ -382,6 +384,329 @@ def _weighted_row(plane: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     return (plane * f).sum(0, dtype=I32)
 
 
+def _transfer_phase(
+    cfg: SimConfig,
+    st: SimState,
+    crashed: torch.Tensor,  # bool[P, G]
+    transfer_propose: Optional[torch.Tensor],  # int32[G]
+    link: Optional[torch.Tensor],  # bool[P, P, G]
+    node_key: torch.Tensor,  # int64[P, G]
+):
+    """The pre-tick leader-transfer pump of all three rounds (the
+    reference's `_transfer_phase`, sim.py:651-1067): returns (state',
+    campaigned bool[G], won bool[G]).
+
+    Before the round's ticks, each group's acting leader steps this
+    round's MsgTransferLeader command (kernels.apply_transfer: the
+    validation and the transfer-clock reset), then pumps its pending
+    transfer: MsgTimeoutNow directly when a new command finds the target
+    caught up, else the catch-up append (allow_empty), whose ack triggers
+    MsgTimeoutNow when it made progress.  A target at the leader's term
+    that receives MsgTimeoutNow campaigns at once (CAMPAIGN_TRANSFER: no
+    pre-vote, leases bypassed), and the whole election resolves inside
+    the pump: the vote requests, the responses in voter order with the
+    scalar win/loss cutoffs and commit fast-forwards, the winner's noop
+    append, broadcast and quorum commit.  Every hop is gated per directed
+    link (`link`, or all-up among alive peers).  Under damping a catch-up
+    append that reaches a higher-term target draws the low-term nudge,
+    which deposes the stale leader.  Everything is masked on the groups
+    with a pending transfer, so the others pass through unchanged."""
+    G, P = cfg.n_groups, cfg.n_peers
+    dev = st.term.device
+    damped = cfg.check_quorum or cfg.pre_vote
+    self_id = torch.arange(P, dtype=I32, device=dev)[:, None] + 1  # [P, 1]
+    p_idx = self_id - 1  # [P, 1]
+    alive = ~crashed
+    eye = torch.eye(P, dtype=torch.bool, device=dev)[:, :, None]
+    E = alive[:, None, :] & alive[None, :, :] & ~eye
+    if link is not None:
+        E = link & E
+    lo = torch.full((P, G), cfg.min_timeout, dtype=I32, device=dev)
+    hi = torch.full((P, G), cfg.max_timeout, dtype=I32, device=dev)
+
+    def draw(term):
+        return kernels.timeout_draw(
+            node_key, term.to(torch.int64) & 0xFFFFFFFF, lo, hi
+        )
+
+    promotable = st.voter_mask | st.outgoing_mask
+    member = promotable | st.learner_mask
+
+    # ---- the acting leader before the round: the alive max-term leader,
+    # the lowest index on a tie.
+    is_lead = (st.state == ROLE_LEADER) & alive
+    has_lead = is_lead.any(0)  # [G]
+    lead_term = torch.where(is_lead, st.term, -1).amax(0)  # [G]
+    acting = is_lead & (st.term == lead_term[None, :])
+    first_l = torch.where(acting, p_idx, P).amin(0)  # [G]
+    is_acting = (p_idx == first_l) & has_lead[None, :]
+    acting_i = is_acting.to(I32)
+
+    if transfer_propose is None:
+        transfer_propose = torch.zeros((G,), dtype=I32, device=dev)
+    T, ee0, accepted = kernels.apply_transfer(
+        st.transferee, st.election_elapsed, is_acting, transfer_propose,
+        member, st.learner_mask,
+    )
+
+    # The acting leader's pending target after the command; everything
+    # below is masked on `active`.
+    t_all = torch.where(is_acting, T, 0).sum(0, dtype=I32)
+    active = has_lead & (t_all > 0)  # [G]
+    is_tgt = (self_id == t_all[None, :]) & active[None, :]  # [P, G]
+
+    lead_last = (st.last_index * acting_i).sum(0, dtype=I32)
+    lead_lterm = (st.last_term * acting_i).sum(0, dtype=I32)
+    lead_commit = (st.commit * acting_i).sum(0, dtype=I32)
+    m_row = _weighted_row(st.matched, acting_i)  # [P, G]: the leader's row
+    agree_lead = _weighted_row(st.agree, acting_i)  # [P, G]: agree[leader]
+    matched_t = torch.where(is_tgt, m_row, 0).sum(0, dtype=I32)
+    caught_pre = matched_t == lead_last
+    term_t = torch.where(is_tgt, st.term, 0).sum(0, dtype=I32)
+
+    # The directed leader <-> target links.
+    E_lt = (E & is_acting[:, None, :] & is_tgt[None, :, :]).any(1).any(0)
+    E_tl = (E & is_tgt[:, None, :] & is_acting[None, :, :]).any(1).any(0)
+
+    # ---- hop 1: MsgTimeoutNow directly (a new command, the target caught
+    # up) or the catch-up append.  The log and commit are adopted only on
+    # a probe match or a live reverse link; a delivered append resets the
+    # target's timers either way.
+    tn_direct = active & accepted & caught_pre & E_lt
+    ap_path = active & ~(accepted & caught_pre)
+    del_ap = ap_path & E_lt & (term_t <= lead_term)
+    lead_ts = (st.term_start_index * acting_i).sum(0, dtype=I32)
+    prev_t = torch.where(matched_t == 0, lead_ts - 1, lead_last)
+    agree_lt = torch.where(is_tgt, agree_lead, 0).sum(0, dtype=I32)
+    adopt_ap = del_ap & ((agree_lt >= prev_t) | E_tl)
+    sync = is_tgt & del_ap[None, :]
+    adopt = is_tgt & adopt_ap[None, :]
+    bump = sync & (st.term < lead_term[None, :])
+    T_pl = torch.where(sync, lead_term[None, :], st.term)
+    St_pl = torch.where(sync, ROLE_FOLLOWER, st.state)
+    V_pl = torch.where(bump, 0, st.vote)
+    Ld_pl = torch.where(sync, first_l[None, :] + 1, st.leader_id)
+    EE_pl = torch.where(sync, 0, ee0)
+    HB_pl = st.heartbeat_elapsed
+    RT_pl = torch.where(bump, draw(T_pl), st.randomized_timeout)
+    LI_pl = torch.where(adopt, lead_last[None, :], st.last_index)
+    LT_pl = torch.where(adopt, lead_lterm[None, :], st.last_term)
+    C_pl = torch.where(
+        adopt, torch.maximum(st.commit, lead_commit[None, :]), st.commit
+    )
+    in_s = adopt | (is_acting & adopt_ap[None, :])
+    agree_pl = _merge_agree(st.agree, in_s, lead_last, agree_lead)
+    ack = adopt_ap & E_tl
+    mack = is_acting[:, None, :] & is_tgt[None, :, :] & ack[None, None, :]
+    matched_pl = torch.where(mack, lead_last[None, None, :], st.matched)
+    RA = st.recent_active
+    if RA is not None:
+        RA = RA | mack
+    if damped:
+        # The low-term nudge: the catch-up append reaching a higher-term
+        # target draws a response at the target's term, which deposes the
+        # stale leader; reset() aborts the transfer.
+        ndg = ap_path & E_lt & (term_t > lead_term) & E_tl
+        dep = is_acting & ndg[None, :]
+        T_pl = torch.where(dep, term_t[None, :], T_pl)
+        St_pl = torch.where(dep, ROLE_FOLLOWER, St_pl)
+        V_pl = torch.where(dep, 0, V_pl)
+        Ld_pl = torch.where(dep, 0, Ld_pl)
+        EE_pl = torch.where(dep, 0, EE_pl)
+        HB_pl = torch.where(dep, 0, HB_pl)
+        RT_pl = torch.where(dep, draw(T_pl), RT_pl)
+        T = torch.where(dep, 0, T)
+
+    # ---- hop 2: MsgTimeoutNow at the target.  A lower-term target first
+    # takes the become_follower(m.term) bump; then only a follower at the
+    # leader's term campaigns.  The ack-triggered send needs the ack to
+    # have made progress, so a lost MsgTimeoutNow is never sent again and
+    # the transfer hangs until the tick-time abort, as in raft-rs.
+    tn = tn_direct | (ack & (matched_t < lead_last))
+    tn_bump = is_tgt & tn[None, :] & (T_pl < lead_term[None, :])
+    T_pl = torch.where(tn_bump, lead_term[None, :], T_pl)
+    St_pl = torch.where(tn_bump, ROLE_FOLLOWER, St_pl)
+    V_pl = torch.where(tn_bump, 0, V_pl)
+    Ld_pl = torch.where(tn_bump, 0, Ld_pl)
+    EE_pl = torch.where(tn_bump, 0, EE_pl)
+    HB_pl = torch.where(tn_bump, 0, HB_pl)
+    RT_pl = torch.where(tn_bump, draw(T_pl), RT_pl)
+    campaign_mask = (
+        is_tgt
+        & tn[None, :]
+        & (St_pl == ROLE_FOLLOWER)
+        & (T_pl == lead_term[None, :])
+        & promotable
+    )
+    cg = campaign_mask.any(0)  # [G]
+
+    # ---- the forced campaign (CAMPAIGN_TRANSFER skips pre-vote).
+    t_star = lead_term + 1  # [G]
+    T_pl = torch.where(campaign_mask, t_star[None, :], T_pl)
+    St_pl = torch.where(campaign_mask, ROLE_CANDIDATE, St_pl)
+    V_pl = torch.where(campaign_mask, self_id, V_pl)
+    Ld_pl = torch.where(campaign_mask, 0, Ld_pl)
+    EE_pl = torch.where(campaign_mask, 0, EE_pl)
+    HB_pl = torch.where(campaign_mask, 0, HB_pl)
+    RT_pl = torch.where(campaign_mask, draw(T_pl), RT_pl)
+
+    # ---- hop 3: the vote requests reach every voter over the target's
+    # outbound links; the force context bypasses leases, and a lower-term
+    # request is ignored silently.  The candidate's log is its
+    # post-catch-up log.
+    E_from_t = (E & is_tgt[:, None, :]).any(0)  # [P_v, G]
+    E_to_t = (E & is_tgt[None, :, :]).any(1)  # [P_v, G]
+    del_rq = cg[None, :] & promotable & ~is_tgt & E_from_t
+    li_t = torch.where(is_tgt, LI_pl, 0).sum(0, dtype=I32)
+    lt_t = torch.where(is_tgt, LT_pl, 0).sum(0, dtype=I32)
+    c_t = torch.where(is_tgt, C_pl, 0).sum(0, dtype=I32)
+    agree_t = _weighted_row(agree_pl, is_tgt.to(I32))  # [P_v, G]
+    vbump = del_rq & (T_pl < t_star[None, :])
+    at = del_rq & (T_pl <= t_star[None, :])
+    T_pl = torch.where(vbump, t_star[None, :], T_pl)
+    St_pl = torch.where(vbump, ROLE_FOLLOWER, St_pl)
+    V_pl = torch.where(vbump, 0, V_pl)
+    Ld_pl = torch.where(vbump, 0, Ld_pl)
+    EE_pl = torch.where(vbump, 0, EE_pl)
+    HB_pl = torch.where(vbump, 0, HB_pl)
+    RT_pl = torch.where(vbump, draw(T_pl), RT_pl)
+    up = (lt_t[None, :] > LT_pl) | (
+        (lt_t[None, :] == LT_pl) & (li_t[None, :] >= LI_pl)
+    )
+    can = at & (((V_pl == 0) & (Ld_pl == 0)) | (V_pl == t_all[None, :]))
+    grant = can & up
+    rej = at & ~grant
+    rej_snap = C_pl  # a rejection carries the commit before the fast-forward
+    # The voter-side maybe_commit_by_vote off the request's commit (leaders
+    # skip it).
+    vff = (
+        rej
+        & (St_pl != ROLE_LEADER)
+        & (c_t[None, :] > C_pl)
+        & (c_t[None, :] <= agree_t)
+    )
+    V_pl = torch.where(grant, t_all[None, :], V_pl)
+    EE_pl = torch.where(grant, 0, EE_pl)
+    C_pl = torch.where(vff, c_t[None, :], C_pl)
+
+    # ---- hop 4: the responses in voter order with the scalar win/loss
+    # cutoffs and the candidate-side commit fast-forward; the order is the
+    # result, so the loop stays sequential.
+    n_i, n_o, q_i, q_o = _half_quorums(st)
+    vm_t = torch.where(is_tgt, st.voter_mask, False).sum(0, dtype=I32)
+    om_t = torch.where(is_tgt, st.outgoing_mask, False).sum(0, dtype=I32)
+    cnt_i = torch.where(cg, vm_t, 0)  # the self-vote
+    cnt_o = torch.where(cg, om_t, 0)
+    rec_i, rec_o = cnt_i, cnt_o
+    ff = torch.zeros((G,), dtype=I32, device=dev)
+    del_g = grant & E_to_t
+    del_r = rej & E_to_t
+    for v in range(P):
+        won_before, lost_before = _decided(
+            cnt_i, cnt_o, rec_i, rec_o, (n_i, n_o, q_i, q_o)
+        )
+        ok = del_r[v] & ~won_before & ~lost_before & (rej_snap[v] <= agree_t[v])
+        ff = torch.where(ok, torch.maximum(ff, rej_snap[v]), ff)
+        resp_v = del_g[v] | del_r[v]
+        rec_i = rec_i + (resp_v & st.voter_mask[v]).to(I32)
+        rec_o = rec_o + (resp_v & st.outgoing_mask[v]).to(I32)
+        cnt_i = cnt_i + (del_g[v] & st.voter_mask[v]).to(I32)
+        cnt_o = cnt_o + (del_g[v] & st.outgoing_mask[v]).to(I32)
+    won_end, lost_end = _decided(cnt_i, cnt_o, rec_i, rec_o, (n_i, n_o, q_i, q_o))
+    won_t = cg & won_end
+    lost_t = cg & ~won_t & lost_end
+    C_pl = torch.where(
+        is_tgt & cg[None, :], torch.maximum(C_pl, ff[None, :]), C_pl
+    )
+
+    # ---- hop 5: the winner's become_leader, noop append, broadcast,
+    # quorum commit and commit re-broadcast; a decided loser steps down at
+    # t_star (a same-term reset keeps its self-vote).
+    win_mask = is_tgt & won_t[None, :]
+    lose_mask = is_tgt & lost_t[None, :]
+    St_pl = torch.where(win_mask, ROLE_LEADER, St_pl)
+    Ld_pl = torch.where(win_mask, self_id, Ld_pl)
+    EE_pl = torch.where(win_mask | lose_mask, 0, EE_pl)
+    HB_pl = torch.where(win_mask | lose_mask, 0, HB_pl)
+    St_pl = torch.where(lose_mask, ROLE_FOLLOWER, St_pl)
+    Ld_pl = torch.where(lose_mask, 0, Ld_pl)
+    LI_pl = LI_pl + win_mask.to(I32)  # the noop entry
+    LT_pl = torch.where(win_mask, t_star[None, :], LT_pl)
+    TS_pl = torch.where(win_mask, LI_pl, st.term_start_index)
+    matched_pl = torch.where(win_mask[:, None, :], 0, matched_pl)
+    # The noop broadcast carries the winner's commit before its quorum
+    # commit.
+    c_t_bcast = torch.where(is_tgt, C_pl, 0).sum(0, dtype=I32)
+    noop_last = torch.where(win_mask, LI_pl, 0).sum(0, dtype=I32)
+    noop_prev = noop_last - 1
+    del_nb = (
+        won_t[None, :] & member & ~is_tgt & E_from_t
+        & (T_pl <= t_star[None, :])
+    )
+    # The probe gate: the noop append's prev entry must match, or a live
+    # reverse link lets the reject/retry chain converge.
+    nb_ok = del_nb & ((agree_t >= noop_prev[None, :]) | E_to_t)
+    nb_bump = nb_ok & (T_pl < t_star[None, :])
+    T_pl = torch.where(nb_ok, t_star[None, :], T_pl)
+    St_pl = torch.where(nb_ok, ROLE_FOLLOWER, St_pl)
+    V_pl = torch.where(nb_bump, 0, V_pl)
+    Ld_pl = torch.where(nb_ok, t_all[None, :], Ld_pl)
+    EE_pl = torch.where(nb_ok, 0, EE_pl)
+    HB_pl = torch.where(nb_bump, 0, HB_pl)
+    RT_pl = torch.where(nb_bump, draw(T_pl), RT_pl)
+    LI_pl = torch.where(nb_ok, noop_last[None, :], LI_pl)
+    LT_pl = torch.where(nb_ok, t_star[None, :], LT_pl)
+    C_pl = torch.where(nb_ok, torch.maximum(C_pl, c_t_bcast[None, :]), C_pl)
+    in_nb = nb_ok | win_mask
+    agree_pl = _merge_agree(agree_pl, in_nb, noop_last, agree_t)
+    ack_nb = nb_ok & E_to_t
+    acked_m = ack_nb | win_mask  # the winner's own persisted noop
+    matched_pl = torch.where(
+        is_tgt[:, None, :] & acked_m[None, :, :] & won_t[None, None, :],
+        noop_last[None, None, :],
+        matched_pl,
+    )
+    if RA is not None:
+        # become_leader's tracker reset (a self-only row), then the noop
+        # acks mark the responders recently active.
+        win_row = is_tgt[:, None, :] & won_t[None, None, :]
+        RA = torch.where(win_row, eye, RA)
+        RA = RA | (win_row & ack_nb[None, :, :])
+    row_t = _weighted_row(matched_pl, is_tgt.to(I32))  # [P, G]
+    mci = torch.minimum(
+        _quorum_index(row_t, st.voter_mask),
+        _quorum_index(row_t, st.outgoing_mask),
+    )
+    commit_ok = won_t & (mci >= noop_last) & (mci < kernels.INF)
+    c_t_new = torch.where(commit_ok, torch.maximum(c_t_bcast, mci), c_t_bcast)
+    C_pl = torch.where(is_tgt & won_t[None, :], c_t_new[None, :], C_pl)
+    # The commit advance's re-broadcast reaches only the members whose
+    # noop ack arrived (a lost ack leaves the fresh probe paused).
+    C_pl = torch.where(ack_nb, torch.maximum(C_pl, c_t_new[None, :]), C_pl)
+
+    # The reset-abort invariant: a lead_transferee survives only while its
+    # owner keeps leading.
+    T = torch.where(St_pl == ROLE_LEADER, T, 0)
+    out = st._replace(
+        term=T_pl,
+        state=St_pl,
+        vote=V_pl,
+        leader_id=Ld_pl,
+        election_elapsed=EE_pl,
+        heartbeat_elapsed=HB_pl,
+        randomized_timeout=RT_pl,
+        last_index=LI_pl,
+        last_term=LT_pl,
+        commit=C_pl,
+        matched=matched_pl,
+        term_start_index=TS_pl,
+        agree=agree_pl,
+        recent_active=RA,
+        transferee=T,
+    )
+    return out, cg, won_t
+
+
 def step(
     cfg: SimConfig,
     st: SimState,
@@ -416,13 +741,32 @@ def step(
     alive leader acted, so the op retries).  read_propose: optional int32[G]
     client-read commands (READ_* modes), evaluated by `_read_phase` on the
     round-entry state and reported as a ReadReceipt; the round itself is
-    unchanged by them.  Returns the next SimState alone when no extra is
-    given, else (SimState, counters', health', proposal, receipt) with the
-    given ones in that order, as the reference's extras."""
-    check_supported(
-        cfg, transfer_propose=transfer_propose, campaign_kick=campaign_kick,
-        blackbox=blackbox,
-    )
+    unchanged by them.
+
+    transfer_propose: optional int32[G] MsgTransferLeader commands (the
+    1-based target, 0 none), which need the transferee plane
+    (SimConfig(transfer=True)).  With that plane every round first runs the
+    transfer pump `_transfer_phase` on the round-entry state (after the
+    read probe), and the round proper runs on its result; the counters and
+    health extras keep the round-entry baseline, the transfer campaign and
+    win join CTR_CAMPAIGNS and CTR_ELECTIONS_WON, and the health fold reads
+    the winners off the end-of-round state.  A transfer pending at the
+    acting leader drops the round's appends and conf entry (the proposal's
+    owner is 0 then), the transfer clock expiring at the leader's
+    election-timeout boundary aborts it, and only standing leaders keep
+    their transferee.  campaign_kick: optional bool[P, G], the autopilot's
+    MsgHup: a kicked promotable non-leader campaigns at tick time.
+
+    Returns the next SimState alone when no extra is given, else
+    (SimState, counters', health', proposal, receipt) with the given ones
+    in that order, as the reference's extras."""
+    check_supported(cfg, blackbox=blackbox)
+    if transfer_propose is not None and st.transferee is None:
+        raise ValueError(
+            "step(transfer_propose=) needs the lead_transferee plane — "
+            "construct the sim with SimConfig(transfer=True) (init_state "
+            "creates it)"
+        )
     if cfg.lease_read and not cfg.check_quorum:
         # Config.validate's rule: without the check-quorum boundary
         # deposal a lease proves nothing.
@@ -444,16 +788,34 @@ def step(
         None if read_propose is None
         else _read_phase(cfg, st, crashed, read_propose, link)
     )
+    # The transfer pump runs before the ticks, on the round-entry state.
+    st_in = st
+    transfer_facts = None
+    if st.transferee is not None:
+        st, t_campaigned, t_won = _transfer_phase(
+            cfg, st, crashed, transfer_propose, link, node_key
+        )
+        transfer_facts = (t_campaigned, t_won)
     if damped:
-        out, facts = _damped_linked_step(cfg, st, crashed, append_n, link, node_key)
+        out, facts = _damped_linked_step(
+            cfg, st, crashed, append_n, link, node_key, campaign_kick
+        )
     elif link is not None:
-        out, facts = _linked_step(cfg, st, crashed, append_n, link, node_key)
+        out, facts = _linked_step(
+            cfg, st, crashed, append_n, link, node_key, campaign_kick
+        )
     else:
-        out, facts = _plain_step(cfg, st, crashed, append_n, node_key)
-    extras = _extras(cfg, st, out, crashed, facts, counters, health)
+        out, facts = _plain_step(cfg, st, crashed, append_n, node_key, campaign_kick)
+    extras = _extras(
+        cfg, st_in, out, crashed, facts, counters, health, transfer_facts
+    )
     if reconfig_propose is not None:
         has_leader, first_l, lead_last, lead_term = facts.lead
         prop = has_leader & reconfig_propose
+        if facts.blocked is not None:
+            # A pending transfer dropped the conf entry with the rest of
+            # the batch: owner 0 makes the op retry.
+            prop = prop & ~facts.blocked
         extras += (ReconfigProposal(
             owner=torch.where(prop, first_l + 1, 0),
             index=torch.where(prop, lead_last, 0),
@@ -600,10 +962,15 @@ def _read_phase(
     return ReadReceipt(index=index, lease=serve_l, degraded=lease_want & ~serve_l)
 
 
-def _extras(cfg, st, out, crashed, facts: _RoundFacts, counters, health):
+def _extras(cfg, st, out, crashed, facts: _RoundFacts, counters, health,
+            transfer_facts=None):
     """The reference's counters and health folds of one round from the
     (pre, post) state pair and the round's facts: (counters',) and/or
-    (health',), in that order, for the extras that are not None."""
+    (health',), in that order, for the extras that are not None.
+    `transfer_facts` is the transfer pump's (campaigned bool[G], won
+    bool[G]) when the round ran it: they join the campaign and election
+    counts, and the health fold then reads `won` off the end-of-round
+    state."""
     extras = ()
     if counters is not None:
         counters = kernels.count_events(
@@ -614,6 +981,11 @@ def _extras(cfg, st, out, crashed, facts: _RoundFacts, counters, health):
             bump = torch.zeros_like(counters)
             bump[kernels.CTR_CAMPAIGNS] = facts.real_campaigns.sum(dtype=I32)
             counters = counters + bump
+        if transfer_facts is not None:
+            bump = torch.zeros_like(counters)
+            bump[kernels.CTR_CAMPAIGNS] = transfer_facts[0].sum(dtype=I32)
+            bump[kernels.CTR_ELECTIONS_WON] = transfer_facts[1].sum(dtype=I32)
+            counters = counters + bump
         extras += (counters,)
     if health is not None:
         lead_end = out.state == ROLE_LEADER
@@ -622,7 +994,7 @@ def _extras(cfg, st, out, crashed, facts: _RoundFacts, counters, health):
         term_bump = out.term.amax(0) - st.term.amax(0)
         campaigned = facts.want_campaign.any(0)
         won = facts.won
-        if facts.observed_won:
+        if facts.observed_won or transfer_facts is not None:
             won = (
                 lead_end & ((st.state != ROLE_LEADER) | (out.term > st.term))
             ).any(0)
@@ -640,9 +1012,11 @@ def _plain_step(
     crashed: torch.Tensor,  # bool[P, G]
     append_n: torch.Tensor,  # int32[G]
     node_key: torch.Tensor,  # int64[P, G]
+    campaign_kick: Optional[torch.Tensor] = None,  # bool[P, G]
 ):
     """The undamped round without a link plane (the reference's `step`
-    body); returns (SimState, _RoundFacts)."""
+    body); returns (SimState, _RoundFacts).  `campaign_kick` and a
+    transferee plane act as in `step`."""
     G, P = cfg.n_groups, cfg.n_peers
     dev = st.term.device
     self_id = torch.arange(P, dtype=I32, device=dev)[:, None] + 1  # [P, 1]
@@ -659,7 +1033,7 @@ def _plain_step(
     # ---- Phase A: tick every peer (crashed peers tick too).
     promotable = st.voter_mask | st.outgoing_mask
     member = promotable | st.learner_mask
-    ee, hb, want_campaign, want_heartbeat, _ = kernels.tick_kernel(
+    ee, hb, want_campaign, want_heartbeat, want_cq = kernels.tick_kernel(
         st.state,
         st.election_elapsed,
         st.heartbeat_elapsed,
@@ -667,6 +1041,9 @@ def _plain_step(
         promotable,
         cfg.election_tick,
         cfg.heartbeat_tick,
+    )
+    want_campaign, ee, transferee = _tick_actions(
+        st, promotable, want_campaign, ee, want_cq, campaign_kick
     )
 
     # ---- Phase B: campaigners become candidates: term+1, vote self, redraw.
@@ -857,7 +1234,9 @@ def _plain_step(
     first_l = torch.where(is_acting, p_idx, P).amin(0)
     is_acting_leader = (p_idx == first_l) & has_leader
 
-    n_app = torch.where(has_leader, append_n, 0)
+    n_app, blocked = _drop_proposals(
+        torch.where(has_leader, append_n, 0), is_acting_leader, transferee
+    )
     new_last_index = new_last_index + torch.where(is_acting_leader, n_app, 0)
     new_last_term = torch.where(is_acting_leader, lead_term, new_last_term)
 
@@ -902,6 +1281,10 @@ def _plain_step(
     commit = torch.where(is_acting_leader, lead_commit, commit_c)
     commit = torch.where(sync, torch.maximum(commit, lead_commit), commit)
 
+    if transferee is not None:
+        # Every become_* path runs reset(), which clears lead_transferee:
+        # only standing leaders keep theirs.
+        transferee = torch.where(state_d == ROLE_LEADER, transferee, 0)
     out = SimState(
         term=term_d,
         state=state_d,
@@ -919,13 +1302,44 @@ def _plain_step(
         voter_mask=st.voter_mask,
         outgoing_mask=st.outgoing_mask,
         learner_mask=st.learner_mask,
+        transferee=transferee,
     )
     # A group wins at most one election a round, and the solo crashed
     # campaigner excludes the networked win: become_leader's count.
     return out, _RoundFacts(
         want_campaign, want_heartbeat, winner_exists | solo_win.any(0),
-        lead=(has_leader, first_l, lead_last, lead_term),
+        lead=(has_leader, first_l, lead_last, lead_term), blocked=blocked,
     )
+
+
+def _tick_actions(st, promotable, want_campaign, ee, want_cq, campaign_kick,
+                  reset_clock=True):
+    """The tick-time transfer and kick arms of all three rounds:
+    (want_campaign', ee', transferee').  A kicked promotable non-leader
+    campaigns this round (the autopilot's MsgHup, the RawNode::campaign
+    admin call), its clock zeroed by become_candidate's reset when
+    `reset_clock`; the transfer clock expiring at the leader's
+    election-timeout boundary (`want_cq`) abandons a pending transfer
+    (raft.rs:1051-1079)."""
+    if campaign_kick is not None:
+        kicked = campaign_kick & (st.state != ROLE_LEADER) & promotable
+        want_campaign = want_campaign | kicked
+        if reset_clock:
+            ee = torch.where(kicked, 0, ee)
+    transferee = st.transferee
+    if transferee is not None:
+        transferee = torch.where(want_cq, 0, transferee)
+    return want_campaign, ee, transferee
+
+
+def _drop_proposals(n_app, is_acting_leader, transferee):
+    """ProposalDropped: a transfer pending at the acting leader drops the
+    round's proposals (step_leader's lead_transferee gate).  Returns
+    (n_app', blocked bool[G], or None without a transferee plane)."""
+    if transferee is None:
+        return n_app, None
+    blocked = (is_acting_leader & (transferee > 0)).any(0)
+    return torch.where(blocked, 0, n_app), blocked
 
 
 def _merge_agree(agree, in_set, value, lead_row):
@@ -1020,6 +1434,7 @@ def _linked_step(
     append_n: torch.Tensor,  # int32[G]
     link: torch.Tensor,  # bool[P, P, G]
     node_key: torch.Tensor,  # int64[P, G]
+    campaign_kick: Optional[torch.Tensor] = None,  # bool[P, G]
 ):
     """The link-gated protocol round behind `step(..., link=)`: the
     reference's `_linked_step` (sim.py:1792-2428); returns (SimState,
@@ -1053,7 +1468,7 @@ def _linked_step(
 
     promotable = st.voter_mask | st.outgoing_mask
     member = promotable | st.learner_mask
-    ee, hb, want_campaign, want_heartbeat, _ = kernels.tick_kernel(
+    ee, hb, want_campaign, want_heartbeat, want_cq = kernels.tick_kernel(
         st.state,
         st.election_elapsed,
         st.heartbeat_elapsed,
@@ -1061,6 +1476,9 @@ def _linked_step(
         promotable,
         cfg.election_tick,
         cfg.heartbeat_tick,
+    )
+    want_campaign, ee, transferee = _tick_actions(
+        st, promotable, want_campaign, ee, want_cq, campaign_kick
     )
 
     # Campaign side effects are local; isolation cuts the network, never
@@ -1264,7 +1682,9 @@ def _linked_step(
     is_acting = is_leader & (T == lead_term)
     first_l = torch.where(is_acting, p_idx, P).amin(0)
     is_acting_leader = (p_idx == first_l) & has_leader
-    n_app = torch.where(has_leader, append_n, 0)
+    n_app, blocked = _drop_proposals(
+        torch.where(has_leader, append_n, 0), is_acting_leader, transferee
+    )
     sent_b = has_leader & (n_app > 0)
     lead_pre_last = torch.where(is_acting_leader, LI, 0).amax(0)
     LI = LI + torch.where(is_acting_leader, n_app, 0)
@@ -1318,6 +1738,9 @@ def _linked_step(
     C = torch.where(is_acting_leader, lead_commit, C)
     C = torch.where(sync_b, torch.maximum(C, lead_commit), C)
 
+    if transferee is not None:
+        # The reset-abort: only standing leaders keep their transferee.
+        transferee = torch.where(St == ROLE_LEADER, transferee, 0)
     out = SimState(
         term=T,
         state=St,
@@ -1335,9 +1758,11 @@ def _linked_step(
         voter_mask=st.voter_mask,
         outgoing_mask=st.outgoing_mask,
         learner_mask=st.learner_mask,
+        transferee=transferee,
     )
     return out, _RoundFacts(want_campaign, want_heartbeat, won.any(0),
-                            lead=(has_leader, first_l, lead_last, lead_term))
+                            lead=(has_leader, first_l, lead_last, lead_term),
+                            blocked=blocked)
 
 
 def _damped_linked_step(
@@ -1347,6 +1772,7 @@ def _damped_linked_step(
     append_n: torch.Tensor,  # int32[G]
     link: torch.Tensor,  # bool[P, P, G]
     node_key: torch.Tensor,  # int64[P, G]
+    campaign_kick: Optional[torch.Tensor] = None,  # bool[P, G]
 ):
     """The damped (check-quorum / pre-vote) round: the reference's
     `_damped_linked_step` (sim.py:2451-3548); returns (SimState,
@@ -1421,6 +1847,14 @@ def _damped_linked_step(
         leader0 = torch.where(cq_dep, 0, leader0)
         hb = torch.where(cq_dep, 0, hb)
         want_heartbeat = want_heartbeat & ~cq_dep
+    # A kick goes through the ordinary damped machinery, a pre-vote probe
+    # first with pre_vote, which keeps the clock (become_pre_candidate
+    # touches only the role and leader_id); the transfer abort comes with
+    # or without the check-quorum deposal.
+    want_campaign, ee, transferee = _tick_actions(
+        st, promotable, want_campaign, ee, want_cq, campaign_kick,
+        reset_clock=not pv,
+    )
 
     # ---- campaign local effects.  Real: term + 1, vote self, redraw.
     # Pre-vote: only the role and leader_id change; the request goes out
@@ -1879,7 +2313,9 @@ def _damped_linked_step(
     is_acting = is_leader & (T == lead_term)
     first_l = torch.where(is_acting, p_idx, P).amin(0)
     is_acting_leader = (p_idx == first_l) & has_leader
-    n_app = torch.where(has_leader, append_n, 0)
+    n_app, blocked = _drop_proposals(
+        torch.where(has_leader, append_n, 0), is_acting_leader, transferee
+    )
     sent_b = has_leader & (n_app > 0)
     lead_pre_last = torch.where(is_acting_leader, LI, 0).amax(0)
     LI = LI + torch.where(is_acting_leader, n_app, 0)
@@ -1949,6 +2385,9 @@ def _damped_linked_step(
     HB = torch.where(dw, 0, HB)
     RT = torch.where(dw, draw(T), RT)
 
+    if transferee is not None:
+        # The reset-abort: only standing leaders keep their transferee.
+        transferee = torch.where(St == ROLE_LEADER, transferee, 0)
     out = SimState(
         term=T,
         state=St,
@@ -1967,6 +2406,7 @@ def _damped_linked_step(
         outgoing_mask=st.outgoing_mask,
         learner_mask=st.learner_mask,
         recent_active=RA,
+        transferee=transferee,
     )
     # campaign() calls: the tick-time campaigns plus, with pre-vote, the
     # pre-winners' real campaigns; heartbeats exclude the ones the
@@ -1978,6 +2418,7 @@ def _damped_linked_step(
     return out, _RoundFacts(
         want_campaign, hb_send, won.any(0), real_req if pv else None,
         observed_won=True, lead=(has_leader, first_l, lead_last, lead_term),
+        blocked=blocked,
     )
 
 

@@ -236,16 +236,24 @@ def test_damped_state_round_trip_and_errors():
     whole = tsim.step(cfg, st, crashed, append)
     gathered = tsim.step(cfg, st, crashed, append, group_ids=torch.arange(4))
     assert all(torch.equal(a, b) for a, b in zip(whole, gathered) if a is not None)
-    with pytest.raises(NotImplementedError):
-        tsim.step(cfg, st, crashed, append, campaign_kick=torch.zeros(4))
+    # campaign_kick is ported: an all-False kick leaves the round unchanged.
+    kicked = tsim.step(cfg, st, crashed, append,
+                       campaign_kick=torch.zeros((3, 4), dtype=torch.bool))
+    assert all(torch.equal(a, b) for a, b in zip(whole, kicked) if a is not None)
     # read_propose is ported: the receipt comes last, the round unchanged.
     read, receipt = tsim.step(cfg, st, crashed, append,
                               read_propose=torch.zeros(4, dtype=torch.int32))
     assert isinstance(receipt, tsim.ReadReceipt) and (receipt.index == -1).all()
     assert all(torch.equal(a, b) for a, b in zip(whole, read) if a is not None)
-    for flag in ("transfer", "blackbox"):
-        with pytest.raises(NotImplementedError):
-            tsim.init_state(cfg._replace(**{flag: True}), device="cpu")
+    with pytest.raises(NotImplementedError):
+        tsim.init_state(cfg._replace(blackbox=True), device="cpu")
+    # transfer is ported: the same state with an all-zero transferee plane,
+    # which survives the numpy round trip.
+    tr = tsim.init_state(cfg._replace(transfer=True), device="cpu")
+    assert tr.transferee.dtype == torch.int32 and not tr.transferee.any()
+    assert all(torch.equal(a, b) for a, b in zip(st, tr) if a is not None)
+    assert torch.equal(tsim.state_from_numpy(tsim.state_to_numpy(tr), "cpu").transferee,
+                       tr.transferee)
     # lease_read is ported: it builds the same state as check_quorum alone.
     leased = tsim.init_state(cfg._replace(lease_read=True), device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(st, leased) if a is not None)

@@ -156,8 +156,9 @@ def test_fused_dispatch_rejects_unported_options():
     cfg = tsim.SimConfig(n_groups=4, n_peers=3)
     st = tsim.init_state(cfg, device="cpu")
     crashed = torch.zeros((3, 4), dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        tfs.steady_mask(cfg._replace(transfer=True), st, crashed)
+    # The transfer arm is ported: a state without a pending transfer passes.
+    tr_cfg = cfg._replace(transfer=True)
+    assert tfs.steady_mask(tr_cfg, st, crashed).shape == (4,)
     # reconfig_pending and read_pending are ported: each rejects exactly the
     # pending groups.
     sim = tsim.ClusterSim(cfg, device="cpu")
@@ -174,5 +175,10 @@ def test_fused_dispatch_rejects_unported_options():
                        base & pending)
     with pytest.raises(NotImplementedError):
         tfs.fast_multi_round(cfg._replace(blackbox=True), k=4)
-    with pytest.raises(NotImplementedError):
-        tfs.fast_multi_round(cfg._replace(transfer=True), k=4, with_chaos=True)
+    # A pending transfer rejects exactly its group.
+    tr_st = st._replace(transferee=torch.zeros((3, 4), dtype=torch.int32))
+    assert torch.equal(tfs.steady_mask(tr_cfg, tr_st, crashed), base)
+    tr_st = tr_st._replace(transferee=torch.tensor([[0, 2, 0, 0]] * 3, dtype=torch.int32))
+    assert torch.equal(tfs.steady_mask(tr_cfg, tr_st, crashed),
+                       base & torch.tensor([True, False, True, True]))
+    assert callable(tfs.fast_multi_round(tr_cfg, k=4, with_chaos=True))

@@ -136,10 +136,17 @@ def test_state_planes_stay_int32_or_bool():
 )
 def test_unported_config_flags_raise(field):
     """The unported flags raise NotImplementedError; lease_read is ported,
-    and without check_quorum the step refuses it as the reference does."""
+    and without check_quorum the step refuses it as the reference does;
+    transfer is ported and adds the transferee plane."""
     cfg = tsim.SimConfig(n_groups=4, n_peers=3, **{field: True})
     st = tsim.init_state(tsim.SimConfig(n_groups=4, n_peers=3), device="cpu")
     args = (torch.zeros((3, 4), dtype=torch.bool), torch.zeros(4, dtype=torch.int32))
+    if field == "transfer":
+        tr = tsim.init_state(cfg, device="cpu")
+        assert tr.transferee.dtype == torch.int32 and tr.transferee.shape == (3, 4)
+        assert tsim.step(cfg, tr, *args).transferee.shape == (3, 4)
+        assert tsim.step(cfg, st, *args).transferee is None
+        return
     if field == "lease_read":
         assert tsim.init_state(cfg, device="cpu").recent_active is None
         with pytest.raises(ValueError, match="check_quorum"):
@@ -160,7 +167,8 @@ def test_unported_step_args_raise(arg):
     the link-gated one (`link`, `group_ids`, `reconfig_propose` and
     `read_propose` are ported: each must raise only beside an unported
     extra, `reconfig_propose` adds a ReconfigProposal to the result and
-    `read_propose` a ReadReceipt)."""
+    `read_propose` a ReadReceipt; `transfer_propose` is ported and needs the
+    transferee plane, and `campaign_kick` is ported)."""
     cfg = tsim.SimConfig(n_groups=4, n_peers=3)
     st = tsim.init_state(cfg, device="cpu")
     args = (cfg, st, torch.zeros((3, 4), dtype=torch.bool), torch.zeros(4, dtype=torch.int32))
@@ -185,7 +193,20 @@ def test_unported_step_args_raise(arg):
         else:
             assert isinstance(out, tsim.SimState)
         with pytest.raises(NotImplementedError):
-            tsim.step(*args, **{arg: ported}, transfer_propose=torch.zeros(4))
+            tsim.step(*args, **{arg: ported}, blackbox=torch.zeros(4))
+        return
+    if arg == "transfer_propose":
+        # Without the transferee plane the step refuses it, as the
+        # reference does.
+        for kw in ({}, {"link": link}):
+            with pytest.raises(ValueError, match=r"SimConfig\(transfer=True\)"):
+                tsim.step(*args, transfer_propose=torch.zeros(4, dtype=torch.int32), **kw)
+        return
+    if arg == "campaign_kick":
+        for kw in ({}, {"link": link}):
+            out = tsim.step(*args, campaign_kick=torch.ones((3, 4), dtype=torch.bool), **kw)
+            # Every kicked follower campaigned: term 1 everywhere.
+            assert (out.term == 1).all()
         return
     with pytest.raises(NotImplementedError):
         tsim.step(*args, **{arg: torch.zeros(4)})

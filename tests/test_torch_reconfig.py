@@ -179,13 +179,17 @@ def test_apply_confchange_matches_jax(seed, P, with_ra):
 
 
 def test_apply_confchange_refuses_the_transferee_plane():
+    """The transferee arm is ported: with no pending transfer the plane
+    comes back as it was (all zero), the other outputs unchanged."""
     P, G = 3, 4
     z = torch.zeros((P, G), dtype=torch.int32)
     m = torch.zeros((P, G), dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        kfn(tk, "apply_confchange")(z, z, z, z, torch.zeros((P, P, G), dtype=torch.int32),
-                              m, m, m, m, m, m, m, m, torch.zeros(G, dtype=torch.bool),
-                              None, z)
+    args = (z, z, z, z, torch.zeros((P, P, G), dtype=torch.int32),
+            m, m, m, m, m, m, m, m, torch.ones(G, dtype=torch.bool), None)
+    bare = kfn(tk, "apply_confchange")(*args)
+    out = kfn(tk, "apply_confchange")(*args, z)
+    assert bare[8] is None and torch.equal(out[8], z)
+    assert all(torch.equal(a, b) for a, b in zip(bare[:7], out[:7]))
 
 
 @pytest.mark.parametrize("kind", ["plain", "linked", "damped"])
@@ -316,8 +320,12 @@ def test_run_plan_defaults_and_runner_checks():
         {"peers": 3, "phases": [{"rounds": 5}]}), G, "cpu")
     with pytest.raises(ValueError):
         trc.make_runner(cfg, compiled, short)
-    with pytest.raises(NotImplementedError):
-        trc._runner_body(cfg, compiled, None, actions=(0, None, None))
+    # The actions arm is ported; its zero planes need the transferee plane.
+    body = trc._runner_body(cfg, compiled, None, actions=(
+        0, torch.zeros(G, dtype=torch.int32), torch.zeros((3, G), dtype=torch.bool)))
+    with pytest.raises(ValueError, match="transfer"):
+        body((st, tsim.init_health(cfg, "cpu"), trc.init_reconfig_state(st))
+             + trc._zero_accumulators("cpu"), 0)
     with pytest.raises(NotImplementedError):
         trc.make_runner(cfg._replace(blackbox=True), compiled)
 
