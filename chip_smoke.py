@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Nine paths, all at 100,000 groups × 5 peers.  Three with one append per
+Ten paths, all at 100,000 groups × 5 peers.  Three with one append per
 group per round (bench.py's bench_device), each bare and instrumented
 (bench.py --health: the counter plane and the health planes ride every
 round, and the fused blocks run each kernel's with_health variant):
@@ -23,7 +23,7 @@ round, and the fused blocks run each kernel's with_health variant):
           check-quorum boundary proof) holds, any other block 32 damped
           general steps.
 
-and six more:
+and seven more:
 
   chaos     bench.py --chaos examples/chaos/partition_heal.json [--check-
             quorum]: ClusterSim(chaos=plan).run_plan(), the repo's P=5 plan
@@ -64,14 +64,20 @@ and six more:
             leadership off stalled leaders; a segment with no action and the
             whole batch steady runs the chaos kernel's with_health instance
             at k=16, the others the link-gated general step with the
-            transfer pump.
+            transfer pump;
+  blackbox  bench.py --blackbox: SimConfig(blackbox=True) (an 8-round ring,
+            an 8-wide capture) on the plain round, one append a group a
+            round, every round folded into the black box; a black-box config
+            never fuses, so the steady path's fused median is its baseline;
+            with it the injected traps (forensics.run_commit_regress_trap,
+            run_clock_pause_trap) and their one-group scalar repros.
 
 Phases, in order, each with its wall seconds; any failure raises and the
 script exits nonzero.  Every CPU run goes to one of two worker processes
 (spawned at the start) and runs while the card works: those that need
 nothing of the card are queued first, the others as their input exists;
-phases 13 and 16 to 20 wait for theirs, and the checks of phases 4, 7 and
-10 wait until phase 21.  Every parity phase holds both variants of its
+phases 13 and 16 to 21 wait for theirs, and the checks of phases 4, 7 and
+10 wait until phase 22.  Every parity phase holds both variants of its
 kernel, with_health=False and with_health=True (the latter with a random
 ticks_since_commit row), against the plain version on the same cases.
 Phases 4, 7 and 10 run their path on the card bare and instrumented
@@ -210,9 +216,27 @@ printed as bench.py --health-out writes it.
                    commit-stall group-rounds and actions; the busy share and
                    launches of 4 general rounds of the crash phase) and the
                    kernel against its bound
- 21. references    the held-back checks of phases 4, 7 and 10 against their
+ 21. forensics     card == CPU at G=8,192 over 64 plain rounds with the black
+                   box on (state, ring, trip plane, round count, and the
+                   capture of a seeded mask stamped by record_safety);
+                   partition_heal.json at G with the black box on: report and
+                   end state == phase 13's black-box-off run, its first 8,192
+                   groups' ring and trip plane == the CPU run; the
+                   commit-regress trap at G (P=3, its group-1 repro ==
+                   tests/testdata/forensics/commit_regress.txt below line 1;
+                   P=5) and the clock-pause trap at G (P=3, ==
+                   clock_pause.txt): each captures exactly its offenders, the
+                   repros replay RED, then green with the trap disabled; one
+                   stamped violation reaches a HealthMonitor's
+                   record_incident once; then timed (ClusterSim.run, off and
+                   on, 5 alternating reps a side: blackbox_overhead_pct, and
+                   blackbox_overhead_fused_pct against phase 5's median; the
+                   launches and busy share of 4 rounds each), and
+                   fast_multi_round(k=32) on a black-box config runs the
+                   general branch with no fused launch
+ 22. references    the held-back checks of phases 4, 7 and 10 against their
                    CPU runs
- 22. report        one JSON line of the ten kernel rows (the six variants,
+ 23. report        one JSON line of the ten kernel rows (the six variants,
                    the damped kernel's with_loss instance, its with_loss
                    with_health instance at k=8, its no-loss with_health
                    instance at k=8 and the chaos kernel's with_health instance
@@ -237,7 +261,8 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.multiraft import (
-    _build, autopilot, chaos, fused_step, kernels as pk, reconfig, sim, workload,
+    _build, autopilot, chaos, forensics, fused_step, kernels as pk, reconfig, sim,
+    workload,
 )
 from raft_tpu_torch.multiraft.health import HealthMonitor
 from raft_tpu_torch.multiraft.chaos_kernel import (
@@ -301,6 +326,17 @@ AUTO_DOC = {"name": "autopilot-bench", "peers": 5, "phases": [
     {"rounds": 32, "crash": [2], "append": 0},
     {"rounds": 96, "heal": True, "append": 0}]}
 AUTO_ROUNDS, AUTO_CRASH_AT, AUTO_HEAL_AT = 320, 192, 224
+# bench_blackbox: the plain round with the black box off and on (window 8,
+# capture width 8), one append a group a round, after a 30-round settle; a rep
+# is SCANS runs of 64 rounds (the bench's rep), the two sides alternating rep
+# by rep, as the host's speed drifts (three 64-round reps a side spread 30%).
+BB_SMALL_G, BB_ROUNDS, BB_SETTLE, BB_REPS, BB_PROFILE_ROUNDS = 8192, 64, 30, 5, 4
+# The injected traps' offender groups: both ends of the batch, and a group
+# past 65,536, where the timeout stream's group key wraps 32 bits.
+REGRESS_OFFENDERS = [1, 4097, 50_000, 99_999]
+PAUSE_OFFENDERS = [1, 65_537]
+DRAIN_GROUP = 77_777  # the group of the drain check's stamped violation
+GOLDEN_DIR = os.path.join(HERE, "tests", "testdata", "forensics")
 STORM_EVERY = 100  # the acting leader crashed in 1% of groups
 # The composed path's parity blocks from the aligned state: no boundary in
 # the first horizon, every boundary in the second, then 1% of leaders down.
@@ -1683,7 +1719,8 @@ def phase_chaos_scenario(dev, cpu_runs):
         t_cpu = check(cpu[check_quorum])
         out["check_quorum" if check_quorum else "undamped"] = dict(
             report=full[0], card_s=full[3], cpu_s=t_cpu, **timing)
-    return out
+    # The undamped G run, the black box's pure-observer baseline.
+    return out, card[False][1]
 
 
 # --- the per-group split (bench.py --lossy 0.01 --check-quorum) --------------
@@ -2832,6 +2869,244 @@ def phase_autopilot(dev, cpu_ref, pool):
     return launches, err, t
 
 
+# --- black-box forensics (bench.py --blackbox, the injected traps) -----------
+
+
+def bb_mask(n_groups, device):
+    """A seeded violation mask (0.1% of the slot-group pairs) that the parity
+    runs stamp onto their last round with record_safety, so that the capture
+    has offenders."""
+    viol = np.random.RandomState(9).rand(pk.N_SAFETY, n_groups) < 0.001
+    return torch.from_numpy(viol).to(device)
+
+
+def bb_parity_run(device, n_groups=BB_SMALL_G):
+    """BB_ROUNDS plain rounds of ClusterSim with the black box on from
+    init_state, one append a group a round, then bb_mask stamped onto the last
+    round: (state arrays, black-box arrays, capture)."""
+    s = sim.ClusterSim(sim.SimConfig(n_groups=n_groups, n_peers=P, blackbox=True),
+                       device=device)
+    s.run(BB_ROUNDS, append_n=torch.ones(n_groups, dtype=torch.int32, device=device))
+    s.record_safety(bb_mask(n_groups, device))
+    return sim.state_to_numpy(s.state), sim.blackbox_to_numpy(s._blackbox), s.forensics()
+
+
+def bb_scenario(device, n_groups):
+    """partition_heal.json (check_quorum off) with the black box on: (report,
+    state, black box)."""
+    s = sim.ClusterSim(chaos_cfg(n_groups, False)._replace(blackbox=True),
+                       chaos=chaos.load_plan(CHAOS_PLAN), device=device)
+    report = s.run_plan()
+    return report, s.state, s._blackbox
+
+
+def cpu_forensics():
+    """In a reference worker: bb_parity_run and bb_scenario at their small
+    widths, (parity run, (report, state arrays, black-box arrays), seconds)."""
+    worker_threads()
+    t0 = time.perf_counter()
+    plain = bb_parity_run("cpu")
+    report, st, bb = bb_scenario("cpu", CHAOS_SMALL_G)
+    return (plain, (report, sim.state_to_numpy(st), sim.blackbox_to_numpy(bb)),
+            time.perf_counter() - t0)
+
+
+def same_arrays(a, b, note, n=None):
+    """Two {name: array or int} dicts equal; with `n`, `a`'s planes cut to
+    their first n groups (the last axis)."""
+    if a.keys() != b.keys():
+        raise AssertionError(f"{note}: fields {sorted(a)} != {sorted(b)}")
+    for k, v in a.items():
+        if n is not None and isinstance(v, np.ndarray):
+            v = v[..., :n]
+        if not np.array_equal(v, b[k]):
+            raise AssertionError(f"{note}: {k} differs")
+
+
+def check_trap(session, slots, offenders, note, golden=None):
+    """Each slot's capture is exactly `offenders`, nothing else tripped; the
+    headline offender's repro (written to a scratch directory) equals the
+    golden below its first line, the line that names the generating package;
+    it replays RED, then green with the trap disabled.  Returns the repro's
+    summary."""
+    import tempfile
+
+    cap = session.sim.forensics()
+    for slot in slots:
+        got = sorted(o["group"] for o in cap["offenders"][slot])
+        if got != sorted(offenders) or cap["counts"][slot] != len(offenders):
+            raise AssertionError(f"{note}: {slot} captured {got} ({cap['counts'][slot]}), "
+                                 f"injected {offenders}")
+    stray = {o["group"] for offs in cap["offenders"].values() for o in offs} - set(offenders)
+    if stray:
+        raise AssertionError(f"{note}: uninjected groups tripped: {sorted(stray)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = session.extract(tmp)
+        with open(out["scenario_path"], encoding="utf-8") as fh:
+            text = fh.read()
+        red = forensics.replay_scenario(out["scenario_path"])
+        green = forensics.replay_scenario(out["scenario_path"], disable_traps=True)
+    if golden is not None:
+        with open(os.path.join(GOLDEN_DIR, golden), encoding="utf-8") as fh:
+            want = fh.read().splitlines()[1:]
+        if text.splitlines()[1:] != want:
+            raise AssertionError(f"{note}: the group-{out['group']} repro differs from "
+                                 f"tests/testdata/forensics/{golden}")
+    if not (out["reproduced"] and red["fired"][out["slot"]] > 0
+            and red["outcome"] == red["expected"]):
+        raise AssertionError(f"{note}: the repro does not replay RED: {red['fired']}")
+    if any(green["fired"].values()):
+        raise AssertionError(f"{note}: the repro fires with the trap off: {green['fired']}")
+    return {k: out[k] for k in ("slot", "group", "round", "fired")}
+
+
+def bb_timing(dev, steady_med):
+    """bench_blackbox: ClusterSim.run of SCANS x BB_ROUNDS plain rounds a rep
+    at G with the black box off and on, in alternating reps after a
+    BB_SETTLE-round settle;
+    ticks/s, blackbox_overhead_pct, blackbox_overhead_fused_pct against the
+    steady path's median (`steady_med`) from this run, and a profile of
+    BB_PROFILE_ROUNDS black-box rounds and of as many plain ones.  Then the
+    dispatcher on a black-box config: fast_multi_round(k=32) runs the general
+    branch, no fused kernel launches, and both sims end in the same state."""
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    sims = {flag: sim.ClusterSim(sim.SimConfig(n_groups=G, n_peers=P, blackbox=flag),
+                                 device=dev) for flag in (False, True)}
+    for s in sims.values():
+        s.run(BB_SETTLE, append_n=append)
+    samples = {False: [], True: []}
+    for rep in range(BB_REPS):
+        for flag in (False, True) if rep % 2 == 0 else (True, False):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(SCANS):
+                sims[flag].run(BB_ROUNDS, append_n=append)
+            sync()
+            samples[flag].append(G * BB_ROUNDS * SCANS / (time.perf_counter() - t0))
+    prof = {flag: device_profile(lambda f=flag: sims[f].run(BB_PROFILE_ROUNDS, append_n=append))
+            for flag in (False, True)}
+    assert_same(sims[True].state, on_cpu(sims[False].state), "black box on against off")
+    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    zero_launches()
+    out, fused = fused_step.fast_multi_round(sims[True].cfg, k=K, count_fused=True)(
+        sims[True].state, crashed, append, 0)
+    counts = launch_counts()
+    if fused or any(a or b for a, b in counts.values()):
+        raise AssertionError(f"blackbox: a fused block ran on a black-box config: "
+                             f"fused {fused}, launches {counts}")
+    sims[False].run(K, append_n=append)
+    assert_same(out, on_cpu(sims[False].state),
+                "fast_multi_round on a black-box config against the plain rounds")
+    check_state(out, G)
+    off, on = (statistics.median(samples[f]) for f in (False, True))
+    launches = {f: sum(r["count"] for r in prof[f]["kernels"]) / BB_PROFILE_ROUNDS
+                for f in (False, True)}
+    res = dict(
+        card=card_line(), ticks_per_s_off=samples[False], ticks_per_s_on=samples[True],
+        ticks_per_s_off_median=off, ticks_per_s_on_median=on,
+        ticks_per_s_fused_median=steady_med,
+        blackbox_overhead_pct=100 * (off - on) / off,
+        blackbox_overhead_fused_pct=100 * (steady_med - on) / steady_med,
+        launches_per_round_off=launches[False], launches_per_round_on=launches[True],
+        busy_share_off=prof[False]["busy_share"], busy_share_on=prof[True]["busy_share"],
+        profile_on=prof[True])
+    print(f"timing blackbox {G}x{P} [{res['card']}]: ClusterSim.run, {BB_REPS} alternating "
+          f"reps a side of {SCANS} x {BB_ROUNDS} plain rounds: ticks/s median off {off:.1f} (min "
+          f"{min(samples[False]):.1f}, max {max(samples[False]):.1f}), on {on:.1f} (min "
+          f"{min(samples[True]):.1f}, max {max(samples[True]):.1f}); "
+          f"blackbox_overhead_pct {res['blackbox_overhead_pct']:.2f}; against the steady "
+          f"fused path's median {steady_med:.1f} from this run, "
+          f"blackbox_overhead_fused_pct {res['blackbox_overhead_fused_pct']:.2f}")
+    for f in (False, True):
+        print(f"profile of {BB_PROFILE_ROUNDS} plain rounds, black box {'on' if f else 'off'}"
+              f": device busy {prof[f]['busy_us']:.1f} of {prof[f]['wall_us']:.1f} us "
+              f"({100 * prof[f]['busy_share']:.1f}%), {launches[f]:.0f} kernel launches a "
+              f"round")
+    for row in prof[True]["kernels"][:6]:
+        print(f"  {row['us']:10.1f} us {row['count']:6d}x  {row['name']}")
+    return res
+
+
+@phase("forensics")
+def phase_forensics(dev, cpu_ref, scenario_off, steady_med):
+    """bench.py --blackbox and the injected traps at G.  The parity run at
+    BB_SMALL_G on the card against the CPU's (`cpu_ref`, a reference worker's
+    future of cpu_forensics()): the state, the ring, the trip plane, the round
+    count and the capture.  partition_heal.json at G with the black box on:
+    the same report and end state as the chaos phase's black-box-off run
+    (`scenario_off`), and its first CHAOS_SMALL_G groups' ring and trip plane
+    equal to the CPU run at that width.  The commit-regress trap at G, P=3
+    (the golden repro) and P=5, and the clock-pause trap at G, P=3: each
+    captures exactly its offenders, and the group-1 repro replays RED, then
+    green with the trap disabled.  The drain: one stamped violation reaches
+    a HealthMonitor once.  Then bb_timing."""
+    t0 = time.perf_counter()
+    plain = bb_parity_run(dev)
+    scen = bb_scenario(dev, G)
+    t_card = time.perf_counter() - t0
+    if scen[0] != scenario_off[0]:
+        raise AssertionError(f"blackbox chaos: the report differs from the black-box-off "
+                             f"run: {scen[0]} != {scenario_off[0]}")
+    assert_same(scen[1], on_cpu(scenario_off[1]), "blackbox chaos against the black-box-off run")
+    if any(scen[0]["safety"].values()):
+        raise AssertionError(f"blackbox chaos: safety violations {scen[0]['safety']}")
+    traps = {}
+    t0 = time.perf_counter()
+    for n_peers, golden in ((3, "commit_regress.txt"), (5, None)):
+        session = forensics.run_commit_regress_trap(
+            n_groups=G, n_peers=n_peers, offenders=REGRESS_OFFENDERS, device=dev)
+        if session.safety[pk.SV_COMMIT_REGRESSED] != len(REGRESS_OFFENDERS):
+            raise AssertionError(f"commit-regress trap P={n_peers}: {session.safety}")
+        traps[f"commit_regress_p{n_peers}"] = check_trap(
+            session, ["commit_regressed"], REGRESS_OFFENDERS,
+            f"commit-regress trap P={n_peers}", golden)
+    session = forensics.run_clock_pause_trap(
+        n_groups=G, offenders=PAUSE_OFFENDERS, device=dev)
+    traps["clock_pause_p3"] = check_trap(
+        session, ["stale_read", "dual_lease"], PAUSE_OFFENDERS, "clock-pause trap",
+        "clock_pause.txt")
+    t_traps = time.perf_counter() - t0
+    mon = HealthMonitor()
+    s = sim.ClusterSim(sim.SimConfig(n_groups=G, n_peers=P, blackbox=True),
+                       health_monitor=mon, device=dev)
+    s.run(3, append_n=torch.ones(G, dtype=torch.int32, device=dev))
+    viol = torch.zeros((pk.N_SAFETY, G), dtype=torch.bool, device=dev)
+    viol[pk.SV_DUAL_LEADER, DRAIN_GROUP] = True
+    s.record_safety(viol)
+    s._drain()
+    first = mon.incidents()
+    s._drain()
+    if first != [{"slot": "dual_leader", "count": 1,
+                  "offenders": [{"group": DRAIN_GROUP, "round": 2}]}] or mon.incidents() != first:
+        raise AssertionError(f"blackbox drain: incidents {mon.incidents()}")
+    (st_c, bb_c, cap_c), (rep_c, scen_st_c, scen_bb_c), t_cpu = cpu_ref.result()
+    same_arrays(plain[0], st_c, f"blackbox parity G={BB_SMALL_G}: state")
+    same_arrays(plain[1], bb_c, f"blackbox parity G={BB_SMALL_G}: black box")
+    if plain[2] != cap_c:
+        raise AssertionError(f"blackbox parity G={BB_SMALL_G}: capture {plain[2]} != {cap_c}")
+    if any(rep_c["safety"].values()):
+        raise AssertionError(f"blackbox chaos G={CHAOS_SMALL_G}: safety {rep_c['safety']}")
+    same_arrays(sim.state_to_numpy(scen[1]), scen_st_c,
+                f"blackbox chaos: the first {CHAOS_SMALL_G} groups' state", CHAOS_SMALL_G)
+    same_arrays(sim.blackbox_to_numpy(scen[2]), scen_bb_c,
+                f"blackbox chaos: the first {CHAOS_SMALL_G} groups' black box", CHAOS_SMALL_G)
+    fired = sum(plain[2]["counts"].values())
+    print(f"forensics: card == CPU at {BB_SMALL_G}x{P} over {BB_ROUNDS} plain rounds with "
+          f"the black box on (state, ring, trip plane, round count {plain[1]['round_idx']}, "
+          f"capture of {fired} stamped offenders); {CHAOS_PLAN_NAME} at {G}x{P} with the "
+          f"black box on: report and end state == the black-box-off run, safety all 0, the "
+          f"first {CHAOS_SMALL_G} groups' ring and trip plane == the CPU run; card "
+          f"{t_card:.2f}s, CPU {t_cpu:.2f}s (in a reference worker)")
+    print(f"forensics traps at G={G} (card {t_traps:.2f}s): commit-regress P=3 and P=5 "
+          f"capture exactly {REGRESS_OFFENDERS}, clock-pause P=3 (stale_read, dual_lease) "
+          f"exactly {PAUSE_OFFENDERS}; the group-1 repros == "
+          f"tests/testdata/forensics/{{commit_regress,clock_pause}}.txt below line 1, RED "
+          f"then green with the traps off: {json.dumps(traps)}; the drain reported one "
+          f"incident, then none")
+    return dict(traps=traps, parity_card_s=t_card, cpu_s=t_cpu, traps_s=t_traps,
+                **bb_timing(dev, steady_med))
+
+
 @phase("references")
 def phase_references(checks):
     """The deferred checks of the steady, lossy and check-quorum phases:
@@ -2895,6 +3170,7 @@ def main(argv=None):
         cpu_prod_run = pool.submit(cpu_prod)
         cpu_reads_run = pool.submit(cpu_reads)
         cpu_auto_run = pool.submit(cpu_autopilot)
+        cpu_bb_run = pool.submit(cpu_forensics)
         lossy_small = pool.submit(cpu_lossy_small)
         damped_small = pool.submit(cpu_health_path, dict(
             cfg=damped_cfg(CQ_SMALL_G), blocks=CQ_SMALL_BLOCKS, settle=CQ_SETTLE))
@@ -2916,7 +3192,7 @@ def main(argv=None):
         damped = phase_damped_timing(dev, st)
         steady_h, damped_h, lossy_h = phase_health_timing(
             dev, {"steady": steady_run, "lossy": lossy_run, "damped": damped_run})
-        scenario = phase_chaos_scenario(dev, cpu_runs)
+        scenario, scenario_off = phase_chaos_scenario(dev, cpu_runs)
         composed = phase_composed_timing(dev, settled)
         steady_hybrid_fused = phase_steady_hybrid(dev, st_main)
         composed_launches, composed_err, composed_branches = phase_composed(
@@ -2925,6 +3201,9 @@ def main(argv=None):
         prod_launches, prod_err, prod = phase_prod_fused(dev, cpu_prod_run)
         reads_launches, reads_err, reads = phase_reads(dev, cpu_reads_run)
         auto_launches, auto_err, auto = phase_autopilot(dev, cpu_auto_run, pool)
+        blackbox = phase_forensics(dev, cpu_bb_run, scenario_off,
+                                   steady["ticks_per_s_median"])
+        del scenario_off
         phase_references(checks)
 
     rows = (
@@ -2961,7 +3240,7 @@ def main(argv=None):
                 "steady_health": steady_h, "damped_health": damped_h,
                 "lossy_health_kernel": lossy_h, "chaos_scenario": scenario,
                 "composed": composed, "reconfig": reconfig_out, "prod_fused": prod,
-                "reads": reads, "autopilot": auto},
+                "reads": reads, "autopilot": auto, "blackbox": blackbox},
                 "composed_branches": composed_branches,
                 "steady_hybrid_fused": steady_hybrid_fused}, fh, indent=1,
                 default=str)

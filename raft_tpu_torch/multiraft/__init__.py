@@ -6,12 +6,14 @@ Modules:
   kernels       — elementwise protocol kernels (timeout and loss PRNGs, tick,
                   quorum index, check-quorum liveness and boundary bound, the
                   event counters and the health planes, the packed schedule
-                  words, the safety invariants, the lease gate)
-  sim           — SimConfig, SimState, HealthState, init_state, init_health,
-                  the plain, link-gated and damped steps (with group_ids and
-                  the client reads' read_propose), read_index, ClusterSim
-                  (with chaos=, run_plan, run_reconfig, run_reads and the
-                  read probes)
+                  words, the safety invariants and their per-group form, the
+                  lease gate, the black box's fold, mark and capture)
+  sim           — SimConfig, SimState, HealthState, BlackboxState, init_state,
+                  init_health, init_blackbox, the plain, link-gated and
+                  damped steps (with group_ids, the client reads'
+                  read_propose and the black box), read_index, ClusterSim
+                  (with chaos=, run_plan, run_reconfig, run_reads, the read
+                  probes and the forensics accessors)
   chaos         — chaos plans, their compiled schedules, the scenario runner
   reconfig      — membership-change plans compiled through the scalar
                   Changer, the op-protocol runner and the split-horizon
@@ -19,9 +21,15 @@ Modules:
   workload      — client read/write plans, their compiled schedules, the
                   workload runner and the fused split runner
                   (ClusterSim.run_reads)
-  autopilot     — the no-op op schedule the workload runners compose
-  health        — HealthMonitor, the host consumer of health summaries and
-                  chaos, reconfig and read scenario reports
+  autopilot     — the fleet autopilot (policy, cadence runner, Autopilot) and
+                  the no-op op schedule the workload runners compose
+  forensics     — the black box's host half: incident JSON, the datadriven
+                  repro format, the one-group scalar replay, extract_repro
+                  and the injected traps
+  simref        — ScalarCluster: real scalar Rafts (raft_tpu_torch/scalar/)
+                  in lockstep rounds, the repros' replay engine
+  health        — HealthMonitor, the host consumer of health summaries, chaos,
+                  reconfig, read and autopilot reports and black-box incidents
   steady_kernel — k fused steady rounds: the CUDA kernel and its plain version
   chaos_kernel  — k fused loss-gated rounds: the CUDA kernel and its plain version
   damped_kernel — k fused check-quorum/pre-vote rounds: the CUDA kernel and its

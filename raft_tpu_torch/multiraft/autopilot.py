@@ -3,7 +3,7 @@
 Counterpart of `raft_tpu/multiraft/autopilot.py`: `AutopilotConfig`
 (:78-126), `empty_reconfig_schedule` (:128-149), `make_cadence_runner`
 (:152-193, with the runner it builds, `runner._make_cadence`,
-runner.py:785-951) and `Autopilot` (:196-702), without the black box.
+runner.py:785-951) and `Autopilot` (:196-702).
 
 A host-side declarative policy (`AutopilotConfig`: thresholds, budgets a
 cadence, cooldowns) reads the device-reduced health summary at each
@@ -139,7 +139,10 @@ def make_cadence_runner(
     the int32 0-dim commit-stall accumulator, r0 (a Python int) the
     segment's first round, transfer int32[G] and kick bool[P, G] the
     action planes, and fused_rounds a Python int, rounds x n_groups when
-    the fused arm ran and 0 otherwise.
+    the fused arm ran and 0 otherwise.  With SimConfig(blackbox=True) the
+    BlackboxState follows safety in the arguments and in the results
+    (reconfig._runner_body's black-box arm); such a config never fuses
+    (steady_mask rejects it).
 
     `fused=True` adds the fused arm, chosen by one host bool() of the
     reference's predicate over the whole batch: fused_step.steady_mask
@@ -166,7 +169,6 @@ def make_cadence_runner(
         )
     if client is not None:
         raise ValueError("cadence runners do not thread a client plan")
-    sim_mod.check_supported(cfg)
     reconfig_mod._validate_plans(cfg, compiled, chaos_compiled)
     P, G = cfg.n_peers, cfg.n_groups
     chaos_on = chaos_compiled is not None
@@ -178,6 +180,7 @@ def make_cadence_runner(
         )
 
     def general(inner, csr, r0, transfer, kick):
+        # _runner_body carries the BlackboxState last in `inner`.
         body = reconfig_mod._runner_body(
             cfg, compiled, chaos_compiled, actions=(r0, transfer, kick)
         )
@@ -193,14 +196,16 @@ def make_cadence_runner(
         got = (alive & mask).sum(0, dtype=I32)
         return (got >= kernels.majority_of(n)) | (n == 0)
 
-    def runner(st, hl, rst, stats, rstats, safety, csr, r0: int, transfer, kick):
+    def runner(st, hl, rst, stats, rstats, safety, *rest):
+        bb, (csr, r0, transfer, kick) = rest[:-4], rest[-4:]
         reconfig_mod._check_device(st, hl, dev)
+        sim_mod.check_blackbox_arg(cfg, bb)
         if r0 + rounds > compiled.n_rounds:
             raise ValueError(
                 f"a {rounds}-round segment from round {r0} overruns the "
                 f"{compiled.n_rounds}-round schedule"
             )
-        inner = (st, hl, rst, stats, rstats, safety)
+        inner = (st, hl, rst, stats, rstats, safety) + bb
         if not fused:
             return general(inner, csr, r0, transfer, kick)
         # The fused kernel gathers the round-r0 masks once for the whole
@@ -253,7 +258,7 @@ def make_cadence_runner(
         rst2 = rst._replace(
             prev_voter=st2.voter_mask, prev_outgoing=st2.outgoing_mask
         )
-        return st2, hl2, rst2, stats2, rstats, safety, csr, rounds * G
+        return (st2, hl2, rst2, stats2, rstats, safety) + bb + (csr, rounds * G)
 
     return runner
 
@@ -262,8 +267,8 @@ class Autopilot:
     """The closed loop: drive a ClusterSim through a chaos plan in cadence
     segments, reading health and issuing batched heal actions between
     them.  The sim must be built with SimConfig(collect_health=True,
-    transfer=True); a black-box sim is refused.  Everything runs on the
-    sim's device.
+    transfer=True); on a black-box sim every round folds into its black
+    box.  Everything runs on the sim's device.
 
     `monitor` (a health.HealthMonitor; default the sim's health_monitor)
     receives the per-cadence summaries and the final report; `metrics`
@@ -279,11 +284,6 @@ class Autopilot:
         metrics=None,
         fused: bool = False,
     ):
-        if getattr(sim.cfg, "blackbox", False):
-            raise NotImplementedError(
-                "raft_tpu_torch does not implement the autopilot's black box "
-                "yet"
-            )
         self.sim = sim
         self.cfg = cfg.validate()
         self.monitor = (
@@ -585,6 +585,7 @@ class Autopilot:
         stats, rstats, safety = reconfig_mod._zero_accumulators(dev)
         csr = torch.zeros((), dtype=I32, device=dev)
         st = sim.state
+        bb = sim._bb_args()
         transfer = np.zeros((G,), np.int32)
         kick = np.zeros((P, G), bool)
         done = 0
@@ -592,12 +593,16 @@ class Autopilot:
         while done < R:
             seg = min(self.cfg.cadence, R - done)
             runner = self._runner_for(compiled, chaos_compiled, seg)
-            st, hl, rst, stats, rstats, safety, csr, seg_fused = runner(
-                st, hl, rst, stats, rstats, safety, csr, done,
+            out = runner(
+                st, hl, rst, stats, rstats, safety, *bb, csr, done,
                 torch.from_numpy(transfer).to(dev), torch.from_numpy(kick).to(dev),
             )
+            st, hl, rst, stats, rstats, safety = out[:6]
+            bb, (csr, seg_fused) = out[6:-2], out[-2:]
             fused_rounds += seg_fused
             sim.state, sim._health = st, hl
+            if bb:
+                sim._blackbox = bb[0]
             done += seg
             if done >= R:
                 break
@@ -627,7 +632,9 @@ class Autopilot:
                 rst = reconfig_mod.init_reconfig_state(st)
         # The tail audit: a final-round apply's mask transition is checked
         # one fold later.
-        safety = reconfig_mod._tail_audit(safety, st, rst)
+        safety, bb_end = reconfig_mod._tail_audit(safety, st, rst, *bb)
+        if bb:
+            sim._blackbox = bb_end
         host = torch.cat([stats, safety, csr[None]]).tolist()
         n_stats = stats.numel()
         report = HealthMonitor.chaos_report(

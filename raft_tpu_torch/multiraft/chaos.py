@@ -406,9 +406,13 @@ def make_runner(cfg: sim_mod.SimConfig, compiled: CompiledChaos):
     the schedule's masks, one sim.step with the link plane and the health
     planes, check_safety against the round's starting commit, and the
     chaos-stats fold.  The loop queues device work only; nothing crosses to
-    the host until the caller reads the results.  A SimConfig(blackbox=True)
-    raises NotImplementedError (the flight recorder is not ported)."""
-    sim_mod.check_supported(cfg)
+    the host until the caller reads the results.
+
+    With SimConfig(blackbox=True) it is fn(state, health, blackbox) ->
+    (state', health', blackbox', stats, safety): each round audits with
+    kernels.check_safety_groups instead, whose per-slot sums are the safety
+    counts, and folds the audit and the round's record into the black box
+    in one kernels.blackbox_fold."""
     G = compiled.append.shape[1]
     if (compiled.n_peers, G) != (cfg.n_peers, cfg.n_groups):
         raise ValueError(
@@ -417,12 +421,13 @@ def make_runner(cfg: sim_mod.SimConfig, compiled: CompiledChaos):
         )
     dev = compiled.append.device
 
-    def runner(st: sim_mod.SimState, health: sim_mod.HealthState):
+    def runner(st: sim_mod.SimState, health: sim_mod.HealthState, *bb):
         if st.term.device != dev or health.planes.device != dev:
             raise ValueError(
                 f"the state and health planes must lie on the schedule's "
                 f"device {dev}, got {st.term.device} and {health.planes.device}"
             )
+        sim_mod.check_blackbox_arg(cfg, bb)
         stats = torch.zeros((N_CHAOS_STATS,), dtype=I32, device=dev)
         safety = torch.zeros((N_SAFETY,), dtype=I32, device=dev)
         for r in range(compiled.n_rounds):
@@ -430,15 +435,21 @@ def make_runner(cfg: sim_mod.SimConfig, compiled: CompiledChaos):
             prev_leaderless = health.planes[HP_LEADERLESS]
             st2, health = sim_mod.step(cfg, st, crashed, append, health=health,
                                        link=link)
-            safety = safety + kernels.check_safety(
-                st2.state, st2.term, st2.commit, st2.last_index, st2.agree,
-                st.commit,
-            )
+            audit = (st2.state, st2.term, st2.commit, st2.last_index, st2.agree,
+                     st.commit)
+            if bb:
+                viol = kernels.check_safety_groups(*audit)
+                safety = safety + viol.sum(1, dtype=I32)
+                bb = (sim_mod.BlackboxState(*kernels.blackbox_fold(
+                    *bb[0], st2.state, st2.term, st2.commit, crashed, viol
+                )),)
+            else:
+                safety = safety + kernels.check_safety(*audit)
             stats = update_chaos_stats(
                 stats, prev_leaderless, health.planes[HP_LEADERLESS]
             )
             st = st2
-        return st, health, stats, safety
+        return (st, health) + bb + (stats, safety)
 
     return runner
 

@@ -3,8 +3,8 @@ when the steady invariant provably holds for all of them, else k general
 steps.  Both branches give the same state, bit for bit.
 
 Counterpart of `raft_tpu/multiraft/pallas_step.py`: `steady_mask`
-(:1355-1554, the plain, the link, the damped, the transferee, the
-reconfig and the read arm), `steady_predicate` (:1557), `steady_round` with its host wrapper
+(:1355-1554, the defuse, the plain, the link, the damped, the transferee,
+the reconfig and the read arm), `steady_predicate` (:1557), `steady_round` with its host wrapper
 `_run` (:549-749), `steady_round(with_chaos=True)` with its host wrapper
 `_build_chaos_round._run` (:806-886) as `chaos_round` here, the damped
 configs' `_build_damped_round._run` (:1240-1352, plain and with chaos) as
@@ -83,8 +83,13 @@ def steady_mask(
     horizon must provably pass: without `link`, kernels.cq_boundary_safe;
     with `link` and `loss_rate` (int32[P, P, G]), the same per group, the
     groups with a nonzero rate anywhere held to the no-boundary bound; with
-    `link` alone, no role-leader may reach its boundary."""
-    sim_mod.check_supported(cfg)
+    `link` alone, no role-leader may reach its boundary.
+
+    A black-box config (SimConfig.blackbox) rejects every group: the fused
+    kernels cannot fold the per-round ring record, so such configs run the
+    general rounds."""
+    if cfg.blackbox:
+        return torch.zeros((cfg.n_groups,), dtype=torch.bool, device=st.term.device)
     damped = cfg.check_quorum or cfg.pre_vote
     if damped and cfg.election_tick <= cfg.heartbeat_tick:
         # The saturation argument needs a full heartbeat interval strictly
@@ -332,7 +337,6 @@ def steady_round(
     int32 plane and/or the HealthState after append_n, in that order, and
     returns (SimState, counters', health'), equal to threading them through
     `rounds` sim.steps.  A damped config gets damped_round(cfg, rounds)."""
-    sim_mod.check_supported(cfg)
     if cfg.check_quorum or cfg.pre_vote:
         return damped_round(cfg, rounds, with_health=with_health,
                             with_counters=with_counters)
@@ -378,7 +382,6 @@ def chaos_round(
     follow round_base, as in steady_round.  Valid where the predicate holds
     with a healed link plane.  A damped config gets damped_round(cfg,
     rounds, with_chaos=True)."""
-    sim_mod.check_supported(cfg)
     if cfg.check_quorum or cfg.pre_vote:
         return damped_round(cfg, rounds, with_chaos=True, with_health=with_health,
                             with_counters=with_counters)
@@ -419,7 +422,6 @@ def damped_round(
     leaders stay as they are, as the general rounds leave them.  Valid
     where the predicate holds (with a healed link plane and `loss_rate`
     when chaos is on)."""
-    sim_mod.check_supported(cfg)
     if not (cfg.check_quorum or cfg.pre_vote):
         raise ValueError("damped_round needs check_quorum or pre_vote")
     ticks = dict(_ticks(cfg, rounds), with_cq=cfg.check_quorum)

@@ -1,10 +1,11 @@
 """HealthMonitor: the host-side consumer of fleet-health summaries.
 
-Counterpart of `raft_tpu/multiraft/health.py` (:35-345, :387-399): the
+Counterpart of `raft_tpu/multiraft/health.py` (:35-399): the
 summary formatter, `record`, the chaos scenario report `chaos_report` and
 `record_scenario`, the reconfig scenario report `reconfig_stall_groups`,
 `reconfig_report` and `record_reconfig`, the autopilot report's
-`record_autopilot`, the client-read report's `record_reads`, `last`,
+`record_autopilot`, the client-read report's `record_reads`, the
+black box's `record_incident` and `incidents`, `last`,
 `summary_ring` and `__len__`.  The device planes (kernels.HP_* rows, maintained by sim.step)
 reduce on their device to one fixed-size summary dict::
 
@@ -58,6 +59,8 @@ class HealthMonitor:
         self._summary_ring: Deque[dict] = deque(maxlen=recorder_size)
         self._seq = 0
         self._lock = threading.Lock()
+        # Per safety slot, the offender count last folded into the metric.
+        self._incident_seen: Dict[str, int] = {}
 
     @staticmethod
     def summary_dict(counts, lag_hist, worst_ids, worst_scores) -> dict:
@@ -301,6 +304,41 @@ class HealthMonitor:
             if any(report.get("safety", {}).values()):
                 m.trace("reconfig.safety", **report["safety"])
         return entry
+
+    def record_incident(self, incident: dict) -> dict:
+        """Fold a black-box incident ({"slot": name, "count": n,
+        "offenders": [{"group", "round"}, ...]}, ClusterSim's drain report
+        of one safety slot) into the ring and the trace as a
+        `forensics.incident` event.  A metrics object with a
+        `safety_incidents` counter family gets its {slot} counter bumped by
+        the offenders new since the slot was last reported (the counts
+        arrive cumulative)."""
+        with self._lock:
+            entry = {"seq": self._seq, "ts": time.time(), "incident": incident}
+            self._seq += 1
+            self._summary_ring.append(entry)
+            # The seen-count read-modify-write shares the ring's lock: two
+            # reporters of one slot must not both count the same offenders.
+            prev = self._incident_seen.get(incident["slot"], 0)
+            delta = max(0, incident.get("count", 0) - prev)
+            self._incident_seen[incident["slot"]] = max(prev, incident.get("count", 0))
+        m = self.metrics
+        if m is not None:
+            counter = getattr(m, "safety_incidents", None)
+            if counter is not None and delta:
+                counter.labels(slot=incident["slot"]).inc(delta)
+            m.trace(
+                "forensics.incident",
+                slot=incident["slot"],
+                count=incident.get("count", 0),
+                offenders=incident.get("offenders", []),
+            )
+        return entry
+
+    def incidents(self) -> List[dict]:
+        """Oldest-to-newest black-box incidents still in the ring."""
+        with self._lock:
+            return [e["incident"] for e in self._summary_ring if "incident" in e]
 
     def last(self) -> Optional[dict]:
         """Most recent ring entry, or None."""

@@ -11,6 +11,7 @@ Counterparts (reference file `raft_tpu/multiraft/kernels.py`):
   pack_bits, unpack_bits, pack_u16_pairs, unpack_u16_pairs  :382-432
   pack_bits_g, unpack_bits_g  :435-470
   SV_*, N_SAFETY, SAFETY_NAMES, check_safety  :471-807
+  check_safety_groups  :810-948
   lease_read           :500-604
   apply_confchange     :949-1070
   apply_transfer       :1071-1127
@@ -23,6 +24,8 @@ Counterparts (reference file `raft_tpu/multiraft/kernels.py`):
   HP_*, N_HEALTH_PLANES, HEALTH_PLANE_NAMES, LAG_BUCKET_BOUNDS,
   N_LAG_BUCKETS, HS_*, HEALTH_COUNT_NAMES, zero_health, update_health,
   health_summary       :1349-1461
+  BB_*, pack_blackbox_meta, unpack_blackbox_meta, zero_blackbox,
+  blackbox_fold, blackbox_mark, blackbox_capture  :1462-1627
   tick_kernel          :1628
 
 The reference computes the timeout and loss PRNGs in uint32.  PyTorch's uint32
@@ -370,6 +373,91 @@ def lease_read(
     return holder, serving.any(0), torch.where(serving, commit, 0).sum(0, dtype=I32)
 
 
+def _safety_groups(
+    state, term, commit, last_index, agree, prev_commit, voter_mask,
+    outgoing_mask, matched, crashed, prev_voter_mask, prev_outgoing_mask,
+    lease_holder, lease_fire,
+):
+    """check_safety's invariants as N_SAFETY per-group bool[G] indicators,
+    None for a slot whose optional arguments were not given."""
+    P = state.shape[0]
+    dev = state.device
+    off_diag = ~torch.eye(P, dtype=torch.bool, device=dev)[:, :, None]
+    is_lead = state == ROLE_LEADER
+    dual = (
+        is_lead[:, None, :]
+        & is_lead[None, :, :]
+        & (term[:, None, :] == term[None, :, :])
+        & off_diag
+    )
+    cmin = torch.minimum(commit[:, None, :], commit[None, :, :])
+    diverged = (cmin > agree) & off_diag
+    regressed = commit < prev_commit
+    lmin = torch.minimum(last_index[:, None, :], last_index[None, :, :])
+    invalid = ((agree > lmin) & off_diag) | (commit > last_index)[:, None, :]
+    g_outside = g_unbacked = g_double = g_stale = g_dual_lease = None
+    if voter_mask is not None:
+        if outgoing_mask is None or matched is None:
+            raise ValueError(
+                "joint-window checks need voter_mask, outgoing_mask AND "
+                "matched together"
+            )
+        non_follower = state != ROLE_FOLLOWER
+        outside = non_follower & ~(voter_mask | outgoing_mask)
+        g_outside = outside.any(0)
+        alive = ~crashed if crashed is not None else torch.ones_like(is_lead)
+        lead_alive = is_lead & alive
+        max_alive_term = torch.where(lead_alive, term, -1).amax(0)
+        checked = is_lead & (~alive | (term == max_alive_term[None, :]))
+        owner_rows = matched.transpose(1, 2)  # [P_owner, G, P_target]
+
+        def half(mask):
+            return committed_index(
+                owner_rows,
+                mask.transpose(0, 1)[None, :, :].expand(owner_rows.shape),
+            )
+
+        mci = torch.minimum(half(voter_mask), half(outgoing_mask))  # [P, G]
+        prev_high = prev_commit.amax(0)
+        unbacked = checked & (commit > prev_high[None, :]) & (commit > mci)
+        g_unbacked = unbacked.any(0)
+    if prev_voter_mask is not None:
+        if voter_mask is None or prev_outgoing_mask is None:
+            raise ValueError(
+                "the double-change check needs prev AND current masks"
+            )
+        was_j = prev_outgoing_mask.any(0)
+        now_j = outgoing_mask.any(0)
+        vm_delta = (prev_voter_mask ^ voter_mask).sum(0, dtype=I32)
+        om_moved = (prev_outgoing_mask ^ outgoing_mask).any(0)
+        enter_bad = (~was_j & now_j) & (outgoing_mask ^ prev_voter_mask).any(0)
+        leave_bad = (was_j & ~now_j) & (vm_delta > 0)
+        stay_bad = (was_j & now_j) & ((vm_delta > 0) | om_moved)
+        simple_bad = (~was_j & ~now_j) & (vm_delta > 1)
+        g_double = enter_bad | leave_bad | stay_bad | simple_bad
+    if lease_holder is not None:
+        g_dual_lease = lease_holder.sum(0, dtype=I32) >= 2
+        if lease_fire is not None:
+            fleet_high = prev_commit.amax(0)  # [G] at serve time
+            stale = lease_holder & (prev_commit < fleet_high[None, :])
+            g_stale = lease_fire & stale.any(0)
+    elif lease_fire is not None:
+        raise ValueError(
+            "the stale-read check needs lease_holder alongside lease_fire"
+        )
+    return (
+        dual.any(0).any(0),
+        diverged.any(0).any(0),
+        regressed.any(0),
+        invalid.any(0).any(0),
+        g_outside,
+        g_unbacked,
+        g_double,
+        g_stale,
+        g_dual_lease,
+    )
+
+
 def check_safety(
     state: torch.Tensor,  # int32[P, G]
     term: torch.Tensor,  # int32[P, G]
@@ -406,90 +494,44 @@ def check_safety(
     `lease_fire`): at most one live lease per group, and no lease-served
     read older than an index committed anywhere at serve time.  Every count
     is int32."""
-    P = state.shape[0]
-    dev = state.device
-    off_diag = ~torch.eye(P, dtype=torch.bool, device=dev)[:, :, None]
-    is_lead = state == ROLE_LEADER
-    dual = (
-        is_lead[:, None, :]
-        & is_lead[None, :, :]
-        & (term[:, None, :] == term[None, :, :])
-        & off_diag
+    groups = _safety_groups(
+        state, term, commit, last_index, agree, prev_commit, voter_mask,
+        outgoing_mask, matched, crashed, prev_voter_mask, prev_outgoing_mask,
+        lease_holder, lease_fire,
     )
-    cmin = torch.minimum(commit[:, None, :], commit[None, :, :])
-    diverged = (cmin > agree) & off_diag
-    regressed = commit < prev_commit
-    lmin = torch.minimum(last_index[:, None, :], last_index[None, :, :])
-    invalid = ((agree > lmin) & off_diag) | (commit > last_index)[:, None, :]
-    zero = torch.zeros((), dtype=I32, device=dev)
-    if voter_mask is not None:
-        if outgoing_mask is None or matched is None:
-            raise ValueError(
-                "joint-window checks need voter_mask, outgoing_mask AND "
-                "matched together"
-            )
-        non_follower = state != ROLE_FOLLOWER
-        outside = non_follower & ~(voter_mask | outgoing_mask)
-        sv_outside = outside.any(0).sum(dtype=I32)
-        alive = ~crashed if crashed is not None else torch.ones_like(is_lead)
-        lead_alive = is_lead & alive
-        max_alive_term = torch.where(lead_alive, term, -1).amax(0)
-        checked = is_lead & (~alive | (term == max_alive_term[None, :]))
-        owner_rows = matched.transpose(1, 2)  # [P_owner, G, P_target]
+    zero = torch.zeros((), dtype=I32, device=state.device)
+    return torch.stack([zero if g is None else g.sum(dtype=I32) for g in groups])
 
-        def half(mask):
-            return committed_index(
-                owner_rows,
-                mask.transpose(0, 1)[None, :, :].expand(owner_rows.shape),
-            )
 
-        mci = torch.minimum(half(voter_mask), half(outgoing_mask))  # [P, G]
-        prev_high = prev_commit.amax(0)
-        unbacked = checked & (commit > prev_high[None, :]) & (commit > mci)
-        sv_unbacked = unbacked.any(0).sum(dtype=I32)
-    else:
-        sv_outside = sv_unbacked = zero
-    if prev_voter_mask is not None:
-        if voter_mask is None or prev_outgoing_mask is None:
-            raise ValueError(
-                "the double-change check needs prev AND current masks"
-            )
-        was_j = prev_outgoing_mask.any(0)
-        now_j = outgoing_mask.any(0)
-        vm_delta = (prev_voter_mask ^ voter_mask).sum(0, dtype=I32)
-        om_moved = (prev_outgoing_mask ^ outgoing_mask).any(0)
-        enter_bad = (~was_j & now_j) & (outgoing_mask ^ prev_voter_mask).any(0)
-        leave_bad = (was_j & ~now_j) & (vm_delta > 0)
-        stay_bad = (was_j & now_j) & ((vm_delta > 0) | om_moved)
-        simple_bad = (~was_j & ~now_j) & (vm_delta > 1)
-        sv_double = (enter_bad | leave_bad | stay_bad | simple_bad).sum(dtype=I32)
-    else:
-        sv_double = zero
-    if lease_holder is not None:
-        sv_dual_lease = (lease_holder.sum(0, dtype=I32) >= 2).sum(dtype=I32)
-        if lease_fire is not None:
-            fleet_high = prev_commit.amax(0)  # [G] at serve time
-            stale = lease_holder & (prev_commit < fleet_high[None, :])
-            sv_stale = (lease_fire & stale.any(0)).sum(dtype=I32)
-        else:
-            sv_stale = zero
-    else:
-        if lease_fire is not None:
-            raise ValueError(
-                "the stale-read check needs lease_holder alongside lease_fire"
-            )
-        sv_dual_lease = sv_stale = zero
-    return torch.stack([
-        dual.any(0).any(0).sum(dtype=I32),
-        diverged.any(0).any(0).sum(dtype=I32),
-        regressed.any(0).sum(dtype=I32),
-        invalid.any(0).any(0).sum(dtype=I32),
-        sv_outside,
-        sv_unbacked,
-        sv_double,
-        sv_stale,
-        sv_dual_lease,
-    ])
+def check_safety_groups(
+    state: torch.Tensor,  # int32[P, G]
+    term: torch.Tensor,  # int32[P, G]
+    commit: torch.Tensor,  # int32[P, G]
+    last_index: torch.Tensor,  # int32[P, G]
+    agree: torch.Tensor,  # int32[P, P, G]
+    prev_commit: torch.Tensor,  # int32[P, G]
+    voter_mask: Optional[torch.Tensor] = None,  # bool[P, G]
+    outgoing_mask: Optional[torch.Tensor] = None,  # bool[P, G]
+    matched: Optional[torch.Tensor] = None,  # int32[P, P, G]
+    crashed: Optional[torch.Tensor] = None,  # bool[P, G]
+    prev_voter_mask: Optional[torch.Tensor] = None,  # bool[P, G]
+    prev_outgoing_mask: Optional[torch.Tensor] = None,  # bool[P, G]
+    lease_holder: Optional[torch.Tensor] = None,  # bool[P, G]
+    lease_fire: Optional[torch.Tensor] = None,  # bool[G]
+) -> torch.Tensor:
+    """The per-group form of check_safety, the black box's trigger surface:
+    the same invariants over the same optional-argument matrix, as
+    bool[N_SAFETY, G] violation indicators (an unchecked slot's row is
+    all-False), whose row sums are check_safety's counts."""
+    groups = _safety_groups(
+        state, term, commit, last_index, agree, prev_commit, voter_mask,
+        outgoing_mask, matched, crashed, prev_voter_mask, prev_outgoing_mask,
+        lease_holder, lease_fire,
+    )
+    zero_g = torch.zeros(
+        (state.shape[1],), dtype=torch.bool, device=state.device
+    )
+    return torch.stack([zero_g if g is None else g for g in groups])
 
 
 def apply_confchange(
@@ -767,6 +809,149 @@ def health_summary(
         hist,
         ordered.indices[:k].to(I32),
         ordered.values[:k].to(I32),
+    )
+
+
+# --- the black-box flight recorder (the forensics layer) -----------------
+#
+# A [W, G] ring of per-group round records plus a first-trip plane, carried
+# behind SimConfig(blackbox=True), so that a nonzero safety count can be
+# traced to the offending group and round.  Ring word layout (the
+# reference's uint32 word, held in an int32 tensor; 15 of 32 bits used):
+#   bits 0-1   group max ROLE_* code (< 4)
+#   bits 2-5   acting leader peer id (acting_leader_id, 0..n_peers < 16)
+#   bits 6-14  the round's N_SAFETY fired-slot indicators
+BB_LEADER_SHIFT = 2
+BB_SAFETY_SHIFT = 6
+BB_META_BITS = BB_SAFETY_SHIFT + N_SAFETY
+
+
+def pack_blackbox_meta(
+    role: torch.Tensor,  # int32[...]
+    leader_id: torch.Tensor,  # int32[...]
+    safety_bits: torch.Tensor,  # int32[...] holding uint32 bits
+) -> torch.Tensor:
+    """One ring record's word (layout above): int32 tensors holding the
+    reference's uint32 bits, built in int64 as pack_bits_g's are."""
+    word = (
+        role.to(torch.int64)
+        | (leader_id.to(torch.int64) << BB_LEADER_SHIFT)
+        | (safety_bits.to(torch.int64) << BB_SAFETY_SHIFT)
+    ) & _MASK32
+    return _word_bits(word)
+
+
+def unpack_blackbox_meta(
+    word: torch.Tensor,  # int32[...] holding uint32 bits
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Inverse of pack_blackbox_meta: word -> (role, leader_id,
+    safety_bits), int32 each."""
+    role = word & 3
+    leader = (word >> BB_LEADER_SHIFT) & 0xF
+    bits = (word >> BB_SAFETY_SHIFT) & ((1 << N_SAFETY) - 1)
+    return role, leader, bits
+
+
+def zero_blackbox(n_groups: int, window: int, device: DeviceLike = None):
+    """Fresh black-box planes: (meta int32[W, G], term int32[W, G], commit
+    int32[W, G], trip_round int32[N_SAFETY, G] at INF = never tripped,
+    round_idx 0), on `cuda` unless `device` says otherwise.  round_idx is
+    a Python int: every change to it is host-known arithmetic."""
+    dev = resolve_device(device)
+    ring = (window, n_groups)
+    return (
+        torch.zeros(ring, dtype=I32, device=dev),
+        torch.zeros(ring, dtype=I32, device=dev),
+        torch.zeros(ring, dtype=I32, device=dev),
+        torch.full((N_SAFETY, n_groups), INF, dtype=I32, device=dev),
+        0,
+    )
+
+
+def _safety_bits(viol: torch.Tensor) -> torch.Tensor:
+    """bool[N_SAFETY, G] -> int64[G] fired-slot bits (slot s at bit s)."""
+    lanes = torch.arange(N_SAFETY, dtype=torch.int64, device=viol.device)
+    # The bits are disjoint, so the shifted sum is a bitwise OR.
+    return (viol.to(torch.int64) << lanes[:, None]).sum(0)
+
+
+def _set_ring_row(ring: torch.Tensor, slot: int, row: torch.Tensor) -> torch.Tensor:
+    out = ring.clone()
+    out[slot] = row
+    return out
+
+
+def blackbox_fold(
+    meta_ring: torch.Tensor,  # int32[W, G]
+    term_ring: torch.Tensor,  # int32[W, G]
+    commit_ring: torch.Tensor,  # int32[W, G]
+    trip_round: torch.Tensor,  # int32[N_SAFETY, G]
+    round_idx: int,
+    state: torch.Tensor,  # int32[P, G]
+    term: torch.Tensor,  # int32[P, G]
+    commit: torch.Tensor,  # int32[P, G]
+    crashed: torch.Tensor,  # bool[P, G]
+    viol: torch.Tensor,  # bool[N_SAFETY, G]
+):
+    """Fold one round into the black box: ring slot round_idx % W gets the
+    packed (group max role, acting leader, fired bits) word, the group max
+    term and the group max commit, and the first-trip plane takes
+    round_idx where `viol` (check_safety_groups' output for the round)
+    fired and no earlier round had.  Returns fresh (meta, term, commit,
+    trip_round) planes and round_idx + 1.  Callers without a safety audit
+    pass all-False `viol`; blackbox_mark stamps the bits in later."""
+    slot = round_idx % meta_ring.shape[0]
+    word = pack_blackbox_meta(
+        state.amax(0), acting_leader_id(state, term, crashed), _safety_bits(viol)
+    )
+    return (
+        _set_ring_row(meta_ring, slot, word),
+        _set_ring_row(term_ring, slot, term.amax(0)),
+        _set_ring_row(commit_ring, slot, commit.amax(0)),
+        torch.where(viol, trip_round.clamp(max=round_idx), trip_round),
+        round_idx + 1,
+    )
+
+
+def blackbox_mark(
+    meta_ring: torch.Tensor,  # int32[W, G]
+    trip_round: torch.Tensor,  # int32[N_SAFETY, G]
+    round_idx: int,
+    viol: torch.Tensor,  # bool[N_SAFETY, G]
+):
+    """Stamp a violation mask onto the last folded round (round_idx - 1):
+    OR its fired bits into that ring word and min-fold the trip plane.
+    Returns fresh (meta, trip_round).  On a fresh recorder (round_idx 0,
+    no round folded) it changes nothing."""
+    if round_idx == 0:
+        return meta_ring, trip_round
+    r = round_idx - 1
+    slot = r % meta_ring.shape[0]
+    bits = _word_bits(_safety_bits(viol) << BB_SAFETY_SHIFT)
+    return (
+        _set_ring_row(meta_ring, slot, meta_ring[slot] | bits),
+        torch.where(viol, trip_round.clamp(max=r), trip_round),
+    )
+
+
+def blackbox_capture(
+    trip_round: torch.Tensor,  # int32[N_SAFETY, G]
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The first-trip plane reduced to a fixed-size capture on its device:
+    (counts int32[N_SAFETY], ids int32[N_SAFETY, k], rounds int32[N_SAFETY,
+    k]): per slot, how many groups ever tripped it and the first k
+    offenders in (trip round, group id) order; unfilled lanes hold -1.
+    `lax.top_k` breaks ties toward the lower group id, and so does a
+    stable ascending sort."""
+    counts = (trip_round < INF).sum(1, dtype=I32)
+    ordered = torch.sort(trip_round, dim=1, stable=True)
+    rounds = ordered.values[:, :k]
+    got = rounds < INF
+    return (
+        counts,
+        torch.where(got, ordered.indices[:, :k].to(I32), -1),
+        torch.where(got, rounds, -1),
     )
 
 

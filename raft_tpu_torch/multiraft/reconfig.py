@@ -2,11 +2,11 @@
 per-group schedules on the device, and the runners that drive a whole plan
 through the batched step.
 
-Counterpart of `raft_tpu/multiraft/reconfig.py` (all of it but the
-black box) and of the two runners built for it
-in `raft_tpu/multiraft/runner.py`: `_make_reconfig` (:208-290) as
-:func:`make_runner` and `_make_reconfig_split` (:292-491) as
-:func:`make_split_runner`, both the blackbox=False arm.
+Counterpart of `raft_tpu/multiraft/reconfig.py` (all of it) and of the
+two runners built for it in `raft_tpu/multiraft/runner.py`:
+`_make_reconfig` (:208-290) as :func:`make_runner` and
+`_make_reconfig_split` (:292-491) as :func:`make_split_runner`, which
+refuses a black-box config as the reference's does.
 
 A :class:`ReconfigPlan` is a list of phases; a phase may carry ONE
 conf-change op (add/remove voter, add/promote learner, explicit
@@ -803,9 +803,13 @@ def _runner_body(
     `actions` (the autopilot's actuation) is an (action_round, transfer
     int32[G], kick bool[P, G]) triple: at the round whose absolute index
     is action_round the transfer commands and campaign kicks go to
-    sim.step, and every other round passes all-zero planes.  The black box
-    is not ported: SimConfig(blackbox=True) raises."""
-    sim_mod.check_supported(cfg)
+    sim.step, and every other round passes all-zero planes.
+
+    With SimConfig(blackbox=True) the carry gains a trailing
+    sim.BlackboxState: each round audits with kernels.check_safety_groups
+    instead of check_safety (the per-slot sums are the same counts) and
+    folds the audit and the round-exit record into it in one
+    kernels.blackbox_fold."""
     P, G = cfg.n_peers, cfg.n_groups
     dev = sched.append.device
     no_crash = torch.zeros((P, G), dtype=torch.bool, device=dev)
@@ -814,6 +818,8 @@ def _runner_body(
         no_transfer = torch.zeros((G,), dtype=I32, device=dev)
 
     def body(carry, r: int):
+        if cfg.blackbox:
+            carry, bb = carry[:-1], carry[-1]
         if client is not None:
             carry, (rcar, rdstats, lat_hist) = carry[:-3], carry[-3:]
         if with_counters:
@@ -898,9 +904,7 @@ def _runner_body(
         # under the masks that governed the step; the transition pair
         # (previous round's step masks -> this round's) audits the previous
         # round's apply.
-        safety = safety + kernels.check_safety(
-            st2.state, st2.term, st2.commit, st2.last_index, st2.agree,
-            st.commit,
+        audit = dict(
             voter_mask=st2.voter_mask,
             outgoing_mask=st2.outgoing_mask,
             matched=st2.matched,
@@ -910,6 +914,13 @@ def _runner_body(
             lease_holder=lease_holder,
             lease_fire=lease_fire,
         )
+        cursors = (st2.state, st2.term, st2.commit, st2.last_index, st2.agree,
+                   st.commit)
+        if cfg.blackbox:
+            viol = kernels.check_safety_groups(*cursors, **audit)
+            safety = safety + viol.sum(1, dtype=I32)
+        else:
+            safety = safety + kernels.check_safety(*cursors, **audit)
         # The gated swap: the target masks of the op being applied.
         (
             state3, leader3, commit3, matched3, vm3, om3, lm3, ra3, tr3,
@@ -975,24 +986,38 @@ def _runner_body(
                 pending_since=torch.where(served, 0, psince),
             )
             out = out + (rcar, rdstats, lat_hist)
+        if cfg.blackbox:
+            # The ring records the round-exit (post-apply) state with the
+            # audit's fired bits.
+            out = out + (sim_mod.BlackboxState(*kernels.blackbox_fold(
+                *bb, st3.state, st3.term, st3.commit, crashed, viol
+            )),)
         return out
 
     return body
 
 
 def _tail_audit(safety: torch.Tensor, st: sim_mod.SimState,
-                rst: ReconfigState) -> torch.Tensor:
+                rst: ReconfigState, bb=None):
     """The one extra fold after the last round: the body checks each
     apply's mask transition one round later, so a final-round apply needs
-    it (prev_commit = the final commit keeps the commit checks inert)."""
-    return safety + kernels.check_safety(
-        st.state, st.term, st.commit, st.last_index, st.agree, st.commit,
+    it (prev_commit = the final commit keeps the commit checks inert).
+    Returns (safety', bb'): with a BlackboxState `bb` the audit runs per
+    group and its bits stamp the last folded round (kernels.blackbox_mark);
+    bb' is None without one."""
+    args = (st.state, st.term, st.commit, st.last_index, st.agree, st.commit)
+    audit = dict(
         voter_mask=st.voter_mask,
         outgoing_mask=st.outgoing_mask,
         matched=st.matched,
         prev_voter_mask=rst.prev_voter,
         prev_outgoing_mask=rst.prev_outgoing,
     )
+    if bb is None:
+        return safety + kernels.check_safety(*args, **audit), None
+    viol = kernels.check_safety_groups(*args, **audit)
+    meta, trip = kernels.blackbox_mark(bb.meta, bb.trip_round, bb.round_idx, viol)
+    return safety + viol.sum(1, dtype=I32), bb._replace(meta=meta, trip_round=trip)
 
 
 def _zero_accumulators(dev):
@@ -1024,19 +1049,23 @@ def make_runner(
     compiled fault schedule through the same rounds, so membership changes
     run during partitions.  The loop adds no host sync of its own (the
     step's election gate has one a round unless SimConfig(spmd=True)); the
-    results stay on the device."""
+    results stay on the device.  With SimConfig(blackbox=True) it is
+    fn(state, health, rstate, blackbox), and blackbox' comes last."""
     _validate_plans(cfg, compiled, chaos_compiled)
     body = _runner_body(cfg, compiled, chaos_compiled)
     dev = compiled.append.device
 
     def runner(st: sim_mod.SimState, hl: sim_mod.HealthState,
-               rst: ReconfigState):
+               rst: ReconfigState, *bb):
         _check_device(st, hl, dev)
-        carry = (st, hl, rst) + _zero_accumulators(dev)
+        sim_mod.check_blackbox_arg(cfg, bb)
+        carry = (st, hl, rst) + _zero_accumulators(dev) + bb
         for r in range(compiled.n_rounds):
             carry = body(carry, r)
-        stf, hlf, rstf, stats, rstats, safety = carry
-        return stf, hlf, rstf, stats, rstats, _tail_audit(safety, stf, rstf)
+        stf, hlf, rstf, stats, rstats, safety = carry[:6]
+        safety, bbf = _tail_audit(safety, stf, rstf, *carry[6:])
+        out = (stf, hlf, rstf, stats, rstats, safety)
+        return out + (bbf,) if bb else out
 
     return runner
 
@@ -1167,7 +1196,7 @@ def make_split_runner(
                     carry = body(carry, r)
         stf, hlf, rstf, stats, rstats, safety = carry[:6]
         out = (stf, hlf, rstf, stats, rstats,
-               _tail_audit(safety, stf, rstf), fused)
+               _tail_audit(safety, stf, rstf)[0], fused)
         return out + (carry[6],) if with_counters else out
 
     runner.segments = segments  # type: ignore[attr-defined]

@@ -18,9 +18,14 @@ the Safe-mode barrier `read_index`, :3573), and `ClusterSim` with
 (:4005), the counter drain (:3851-3948), the chaos scenario runner
 `_chaos_runner_for` and `run_plan` (:4227-4295), `run_reconfig`
 (:4299-4505, without the mesh placement), the client-read workload
-`run_reads` (:4506-4638, without the mesh placement and the black box),
+`run_reads` (:4506-4638, without the mesh placement),
 the counter and health accessors (:4639-4745) and the read probes
-`read_index` and `lease_read` (:4822-4860).  Leader transfer
+`read_index` and `lease_read` (:4822-4860).  The black box
+(SimConfig(blackbox=True)) adds `BlackboxState` and `init_blackbox`
+(:310-341), the `step(blackbox=)` wrapper (:1146-1173) on all three rounds,
+`ClusterSim`'s recorder, its drain capture and `record_safety`,
+`forensics`, `incident_report` and `reset_forensics` (:4747-4821), and the
+black-box arms of `run_plan`, `run_reconfig` and `run_reads`.  Leader transfer
 (SimConfig(transfer=True)) adds the `transferee` plane and the pre-tick
 pump `_transfer_phase` (:651-1067) behind `step(transfer_propose=,
 campaign_kick=)` on all three rounds.  Each round is the reference's round exactly,
@@ -29,10 +34,6 @@ tallies, commit fast-forward via vote traffic), the solo
 crashed-campaigner win, then replication and quorum commit; the linked and
 damped rounds replay the same protocol wave by wave over the directed
 delivery plane.
-
-Options that this port does not implement yet raise NotImplementedError
-instead of being ignored: the SimConfig flag `blackbox` and the step
-argument `blackbox`.
 
 The reference gates the election phase behind `lax.cond(any(req))`.
 Here that is a host-side `if`, one device sync per general round; with
@@ -66,11 +67,11 @@ I32 = torch.int32
 
 class SimConfig(NamedTuple):
     """Static per-sim configuration; same fields, order and defaults as the
-    reference's SimConfig.  The undamped and damped (`check_quorum`,
-    `pre_vote`) rounds are implemented, with the counters and health
-    instrumentation, lease reads (`lease_read`, which needs
-    `check_quorum`) and leader transfer (`transfer`): see
-    `check_supported`."""
+    reference's SimConfig: the undamped and damped (`check_quorum`,
+    `pre_vote`) rounds, the counters and health instrumentation, lease
+    reads (`lease_read`, which needs `check_quorum`), leader transfer
+    (`transfer`) and the black box (`blackbox`, a `blackbox_window`-round
+    ring and a `blackbox_topk`-wide capture)."""
 
     n_groups: int
     n_peers: int
@@ -101,27 +102,6 @@ class SimConfig(NamedTuple):
     @property
     def max_timeout(self) -> int:
         return 2 * self.election_tick
-
-
-# SimConfig flags whose device paths are not ported yet.
-_UNSUPPORTED_FLAGS = ("blackbox",)
-
-
-def check_supported(cfg: SimConfig, **extras) -> None:
-    """Raise NotImplementedError if `cfg` sets a flag this port lacks, or
-    if any of the optional arguments named in `extras` is given (not None)."""
-    on = [f for f in _UNSUPPORTED_FLAGS if getattr(cfg, f)]
-    if on:
-        raise NotImplementedError(
-            f"raft_tpu_torch does not implement SimConfig({', '.join(on)}) "
-            "yet; only the step (damped or not) with counters, health, "
-            "lease reads and leader transfer is ported"
-        )
-    given = [k for k, v in extras.items() if v is not None]
-    if given:
-        raise NotImplementedError(
-            f"raft_tpu_torch does not implement {', '.join(given)} yet"
-        )
 
 
 class SimState(NamedTuple):
@@ -170,6 +150,72 @@ def init_health(cfg: SimConfig, device: DeviceLike = None) -> HealthState:
     """Fresh all-zero health state for cfg.n_groups groups, on `cuda`
     unless `device` says otherwise."""
     return HealthState(kernels.zero_health(cfg.n_groups, device), 0)
+
+
+class BlackboxState(NamedTuple):
+    """The black-box flight recorder carried beside SimState when
+    SimConfig.blackbox is on.
+
+    meta:       int32[W, G] ring of packed per-round records (W =
+                SimConfig.blackbox_window, slot = round % W): group max
+                role, acting leader id and the round's fired safety slots
+                (kernels.pack_blackbox_meta; the reference's uint32 bits).
+    term:       int32[W, G] group max term per ring slot.
+    commit:     int32[W, G] group max commit per ring slot.
+    trip_round: int32[kernels.N_SAFETY, G] first round each safety slot
+                fired in each group (kernels.INF = never), which
+                kernels.blackbox_capture reduces to the fixed-size capture.
+    round_idx:  rounds folded so far, a Python int (the reference's device
+                int32 scalar; it only ever counts host-known rounds)."""
+
+    meta: torch.Tensor
+    term: torch.Tensor
+    commit: torch.Tensor
+    trip_round: torch.Tensor
+    round_idx: int
+
+
+def init_blackbox(cfg: SimConfig, device: DeviceLike = None) -> BlackboxState:
+    """A fresh (all-zero ring, never-tripped) black box for cfg.n_groups
+    groups, on `cuda` unless `device` says otherwise."""
+    return BlackboxState(*kernels.zero_blackbox(
+        cfg.n_groups, cfg.blackbox_window, device
+    ))
+
+
+def blackbox_to_numpy(bb: BlackboxState) -> Dict[str, object]:
+    """{field: numpy array} of a BlackboxState, meta as np.uint32 (the
+    reference's dtype) and round_idx as an int."""
+    out = {name: getattr(bb, name).cpu().numpy() for name in BlackboxState._fields[:4]}
+    out["meta"] = out["meta"].view(np.uint32)
+    out["round_idx"] = int(bb.round_idx)
+    return out
+
+
+def blackbox_from_numpy(arrays: Dict[str, object], device: DeviceLike = None) -> BlackboxState:
+    """The inverse of blackbox_to_numpy; meta may be uint32 (the reference's)
+    or int32 words."""
+    dev = resolve_device(device)
+
+    def plane(name):
+        a = np.ascontiguousarray(arrays[name])
+        a = a.view(np.int32) if a.dtype == np.uint32 else a.astype(np.int32)
+        return torch.from_numpy(a.copy()).to(dev)
+
+    return BlackboxState(
+        plane("meta"), plane("term"), plane("commit"), plane("trip_round"),
+        int(arrays["round_idx"]),
+    )
+
+
+def check_blackbox_arg(cfg: SimConfig, bb: tuple) -> None:
+    """The runners' rule for their trailing black-box argument: a black-box
+    config's runner takes the BlackboxState, any other config's none."""
+    if len(bb) != int(cfg.blackbox):
+        raise TypeError(
+            "a black-box config's runner takes the BlackboxState (after the "
+            "carries it threads), any other config's none"
+        )
 
 
 class ReconfigProposal(NamedTuple):
@@ -293,7 +339,6 @@ def init_state(
     configs get an all-False recent_active plane, and transfer configs an
     all-zero transferee plane.  Runs on `cuda` unless
     `device` says otherwise."""
-    check_supported(cfg)
     dev = resolve_device(device)
     G, P = cfg.n_groups, cfg.n_peers
     shape = (P, G)
@@ -757,10 +802,16 @@ def step(
     their transferee.  campaign_kick: optional bool[P, G], the autopilot's
     MsgHup: a kicked promotable non-leader campaigns at tick time.
 
+    blackbox: optional BlackboxState.  The round's per-group record (max
+    role, acting leader, max term, max commit) folds into its ring on the
+    round-exit state (kernels.blackbox_fold); the step runs no safety
+    audit, so the fired-slot bits fold as zero (a caller auditing between
+    rounds stamps them with kernels.blackbox_mark, and the runners fold
+    bits and record in one call instead).
+
     Returns the next SimState alone when no extra is given, else
-    (SimState, counters', health', proposal, receipt) with the given ones
-    in that order, as the reference's extras."""
-    check_supported(cfg, blackbox=blackbox)
+    (SimState, counters', health', blackbox', proposal, receipt) with the
+    given ones in that order, as the reference's extras."""
     if transfer_propose is not None and st.transferee is None:
         raise ValueError(
             "step(transfer_propose=) needs the lead_transferee plane — "
@@ -809,6 +860,14 @@ def step(
     extras = _extras(
         cfg, st_in, out, crashed, facts, counters, health, transfer_facts
     )
+    if blackbox is not None:
+        no_viol = torch.zeros(
+            (kernels.N_SAFETY, cfg.n_groups), dtype=torch.bool,
+            device=out.term.device,
+        )
+        extras += (BlackboxState(*kernels.blackbox_fold(
+            *blackbox, out.state, out.term, out.commit, crashed, no_viol
+        )),)
     if reconfig_propose is not None:
         has_leader, first_l, lead_last, lead_term = facts.lead
         prop = has_leader & reconfig_propose
@@ -2434,6 +2493,11 @@ class ClusterSim:
     (health.HealthMonitor, or anything with its `record`) receives the
     fixed-size summary on the same cadence.  Only the [N_COUNTERS] plane
     and the summary cross to the host, never a [., G] plane.  With
+    SimConfig(blackbox=True) every round also folds into the black box
+    (BlackboxState), and with a monitor attached each drain reports the
+    fixed-size forensics capture to its record_incident once per growth of
+    a slot's offender count; forensics(), incident_report() and
+    record_safety() read and stamp it.  With
     `chaos` (a chaos.ChaosPlan) attached, run_plan() runs the scenario;
     run_reconfig() runs a membership-change plan and run_reads() a client
     read/write workload; read_index() and lease_read() probe the state."""
@@ -2494,6 +2558,12 @@ class ClusterSim:
             )
         if cfg.collect_health:
             self._health = init_health(cfg, self.device)
+        self._blackbox: Optional[BlackboxState] = None
+        if cfg.blackbox:
+            self._blackbox = init_blackbox(cfg, self.device)
+            # Per-slot offender counts already reported to the monitor, so
+            # a drain reports each incident once.
+            self._bb_seen = [0] * kernels.N_SAFETY
 
     def _summary(self, planes: torch.Tensor):
         """kernels.health_summary at this config's thresholds, on the
@@ -2520,8 +2590,10 @@ class ClusterSim:
         """The host boundary, synchronous: the counter plane (a fresh zero
         plane takes its place) folds into the host totals, with the wrap
         check and the cadence adaptation; with `summary` and a monitor
-        attached, the health summary goes to it.  run_round drains on the
-        cadence, counters() with summary=False."""
+        attached, the health summary goes to it, and with the black box on,
+        each safety slot whose offender count grew since the last report
+        goes to its record_incident.  run_round drains on the cadence,
+        counters() with summary=False."""
         counters = self._counters
         self._rounds_since_drain = 0
         if counters is not None:
@@ -2546,6 +2618,16 @@ class ClusterSim:
             self.health_monitor.record(
                 self._download_summary(self._summary(self._health.planes))
             )
+        if summary and self._blackbox is not None and self.health_monitor is not None:
+            capture = self.forensics()
+            for s, name in enumerate(kernels.SAFETY_NAMES):
+                n = capture["counts"][name]
+                if n > self._bb_seen[s]:
+                    self._bb_seen[s] = n
+                    self.health_monitor.record_incident({
+                        "slot": name, "count": n,
+                        "offenders": capture["offenders"][name],
+                    })
 
     def run_round(self, crashed=None, append_n=None, link=None) -> SimState:
         """One protocol round; crashed bool[P, G] and append_n int32[G]
@@ -2562,18 +2644,23 @@ class ClusterSim:
         if link is not None:
             link = link.to(device=self.device, dtype=torch.bool)
         cc, ch = self._counters is not None, self._health is not None
-        if not (cc or ch):
+        bb = self._blackbox is not None
+        if not (cc or ch or bb):
             self.state = step(self.cfg, self.state, crashed, append_n, link=link)
             return self.state
         res = step(
             self.cfg, self.state, crashed, append_n, counters=self._counters,
-            health=self._health, link=link,
+            health=self._health, link=link, blackbox=self._blackbox,
         )
         self.state = res[0]
         if cc:
             self._counters = res[1]
         if ch:
-            self._health = res[-1]
+            self._health = res[1 + cc]
+        if bb:
+            self._blackbox = res[-1]
+            if not (cc or ch or self.health_monitor is not None):
+                return self.state
         self._rounds_since_drain += 1
         if self._rounds_since_drain >= self._drain_every:
             self._drain()
@@ -2611,11 +2698,15 @@ class ClusterSim:
         safety-invariant counts), which also goes to the attached monitor's
         record_scenario.  The state and health planes advance in place.
         Requires SimConfig(collect_health=True): the stats ride on the
-        HP_LEADERLESS plane.  The two result vectors cross to the host in
-        one copy at the end of the run."""
+        HP_LEADERLESS plane.  With the black box on, every round folds into
+        it.  The two result vectors cross to the host in one copy at the
+        end of the run."""
         compiled, runner = self._chaos_runner_for(plan)
         health = self._require_health()
-        self.state, self._health, stats, safety = runner(self.state, health)
+        out = runner(self.state, health, *self._bb_args())
+        (self.state, self._health), (stats, safety) = out[:2], out[-2:]
+        if self._blackbox is not None:
+            self._blackbox = out[2]
         both = torch.cat([stats, safety]).tolist()
         report = HealthMonitor.chaos_report(
             both[: stats.numel()], both[stats.numel():], compiled.n_rounds
@@ -2649,12 +2740,17 @@ class ClusterSim:
         the general rounds, with the same result; the report then also
         holds `fused_rounds`, `total_rounds` (group-rounds) and
         `fused_frac`.  With collect_counters on, the counter plane threads
-        through the split run and drains into the host totals after it."""
+        through the split run and drains into the host totals after it.  A
+        black-box config never fuses (steady_mask rejects it), so
+        `split=True` there runs the unsplit runner and reports fused_rounds
+        0.  With the black box on, every round folds into it."""
         from . import chaos as chaos_mod
         from . import reconfig as reconfig_mod
 
         health = self._require_health()
         G = self.cfg.n_groups
+        fused_zero = split and self.cfg.blackbox
+        split = split and not fused_zero
         if isinstance(plan, reconfig_mod.ReconfigPlan):
             # Plans apply absolute target masks walked from the bootstrap
             # config, so the sim must start in exactly that config.
@@ -2721,8 +2817,11 @@ class ClusterSim:
                 self._counters = out[7]
                 self._drain(summary=False)
         else:
+            out = runner(self.state, health, rst, *self._bb_args())
             (self.state, self._health, self._reconfig_state,
-             stats, rstats, safety) = runner(self.state, health, rst)
+             stats, rstats, safety) = out[:6]
+            if self._blackbox is not None:
+                self._blackbox = out[6]
         # One copy for the three result vectors, one each for the two planes
         # the stall rule reads.
         ns, nr = stats.numel(), rstats.numel()
@@ -2737,7 +2836,8 @@ class ClusterSim:
             flat[:ns], flat[ns:ns + nr], flat[ns + nr:], compiled.n_rounds,
             n_stuck, worst,
         )
-        if fused is not None:
+        if fused is not None or fused_zero:
+            fused = fused or 0
             total = compiled.n_rounds * G
             report["fused_rounds"] = fused
             report["total_rounds"] = total
@@ -2769,14 +2869,18 @@ class ClusterSim:
         kernel in `split_k`-round blocks (their receipts fold in closed
         form), the rest the general rounds, with the same result; the
         report then also holds `fused_rounds`, `total_rounds` (group-rounds)
-        and `fused_frac`.  The five result vectors cross to the host in one
-        copy at the end of the run."""
+        and `fused_frac`; on a black-box config, which never fuses, it runs
+        the unsplit runner and reports fused_rounds 0.  With the black box
+        on, every round folds into it.  The five result vectors cross to
+        the host in one copy at the end of the run."""
         from . import chaos as chaos_mod
         from . import reconfig as reconfig_mod
         from . import workload as workload_mod
 
         health = self._require_health()
         G = self.cfg.n_groups
+        fused_zero = split and self.cfg.blackbox
+        split = split and not fused_zero
         mode = ("split", split_k) if split else "unsplit"
         cached = self._read_runner
         if (
@@ -2818,10 +2922,12 @@ class ClusterSim:
             compiled, runner = cached[3], cached[4]
         out = runner(
             self.state, health, reconfig_mod.init_reconfig_state(self.state),
-            workload_mod.init_read_carry(G, self.device),
+            workload_mod.init_read_carry(G, self.device), *self._bb_args(),
         )
         (self.state, self._health, _, stats, _, safety, self._read_carry,
          rdstats, lat_hist) = out[:9]
+        if self._blackbox is not None:
+            self._blackbox = out[9]
         vecs = (rdstats, workload_mod.latency_percentiles(lat_hist), safety, stats)
         flat = torch.cat(vecs).tolist()
         parts, at = [], 0
@@ -2829,11 +2935,12 @@ class ClusterSim:
             parts.append(flat[at:at + v.numel()])
             at += v.numel()
         report = workload_mod.read_report(*parts, compiled.n_rounds)
-        if split:
+        if split or fused_zero:
+            fused = out[9] if split else 0
             total = compiled.n_rounds * G
-            report["fused_rounds"] = out[9]
+            report["fused_rounds"] = fused
             report["total_rounds"] = total
-            report["fused_frac"] = round(out[9] / total, 4)
+            report["fused_frac"] = round(fused / total, 4)
         if self.health_monitor is not None:
             self.health_monitor.record_reads(report)
         return report
@@ -2945,3 +3052,66 @@ class ClusterSim:
     def reset_health(self) -> None:
         if self._health is not None:
             self._health = init_health(self.cfg, self.device)
+
+    # --- black-box forensics (requires SimConfig(blackbox=True)) ---
+
+    def _bb_args(self) -> tuple:
+        """The runners' trailing black-box argument: (BlackboxState,) when
+        the black box is on, else ()."""
+        return () if self._blackbox is None else (self._blackbox,)
+
+    def _require_blackbox(self) -> BlackboxState:
+        if self._blackbox is None:
+            raise RuntimeError(
+                "black box disabled; construct with SimConfig(blackbox=True)"
+            )
+        return self._blackbox
+
+    def record_safety(self, viol: torch.Tensor) -> None:
+        """Stamp a bool[kernels.N_SAFETY, G] violation mask onto the last
+        stepped round's black-box record (kernels.blackbox_mark): the ad-hoc
+        stepping path, where the caller audits each transition itself
+        (kernels.check_safety_groups) and hands the mask back here."""
+        bb = self._require_blackbox()
+        meta, trip = kernels.blackbox_mark(
+            bb.meta, bb.trip_round, bb.round_idx, viol.to(self.device)
+        )
+        self._blackbox = bb._replace(meta=meta, trip_round=trip)
+
+    def forensics(self) -> dict:
+        """The fixed-size forensics capture as a plain dict: rounds_folded,
+        and per safety slot how many groups have ever tripped it and the
+        first-K offenders as [{"group": id, "round": first-trip round}, ...]
+        (kernels.blackbox_capture; K = SimConfig.blackbox_topk).  The
+        reduction runs on the device; only O(K) values cross to the host."""
+        bb = self._require_blackbox()
+        k = min(self.cfg.blackbox_topk, self.cfg.n_groups)
+        counts, ids, rounds = kernels.blackbox_capture(bb.trip_round, k)
+        flat = torch.cat([counts, ids.flatten(), rounds.flatten()]).tolist()
+        n = kernels.N_SAFETY
+        ids_h = [flat[n + s * k:n + (s + 1) * k] for s in range(n)]
+        rounds_h = [flat[n + n * k + s * k:n + n * k + (s + 1) * k] for s in range(n)]
+        return {
+            "rounds_folded": bb.round_idx,
+            "counts": dict(zip(kernels.SAFETY_NAMES, flat[:n])),
+            "offenders": {
+                name: [
+                    {"group": g, "round": r}
+                    for g, r in zip(ids_h[s], rounds_h[s])
+                    if g >= 0
+                ]
+                for s, name in enumerate(kernels.SAFETY_NAMES)
+            },
+        }
+
+    def incident_report(self) -> dict:
+        """The full incident JSON (forensics.build_incident): the capture
+        plus each offender group's decoded ring window."""
+        from . import forensics as forensics_mod
+
+        return forensics_mod.build_incident(self)
+
+    def reset_forensics(self) -> None:
+        if self._blackbox is not None:
+            self._blackbox = init_blackbox(self.cfg, self.device)
+            self._bb_seen = [0] * kernels.N_SAFETY

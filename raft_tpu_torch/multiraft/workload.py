@@ -4,7 +4,8 @@ batched step.
 Counterpart of `raft_tpu/multiraft/workload.py` (all of it) and of the two
 runners built for it in `raft_tpu/multiraft/runner.py`: `_make_workload`
 (:493-594) as :func:`make_runner` and `_make_workload_split` (:596-783) as
-:func:`make_split_runner`, both the blackbox=False arm.
+:func:`make_split_runner`, which refuses a black-box config as the
+reference's does.
 
 A :class:`ClientPlan` is a list of phases, each covering a round range and
 a group selector, with the phase's write load (a uniform `append`, or a
@@ -414,7 +415,9 @@ def make_runner(
     rstate', stats int32[N_CHAOS_STATS], rstats int32[N_RECONFIG_STATS],
     safety int32[N_SAFETY], read_carry', read_stats int32[N_READ_STATS],
     lat_hist int32[N_LAT_BUCKETS]).  The loop adds no host sync of its own;
-    the results stay on the schedule's device."""
+    the results stay on the schedule's device.  With
+    SimConfig(blackbox=True) the runner takes the BlackboxState last and
+    returns it last (reconfig._runner_body's black-box arm)."""
     _validate(cfg, client, chaos_compiled, reconfig_compiled)
     dev = client.append.device
     if reconfig_compiled is None:
@@ -426,15 +429,17 @@ def make_runner(
     )
 
     def runner(st: sim_mod.SimState, hl: sim_mod.HealthState,
-               rst: reconfig_mod.ReconfigState, rcar: ReadCarry):
+               rst: reconfig_mod.ReconfigState, rcar: ReadCarry, *bb):
         _check_device(st, hl, rcar, dev)
+        sim_mod.check_blackbox_arg(cfg, bb)
         carry = ((st, hl, rst) + reconfig_mod._zero_accumulators(dev) + (rcar,)
-                 + _zero_read_accumulators(dev))
+                 + _zero_read_accumulators(dev) + bb)
         for r in range(client.n_rounds):
             carry = body(carry, r)
-        stf, hlf, rstf, stats, rstats, safety, rcarf, rdstats, lat_hist = carry
-        safety = reconfig_mod._tail_audit(safety, stf, rstf)
-        return stf, hlf, rstf, stats, rstats, safety, rcarf, rdstats, lat_hist
+        stf, hlf, rstf, stats, rstats, safety, rcarf, rdstats, lat_hist = carry[:9]
+        safety, bbf = reconfig_mod._tail_audit(safety, stf, rstf, *carry[9:])
+        out = (stf, hlf, rstf, stats, rstats, safety, rcarf, rdstats, lat_hist)
+        return out + (bbf,) if bb else out
 
     return runner
 
@@ -570,7 +575,7 @@ def make_split_runner(
             carry = body(carry, r)
         stf, hlf, rstf, stats, rstats, safety, rcarf, rdstats, lat_hist = carry
         # The unsplit runner's tail audit, for bit-parity.
-        safety = reconfig_mod._tail_audit(safety, stf, rstf)
+        safety = reconfig_mod._tail_audit(safety, stf, rstf)[0]
         return (stf, hlf, rstf, stats, rstats, safety, rcarf, rdstats,
                 lat_hist, fused)
 

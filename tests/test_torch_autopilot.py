@@ -358,8 +358,13 @@ def test_cadence_runner_refusals():
         tap.make_cadence_runner(cfg, None, None, 4)
     with pytest.raises(ValueError, match="client plan"):
         tap.make_cadence_runner(cfg, comp, None, 4, client=object())
-    with pytest.raises(NotImplementedError):
-        tap.make_cadence_runner(cfg._replace(blackbox=True), comp, None, 4)
+    # A black-box config's runner takes the BlackboxState after safety.
+    bb_run = tap.make_cadence_runner(cfg._replace(blackbox=True), comp, None, 4)
+    bb_st = tsim.init_state(cfg, device="cpu")
+    with pytest.raises(TypeError, match="BlackboxState"):
+        bb_run(bb_st, tsim.init_health(cfg, "cpu"), trc.init_reconfig_state(bb_st),
+               *trc._zero_accumulators("cpu"), torch.zeros((), dtype=torch.int32),
+               0, torch.zeros(4, dtype=torch.int32), torch.zeros((3, 4), dtype=torch.bool))
     run = tap.make_cadence_runner(cfg, comp, None, 4)
     st = tsim.init_state(cfg, device="cpu")
     carry = (st, tsim.init_health(cfg, "cpu"), trc.init_reconfig_state(st),
@@ -458,7 +463,6 @@ def test_new_entry_points_default_to_cuda():
     assert on_cpu.state.transferee.device.type == "cpu"
     fake = _FakeSim(tsim, {})
     fake.cfg = fake.cfg._replace(blackbox=True)
-    with pytest.raises(NotImplementedError):
-        tap.Autopilot(fake)
+    assert tap.Autopilot(fake).sim is fake  # the black box is ported
     with pytest.raises(ValueError, match="no chaos plan"):
         tap.Autopilot(on_cpu).run_plan()

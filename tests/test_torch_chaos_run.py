@@ -142,8 +142,10 @@ def test_entry_points_default_to_cuda():
         for call in calls:
             with pytest.raises(RuntimeError):
                 call()
-    with pytest.raises(NotImplementedError):
-        tchaos.make_runner(cfg._replace(blackbox=True), cpu_plan)
+    # A black-box config's runner takes the BlackboxState after the health.
+    with pytest.raises(TypeError, match="BlackboxState"):
+        tchaos.make_runner(cfg._replace(blackbox=True), cpu_plan)(
+            cpu_state, tsim.init_health(cfg, "cpu"))
     with pytest.raises(ValueError, match="compiled for"):
         tchaos.make_runner(cfg._replace(n_groups=5), cpu_plan)
     with pytest.raises(RuntimeError, match="collect_health"):

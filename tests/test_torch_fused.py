@@ -173,8 +173,8 @@ def test_fused_dispatch_rejects_unported_options():
                        base & ~pending)
     assert torch.equal(tfs.steady_mask(cfg, st, crashed, reconfig_pending=~pending),
                        base & pending)
-    with pytest.raises(NotImplementedError):
-        tfs.fast_multi_round(cfg._replace(blackbox=True), k=4)
+    # A black-box config never fuses.
+    assert not tfs.steady_mask(cfg._replace(blackbox=True), st, crashed).any()
     # A pending transfer rejects exactly its group.
     tr_st = st._replace(transferee=torch.zeros((3, 4), dtype=torch.int32))
     assert torch.equal(tfs.steady_mask(tr_cfg, tr_st, crashed), base)

@@ -135,9 +135,9 @@ def test_state_planes_stay_int32_or_bool():
     "field", ["transfer", "lease_read", "blackbox"],
 )
 def test_unported_config_flags_raise(field):
-    """The unported flags raise NotImplementedError; lease_read is ported,
-    and without check_quorum the step refuses it as the reference does;
-    transfer is ported and adds the transferee plane."""
+    """Every flag is ported now: lease_read without check_quorum is refused
+    by the step as the reference does; transfer adds the transferee plane;
+    blackbox adds no SimState plane (the BlackboxState rides beside it)."""
     cfg = tsim.SimConfig(n_groups=4, n_peers=3, **{field: True})
     st = tsim.init_state(tsim.SimConfig(n_groups=4, n_peers=3), device="cpu")
     args = (torch.zeros((3, 4), dtype=torch.bool), torch.zeros(4, dtype=torch.int32))
@@ -152,10 +152,11 @@ def test_unported_config_flags_raise(field):
         with pytest.raises(ValueError, match="check_quorum"):
             tsim.step(cfg, st, *args)
         return
-    with pytest.raises(NotImplementedError):
-        tsim.init_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tsim.step(cfg, st, *args)
+    bb_st = tsim.init_state(cfg, device="cpu")
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(bb_st, st))
+    assert isinstance(tsim.step(cfg, bb_st, *args), tsim.SimState)
+    assert tsim.ClusterSim(cfg, device="cpu")._blackbox.round_idx == 0
 
 
 @pytest.mark.parametrize(
@@ -163,12 +164,10 @@ def test_unported_config_flags_raise(field):
             "campaign_kick", "read_propose", "blackbox"],
 )
 def test_unported_step_args_raise(arg):
-    """Every step extra not ported yet raises, on the plain round and on
-    the link-gated one (`link`, `group_ids`, `reconfig_propose` and
-    `read_propose` are ported: each must raise only beside an unported
-    extra, `reconfig_propose` adds a ReconfigProposal to the result and
-    `read_propose` a ReadReceipt; `transfer_propose` is ported and needs the
-    transferee plane, and `campaign_kick` is ported)."""
+    """Every step extra is ported now, on the plain round and on the
+    link-gated one: `reconfig_propose` adds a ReconfigProposal to the
+    result and `read_propose` a ReadReceipt, each after the BlackboxState
+    that `blackbox` adds; `transfer_propose` needs the transferee plane."""
     cfg = tsim.SimConfig(n_groups=4, n_peers=3)
     st = tsim.init_state(cfg, device="cpu")
     args = (cfg, st, torch.zeros((3, 4), dtype=torch.bool), torch.zeros(4, dtype=torch.int32))
@@ -192,8 +191,9 @@ def test_unported_step_args_raise(arg):
                 assert (receipt.index == -1).all() and not receipt.degraded.any()
         else:
             assert isinstance(out, tsim.SimState)
-        with pytest.raises(NotImplementedError):
-            tsim.step(*args, **{arg: ported}, blackbox=torch.zeros(4))
+        bb = tsim.init_blackbox(cfg, "cpu")
+        out = tsim.step(*args, **{arg: ported}, blackbox=bb)
+        assert isinstance(out[1], tsim.BlackboxState) and out[1].round_idx == 1
         return
     if arg == "transfer_propose":
         # Without the transferee plane the step refuses it, as the
@@ -208,10 +208,11 @@ def test_unported_step_args_raise(arg):
             # Every kicked follower campaigned: term 1 everywhere.
             assert (out.term == 1).all()
         return
-    with pytest.raises(NotImplementedError):
-        tsim.step(*args, **{arg: torch.zeros(4)})
-    with pytest.raises(NotImplementedError):
-        tsim.step(*args, link=link, **{arg: torch.zeros(4)})
+    bb = tsim.init_blackbox(cfg, "cpu")
+    for kw in ({}, {"link": link}):
+        out, bb2 = tsim.step(*args, blackbox=bb, **kw)
+        assert isinstance(out, tsim.SimState) and bb2.round_idx == 1
+        assert bb.round_idx == 0 and not bb.term.any()  # the input is kept
 
 
 def test_cuda_is_the_default_device():

@@ -326,8 +326,10 @@ def test_run_plan_defaults_and_runner_checks():
     with pytest.raises(ValueError, match="transfer"):
         body((st, tsim.init_health(cfg, "cpu"), trc.init_reconfig_state(st))
              + trc._zero_accumulators("cpu"), 0)
-    with pytest.raises(NotImplementedError):
-        trc.make_runner(cfg._replace(blackbox=True), compiled)
+    # A black-box config's runner takes the BlackboxState last.
+    with pytest.raises(TypeError, match="BlackboxState"):
+        trc.make_runner(cfg._replace(blackbox=True), compiled)(
+            *_fresh(tsim, trc, cfg, plan, G, "cpu"))
 
 
 def _as_jax_like(st):

@@ -320,8 +320,11 @@ def test_runner_checks_as_jax():
         {"peers": 3, "phases": [{"rounds": 5}]}), G, "cpu")
     with pytest.raises(ValueError, match="equal-length"):
         twl.make_runner(cfg, tc, short)
-    with pytest.raises(NotImplementedError):
-        twl.make_runner(cfg._replace(blackbox=True), tc)
+    st0 = tsim.init_state(cfg, device="cpu")
+    with pytest.raises(TypeError, match="BlackboxState"):
+        twl.make_runner(cfg._replace(blackbox=True), tc)(
+            st0, tsim.init_health(cfg, "cpu"), trc.init_reconfig_state(st0),
+            twl.init_read_carry(G, "cpu"))
     runner = twl.make_runner(cfg, tc)
     st = tsim.init_state(cfg, device="cpu")
     rcar = twl.init_read_carry(G, "cpu")
