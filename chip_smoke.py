@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Ten paths, all at 100,000 groups × 5 peers.  Three with one append per
+Eleven paths, all at 100,000 groups × 5 peers.  Three with one append per
 group per round (bench.py's bench_device), each bare and instrumented
 (bench.py --health: the counter plane and the health planes ride every
 round, and the fused blocks run each kernel's with_health variant):
@@ -23,7 +23,7 @@ round, and the fused blocks run each kernel's with_health variant):
           check-quorum boundary proof) holds, any other block 32 damped
           general steps.
 
-and seven more:
+and eight more:
 
   chaos     bench.py --chaos examples/chaos/partition_heal.json [--check-
             quorum]: ClusterSim(chaos=plan).run_plan(), the repo's P=5 plan
@@ -70,14 +70,20 @@ and seven more:
             round, every round folded into the black box; a black-box config
             never fuses, so the steady path's fused median is its baseline;
             with it the injected traps (forensics.run_commit_regress_trap,
-            run_clock_pause_trap) and their one-group scalar repros.
+            run_clock_pause_trap) and their one-group scalar repros;
+  compiled  ClusterSim.run_compiled: one round captured into a CUDA graph
+            (csrc/graph_cond.cu adds the plain round's election branch as a
+            conditional node) and replayed, the plain round with the black
+            box off and on and the check-quorum round, against
+            ClusterSim.run; a checkpoint mid-run; runner.make_runner, the
+            factory every scenario runner above is built by.
 
 Phases, in order, each with its wall seconds; any failure raises and the
 script exits nonzero.  Every CPU run goes to one of two worker processes
 (spawned at the start) and runs while the card works: those that need
 nothing of the card are queued first, the others as their input exists;
-phases 13 and 16 to 21 wait for theirs, and the checks of phases 4, 7 and
-10 wait until phase 22.  Every parity phase holds both variants of its
+phases 13 and 16 to 22 wait for theirs, and the checks of phases 4, 7 and
+10 wait until phase 23.  Every parity phase holds both variants of its
 kernel, with_health=False and with_health=True (the latter with a random
 ticks_since_commit row), against the plain version on the same cases.
 Phases 4, 7 and 10 run their path on the card bare and instrumented
@@ -91,7 +97,8 @@ fused and general block counts must be equal; the end-of-run summary is
 printed as bench.py --health-out writes it.
 
   1. device        require CUDA; print the card's name and power limit
-  2. build         build the three kernels from csrc/ with nvcc, in parallel;
+  2. build         build the three kernels and run_compiled's graph helper
+                   (csrc/graph_cond.cu) from csrc/ with nvcc, in parallel;
                    print the times and ptxas registers and spills per P and
                    template flag
   3. parity        the steady kernel against its plain PyTorch version on
@@ -234,9 +241,30 @@ printed as bench.py --health-out writes it.
                    launches and busy share of 4 rounds each), and
                    fast_multi_round(k=32) on a black-box config runs the
                    general branch with no fused launch
- 22. references    the held-back checks of phases 4, 7 and 10 against their
+ 22. compiled      ClusterSim.run_compiled against ClusterSim.run over 64
+                   rounds at G: the plain round from a settled state (black
+                   box off and on: ring, trip plane, round count), from
+                   init_state (elections: the conditional node's taken arm),
+                   with counters and health and a HealthMonitor (counter
+                   totals) and with health and a monitor (the summary
+                   stream); the check-quorum round with the black box on from
+                   phase 9's settled state: run_compiled(12), save_state and
+                   save_blackbox_state, load into a fresh ClusterSim,
+                   run_compiled(12) == run(24); the four checkpoint families
+                   round trip at G (file sizes printed); card == CPU at
+                   8,192 (64 compiled plain rounds with the black box on, 24
+                   compiled check-quorum and pre-vote rounds, from
+                   init_state); runner.make_runner on partition_heal.json at
+                   G == phase 13's run (report, end state, health planes);
+                   then timed: run(64) against run_compiled(64), 3
+                   alternating reps a side, plain with the black box off and
+                   on and check-quorum: ticks/s, the ratio,
+                   blackbox_overhead_pct on run_compiled, the capture's
+                   seconds and node count, the election arm, the busy share
+                   and launches of 4 rounds each way
+ 23. references    the held-back checks of phases 4, 7 and 10 against their
                    CPU runs
- 23. report        one JSON line of the ten kernel rows (the six variants,
+ 24. report        one JSON line of the ten kernel rows (the six variants,
                    the damped kernel's with_loss instance, its with_loss
                    with_health instance at k=8, its no-loss with_health
                    instance at k=8 and the chaos kernel's with_health instance
@@ -261,8 +289,8 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.multiraft import (
-    _build, autopilot, chaos, forensics, fused_step, kernels as pk, reconfig, sim,
-    workload,
+    _build, autopilot, chaos, checkpoint, forensics, fused_step, kernels as pk, reconfig,
+    runner, sim, workload,
 )
 from raft_tpu_torch.multiraft.health import HealthMonitor
 from raft_tpu_torch.multiraft.chaos_kernel import (
@@ -389,10 +417,12 @@ def phase(name):
 
 @phase("build")
 def phase_build():
-    """The three kernels built at once, one nvcc per source."""
+    """The three kernels and run_compiled's graph helper built at once,
+    one nvcc per source."""
     loaders = {"steady_round": _build.load_steady_cuda,
                "chaos_round": _build.load_chaos_cuda,
-               "damped_round": _build.load_damped_cuda}
+               "damped_round": _build.load_damped_cuda,
+               "graph_cond": _build.load_graph_cuda}
     with ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(fn) for fn in loaders.values()]:
             fut.result()  # raises a failed build's error
@@ -404,7 +434,10 @@ def phase_build():
             if "Compiling entry function" in line:
                 # The template arguments: P, then the flags (the damped
                 # kernel's cq and loss), with_health last.
-                args = line.split("ILi")[1].split("EE")[0].split("ELb") if "ILi" in line else ["?"]
+                if "ILi" not in line:  # not a kernel templated on P
+                    entry = line.split("'")[1] if "'" in line else "?"
+                    continue
+                args = line.split("ILi")[1].split("EE")[0].split("ELb")
                 flags = ("cq", "loss", "health")[-(len(args) - 1):] if len(args) > 1 else ()
                 entry = " ".join([f"P={args[0]}"] + [
                     f"{f}={v}" for f, v in zip(flags, args[1:])])
@@ -3107,6 +3140,280 @@ def phase_forensics(dev, cpu_ref, scenario_off, steady_med):
                 **bb_timing(dev, steady_med))
 
 
+# --- the compiled scan (ClusterSim.run_compiled), checkpoints, make_runner ---
+
+COMPILED_ROUNDS, COMPILED_HALF, COMPILED_REPS = 64, 12, 3
+COMPILED_SMALL_G, COMPILED_PROFILE_ROUNDS = 8192, 4
+
+
+def same_sims(a, b, note):
+    """Two ClusterSims on the card: every SimState plane, the counter plane
+    and host totals, the health planes and window_pos, the black box and
+    its round count."""
+    assert_same(a.state, on_cpu(b.state), note)
+    if a._counters is not None and (a._host_counters != b._host_counters
+                                    or not torch.equal(a._counters, b._counters)):
+        raise AssertionError(f"{note}: counters differ")
+    if a._health is not None and (a._health.window_pos != b._health.window_pos or
+                                  not torch.equal(a._health.planes, b._health.planes)):
+        raise AssertionError(f"{note}: health planes or window_pos differ")
+    if a._blackbox is not None:
+        same_arrays(sim.blackbox_to_numpy(a._blackbox), sim.blackbox_to_numpy(b._blackbox),
+                    f"{note}: black box")
+
+
+def summaries(mon):
+    return [e["summary"] for e in mon.summary_ring()]
+
+
+def loop_against_graph(dev, cfg, note, settle=SETTLE, start=None, monitor=False):
+    """ClusterSim.run against run_compiled over COMPILED_ROUNDS rounds of one
+    append a group, from `start` (else init_state) after `settle` rounds on
+    both: equal sims, counter totals, and, with a monitor and no counters,
+    equal summary streams.  Returns the run_compiled sim."""
+    app = torch.ones(cfg.n_groups, dtype=torch.int32, device=dev)
+    mons = (HealthMonitor(), HealthMonitor()) if monitor else (None, None)
+    a, b = (sim.ClusterSim(cfg, health_monitor=m, device=dev) for m in mons)
+    for s in (a, b):
+        if start is not None:
+            s.state = start
+        s.run(settle, append_n=app)
+    a.run(COMPILED_ROUNDS, append_n=app)
+    b.run_compiled(COMPILED_ROUNDS, append_n=app)
+    if cfg.collect_counters and a.counters() != b.counters():
+        raise AssertionError(f"{note}: counter totals differ")
+    same_sims(a, b, note)
+    if monitor and not cfg.collect_counters and summaries(mons[0]) != summaries(mons[1]):
+        raise AssertionError(f"{note}: the monitor's summary streams differ")
+    check_state(b.state, cfg.n_groups)
+    return b
+
+
+def compiled_small(device):
+    """At COMPILED_SMALL_G from init_state: COMPILED_ROUNDS compiled plain
+    rounds with the black box on, and 2 x COMPILED_HALF compiled damped
+    (check-quorum and pre-vote) rounds; (plain state arrays, black-box
+    arrays, damped state arrays)."""
+    n = COMPILED_SMALL_G
+    app = torch.ones(n, dtype=torch.int32, device=device)
+    s = sim.ClusterSim(sim.SimConfig(n_groups=n, n_peers=P, blackbox=True), device=device)
+    s.run_compiled(COMPILED_ROUNDS, append_n=app)
+    d = sim.ClusterSim(sim.SimConfig(n_groups=n, n_peers=P, check_quorum=True,
+                                     pre_vote=True), device=device)
+    d.run_compiled(2 * COMPILED_HALF, append_n=app)
+    return (sim.state_to_numpy(s.state), sim.blackbox_to_numpy(s._blackbox),
+            sim.state_to_numpy(d.state))
+
+
+def cpu_compiled():
+    """In a reference worker: compiled_small on the CPU, and its seconds."""
+    worker_threads()
+    t0 = time.perf_counter()
+    return compiled_small("cpu"), time.perf_counter() - t0
+
+
+def checkpoint_round_trips(dev, st, bb, tmp):
+    """All four checkpoint families at G through files in `tmp`: what loads
+    equals what was saved; {family: bytes}."""
+    idx = torch.arange(G, dtype=torch.int32, device=dev)
+    rst = reconfig.init_reconfig_state(st)._replace(
+        stage=idx % 2, op_ptr=idx % 5, prop_owner=idx % (P + 1), prop_index=idx,
+        prop_term=idx // 7)
+    rcar = workload.ReadCarry(pending_mode=idx % 3, pending_since=idx)
+    rstats = torch.arange(workload.N_READ_STATS, dtype=torch.int32, device=dev)
+    hist = torch.arange(workload.N_LAT_BUCKETS, dtype=torch.int32, device=dev)
+    paths = {f: os.path.join(tmp, f + ".npz") for f in ("state", "blackbox", "reconfig", "read")}
+    checkpoint.save_state(st, paths["state"])
+    checkpoint.save_blackbox_state(bb, paths["blackbox"])
+    checkpoint.save_reconfig_state(rst, paths["reconfig"])
+    checkpoint.save_read_state(rcar, rstats, hist, paths["read"])
+    assert_same(checkpoint.load_state(paths["state"]), on_cpu(st), "checkpoint: state")
+    same_arrays(sim.blackbox_to_numpy(checkpoint.load_blackbox_state(paths["blackbox"])),
+                sim.blackbox_to_numpy(bb), "checkpoint: black box")
+    back = checkpoint.load_reconfig_state(paths["reconfig"])
+    (pm, ps), rstats2, hist2 = checkpoint.load_read_state(paths["read"])
+    pairs = [(getattr(back, f), getattr(rst, f), f) for f in reconfig.ReconfigState._fields]
+    pairs += [(pm, rcar.pending_mode, "pending_mode"), (ps, rcar.pending_since, "pending_since"),
+              (rstats2, rstats, "read_stats"), (hist2, hist, "lat_hist")]
+    for got, want, name in pairs:
+        if not (got.device == want.device and got.dtype == want.dtype
+                and torch.equal(got, want)):
+            raise AssertionError(f"checkpoint: {name} differs")
+    return {f: os.path.getsize(p) for f, p in paths.items()}
+
+
+def compiled_timing(dev, damped_settled):
+    """ClusterSim.run against run_compiled, COMPILED_ROUNDS rounds a rep,
+    COMPILED_REPS alternating reps a side, for the plain round with the
+    black box off and on and for the check-quorum round (from the damped
+    parity phase's settled state): ticks/s, the graph's capture seconds,
+    nodes and branch nodes, and the busy share and launches of
+    COMPILED_PROFILE_ROUNDS rounds each way."""
+    app = torch.ones(G, dtype=torch.int32, device=dev)
+    cases = {"plain": sim.SimConfig(n_groups=G, n_peers=P),
+             "blackbox": sim.SimConfig(n_groups=G, n_peers=P, blackbox=True),
+             "damped": damped_cfg(G)}
+    out = {}
+    for name, cfg in cases.items():
+        loop, graph = (sim.ClusterSim(cfg, device=dev) for _ in range(2))
+        for s in (loop, graph):
+            if name == "damped":
+                s.state = damped_settled
+            else:
+                s.run(SETTLE, append_n=app)
+        sync()
+        t0 = time.perf_counter()
+        graph.run_compiled(1, append_n=app)  # the capture
+        sync()
+        first_s = time.perf_counter() - t0
+        loop.run(1, append_n=app)
+        samples = {"loop": [], "graph": []}
+        for rep in range(COMPILED_REPS):
+            for side in ("loop", "graph") if rep % 2 == 0 else ("graph", "loop"):
+                sync()
+                t0 = time.perf_counter()
+                if side == "loop":
+                    loop.run(COMPILED_ROUNDS, append_n=app)
+                else:
+                    graph.run_compiled(COMPILED_ROUNDS, append_n=app)
+                sync()
+                samples[side].append(G * COMPILED_ROUNDS / (time.perf_counter() - t0))
+        assert_same(loop.state, on_cpu(graph.state), f"compiled timing {name}: graph against loop")
+        prof = {"loop": device_profile(lambda: loop.run(COMPILED_PROFILE_ROUNDS, append_n=app)),
+                "graph": device_profile(
+                    lambda: graph.run_compiled(COMPILED_PROFILE_ROUNDS, append_n=app))}
+        g = next(iter(graph._round_graphs.values()))
+        med = {k: statistics.median(v) for k, v in samples.items()}
+        # The profiler's own host cost stretches its wall time, so the busy
+        # share of the timed reps is the profiled device time a round over
+        # the timed median's wall time a round.
+        timed = {k: prof[k]["busy_us"] / COMPILED_PROFILE_ROUNDS / (1e6 * G / med[k])
+                 for k in med}
+        out[name] = dict(
+            ticks_per_s_loop=samples["loop"], ticks_per_s_graph=samples["graph"],
+            ticks_per_s_loop_median=med["loop"], ticks_per_s_graph_median=med["graph"],
+            speedup=med["graph"] / med["loop"], first_call_s=first_s,
+            capture_s=g.capture_s, nodes=g.nodes, branch_nodes=g.branch_nodes,
+            busy_share_timed_loop=timed["loop"], busy_share_timed_graph=timed["graph"],
+            election_arm=("conditional node" if g.capture.bodies
+                          else "none: the damped round has no election branch"),
+            **{f"{k}_{side}": prof[side][k] for side in prof for k in ("busy_share", "busy_us", "wall_us")},
+            launches_per_round_loop=sum(r["count"] for r in prof["loop"]["kernels"])
+            / COMPILED_PROFILE_ROUNDS,
+            launches_per_round_graph=sum(r["count"] for r in prof["graph"]["kernels"])
+            / COMPILED_PROFILE_ROUNDS)
+    off, on = (out[k]["ticks_per_s_graph_median"] for k in ("plain", "blackbox"))
+    out["blackbox_overhead_pct"] = 100 * (off - on) / off
+    return out
+
+
+@phase("compiled")
+def phase_compiled(dev, cpu_ref, damped_settled, scenario_off):
+    """ClusterSim.run_compiled (one round captured into a CUDA graph and
+    replayed) against ClusterSim.run at G: the plain round from a settled
+    state with the black box off and on, from init_state (elections: the
+    conditional node's taken arm), with counters and health and a monitor,
+    and with health and a monitor (equal summary streams).  The damped round
+    with a checkpoint mid-run: run_compiled(COMPILED_HALF) from the damped
+    parity phase's settled state with the black box on, save_state and
+    save_blackbox_state, load into a fresh sim, run_compiled(COMPILED_HALF)
+    more, equal to run(2 x COMPILED_HALF); the four checkpoint families round
+    trip at G.  Card == CPU at COMPILED_SMALL_G (`cpu_ref`, a reference
+    worker's future of cpu_compiled()).  runner.make_runner on the chaos plan
+    at G equals the chaos scenario phase's run (`scenario_off`).  Then
+    compiled_timing."""
+    import tempfile
+
+    app = torch.ones(G, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    plain = sim.SimConfig(n_groups=G, n_peers=P)
+    graphs_info = {}
+    for note, cfg, kw in (
+            ("plain", plain, {}),
+            ("plain from init_state", plain, dict(settle=0)),
+            ("black box", plain._replace(blackbox=True), {}),
+            ("counters, health, monitor", plain._replace(
+                collect_counters=True, collect_health=True), dict(monitor=True)),
+            ("health, monitor", plain._replace(collect_health=True), dict(monitor=True))):
+        g = next(iter(loop_against_graph(dev, cfg, f"compiled {note}", **kw)
+                      ._round_graphs.values()))
+        graphs_info[note] = dict(nodes=g.nodes, branch_nodes=g.branch_nodes,
+                                 capture_s=g.capture_s)
+    cfg = damped_cfg(G)._replace(blackbox=True)
+    a, b = (sim.ClusterSim(cfg, device=dev) for _ in range(2))
+    a.state = b.state = damped_settled
+    a.run(2 * COMPILED_HALF, append_n=app)
+    b.run_compiled(COMPILED_HALF, append_n=app)
+    with tempfile.TemporaryDirectory() as tmp:
+        spath, bpath = os.path.join(tmp, "state.npz"), os.path.join(tmp, "bb.npz")
+        checkpoint.save_state(b.state, spath)
+        checkpoint.save_blackbox_state(b._blackbox, bpath)
+        c = sim.ClusterSim(cfg, device=dev)
+        c.state = checkpoint.load_state(spath)
+        c._blackbox = checkpoint.load_blackbox_state(bpath)
+        c.run_compiled(COMPILED_HALF, append_n=app)
+        same_sims(a, c, "compiled damped with a checkpoint mid-run")
+        sizes = checkpoint_round_trips(dev, c.state, c._blackbox, tmp)
+    t_parity = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compiled = chaos.compile_plan(chaos.load_plan(CHAOS_PLAN), G, dev)
+    ccfg = chaos_cfg(G, False)
+    st0 = sim.init_state(ccfg, device=dev)
+    out = runner.make_runner(ccfg, (compiled,))(st0, sim.init_health(ccfg, dev))
+    stats, safety = out[-2:]
+    report = HealthMonitor.chaos_report(stats.tolist(), safety.tolist(), compiled.n_rounds)
+    if report != scenario_off[0]:
+        raise AssertionError(f"make_runner: report {report} != the chaos phase's "
+                             f"{scenario_off[0]}")
+    assert_same(out[0], on_cpu(scenario_off[1]), "make_runner against the chaos phase")
+    if out[1].window_pos != scenario_off[2].window_pos or not torch.equal(
+            out[1].planes, scenario_off[2].planes):
+        raise AssertionError("make_runner: health planes differ from the chaos phase's")
+    t_runner = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    small = compiled_small(dev)
+    t_small = time.perf_counter() - t0
+    cpu, t_cpu = cpu_ref.result()
+    same_arrays(small[0], cpu[0], f"compiled plain G={COMPILED_SMALL_G}: state")
+    same_arrays(small[1], cpu[1], f"compiled plain G={COMPILED_SMALL_G}: black box")
+    same_arrays(small[2], cpu[2], f"compiled damped G={COMPILED_SMALL_G}: state")
+    timing = compiled_timing(dev, damped_settled)
+    card = card_line()
+    print(f"compiled {G}x{P} [{card}]: run_compiled == run over {COMPILED_ROUNDS} rounds "
+          f"(plain settled, plain from init_state, black box on with ring, trip plane and "
+          f"round count, counters and health with a monitor: counter totals, health "
+          f"summary stream) and damped with the black box on: run_compiled({COMPILED_HALF}), "
+          f"save_state + save_blackbox_state, load into a fresh sim, run_compiled("
+          f"{COMPILED_HALF}) == run({2 * COMPILED_HALF}) ({t_parity:.2f}s); checkpoint "
+          f"files at G: {json.dumps(sizes)} bytes; card == CPU at {COMPILED_SMALL_G}x{P} "
+          f"(plain with the black box on, {COMPILED_ROUNDS} rounds; damped "
+          f"{2 * COMPILED_HALF} rounds; card {t_small:.2f}s, CPU {t_cpu:.2f}s in a reference "
+          f"worker); runner.make_runner on {CHAOS_PLAN_NAME} at G == the chaos phase's report "
+          f"and end state ({t_runner:.2f}s)")
+    print(f"compiled graphs: {json.dumps(graphs_info)}")
+    for name in ("plain", "blackbox", "damped"):
+        r = timing[name]
+        print(f"timing compiled {name} {G}x{P} [{card}]: {COMPILED_REPS} alternating reps a "
+              f"side of {COMPILED_ROUNDS} rounds: ticks/s run {r['ticks_per_s_loop_median']:.1f}"
+              f" (min {min(r['ticks_per_s_loop']):.1f}, max {max(r['ticks_per_s_loop']):.1f}), "
+              f"run_compiled {r['ticks_per_s_graph_median']:.1f} (min "
+              f"{min(r['ticks_per_s_graph']):.1f}, max {max(r['ticks_per_s_graph']):.1f}), "
+              f"{r['speedup']:.2f}x; capture {r['capture_s']:.3f}s (first call "
+              f"{r['first_call_s']:.3f}s), {r['nodes']} nodes + {r['branch_nodes']} in the "
+              f"branch; election arm: {r['election_arm']}; over {COMPILED_PROFILE_ROUNDS} "
+              f"rounds busy {100 * r['busy_share_loop']:.1f}% (run, "
+              f"{r['launches_per_round_loop']:.0f} launches a round) against "
+              f"{100 * r['busy_share_graph']:.1f}% (graph, "
+              f"{r['launches_per_round_graph']:.0f} kernels a round), device "
+              f"{r['busy_us_loop']:.1f} against {r['busy_us_graph']:.1f} us, so busy "
+              f"{100 * r['busy_share_timed_loop']:.1f}% against "
+              f"{100 * r['busy_share_timed_graph']:.1f}% of the timed reps' wall time")
+    print(f"timing compiled [{card}]: blackbox_overhead_pct on run_compiled "
+          f"{timing['blackbox_overhead_pct']:.2f}")
+    return dict(card=card, parity_s=t_parity, runner_s=t_runner, small_card_s=t_small,
+                small_cpu_s=t_cpu, checkpoint_bytes=sizes, graphs=graphs_info, **timing)
+
+
 @phase("references")
 def phase_references(checks):
     """The deferred checks of the steady, lossy and check-quorum phases:
@@ -3171,6 +3478,7 @@ def main(argv=None):
         cpu_reads_run = pool.submit(cpu_reads)
         cpu_auto_run = pool.submit(cpu_autopilot)
         cpu_bb_run = pool.submit(cpu_forensics)
+        cpu_compiled_run = pool.submit(cpu_compiled)
         lossy_small = pool.submit(cpu_lossy_small)
         damped_small = pool.submit(cpu_health_path, dict(
             cfg=damped_cfg(CQ_SMALL_G), blocks=CQ_SMALL_BLOCKS, settle=CQ_SETTLE))
@@ -3203,6 +3511,7 @@ def main(argv=None):
         auto_launches, auto_err, auto = phase_autopilot(dev, cpu_auto_run, pool)
         blackbox = phase_forensics(dev, cpu_bb_run, scenario_off,
                                    steady["ticks_per_s_median"])
+        compiled_out = phase_compiled(dev, cpu_compiled_run, settled, scenario_off)
         del scenario_off
         phase_references(checks)
 
@@ -3240,7 +3549,8 @@ def main(argv=None):
                 "steady_health": steady_h, "damped_health": damped_h,
                 "lossy_health_kernel": lossy_h, "chaos_scenario": scenario,
                 "composed": composed, "reconfig": reconfig_out, "prod_fused": prod,
-                "reads": reads, "autopilot": auto, "blackbox": blackbox},
+                "reads": reads, "autopilot": auto, "blackbox": blackbox,
+                "compiled": compiled_out},
                 "composed_branches": composed_branches,
                 "steady_hybrid_fused": steady_hybrid_fused}, fh, indent=1,
                 default=str)

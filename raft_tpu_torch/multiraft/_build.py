@@ -176,6 +176,19 @@ def load_damped_cuda() -> ctypes.CDLL:
                     "damped_round_launch", _DAMPED_ARGS + [ctypes.c_void_p])
 
 
+def load_graph_cuda() -> ctypes.CDLL:
+    """The CUDA-graph helper library (csrc/graph_cond.cu): its
+    `graph_if_node` takes the capturing stream, the device bool that picks
+    the branch and the branch's cudaGraph_t; `graph_node_count` a
+    cudaGraph_t and a pointer to the count."""
+    lib = _library("graph_cond", "graph_cond.cu", True, "graph_if_node",
+                   [ctypes.c_void_p] * 3)
+    lib.graph_node_count.argtypes = [ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.graph_node_count.restype = ctypes.c_int
+    return lib
+
+
 def load_damped_host() -> ctypes.CDLL:
     """The host build of the damped kernel body (g++), for the CPU tests."""
     return _library("damped_host", "damped_host.cpp", False,

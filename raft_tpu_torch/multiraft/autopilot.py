@@ -2,8 +2,9 @@
 
 Counterpart of `raft_tpu/multiraft/autopilot.py`: `AutopilotConfig`
 (:78-126), `empty_reconfig_schedule` (:128-149), `make_cadence_runner`
-(:152-193, with the runner it builds, `runner._make_cadence`,
-runner.py:785-951) and `Autopilot` (:196-702).
+(:152-193, a wrapper over the unified runner, whose `_make_cadence`
+builds the segment as the reference's runner.py:785-951 does) and
+`Autopilot` (:196-702).
 
 A host-side declarative policy (`AutopilotConfig`: thresholds, budgets a
 cadence, cooldowns) reads the device-reduced health summary at each
@@ -39,7 +40,6 @@ import numpy as np
 import torch
 
 from . import chaos as chaos_mod
-from . import fused_step
 from . import kernels
 from . import reconfig as reconfig_mod
 from . import sim as sim_mod
@@ -155,112 +155,13 @@ def make_cadence_runner(
     schedule, else steady_round; the damped kernel for a damped config)
     and folds the MTTR stats once, equal to the general rounds bit for
     bit.  The runner adds no host sync of its own beyond that bool()."""
-    if not cfg.collect_health:
-        raise ValueError("the autopilot needs SimConfig(collect_health=True)")
-    if not cfg.transfer:
-        raise ValueError(
-            "the autopilot needs SimConfig(transfer=True) — the transfer "
-            "actuation rides the lead_transferee plane"
-        )
-    if compiled is None:
-        raise ValueError(
-            "cadence runners need a reconfig schedule (the autopilot's "
-            "no-op template at rest)"
-        )
+    from . import runner as runner_mod
+
     if client is not None:
         raise ValueError("cadence runners do not thread a client plan")
-    reconfig_mod._validate_plans(cfg, compiled, chaos_compiled)
-    P, G = cfg.n_peers, cfg.n_groups
-    chaos_on = chaos_compiled is not None
-    dev = compiled.append.device
-    no_crash = torch.zeros((P, G), dtype=torch.bool, device=dev)
-    if fused:
-        fused_fn = (fused_step.chaos_round if chaos_on else fused_step.steady_round)(
-            cfg, rounds, with_health=True
-        )
-
-    def general(inner, csr, r0, transfer, kick):
-        # _runner_body carries the BlackboxState last in `inner`.
-        body = reconfig_mod._runner_body(
-            cfg, compiled, chaos_compiled, actions=(r0, transfer, kick)
-        )
-        for r in range(r0, r0 + rounds):
-            inner = body(inner, r)
-            csr = csr + (
-                inner[1].planes[kernels.HP_SINCE_COMMIT] >= cfg.commit_stall_ticks
-            ).sum(dtype=I32)
-        return inner + (csr, 0)
-
-    def half_quorum(alive, mask):
-        n = mask.sum(0, dtype=I32)
-        got = (alive & mask).sum(0, dtype=I32)
-        return (got >= kernels.majority_of(n)) | (n == 0)
-
-    def runner(st, hl, rst, stats, rstats, safety, *rest):
-        bb, (csr, r0, transfer, kick) = rest[:-4], rest[-4:]
-        reconfig_mod._check_device(st, hl, dev)
-        sim_mod.check_blackbox_arg(cfg, bb)
-        if r0 + rounds > compiled.n_rounds:
-            raise ValueError(
-                f"a {rounds}-round segment from round {r0} overruns the "
-                f"{compiled.n_rounds}-round schedule"
-            )
-        inner = (st, hl, rst, stats, rstats, safety) + bb
-        if not fused:
-            return general(inner, csr, r0, transfer, kick)
-        # The fused kernel gathers the round-r0 masks once for the whole
-        # block, so no schedule phase may change inside it (phases are
-        # contiguous: the endpoints decide).
-        last = r0 + rounds - 1
-        same_phase = int(compiled.phase_of_round[r0]) == int(
-            compiled.phase_of_round[last]
-        )
-        if chaos_on:
-            same_phase = same_phase and int(chaos_compiled.phase_of_round[r0]) == int(
-                chaos_compiled.phase_of_round[last]
-            )
-        if not same_phase:
-            return general(inner, csr, r0, transfer, kick)
-        if chaos_on:
-            link, loss, crashed, capp = chaos_mod.schedule_planes(chaos_compiled, r0)
-        else:
-            link = loss = None
-            crashed, capp = no_crash, 0
-        append = compiled.append[int(compiled.phase_of_round[r0])] + capp
-        pend = reconfig_mod.pending_in_horizon(compiled, rst, r0, rounds)
-        mask = fused_step.steady_mask(
-            cfg, st, crashed, horizon=rounds, link=link, reconfig_pending=pend,
-            loss_rate=loss,
-        )
-        no_action = ~(transfer > 0).any() & ~kick.any()
-        # steady_mask admits horizons where commits stall (one alive leader
-        # over a crashed majority, or loss); the closed-form zero stall
-        # fold needs provable progress: an alive voter quorum in both
-        # halves and no loss.
-        alive = ~crashed
-        progress_ok = (
-            half_quorum(alive, st.voter_mask) & half_quorum(alive, st.outgoing_mask)
-        ).all()
-        if loss is not None:
-            progress_ok = progress_ok & (loss == 0).all()
-        pred = mask.all() & no_action & progress_ok & (append > 0).all()
-        if not bool(pred):
-            return general(inner, csr, r0, transfer, kick)
-        prev_ll = hl.planes[kernels.HP_LEADERLESS]
-        fargs = (st, crashed, append) + ((loss, r0) if chaos_on else ())
-        out = fused_fn(*fargs, hl)
-        st2, hl2 = out[0], out[-1]
-        stats2 = chaos_mod.update_chaos_stats(
-            stats, prev_ll, hl2.planes[kernels.HP_LEADERLESS]
-        )
-        # No op, no action, commits every round: only the transition-audit
-        # anchors refresh, and the commit-stall fold is exactly zero.
-        rst2 = rst._replace(
-            prev_voter=st2.voter_mask, prev_outgoing=st2.outgoing_mask
-        )
-        return (st2, hl2, rst2, stats2, rstats, safety) + bb + (csr, rounds * G)
-
-    return runner
+    return runner_mod.make_runner(
+        cfg, (compiled, chaos_compiled), cadence=rounds, fused=fused
+    )
 
 
 class Autopilot:

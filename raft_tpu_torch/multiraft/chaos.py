@@ -2,9 +2,9 @@
 on the device, and the runner that drives a whole plan through the
 link-gated step.
 
-Counterpart of `raft_tpu/multiraft/chaos.py` (all of it) and of the chaos
-runner it builds, `raft_tpu/multiraft/runner.py:_make_chaos` (:131-205,
-the blackbox=False arm).
+Counterpart of `raft_tpu/multiraft/chaos.py` (all of it).  Its runner,
+:func:`make_runner`, is a wrapper over `runner.make_runner`, which builds it
+in `runner._make_chaos` as the reference's does (runner.py:131-205).
 
 The fault surface is the pairwise link plane `link[P, P, G]` that
 `sim.step(link=)` takes: a whole-peer crash isolates a peer's row and
@@ -16,8 +16,8 @@ A :class:`ChaosPlan` is a list of phases — partitions, directed link
 overrides, loss rates, crashes, heals — each covering a round range and an
 optional group selector.  :func:`compile_plan` lowers it into dense
 per-phase schedule arrays, the bool and loss planes packed into 32-bit words
-on the device as the reference packs them.  :func:`make_runner` then runs
-the whole scenario: where the reference traces one jitted `lax.scan`, this
+on the device as the reference packs them.  The runner then runs the
+whole scenario: where the reference traces one jitted `lax.scan`, this
 is a host loop over the rounds whose body queues device work only.  Each
 round looks its phase up on the host (`phase_of_round` stays on the CPU,
 so the lookup needs no device sync), gathers and unpacks that phase's
@@ -52,7 +52,7 @@ import torch
 
 from . import kernels
 from . import sim as sim_mod
-from .kernels import HP_LEADERLESS, LOSS_SCALE, N_SAFETY
+from .kernels import LOSS_SCALE
 from .platform import DeviceLike, resolve_device
 
 I32 = torch.int32
@@ -413,45 +413,9 @@ def make_runner(cfg: sim_mod.SimConfig, compiled: CompiledChaos):
     kernels.check_safety_groups instead, whose per-slot sums are the safety
     counts, and folds the audit and the round's record into the black box
     in one kernels.blackbox_fold."""
-    G = compiled.append.shape[1]
-    if (compiled.n_peers, G) != (cfg.n_peers, cfg.n_groups):
-        raise ValueError(
-            f"the schedule is compiled for {compiled.n_peers} peers x {G} "
-            f"groups, the config has {cfg.n_peers} x {cfg.n_groups}"
-        )
-    dev = compiled.append.device
+    from . import runner as runner_mod
 
-    def runner(st: sim_mod.SimState, health: sim_mod.HealthState, *bb):
-        if st.term.device != dev or health.planes.device != dev:
-            raise ValueError(
-                f"the state and health planes must lie on the schedule's "
-                f"device {dev}, got {st.term.device} and {health.planes.device}"
-            )
-        sim_mod.check_blackbox_arg(cfg, bb)
-        stats = torch.zeros((N_CHAOS_STATS,), dtype=I32, device=dev)
-        safety = torch.zeros((N_SAFETY,), dtype=I32, device=dev)
-        for r in range(compiled.n_rounds):
-            link, crashed, append = schedule_masks(compiled, r)
-            prev_leaderless = health.planes[HP_LEADERLESS]
-            st2, health = sim_mod.step(cfg, st, crashed, append, health=health,
-                                       link=link)
-            audit = (st2.state, st2.term, st2.commit, st2.last_index, st2.agree,
-                     st.commit)
-            if bb:
-                viol = kernels.check_safety_groups(*audit)
-                safety = safety + viol.sum(1, dtype=I32)
-                bb = (sim_mod.BlackboxState(*kernels.blackbox_fold(
-                    *bb[0], st2.state, st2.term, st2.commit, crashed, viol
-                )),)
-            else:
-                safety = safety + kernels.check_safety(*audit)
-            stats = update_chaos_stats(
-                stats, prev_leaderless, health.planes[HP_LEADERLESS]
-            )
-            st = st2
-        return (st, health) + bb + (stats, safety)
-
-    return runner
+    return runner_mod.make_runner(cfg, (compiled,))
 
 
 def run_plan(

@@ -39,7 +39,7 @@ overflow wrapping.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -757,21 +757,27 @@ def zero_health(n_groups: int, device: DeviceLike = None) -> torch.Tensor:
 
 def update_health(
     planes: torch.Tensor,  # int32[N_HEALTH_PLANES, G]
-    window_pos: int,
+    window_pos: Union[int, torch.Tensor],
     window: int,
     has_leader: torch.Tensor,  # bool[G]
     commit_advanced: torch.Tensor,  # bool[G]
     term_bump: torch.Tensor,  # int32[G]
     vote_split: torch.Tensor,  # bool[G]
-) -> Tuple[torch.Tensor, int]:
+) -> Tuple[torch.Tensor, Union[int, torch.Tensor]]:
     """Fold one protocol round into the health planes; returns (planes',
     window_pos').  The churn window resets at the start of the round whose
     window_pos is 0.  The reference keeps window_pos as a device int32
     scalar; every change to it is host-known arithmetic, so here it is a
-    Python int and the fold needs no device sync."""
+    Python int and the fold needs no device sync.  A CUDA graph cannot
+    replay a Python int, so `ClusterSim.run_compiled`'s graph carries it as
+    a 0-d int32 tensor, as the reference does: the same planes, and
+    window_pos' as a tensor."""
     leaderless = torch.where(has_leader, 0, planes[HP_LEADERLESS] + 1)
     since = torch.where(commit_advanced, 0, planes[HP_SINCE_COMMIT] + 1)
-    kept = torch.zeros_like(term_bump) if window_pos == 0 else planes[HP_TERM_BUMPS]
+    if isinstance(window_pos, torch.Tensor):
+        kept = torch.where(window_pos == 0, 0, planes[HP_TERM_BUMPS])
+    else:
+        kept = torch.zeros_like(term_bump) if window_pos == 0 else planes[HP_TERM_BUMPS]
     bumps = kept + term_bump
     splits = planes[HP_VOTE_SPLITS] + vote_split.to(I32)
     return torch.stack([leaderless, since, bumps, splits]), (window_pos + 1) % window
@@ -886,7 +892,7 @@ def blackbox_fold(
     term_ring: torch.Tensor,  # int32[W, G]
     commit_ring: torch.Tensor,  # int32[W, G]
     trip_round: torch.Tensor,  # int32[N_SAFETY, G]
-    round_idx: int,
+    round_idx: Union[int, torch.Tensor],
     state: torch.Tensor,  # int32[P, G]
     term: torch.Tensor,  # int32[P, G]
     commit: torch.Tensor,  # int32[P, G]
@@ -899,18 +905,25 @@ def blackbox_fold(
     round_idx where `viol` (check_safety_groups' output for the round)
     fired and no earlier round had.  Returns fresh (meta, term, commit,
     trip_round) planes and round_idx + 1.  Callers without a safety audit
-    pass all-False `viol`; blackbox_mark stamps the bits in later."""
-    slot = round_idx % meta_ring.shape[0]
+    pass all-False `viol`; blackbox_mark stamps the bits in later.
+    `round_idx` may be a 0-d int32 tensor, as `ClusterSim.run_compiled`'s
+    CUDA graph carries it (the reference's device scalar): the slot is then
+    picked on the device, with the same planes."""
     word = pack_blackbox_meta(
         state.amax(0), acting_leader_id(state, term, crashed), _safety_bits(viol)
     )
-    return (
-        _set_ring_row(meta_ring, slot, word),
-        _set_ring_row(term_ring, slot, term.amax(0)),
-        _set_ring_row(commit_ring, slot, commit.amax(0)),
-        torch.where(viol, trip_round.clamp(max=round_idx), trip_round),
-        round_idx + 1,
-    )
+    rows = (word, term.amax(0), commit.amax(0))
+    rings = (meta_ring, term_ring, commit_ring)
+    if isinstance(round_idx, torch.Tensor):
+        lanes = torch.arange(meta_ring.shape[0], dtype=I32, device=meta_ring.device)
+        hit = (lanes == round_idx % meta_ring.shape[0])[:, None]
+        rings = tuple(torch.where(hit, row[None, :], ring) for ring, row in zip(rings, rows))
+        first = torch.minimum(trip_round, round_idx)
+    else:
+        slot = round_idx % meta_ring.shape[0]
+        rings = tuple(_set_ring_row(ring, slot, row) for ring, row in zip(rings, rows))
+        first = trip_round.clamp(max=round_idx)
+    return rings + (torch.where(viol, first, trip_round), round_idx + 1)
 
 
 def blackbox_mark(

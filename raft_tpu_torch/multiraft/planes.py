@@ -1,0 +1,468 @@
+"""The plane registry: one declarative row per device-plane family.
+
+Counterpart of `raft_tpu/multiraft/planes.py` (all of it), copied row for
+row: every device-resident plane the batched MultiRaft carries (the
+SimState protocol planes, the BlackboxState flight-recorder ring, the
+counter, health and read-stat slots, the packed-word encodings, and the
+checkpoint-only carries of the reconfig and read protocols) is described
+here once.  In the port:
+
+  * ``checkpoint.py`` iterates ``checkpoint_fields(...)`` for its save
+    and load field sets (required or optional comes from the gating flag);
+  * ``sim.pack_ra_carry`` packs the ``packing == "bits_g"`` rows for the
+    CUDA-graph carry of ``ClusterSim.run_compiled``;
+  * the ``sharding`` column is kept as data: the port's multi-GPU
+    placement (ROADMAP A12) is its first reader.
+
+The reference's static checks (its graftcheck rules) read the same rows;
+the port keeps their columns as data.  ``tests/test_torch_registries.py``
+holds every row equal to the reference's and the owners' field tuples to
+the port's NamedTuples.
+
+Standard library only: nothing here imports torch or numpy.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Set, Tuple
+
+
+class PlaneSpec(NamedTuple):
+    """One registry row.
+
+    name:       the field / constant name at the owner site.
+    owner:      where the plane lives — "SimState", "BlackboxState",
+                "ReconfigState" (sim/reconfig NamedTuple fields),
+                "kernels" (CTR_*/HP_* plane-stack slots and pack_*
+                kernel families), "pallas_step" (words the fused round packs),
+                or "workload" (RS_* slots and the read carry).
+    family:     which GC008 registry the row lands in — "core" (no
+                overflow registry; the protocol planes), "counter",
+                "health", "packed", "damping", "transfer", "blackbox",
+                "read", "read-carry", "reconfig".
+    shape:      shape family, written exactly as the GC007 anchor spells
+                it: "[P, G]", "[P, P, G]", "[W, G]", "[S, G]", "[H, G]",
+                "[C, G]", "[G]", "[R]", "[L]", "[]", or "word" (a packed
+                sub-int32 lane encoding, not a standalone array).
+    dtype:      the GC007 anchor dtype ("int32" / "bool" / "uint32");
+                GC016 pins the owner field's ``# gc:`` anchor to
+                ``dtype + shape``.
+    flag:       gating SimConfig flags (ANY of them turns the plane on;
+                empty = always present).  Presence gating implies the
+                checkpoint treats the field as optional and the sharding
+                spec is built only when a named flag is set.
+    bound_bits: the GC008 numeric bound — bits per lane for packed /
+                damping / transfer rows, max additive growth per round
+                for health rows, None where the bound is structural
+                (rings, carries) or lives in the derivation text.
+    bound:      the overflow-bound derivation summary (the GC008
+                registry value; docs/STATIC_ANALYSIS.md carries the full
+                derivations).
+    packing:    scan-carry packing policy — "bits_g" (rides the donated
+                scan carry bit-packed 32:1 along G via
+                kernels.pack_bits_g; consumed by sim.pack_ra_carry),
+                "word" (a packed-word lane family), or "none".
+    checkpoint: which checkpoint file persists the plane — "state"
+                (SimState .npz; required unless flag-gated), "blackbox"
+                (__blackbox_version__ sidecar), "read"
+                (__read_version__), "reconfig" (__reconfig_version__),
+                or "none".
+    sharding:   mesh placement — "minor-G" (shard the trailing group
+                axis, leading axes replicated), "replicate" (whole-array
+                replica, e.g. scalars), or "none" (never placed).
+    steady:     steady_mask interaction — "fusable" (no interaction),
+                "defuse" (the gating flag wholesale-rejects fused
+                horizons; consumed by steady_defuse_flags), or
+                "predicate:<name>" (a per-group condition hand-derived
+                in steady_mask; named so the docstring and this registry
+                can be cross-read).
+    oracle:     the scalar twin symbol ("module.Symbol" under
+                raft_tpu/multiraft/) GC016 resolves, or None where the
+                plane has no dedicated oracle beyond the ScalarCluster
+                parity suites.
+    """
+
+    name: str
+    owner: str
+    family: str
+    shape: str
+    dtype: str
+    flag: Tuple[str, ...] = ()
+    bound_bits: Optional[int] = None
+    bound: str = ""
+    packing: str = "none"
+    checkpoint: str = "none"
+    sharding: str = "none"
+    steady: str = "fusable"
+    oracle: Optional[str] = None
+
+
+# Declared per-round per-counter event budget: the `256` in ClusterSim's
+# _drain_cap expression.  events/window <= window * BUDGET_PER_GROUP * G.
+BUDGET_PER_GROUP = 256
+# int32 wrap exponent: windows must keep total events <= 2**31.
+WRAP_SHIFT = 31
+
+# Names inside kernels.update_health whose values are DECLARED bounded
+# (<= bound) with the derivation documented in docs/STATIC_ANALYSIS.md
+# rather than proven from the AST.  term_bump: a group's max term grows
+# by at most 1 per round (each campaigner adds exactly 1 to its own term
+# and every bump target adopts an existing campaigner's term).
+DECLARED_BOUNDED: Dict[str, int] = {"term_bump": 1}
+
+
+def _sim(name: str, shape: str, dtype: str = "int32", **kw) -> PlaneSpec:
+    kw.setdefault("family", "core")
+    kw.setdefault("checkpoint", "state")
+    kw.setdefault("sharding", "minor-G")
+    return PlaneSpec(name=name, owner="SimState", shape=shape, dtype=dtype, **kw)
+
+
+REGISTRY: Tuple[PlaneSpec, ...] = (
+    # ---- SimState protocol planes, in FIELD ORDER (GC016 pins the order
+    # against the NamedTuple so checkpoint/sharding iteration is the
+    # field iteration).
+    _sim("term", "[P, G]"),
+    _sim("state", "[P, G]"),
+    _sim("vote", "[P, G]"),
+    _sim("leader_id", "[P, G]"),
+    _sim(
+        "election_elapsed", "[P, G]", family="damping", bound_bits=8,
+        bound=(
+            "lease operand: < election_tick at leaders (boundary reset); "
+            "< 2*election_tick at followers (timeout redraw bound)"
+        ),
+    ),
+    _sim("heartbeat_elapsed", "[P, G]"),
+    _sim("randomized_timeout", "[P, G]"),
+    _sim("last_index", "[P, G]"),
+    _sim("last_term", "[P, G]"),
+    _sim("commit", "[P, G]"),
+    _sim("matched", "[P, P, G]"),
+    _sim("term_start_index", "[P, G]"),
+    _sim("agree", "[P, P, G]"),
+    _sim("voter_mask", "[P, G]", dtype="bool"),
+    _sim("outgoing_mask", "[P, G]", dtype="bool"),
+    _sim("learner_mask", "[P, G]", dtype="bool"),
+    _sim(
+        "recent_active", "[P, P, G]", dtype="bool", family="damping",
+        flag=("check_quorum", "pre_vote"), bound_bits=1,
+        bound="bool; boundary read-and-clear + won reset",
+        packing="bits_g", steady="predicate:cq-boundary-safe",
+    ),
+    _sim(
+        "transferee", "[P, G]", family="transfer", flag=("transfer",),
+        bound_bits=4,
+        bound=(
+            "peer id in [0, n_peers]; set from validated commands "
+            "(kernels.apply_transfer) or cleared, never arithmetic"
+        ),
+        steady="predicate:transfer-pending",
+        oracle="simref.TransferOracle",
+    ),
+    # ---- BlackboxState flight-recorder planes, in FIELD
+    # ORDER (the checkpoint's save order).
+    PlaneSpec(
+        "meta", "BlackboxState", "blackbox", "[W, G]", "uint32",
+        flag=("blackbox",),
+        bound=(
+            "ring slot, overwritten every W rounds (no accumulation); "
+            "word bits bounded by PACKED_PLANES `blackbox_meta`"
+        ),
+        checkpoint="blackbox", sharding="minor-G", steady="defuse",
+        oracle="forensics.decode_window",
+    ),
+    PlaneSpec(
+        "term", "BlackboxState", "blackbox", "[W, G]", "int32",
+        flag=("blackbox",),
+        bound=(
+            "ring slot of group max term (bounded by the protocol's own "
+            "int32 term plane)"
+        ),
+        checkpoint="blackbox", sharding="minor-G", steady="defuse",
+        oracle="forensics.decode_window",
+    ),
+    PlaneSpec(
+        "commit", "BlackboxState", "blackbox", "[W, G]", "int32",
+        flag=("blackbox",),
+        bound=(
+            "ring slot of group max commit (bounded by the int32 "
+            "commit plane)"
+        ),
+        checkpoint="blackbox", sharding="minor-G", steady="defuse",
+        oracle="forensics.decode_window",
+    ),
+    PlaneSpec(
+        "trip_round", "BlackboxState", "blackbox", "[S, G]", "int32",
+        flag=("blackbox",),
+        bound="min-fold of round indices < compiled horizon < 2**31",
+        checkpoint="blackbox", sharding="minor-G", steady="defuse",
+        oracle="forensics.decode_window",
+    ),
+    PlaneSpec(
+        "round_idx", "BlackboxState", "blackbox", "[]", "int32",
+        flag=("blackbox",),
+        bound="+1/round; wrap horizon 2**31 rounds, out of model",
+        checkpoint="blackbox", sharding="replicate", steady="defuse",
+    ),
+    # ---- Counter plane slots (kernels.CTR_*): <= BUDGET_PER_GROUP
+    # events/group/round, drained inside the _drain_cap window bound.
+    PlaneSpec(
+        "CTR_CAMPAIGNS", "kernels", "counter", "[C, G]", "int32",
+        bound="<= BUDGET_PER_GROUP events/group/round; window-drained",
+    ),
+    PlaneSpec(
+        "CTR_HEARTBEATS", "kernels", "counter", "[C, G]", "int32",
+        bound="<= BUDGET_PER_GROUP events/group/round; window-drained",
+    ),
+    PlaneSpec(
+        "CTR_ELECTIONS_WON", "kernels", "counter", "[C, G]", "int32",
+        bound="<= BUDGET_PER_GROUP events/group/round; window-drained",
+    ),
+    PlaneSpec(
+        "CTR_COMMIT_ENTRIES", "kernels", "counter", "[C, G]", "int32",
+        bound="<= BUDGET_PER_GROUP events/group/round; window-drained",
+    ),
+    # ---- Health plane slots (kernels.HP_*): bound_bits is the max
+    # additive growth per round (resets only shrink), giving a wrap
+    # horizon of 2**31 rounds — out of model, like the commit plane.
+    PlaneSpec(
+        "HP_LEADERLESS", "kernels", "health", "[H, G]", "int32",
+        bound_bits=1, bound="+1/round max; reset on a led round",
+    ),
+    PlaneSpec(
+        "HP_SINCE_COMMIT", "kernels", "health", "[H, G]", "int32",
+        bound_bits=1, bound="+1/round max; reset on commit advance",
+    ),
+    PlaneSpec(
+        "HP_TERM_BUMPS", "kernels", "health", "[H, G]", "int32",
+        bound_bits=1, bound="+term_bump (declared <= 1); window reset",
+    ),
+    PlaneSpec(
+        "HP_VOTE_SPLITS", "kernels", "health", "[H, G]", "int32",
+        bound_bits=1, bound="+1/round max; reset on election outcome",
+    ),
+    # ---- Packed-word lane families (GC008 PACKED_PLANES): every
+    # sub-int32 value riding a shared word, with its bit budget.
+    PlaneSpec(
+        "bits", "kernels", "packed", "word", "int32", bound_bits=1,
+        bound="bool planes; lossless by construction", packing="word",
+    ),
+    PlaneSpec(
+        "u16_pairs", "kernels", "packed", "word", "int32", bound_bits=16,
+        bound="loss rates <= LOSS_SCALE (chaos._rate_to_fp)",
+        packing="word",
+    ),
+    PlaneSpec(
+        "bits_g", "kernels", "packed", "word", "int32", bound_bits=1,
+        bound="bool planes packed along G; lossless by construction",
+        packing="word", oracle="simref.host_pack_bits_g",
+    ),
+    PlaneSpec(
+        "roles", "pallas_step", "packed", "word", "int32", bound_bits=30,
+        bound="state<4, leader_id<16, hb<=heartbeat_tick<2**24",
+        packing="word",
+    ),
+    PlaneSpec(
+        "masks", "pallas_step", "packed", "word", "int32", bound_bits=3,
+        bound="three bool planes", packing="word",
+    ),
+    PlaneSpec(
+        "blackbox_meta", "kernels", "packed", "word", "uint32",
+        bound_bits=15,
+        bound="role<4, leader_id<=n_peers<16, N_SAFETY=9 violation bits",
+        packing="word",
+    ),
+    # ---- Read-stat slots (workload.RS_*, GC008 READ_PLANES): every slot
+    # grows by at most G per round; workload._compile_arrays asserts
+    # rounds x G < 2**31 at compile time.
+    PlaneSpec(
+        "RS_ISSUED", "workload", "read", "[R]", "int32",
+        bound="<= G fresh reads per round", oracle="simref.ReadOracle",
+    ),
+    PlaneSpec(
+        "RS_SERVED_LEASE", "workload", "read", "[R]", "int32",
+        bound="<= G lease serves per round", oracle="simref.ReadOracle",
+    ),
+    PlaneSpec(
+        "RS_SERVED_QUORUM", "workload", "read", "[R]", "int32",
+        bound="<= G quorum serves per round", oracle="simref.ReadOracle",
+    ),
+    PlaneSpec(
+        "RS_DEGRADED_SERVES", "workload", "read", "[R]", "int32",
+        bound="<= G degraded serves per round", oracle="simref.ReadOracle",
+    ),
+    PlaneSpec(
+        "RS_RETRY_ROUNDS", "workload", "read", "[R]", "int32",
+        bound="<= G outstanding (group, round) pairs per round",
+        oracle="simref.ReadOracle",
+    ),
+    PlaneSpec(
+        "RS_DROPPED_FIRES", "workload", "read", "[R]", "int32",
+        bound="<= G dropped fires per round", oracle="simref.ReadOracle",
+    ),
+    # ---- Read-protocol checkpoint carry (checkpoint.save_read_state
+    # order): the outstanding-read carry planes plus the run accumulators.
+    PlaneSpec(
+        "pending_mode", "workload", "read-carry", "[G]", "int32",
+        bound="sim.READ_* codes (<= 2)", checkpoint="read",
+        sharding="minor-G",
+    ),
+    PlaneSpec(
+        "pending_since", "workload", "read-carry", "[G]", "int32",
+        bound="absolute round index < n_rounds < 2**31 (compile bound)",
+        checkpoint="read", sharding="minor-G",
+    ),
+    PlaneSpec(
+        "read_stats", "workload", "read-carry", "[R]", "int32",
+        bound="slot growth per READ_PLANES; rounds x G < 2**31",
+        checkpoint="read", sharding="replicate",
+    ),
+    PlaneSpec(
+        "lat_hist", "workload", "read-carry", "[L]", "int32",
+        bound="<= G serves per round per bucket; rounds x G < 2**31",
+        checkpoint="read", sharding="replicate",
+    ),
+    # ---- Reconfig op-protocol carry (reconfig.ReconfigState, in FIELD
+    # ORDER — the checkpoint's save order).
+    PlaneSpec(
+        "stage", "ReconfigState", "reconfig", "[G]", "int32",
+        bound="stage code in {0, 1}", checkpoint="reconfig",
+        sharding="minor-G",
+    ),
+    PlaneSpec(
+        "op_ptr", "ReconfigState", "reconfig", "[G]", "int32",
+        bound="op-chain cursor <= plan ops per group", checkpoint="reconfig",
+        sharding="minor-G",
+    ),
+    PlaneSpec(
+        "prop_owner", "ReconfigState", "reconfig", "[G]", "int32",
+        bound="peer id in [0, n_peers]", checkpoint="reconfig",
+        sharding="minor-G",
+    ),
+    PlaneSpec(
+        "prop_index", "ReconfigState", "reconfig", "[G]", "int32",
+        bound="log index (bounded by the int32 last_index plane)",
+        checkpoint="reconfig", sharding="minor-G",
+    ),
+    PlaneSpec(
+        "prop_term", "ReconfigState", "reconfig", "[G]", "int32",
+        bound="term (bounded by the int32 term plane)",
+        checkpoint="reconfig", sharding="minor-G",
+    ),
+    PlaneSpec(
+        "prev_voter", "ReconfigState", "reconfig", "[P, G]", "bool",
+        bound="bool mask snapshot", checkpoint="reconfig",
+        sharding="minor-G",
+    ),
+    PlaneSpec(
+        "prev_outgoing", "ReconfigState", "reconfig", "[P, G]", "bool",
+        bound="bool mask snapshot", checkpoint="reconfig",
+        sharding="minor-G",
+    ),
+)
+
+
+# --- accessors (the five consumer sites go through these) -------------------
+
+
+def rows(
+    owner: Optional[str] = None, family: Optional[str] = None
+) -> Tuple[PlaneSpec, ...]:
+    """Registry rows filtered by owner and/or family, in registry order."""
+    return tuple(
+        r
+        for r in REGISTRY
+        if (owner is None or r.owner == owner)
+        and (family is None or r.family == family)
+    )
+
+
+def row(owner: str, name: str) -> PlaneSpec:
+    for r in REGISTRY:
+        if r.owner == owner and r.name == name:
+            return r
+    raise KeyError(f"no registry row for {owner}.{name}")
+
+
+def sim_state_fields() -> Tuple[str, ...]:
+    """SimState field names in registry (== NamedTuple) order."""
+    return tuple(r.name for r in rows(owner="SimState"))
+
+
+def optional_sim_fields() -> Tuple[str, ...]:
+    """Flag-gated SimState fields: None when their flag is off, so both
+    the checkpoint and the sharding spec treat them as optional."""
+    return tuple(r.name for r in rows(owner="SimState") if r.flag)
+
+
+def checkpoint_fields(policy: str) -> Tuple[str, ...]:
+    """Field names persisted by the `policy` checkpoint file, in save
+    order ("state" / "blackbox" / "read" / "reconfig")."""
+    return tuple(r.name for r in REGISTRY if r.checkpoint == policy)
+
+
+def packed_carry_fields() -> Tuple[str, ...]:
+    """SimState fields that ride the donated scan carry bit-packed along
+    the group axis (sim.pack_ra_carry / unpack_ra_carry)."""
+    return tuple(
+        r.name for r in rows(owner="SimState") if r.packing == "bits_g"
+    )
+
+
+def steady_defuse_flags() -> Tuple[str, ...]:
+    """SimConfig flags whose planes wholesale-reject fused horizons
+    (pallas_step.steady_mask returns all-False when any is set)."""
+    out = []
+    for r in REGISTRY:
+        if r.steady == "defuse":
+            for f in r.flag:
+                if f not in out:
+                    out.append(f)
+    return tuple(out)
+
+
+def gating_flags() -> Tuple[str, ...]:
+    """Every SimConfig flag named by a registry row (GC016 checks each
+    exists as a SimConfig field)."""
+    out = []
+    for r in REGISTRY:
+        for f in r.flag:
+            if f not in out:
+                out.append(f)
+    return tuple(out)
+
+
+def leading_axes(r: PlaneSpec) -> int:
+    """Number of leading (non-group, replicated) axes for a "minor-G"
+    sharded row: "[P, G]" -> 1, "[P, P, G]" -> 2, "[G]" -> 0."""
+    return r.shape.count(",")
+
+
+# --- the seven GC008 registries, derived ------------------------------------
+# (tools/graftcheck/engine/overflow.py imports these; GC016 fails the
+# build if overflow.py regrows local copies.)
+
+COUNTER_PLANES: Set[str] = {r.name for r in rows(family="counter")}
+
+HEALTH_PLANES: Dict[str, int] = {
+    r.name: r.bound_bits for r in rows(family="health")
+}
+
+PACKED_PLANES: Dict[str, tuple] = {
+    r.name: (r.bound_bits, r.bound) for r in rows(family="packed")
+}
+
+DAMPING_PLANES: Dict[str, tuple] = {
+    r.name: (r.bound_bits, r.bound) for r in rows(family="damping")
+}
+
+TRANSFER_PLANES: Dict[str, tuple] = {
+    r.name: (r.bound_bits, r.bound) for r in rows(family="transfer")
+}
+
+BLACKBOX_PLANES: Dict[str, str] = {
+    r.name: r.bound for r in rows(owner="BlackboxState")
+}
+
+READ_PLANES: Dict[str, str] = {r.name: r.bound for r in rows(family="read")}

@@ -2,11 +2,11 @@
 per-group schedules on the device, and the runners that drive a whole plan
 through the batched step.
 
-Counterpart of `raft_tpu/multiraft/reconfig.py` (all of it) and of the
-two runners built for it in `raft_tpu/multiraft/runner.py`:
-`_make_reconfig` (:208-290) as :func:`make_runner` and
-`_make_reconfig_split` (:292-491) as :func:`make_split_runner`, which
-refuses a black-box config as the reference's does.
+Counterpart of `raft_tpu/multiraft/reconfig.py` (all of it).  Its two
+runners, :func:`make_runner` and :func:`make_split_runner`, are wrappers
+over `runner.make_runner`, which builds them in `runner._make_reconfig`
+and `_make_reconfig_split` as the reference's runner.py does (:208-491);
+the split runner refuses a black-box config as the reference's does.
 
 A :class:`ReconfigPlan` is a list of phases; a phase may carry ONE
 conf-change op (add/remove voter, add/promote learner, explicit
@@ -79,7 +79,6 @@ import numpy as np
 import torch
 
 from . import chaos as chaos_mod
-from . import fused_step
 from . import kernels
 from . import sim as sim_mod
 from .kernels import HP_LEADERLESS, N_SAFETY
@@ -1051,23 +1050,9 @@ def make_runner(
     step's election gate has one a round unless SimConfig(spmd=True)); the
     results stay on the device.  With SimConfig(blackbox=True) it is
     fn(state, health, rstate, blackbox), and blackbox' comes last."""
-    _validate_plans(cfg, compiled, chaos_compiled)
-    body = _runner_body(cfg, compiled, chaos_compiled)
-    dev = compiled.append.device
+    from . import runner as runner_mod
 
-    def runner(st: sim_mod.SimState, hl: sim_mod.HealthState,
-               rst: ReconfigState, *bb):
-        _check_device(st, hl, dev)
-        sim_mod.check_blackbox_arg(cfg, bb)
-        carry = (st, hl, rst) + _zero_accumulators(dev) + bb
-        for r in range(compiled.n_rounds):
-            carry = body(carry, r)
-        stf, hlf, rstf, stats, rstats, safety = carry[:6]
-        safety, bbf = _tail_audit(safety, stf, rstf, *carry[6:])
-        out = (stf, hlf, rstf, stats, rstats, safety)
-        return out + (bbf,) if bb else out
-
-    return runner
+    return runner_mod.make_runner(cfg, (compiled, chaos_compiled))
 
 
 def make_split_runner(
@@ -1102,106 +1087,12 @@ def make_split_runner(
     ran), so fused_frac = fused_rounds / (compiled.n_rounds x n_groups).
     `runner.segments` is the plan's segment list, and `runner.blocks` lists
     the last call's planned fused blocks as (first round, fused) pairs."""
-    P, G = cfg.n_peers, cfg.n_groups
-    if not cfg.collect_health:
-        raise ValueError(
-            "make_split_runner needs SimConfig(collect_health=True) — the "
-            "MTTR stats and the fused block's closed-form fold ride on the "
-            "health planes"
-        )
-    if cfg.blackbox:
-        raise ValueError(
-            "make_split_runner does not thread the black box — use the "
-            "unsplit runner"
-        )
-    if k > cfg.health_window:
-        raise ValueError(
-            f"fused block k={k} exceeds health_window={cfg.health_window}: "
-            "the closed-form health fold handles at most one churn-window "
-            "crossing per block"
-        )
-    _validate_plans(cfg, compiled, chaos_compiled)
-    chaos_on = chaos_compiled is not None
-    segments = split_plan(compiled, k, chaos_compiled, window)
-    assert segments and segments[0].start == 0 and sum(
-        s.rounds for s in segments
-    ) == compiled.n_rounds, "split_plan must tile the horizon exactly"
-    fused_fn = (fused_step.chaos_round if chaos_on else fused_step.steady_round)(
-        cfg, k, with_health=True, with_counters=with_counters
+    from . import runner as runner_mod
+
+    return runner_mod.make_runner(
+        cfg, (compiled, chaos_compiled), split=True, k=k, window=window,
+        with_counters=with_counters,
     )
-    body = _runner_body(cfg, compiled, chaos_compiled, with_counters)
-    dev = compiled.append.device
-    no_crash = torch.zeros((P, G), dtype=torch.bool, device=dev)
-
-    def fused_block(carry, r0: int):
-        """k rounds from r0: the fused kernel if the whole batch is steady
-        for the horizon, else k general rounds; (carry', fused?)."""
-        st, hl, rst, stats, rstats, safety, *c = carry
-        if chaos_on:
-            link, loss, crashed, capp = chaos_mod.schedule_planes(
-                chaos_compiled, r0
-            )
-        else:
-            link = loss = None
-            crashed, capp = no_crash, 0
-        append = compiled.append[int(compiled.phase_of_round[r0])] + capp
-        pend = pending_in_horizon(compiled, rst, r0, k)
-        mask = fused_step.steady_mask(
-            cfg, st, crashed, horizon=k, link=link, reconfig_pending=pend,
-            loss_rate=loss,
-        )
-        if not bool(mask.all()):
-            for r in range(r0, r0 + k):
-                carry = body(carry, r)
-            return carry, False
-        prev_ll = hl.planes[HP_LEADERLESS]
-        fargs = (st, crashed, append) + ((loss, r0) if chaos_on else ())
-        out = fused_fn(*fargs, *c, hl)
-        st2, hl2 = out[0], out[-1]
-        # One closed-form MTTR fold for the whole block: the fused health
-        # fold holds HP_LEADERLESS at 0 every round (a leader held), so k
-        # per-round folds telescope to this one.
-        stats2 = chaos_mod.update_chaos_stats(
-            stats, prev_ll, hl2.planes[HP_LEADERLESS]
-        )
-        # No op proposed, gated or applied and no mask moved: only the
-        # transition-audit anchors refresh, as k general no-op rounds
-        # would leave them.
-        rst2 = rst._replace(
-            prev_voter=st2.voter_mask, prev_outgoing=st2.outgoing_mask
-        )
-        res = (st2, hl2, rst2, stats2, rstats, safety)
-        return (res + (out[1],) if with_counters else res), True
-
-    def runner(st: sim_mod.SimState, hl: sim_mod.HealthState,
-               rst: ReconfigState, counters: Optional[torch.Tensor] = None):
-        if with_counters and counters is None:
-            raise ValueError(
-                "runner built with_counters=True needs the counters plane"
-            )
-        _check_device(st, hl, dev)
-        carry = (st, hl, rst) + _zero_accumulators(dev)
-        if with_counters:
-            carry = carry + (counters,)
-        fused = 0
-        runner.blocks = []
-        for seg in segments:
-            if seg.fused:
-                for r0 in range(seg.start, seg.start + seg.rounds, k):
-                    carry, ran = fused_block(carry, r0)
-                    fused += k * G if ran else 0
-                    runner.blocks.append((r0, ran))
-            else:
-                for r in range(seg.start, seg.start + seg.rounds):
-                    carry = body(carry, r)
-        stf, hlf, rstf, stats, rstats, safety = carry[:6]
-        out = (stf, hlf, rstf, stats, rstats,
-               _tail_audit(safety, stf, rstf)[0], fused)
-        return out + (carry[6],) if with_counters else out
-
-    runner.segments = segments  # type: ignore[attr-defined]
-    runner.blocks = []  # type: ignore[attr-defined]
-    return runner
 
 
 def run_plan(

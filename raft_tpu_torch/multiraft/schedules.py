@@ -1,0 +1,335 @@
+"""The schedule registry: one declarative row per compiled schedule
+array, one family per schedule pipeline, one variant per compiled runner.
+
+Counterpart of `raft_tpu/multiraft/schedules.py` (all of it), copied row
+for row.  ``SCHEDULES`` holds one :class:`ScheduleSpec` per device
+schedule array, in the field order of the family's compiled NamedTuple
+(chaos.CompiledChaos, reconfig.CompiledReconfig, workload.CompiledClient,
+sim.BlackboxState); the unified runner (``runner.py``) reads that order
+through :func:`array_fields` to flatten and rebuild schedules, and
+``tests/test_torch_registries.py`` holds it to the port's NamedTuples.
+``FAMILIES`` binds each family to its compiled tuple and its host twin.
+
+``RUNNER_VARIANTS``, ``PHASES`` and ``PHASE_TOLERANCE_PCT`` name the
+reference's jaxpr budgets (one per compiled runner graph).  The port has
+no jaxpr and keeps them only as data, equal to the reference's.
+
+Standard library only: nothing here imports torch or numpy.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+__all__ = [
+    "ScheduleSpec",
+    "ScheduleFamily",
+    "RunnerVariant",
+    "SCHEDULES",
+    "FAMILIES",
+    "RUNNER_VARIANTS",
+    "PHASES",
+    "PHASE_TOLERANCE_PCT",
+    "rows",
+    "row",
+    "families",
+    "family",
+    "array_fields",
+    "runner_variants",
+    "variant",
+    "phases",
+    "gating_flags",
+    "packing_families",
+]
+
+
+class ScheduleSpec(NamedTuple):
+    """One device schedule array (or fold-carry plane) of one family.
+
+    name:    the field name on the family's compiled NamedTuple — the
+             registry row order IS the NamedTuple field order, which is
+             also the flat runtime-arg order the unified runner threads
+             through the jit boundary (GC012).
+    family:  owning schedule family (a ``FAMILIES`` name).
+    shape:   GC007 anchor spelling of the symbolic shape, e.g.
+             "[NPH, WL, G]" — must match the `# gc:` anchor on the
+             compiled tuple's field byte-for-byte (GC018).
+    dtype:   anchor dtype ("int32" / "uint32" / "bool").
+    packing: "" for unpacked planes, else the GC008 PACKED_PLANES word
+             family the array rides ("bits", "u16_pairs", "bits_g",
+             "blackbox_meta", ...) — GC018 resolves it against
+             planes.PACKED_PLANES.
+    gather:  how the scan body indexes the array each round:
+             "round" — gathered by absolute round index;
+             "phase" — gathered through phase_of_round;
+             "op"    — gathered by the group's op-chain cursor;
+             "fire"  — consumed at the runner's fire round (cadence
+                       action planes, runtime args but not per-round
+                       gathered);
+             "fold"  — a donated carry plane folded every round (the
+                       black box ring), not a gathered schedule.
+    flag:    SimConfig flags gating the array (GC018 checks they exist;
+             () = always threaded by its runners).
+    """
+
+    name: str
+    family: str
+    shape: str
+    dtype: str
+    packing: str = ""
+    gather: str = "phase"
+    flag: Tuple[str, ...] = ()
+
+    @property
+    def anchor_text(self) -> str:
+        """The GC007 `# gc:` anchor spelling this row pins."""
+        return f"{self.dtype}{self.shape}"
+
+
+class ScheduleFamily(NamedTuple):
+    """One schedule pipeline: the compiled device tuple, the host-side
+    numpy twin replaying the same schedule, and the GC019 phase key
+    whose jaxpr budget the family's lowering owns.
+
+    compiled:  "module.Symbol" of the device compiled NamedTuple, ""
+               for families whose arrays are bare runtime planes (the
+               autopilot action planes).
+    host_twin: "module.Symbol" of the host-side twin — GC018 requires
+               exactly one per family and that it resolves to a
+               top-level def/class.
+    phase:     GC019 phase key (see PHASES).
+    """
+
+    name: str
+    compiled: str
+    host_twin: str
+    phase: str
+
+
+class RunnerVariant(NamedTuple):
+    """One compiled runner graph in the GC014 jaxpr budget.
+
+    name:      the budget/inventory graph name.
+    base:      the graph whose eqn count anchors the GC019
+               decomposition (a step graph, or another runner variant
+               for the split runners).
+    phases:    phase keys lowered on top of the base — GC019 pins
+               eqns(name) ≈ eqns(base) + sum(phase budgets).
+    graph:     the reference's trace-inventory key (its
+               trace/inventory.py maps it to the constructor of the
+               traced graph; the rows themselves derive from this table).
+    options:   static options of that constructor as (key, value)
+               pairs.
+    probe_for: the phase whose budget THIS variant defines at regen
+               time (phase = eqns(name) - eqns(base) - other phases),
+               "" for non-probe variants that are only checked.
+    """
+
+    name: str
+    base: str
+    phases: Tuple[str, ...]
+    graph: str
+    options: Tuple[Tuple[str, object], ...] = ()
+    probe_for: str = ""
+
+
+# --- the registry -----------------------------------------------------------
+# Row order within a family is the compiled NamedTuple's field order
+# (minus the trailing static n_peers) — GC018 checks both directions.
+
+SCHEDULES: Tuple[ScheduleSpec, ...] = (
+    # ---- chaos: link/loss/crash/append phases (chaos.CompiledChaos).
+    ScheduleSpec("phase_of_round", "chaos", "[R]", "int32", gather="round"),
+    ScheduleSpec("link_packed", "chaos", "[NPH, WL, G]", "uint32",
+                 packing="bits"),
+    ScheduleSpec("loss_packed", "chaos", "[NPH, WR, G]", "uint32",
+                 packing="u16_pairs"),
+    ScheduleSpec("crashed_packed", "chaos", "[NPH, 1, G]", "uint32",
+                 packing="bits"),
+    ScheduleSpec("append", "chaos", "[NPH, G]", "int32"),
+    # ---- reconfig: the op chains + per-op target masks
+    # (reconfig.CompiledReconfig).
+    ScheduleSpec("phase_of_round", "reconfig", "[R]", "int32",
+                 gather="round"),
+    ScheduleSpec("append", "reconfig", "[NPH, G]", "int32"),
+    ScheduleSpec("op_start", "reconfig", "[K, G]", "int32", gather="op"),
+    ScheduleSpec("n_ops", "reconfig", "[G]", "int32", gather="op"),
+    ScheduleSpec("tgt_voter", "reconfig", "[K, P, G]", "bool", gather="op"),
+    ScheduleSpec("tgt_outgoing", "reconfig", "[K, P, G]", "bool",
+                 gather="op"),
+    ScheduleSpec("tgt_learner", "reconfig", "[K, P, G]", "bool",
+                 gather="op"),
+    ScheduleSpec("added", "reconfig", "[K, P, G]", "bool", gather="op"),
+    ScheduleSpec("removed", "reconfig", "[K, P, G]", "bool", gather="op"),
+    # ---- client: read fire/mode words + write load
+    # (workload.CompiledClient).
+    ScheduleSpec("phase_of_round", "client", "[R]", "int32", gather="round"),
+    ScheduleSpec("read_fire_packed", "client", "[R, WG]", "uint32",
+                 packing="bits_g", gather="round"),
+    ScheduleSpec("read_mode", "client", "[NPH, G]", "int32"),
+    ScheduleSpec("append", "client", "[NPH, G]", "int32"),
+    # ---- actions: the autopilot's per-cadence action planes — runtime
+    # jit args recomputed host-side each cadence (autopilot._decide),
+    # consumed at the segment's fire round.
+    ScheduleSpec("transfer", "actions", "[G]", "int32", gather="fire",
+                 flag=("transfer",)),
+    ScheduleSpec("kick", "actions", "[P, G]", "bool", gather="fire"),
+    # ---- blackbox: the flight-recorder ring (sim.BlackboxState) — a
+    # donated carry folded once per round, not a gathered schedule.
+    ScheduleSpec("meta", "blackbox", "[W, G]", "uint32",
+                 packing="blackbox_meta", gather="fold",
+                 flag=("blackbox",)),
+    ScheduleSpec("term", "blackbox", "[W, G]", "int32", gather="fold",
+                 flag=("blackbox",)),
+    ScheduleSpec("commit", "blackbox", "[W, G]", "int32", gather="fold",
+                 flag=("blackbox",)),
+    ScheduleSpec("trip_round", "blackbox", "[S, G]", "int32", gather="fold",
+                 flag=("blackbox",)),
+    ScheduleSpec("round_idx", "blackbox", "[]", "int32", gather="fold",
+                 flag=("blackbox",)),
+)
+
+
+FAMILIES: Tuple[ScheduleFamily, ...] = (
+    ScheduleFamily("chaos", "chaos.CompiledChaos", "chaos.HostSchedule",
+                   "chaos"),
+    ScheduleFamily("reconfig", "reconfig.CompiledReconfig",
+                   "reconfig.HostReconfigSchedule", "reconfig"),
+    ScheduleFamily("client", "workload.CompiledClient",
+                   "workload.HostClientSchedule", "client"),
+    ScheduleFamily("actions", "", "autopilot.Autopilot", "actions"),
+    ScheduleFamily("blackbox", "sim.BlackboxState", "forensics.decode_window",
+                   "blackbox"),
+)
+
+
+# GC019 phase keys: the five family phases plus "split" — the split
+# runners' fused-block dispatch machinery (pallas_step.steady_round's
+# cond + the closed-form fast arms), lowered on top of the unsplit
+# runner they shadow.
+PHASES: Tuple[str, ...] = (
+    "chaos", "reconfig", "client", "actions", "blackbox", "split",
+)
+
+# GC019 residual tolerance, percentage points: a variant fails when its
+# measured-vs-predicted residual exceeds the recorded residual by more
+# than this (duplicated lowering of the chaos phase alone is +2.6 pts
+# on the cadence runner; upstream jax drift routes through the budget
+# version-mismatch note + `make jaxpr-budget` instead).
+PHASE_TOLERANCE_PCT: float = 2.0
+
+
+RUNNER_VARIANTS: Tuple[RunnerVariant, ...] = (
+    RunnerVariant(
+        "chaos_runner@health", "step@health", ("chaos",),
+        "chaos", (("blackbox", False),), probe_for="chaos",
+    ),
+    RunnerVariant(
+        "chaos_runner@blackbox", "step@health+blackbox",
+        ("chaos", "blackbox"),
+        "chaos", (("blackbox", True),), probe_for="blackbox",
+    ),
+    RunnerVariant(
+        "reconfig_runner@health", "step@health", ("reconfig",),
+        "reconfig", (("with_chaos", False), ("damping", False)),
+        probe_for="reconfig",
+    ),
+    RunnerVariant(
+        "reconfig_runner@chaos+cq+pv", "step@chaos+cq+pv",
+        ("reconfig", "chaos"),
+        "reconfig", (("with_chaos", True), ("damping", True)),
+    ),
+    RunnerVariant(
+        "reconfig_split4@chaos+cq+pv", "reconfig_runner@chaos+cq+pv",
+        ("split",), "reconfig_split", probe_for="split",
+    ),
+    RunnerVariant(
+        "workload_runner@health+reads+cq", "step@health+reads+cq",
+        ("client",), "workload", probe_for="client",
+    ),
+    RunnerVariant(
+        "workload_split4@health+reads+cq", "workload_runner@health+reads+cq",
+        ("split",), "workload_split",
+    ),
+    RunnerVariant(
+        "autopilot_cadence@health+chaos+transfer", "step@health+transfer",
+        ("reconfig", "chaos", "actions"),
+        "autopilot", probe_for="actions",
+    ),
+)
+
+
+# --- accessors (the runner, the inventory, and GC018/GC019 go through
+# these; hand-listing the same facts elsewhere is the drift GC018
+# exists to catch) ------------------------------------------------------------
+
+
+def rows(family: Optional[str] = None) -> Tuple[ScheduleSpec, ...]:
+    """Registry rows, optionally filtered to one family, in order."""
+    return tuple(
+        r for r in SCHEDULES if family is None or r.family == family
+    )
+
+
+def row(family_name: str, name: str) -> ScheduleSpec:
+    """The unique row for (family, array name); KeyError if absent."""
+    for r in SCHEDULES:
+        if r.family == family_name and r.name == name:
+            return r
+    raise KeyError(f"no schedule row {family_name}.{name}")
+
+
+def families() -> Tuple[ScheduleFamily, ...]:
+    return FAMILIES
+
+
+def family(name: str) -> ScheduleFamily:
+    for f in FAMILIES:
+        if f.name == name:
+            return f
+    raise KeyError(f"no schedule family {name!r}")
+
+
+def array_fields(family_name: str) -> Tuple[str, ...]:
+    """Array field names of one family, in compiled-tuple order — the
+    flat runtime-arg order of the unified runner's jit boundary."""
+    out = rows(family_name)
+    if not out:
+        raise KeyError(f"no schedule family {family_name!r}")
+    return tuple(r.name for r in out)
+
+
+def runner_variants() -> Tuple[RunnerVariant, ...]:
+    return RUNNER_VARIANTS
+
+
+def variant(name: str) -> RunnerVariant:
+    for v in RUNNER_VARIANTS:
+        if v.name == name:
+            return v
+    raise KeyError(f"no runner variant {name!r}")
+
+
+def phases() -> Tuple[str, ...]:
+    return PHASES
+
+
+def gating_flags() -> Tuple[str, ...]:
+    """Every SimConfig flag named by some row, deduped, in first-use
+    order (GC018 checks each against sim.SimConfig's fields)."""
+    out = []
+    for r in SCHEDULES:
+        for f in r.flag:
+            if f not in out:
+                out.append(f)
+    return tuple(out)
+
+
+def packing_families() -> Tuple[str, ...]:
+    """Every PACKED_PLANES word family named by some row, deduped
+    (GC018 resolves each against planes.PACKED_PLANES)."""
+    out = []
+    for r in SCHEDULES:
+        if r.packing and r.packing not in out:
+            out.append(r.packing)
+    return tuple(out)

@@ -47,12 +47,13 @@ the reference's pure step, so a caller may keep the previous state.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from . import kernels
+from . import graphs, kernels, planes
 from .kernels import (
     ROLE_CANDIDATE,
     ROLE_FOLLOWER,
@@ -380,6 +381,40 @@ def init_state(
             else None
         ),
         transferee=zeros() if cfg.transfer else None,
+    )
+
+
+# The plane that rides run_compiled's graph carry bit-packed, from the
+# registry (planes.py `packing == "bits_g"`; exactly one row, so the
+# destructuring fails loudly if a second one lands without generalizing the
+# carry).
+(_PACKED_CARRY_FIELD,) = planes.packed_carry_fields()
+
+
+def pack_ra_carry(st: SimState):
+    """Split `st` into (state without recent_active, packed words) for a
+    round carry: the optional recent_active bool[P, P, G] plane rides
+    packed 32:1 along the group axis (kernels.pack_bits_g: int32[P, P,
+    ceil(G/32)] words holding the reference's uint32 bits) between rounds.
+    Undamped states pass through unchanged, with None words.  Inverse:
+    unpack_ra_carry."""
+    plane = getattr(st, _PACKED_CARRY_FIELD)
+    if plane is None:
+        return st, None
+    return (
+        st._replace(**{_PACKED_CARRY_FIELD: None}),
+        kernels.pack_bits_g(plane),
+    )
+
+
+def unpack_ra_carry(st: SimState, words: Optional[torch.Tensor]) -> SimState:
+    """Inverse of pack_ra_carry: restore the packed plane from its words
+    (None words: an undamped state, returned unchanged)."""
+    if words is None:
+        return st
+    n_groups = st.term.shape[-1]
+    return st._replace(
+        **{_PACKED_CARRY_FIELD: kernels.unpack_bits_g(words, n_groups)}
     )
 
 
@@ -1112,12 +1147,15 @@ def _plain_step(
     leader_id = torch.where(want_campaign, 0, st.leader_id)
     rt = torch.where(want_campaign, draw(term), st.randomized_timeout)
 
-    # ---- Phase C: election resolution among alive requesters.
+    # ---- Phase C: election resolution among alive requesters, behind the
+    # reference's lax.cond(any(req)): graphs.cond, a host branch here and a
+    # conditional node inside ClusterSim.run_compiled's CUDA graph; with
+    # spmd=True the phase runs unconditionally, which is bit-identical
+    # because every write in it is masked on this round's campaigners.
     req = want_campaign & alive
-    li, lt = st.last_index, st.last_term
-    matched, ts, commit = st.matched, st.term_start_index, st.commit
 
-    if cfg.spmd or bool(req.any()):
+    def elect(term, state, vote, leader_id, ee, hb, rt, li, lt, matched, ts,
+              commit):
         any_req = req.any(0)  # [G]
         t_star = torch.where(req, term, 0).amax(0)  # [G]
 
@@ -1254,10 +1292,19 @@ def _plain_step(
 
         matched = torch.where(won[:, None, :], 0, matched)
         ts = torch.where(won, li, ts)
-        term, state, vote, leader_id = term_c, state_c, vote_c, leader_c
-        ee, hb, rt = ee_c, hb_c, rt_c
-    else:
-        winner_exists = torch.zeros((G,), dtype=torch.bool, device=dev)
+        return (term_c, state_c, vote_c, leader_c, ee_c, hb_c, rt_c, li, lt,
+                matched, ts, commit, winner_exists)
+
+    def no_election(*planes):
+        return planes + (torch.zeros((G,), dtype=torch.bool, device=dev),)
+
+    planes = (term, state, vote, leader_id, ee, hb, rt, st.last_index,
+              st.last_term, st.matched, st.term_start_index, st.commit)
+    (term, state, vote, leader_id, ee, hb, rt, li, lt, matched, ts, commit,
+     winner_exists) = (
+        elect(*planes) if cfg.spmd
+        else graphs.cond(req.any(), elect, no_election, planes)
+    )
     new_last_index, new_last_term, term_start, commit_c = li, lt, ts, commit
 
     # ---- Phase C': a crashed campaigner that is the sole voter of both
@@ -2481,6 +2528,127 @@ def _damped_linked_step(
     )
 
 
+class _CarryLayout(NamedTuple):
+    """What rides a compiled round's carry, in order: the SimState
+    `fields` that are present (recent_active excluded), the packed
+    recent_active words, the counter plane, the health planes and their
+    window_pos, and the black box's four planes and its round_idx; `link`
+    says whether the round's inputs end in a link plane."""
+
+    fields: tuple
+    packed: bool
+    counters: bool
+    health: bool
+    blackbox: bool
+    link: bool
+
+
+def _scalar(v, device) -> torch.Tensor:
+    """A window_pos or round_idx as the 0-d int32 tensor the carry holds."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.full((), v, dtype=I32, device=device)
+
+
+def _to_carry(layout: _CarryLayout, st: SimState, counters, health, bb, device) -> tuple:
+    """The flat tensor carry of a compiled round: recent_active packed
+    (pack_ra_carry), window_pos and round_idx as 0-d int32 tensors, as
+    the reference carries them."""
+    st, words = pack_ra_carry(st)
+    out = [getattr(st, f) for f in layout.fields]
+    if layout.packed:
+        out.append(words)
+    if layout.counters:
+        out.append(counters)
+    if layout.health:
+        out += [health.planes, _scalar(health.window_pos, device)]
+    if layout.blackbox:
+        out += [bb.meta, bb.term, bb.commit, bb.trip_round,
+                _scalar(bb.round_idx, device)]
+    return tuple(out)
+
+
+def _from_carry(layout: _CarryLayout, carry: tuple):
+    """Inverse of _to_carry: (SimState, counters, HealthState, BlackboxState),
+    None where off; window_pos and round_idx stay 0-d tensors."""
+    it = iter(carry)
+    st = SimState(**{f: next(it) for f in layout.fields})
+    if layout.packed:
+        st = unpack_ra_carry(st, next(it))
+    counters = next(it) if layout.counters else None
+    health = HealthState(next(it), next(it)) if layout.health else None
+    bb = BlackboxState(*(next(it) for _ in range(5))) if layout.blackbox else None
+    return st, counters, health, bb
+
+
+def compiled_round(cfg: SimConfig, layout: _CarryLayout, carry: tuple,
+                   crashed, append_n, link=None) -> tuple:
+    """One round of ClusterSim.run_compiled on its flat carry: unpack,
+    sim.step with the extras the layout holds, pack.  Pure: it returns a
+    fresh carry.  RoundGraph captures it; on the CPU it runs as is."""
+    st, counters, health, bb = _from_carry(layout, carry)
+    res = step(cfg, st, crashed, append_n, counters=counters, health=health,
+               link=link, blackbox=bb)
+    if not (layout.counters or layout.health or layout.blackbox):
+        res = (res,)
+    it = iter(res[1:])
+    return _to_carry(
+        layout, res[0],
+        next(it) if layout.counters else None,
+        next(it) if layout.health else None,
+        next(it) if layout.blackbox else None,
+        st.term.device,
+    )
+
+
+class RoundGraph:
+    """One round of ClusterSim.run_compiled captured into a CUDA graph.
+
+    The carry (compiled_round's flat tuple) and the round's constant
+    planes live in static buffers, and the graph ends with copies of the
+    round's result into the carry buffers, so each replay advances them one
+    round in place: the counterpart of the reference's donated,
+    double-buffered scan carry.  The plain round's election phase is a
+    conditional node (graphs.cond).  Before capture the round runs once
+    eagerly with the host branch and once with the election phase forced
+    (SimConfig(spmd=True)), on a side stream, so that every kernel of both
+    arms is loaded.  `capture_s` is the capture's wall time, `nodes` the
+    graph's top-level node count and `branch_nodes` the nodes of its
+    conditional bodies.  A capture that fails raises."""
+
+    def __init__(self, cfg: SimConfig, layout: _CarryLayout, carry: tuple,
+                 inputs: tuple):
+        self.carry = tuple(t.clone() for t in carry)
+        self.inputs = tuple(t.clone() for t in inputs)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for c in (cfg, cfg._replace(spmd=True)):
+                compiled_round(c, layout, self.carry, *self.inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.capture = graphs.Capture()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph, capture_error_mode="relaxed"), self.capture:
+            out = compiled_round(cfg, layout, self.carry, *self.inputs)
+            for buf, new in zip(self.carry, out):
+                buf.copy_(new)
+        self.nodes = graphs.node_count(self.graph)
+        self.branch_nodes = self.capture.body_nodes()
+        self.graph.instantiate()
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, carry: tuple, inputs: tuple, rounds: int) -> tuple:
+        """Copy `carry` and `inputs` into the static buffers, replay the
+        graph `rounds` times, and return a fresh copy of the carry."""
+        for buf, t in zip(self.carry + self.inputs, tuple(carry) + tuple(inputs)):
+            buf.copy_(t)
+        for _ in range(rounds):
+            self.graph.replay()
+        return tuple(t.clone() for t in self.carry)
+
+
 class ClusterSim:
     """Host-side runner over `step`: holds the state and advances it one
     round per `run_round`.  Planes are peer-major [P, G] on `device`
@@ -2545,6 +2713,8 @@ class ClusterSim:
             health_monitor.snapshot_fn = self.explain
         self._rounds_since_drain = 0
         self._drain_every = self._DRAIN_MAX
+        # run_compiled's CUDA graphs, by carry layout.
+        self._round_graphs: Dict[_CarryLayout, RoundGraph] = {}
         if cfg.collect_counters:
             # The device plane is int32, so it drains into these host
             # totals every _drain_every rounds.  The cadence starts at one
@@ -2629,11 +2799,9 @@ class ClusterSim:
                         "offenders": capture["offenders"][name],
                     })
 
-    def run_round(self, crashed=None, append_n=None, link=None) -> SimState:
-        """One protocol round; crashed bool[P, G] and append_n int32[G]
-        default to no crashes and no appends.  `link` (optional bool[P, P,
-        G]) threads the directed reachability plane through the step; None
-        keeps the all-visible round."""
+    def _round_planes(self, crashed, append_n, link):
+        """The round's constant planes on this sim's device, with the
+        defaults (no crashes, no appends) filled in."""
         G, P = self.cfg.n_groups, self.cfg.n_peers
         if crashed is None:
             crashed = torch.zeros((P, G), dtype=torch.bool, device=self.device)
@@ -2643,6 +2811,22 @@ class ClusterSim:
         append_n = append_n.to(device=self.device, dtype=I32)
         if link is not None:
             link = link.to(device=self.device, dtype=torch.bool)
+        return crashed, append_n, link
+
+    def _counts_window(self) -> bool:
+        """Whether rounds count toward the drain window: with counters or
+        health planes, or a black box with a monitor to report to."""
+        return (
+            self._counters is not None or self._health is not None
+            or (self._blackbox is not None and self.health_monitor is not None)
+        )
+
+    def run_round(self, crashed=None, append_n=None, link=None) -> SimState:
+        """One protocol round; crashed bool[P, G] and append_n int32[G]
+        default to no crashes and no appends.  `link` (optional bool[P, P,
+        G]) threads the directed reachability plane through the step; None
+        keeps the all-visible round."""
+        crashed, append_n, link = self._round_planes(crashed, append_n, link)
         cc, ch = self._counters is not None, self._health is not None
         bb = self._blackbox is not None
         if not (cc or ch or bb):
@@ -2659,8 +2843,8 @@ class ClusterSim:
             self._health = res[1 + cc]
         if bb:
             self._blackbox = res[-1]
-            if not (cc or ch or self.health_monitor is not None):
-                return self.state
+        if not self._counts_window():
+            return self.state
         self._rounds_since_drain += 1
         if self._rounds_since_drain >= self._drain_every:
             self._drain()
@@ -2671,11 +2855,116 @@ class ClusterSim:
             self.run_round(crashed, append_n)
         return self.state
 
+    def _layout(self, has_link: bool) -> "_CarryLayout":
+        st, words = pack_ra_carry(self.state)
+        return _CarryLayout(
+            fields=tuple(f for f in SimState._fields if getattr(st, f) is not None),
+            packed=words is not None,
+            counters=self._counters is not None,
+            health=self._health is not None,
+            blackbox=self._blackbox is not None,
+            link=has_link,
+        )
+
+    def _compiled_runner(self, layout: "_CarryLayout", carry: tuple,
+                         inputs: tuple) -> "RoundGraph":
+        """The CUDA graph of one round for this carry layout (the state,
+        recent_active packed, the extras that are on, link threading),
+        captured at first use and cached, as the reference caches its
+        scans by link threading."""
+        graph = self._round_graphs.get(layout)
+        if graph is None:
+            graph = self._round_graphs[layout] = RoundGraph(
+                self.cfg, layout, carry, inputs
+            )
+        return graph
+
+    def _carry(self, layout: "_CarryLayout") -> tuple:
+        return _to_carry(layout, self.state, self._counters, self._health,
+                         self._blackbox, self.device)
+
+    def _set_carry(self, layout: "_CarryLayout", carry: tuple, rounds: int) -> None:
+        """Take a segment's end carry back into the sim; window_pos and
+        round_idx advance by the host-known round count, as the device
+        scalars did."""
+        self.state, counters, health, bb = _from_carry(layout, carry)
+        if layout.counters:
+            self._counters = counters
+        if layout.health:
+            self._health = HealthState(
+                health.planes,
+                (self._health.window_pos + rounds) % self.cfg.health_window,
+            )
+        if layout.blackbox:
+            self._blackbox = bb._replace(round_idx=self._blackbox.round_idx + rounds)
+
+    def run_compiled(
+        self, rounds: int, crashed=None, append_n=None, link=None
+    ) -> SimState:
+        """Advance `rounds` lockstep rounds for constant crashed, append_n
+        and link planes (the bench schedule), equal to `rounds` run_round
+        calls bit for bit, drains included.
+
+        On a CUDA device one round is captured into a CUDA graph at first
+        use (`RoundGraph`: the carry in static buffers, recent_active
+        packed 32:1 along G by pack_ra_carry, window_pos and round_idx as
+        0-d device scalars, the plain round's election branch a
+        conditional node) and replayed once a round: one host call a round
+        and no device sync, the counterpart of the reference's donated
+        `lax.scan`.  A capture that fails raises; nothing falls back to the
+        eager rounds.  On the CPU the same round function runs as a host
+        loop.
+
+        Segments and drains follow the reference: with counters on, a
+        segment is at most the drain cap's rounds (a residual run_round
+        window is drained first where it and the segment would pass the
+        cap); with health or a black box and a monitor attached, at most
+        the drain cadence's; each segment's carry comes back into the sim
+        (fresh tensors, which no later replay overwrites) and the drain
+        runs on the same cadence as run_round's.  The drain stays
+        synchronous."""
+        crashed, append_n, link = self._round_planes(crashed, append_n, link)
+        cc = self._counters is not None
+        ch = self._health is not None
+        bb = self._blackbox is not None
+        if cc:
+            seg_max = self._drain_cap
+        elif (ch or bb) and self.health_monitor is not None:
+            seg_max = self._drain_every
+        else:
+            seg_max = rounds
+        inputs = (crashed, append_n) + ((link,) if link is not None else ())
+        done = 0
+        while done < rounds:
+            seg = min(seg_max, rounds - done)
+            if (cc and self._rounds_since_drain
+                    and self._rounds_since_drain + seg > self._drain_cap):
+                # A residual run_round window plus this segment would pass
+                # the int32-safe cap: drain it first.
+                self._drain()
+            layout = self._layout(link is not None)
+            carry = self._carry(layout)
+            if self.device.type == "cuda":
+                carry = self._compiled_runner(layout, carry, inputs).run(
+                    carry, inputs, seg
+                )
+            else:
+                for _ in range(seg):
+                    carry = compiled_round(self.cfg, layout, carry, *inputs)
+            self._set_carry(layout, carry, seg)
+            done += seg
+            if self._counts_window():
+                self._rounds_since_drain += seg
+                if self._rounds_since_drain >= self._drain_every:
+                    self._drain()
+        return self.state
+
     def _chaos_runner_for(self, plan=None):
         """(CompiledChaos, runner) for `plan` (default: the attached one);
         the attached plan's are cached, so repeated run_plan() calls
         compile its schedule once."""
         from . import chaos as chaos_mod
+        from . import runner as runner_mod
 
         plan = plan if plan is not None else self._chaos
         if plan is None:
@@ -2686,7 +2975,7 @@ class ClusterSim:
             compiled = plan
         else:
             compiled = chaos_mod.compile_plan(plan, self.cfg.n_groups, self.device)
-        runner = chaos_mod.make_runner(self.cfg, compiled)
+        runner = runner_mod.make_runner(self.cfg, (compiled,))
         if plan is self._chaos:
             self._chaos_compiled, self._chaos_runner = compiled, runner
         return compiled, runner
@@ -2746,6 +3035,7 @@ class ClusterSim:
         0.  With the black box on, every round folds into it."""
         from . import chaos as chaos_mod
         from . import reconfig as reconfig_mod
+        from . import runner as runner_mod
 
         health = self._require_health()
         G = self.cfg.n_groups
@@ -2782,13 +3072,10 @@ class ClusterSim:
                 chaos_compiled = chaos_plan
             else:
                 chaos_compiled = chaos_mod.compile_plan(chaos_plan, G, self.device)
-            if split:
-                runner = reconfig_mod.make_split_runner(
-                    self.cfg, compiled, chaos_compiled, k=split_k,
-                    window=split_window, with_counters=wc,
-                )
-            else:
-                runner = reconfig_mod.make_runner(self.cfg, compiled, chaos_compiled)
+            runner = runner_mod.make_runner(
+                self.cfg, (compiled, chaos_compiled), split=split, k=split_k,
+                window=split_window, with_counters=wc,
+            )
             self._reconfig_runner = (plan, chaos_plan, compiled, runner, mode)
         else:
             compiled, runner = cached[2], cached[3]
@@ -2875,6 +3162,7 @@ class ClusterSim:
         the host in one copy at the end of the run."""
         from . import chaos as chaos_mod
         from . import reconfig as reconfig_mod
+        from . import runner as runner_mod
         from . import workload as workload_mod
 
         health = self._require_health()
@@ -2906,15 +3194,10 @@ class ClusterSim:
                 reconfig_compiled = reconfig_mod.compile_plan(
                     reconfig_plan, G, self.device
                 )
-            if split:
-                runner = workload_mod.make_split_runner(
-                    self.cfg, compiled, k=split_k, chaos_compiled=chaos_compiled,
-                    reconfig_compiled=reconfig_compiled,
-                )
-            else:
-                runner = workload_mod.make_runner(
-                    self.cfg, compiled, chaos_compiled, reconfig_compiled
-                )
+            runner = runner_mod.make_runner(
+                self.cfg, (compiled, chaos_compiled, reconfig_compiled),
+                split=split, k=split_k,
+            )
             self._read_runner = (
                 plan, chaos_plan, reconfig_plan, compiled, runner, mode,
             )

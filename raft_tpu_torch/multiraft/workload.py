@@ -1,11 +1,11 @@
 """Compiled client workloads: Zipf-skewed read/write mixes driven through the
 batched step.
 
-Counterpart of `raft_tpu/multiraft/workload.py` (all of it) and of the two
-runners built for it in `raft_tpu/multiraft/runner.py`: `_make_workload`
-(:493-594) as :func:`make_runner` and `_make_workload_split` (:596-783) as
-:func:`make_split_runner`, which refuses a black-box config as the
-reference's does.
+Counterpart of `raft_tpu/multiraft/workload.py` (all of it).  Its two
+runners, :func:`make_runner` and :func:`make_split_runner`, are wrappers
+over `runner.make_runner`, which builds them in `runner._make_workload`
+and `_make_workload_split` as the reference's runner.py does (:493-783);
+the split runner refuses a black-box config as the reference's does.
 
 A :class:`ClientPlan` is a list of phases, each covering a round range and
 a group selector, with the phase's write load (a uniform `append`, or a
@@ -55,13 +55,10 @@ import numpy as np
 import torch
 
 from . import chaos as chaos_mod
-from . import fused_step
 from . import kernels
 from . import reconfig as reconfig_mod
 from . import sim as sim_mod
-from .autopilot import empty_reconfig_schedule
 from .chaos import GroupSel, _group_mask
-from .kernels import HP_LEADERLESS
 from .platform import DeviceLike, resolve_device
 
 I32 = torch.int32
@@ -418,30 +415,9 @@ def make_runner(
     the results stay on the schedule's device.  With
     SimConfig(blackbox=True) the runner takes the BlackboxState last and
     returns it last (reconfig._runner_body's black-box arm)."""
-    _validate(cfg, client, chaos_compiled, reconfig_compiled)
-    dev = client.append.device
-    if reconfig_compiled is None:
-        reconfig_compiled = empty_reconfig_schedule(
-            client.n_rounds, cfg.n_peers, cfg.n_groups, dev
-        )
-    body = reconfig_mod._runner_body(
-        cfg, reconfig_compiled, chaos_compiled, client=client
-    )
+    from . import runner as runner_mod
 
-    def runner(st: sim_mod.SimState, hl: sim_mod.HealthState,
-               rst: reconfig_mod.ReconfigState, rcar: ReadCarry, *bb):
-        _check_device(st, hl, rcar, dev)
-        sim_mod.check_blackbox_arg(cfg, bb)
-        carry = ((st, hl, rst) + reconfig_mod._zero_accumulators(dev) + (rcar,)
-                 + _zero_read_accumulators(dev) + bb)
-        for r in range(client.n_rounds):
-            carry = body(carry, r)
-        stf, hlf, rstf, stats, rstats, safety, rcarf, rdstats, lat_hist = carry[:9]
-        safety, bbf = reconfig_mod._tail_audit(safety, stf, rstf, *carry[9:])
-        out = (stf, hlf, rstf, stats, rstats, safety, rcarf, rdstats, lat_hist)
-        return out + (bbf,) if bb else out
-
-    return runner
+    return runner_mod.make_runner(cfg, (client, chaos_compiled, reconfig_compiled))
 
 
 def make_split_runner(
@@ -475,112 +451,11 @@ def make_split_runner(
     results and `fused_rounds`, a Python int of fused group-rounds (k x
     n_groups per fused block).  `runner.blocks` lists the last call's
     blocks as (first round, fused) pairs."""
-    if chaos_compiled is not None or reconfig_compiled is not None:
-        raise ValueError(
-            "make_split_runner runs bare client plans; compose chaos/"
-            "reconfig schedules through the unsplit runner (or the "
-            "reconfig split machinery) instead"
-        )
-    if cfg.blackbox:
-        raise ValueError(
-            "make_split_runner does not thread the black box — use the "
-            "unsplit runner"
-        )
-    if not cfg.collect_health:
-        raise ValueError(
-            "make_split_runner needs SimConfig(collect_health=True) — "
-            "the MTTR stats and the fused block's closed-form fold ride "
-            "on the health planes"
-        )
-    if k > cfg.health_window:
-        raise ValueError(
-            f"fused block k={k} exceeds health_window="
-            f"{cfg.health_window}: the closed-form health fold handles "
-            "at most one churn-window crossing per block"
-        )
-    _validate(cfg, client, None, None)
-    P, G = cfg.n_peers, cfg.n_groups
-    R = client.n_rounds
-    dev = client.append.device
-    sched = empty_reconfig_schedule(R, P, G, dev)
-    body = reconfig_mod._runner_body(cfg, sched, None, client=client)
-    fused_fn = fused_step.steady_round(cfg, rounds=k, with_health=True)
-    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
-    phases = client.phase_of_round.tolist()
+    from . import runner as runner_mod
 
-    def steady_block(carry, r0: int):
-        """The block's lease fires per group (int32[G]) when the block from
-        r0 may run fused, else None; one host sync."""
-        st, rcar = carry[0], carry[6]
-        if phases[r0] != phases[r0 + k - 1]:
-            return None
-        read_block = reads_pending_in_horizon(client, rcar, r0, k)
-        n_lease, any_lease = lease_fires_in_block(client, r0, k)
-        lease_prov = ~any_lease
-        if cfg.heartbeat_tick == 1:
-            _, lease_entry, _ = kernels.lease_read(
-                st.state, st.term, st.leader_id, st.election_elapsed,
-                st.commit, st.term_start_index, crashed, cfg.election_tick,
-                cfg.check_quorum and cfg.lease_read, st.transferee,
-                st.recent_active, st.voter_mask, st.outgoing_mask,
-            )
-            lease_prov = lease_prov | lease_entry
-        mask = fused_step.steady_mask(cfg, st, crashed, horizon=k,
-                                      read_pending=read_block)
-        return n_lease if bool((mask & lease_prov).all()) else None
-
-    def fused_block(carry, r0: int, n_lease: torch.Tensor):
-        st, hl, rst, stats, rstats, safety, rcar, rdstats, lat = carry
-        prev_ll = hl.planes[HP_LEADERLESS]
-        st2, hl2 = fused_fn(st, crashed, client.append[phases[r0]], hl)
-        stats2 = chaos_mod.update_chaos_stats(
-            stats, prev_ll, hl2.planes[HP_LEADERLESS]
-        )
-        # The op protocol never moves (the no-op schedule); only the
-        # transition-audit anchors refresh.
-        rst2 = rst._replace(
-            prev_voter=st2.voter_mask, prev_outgoing=st2.outgoing_mask
-        )
-        # Closed-form receipts: every lease fire in the block issues fresh
-        # (the carry is empty: read_block rejected otherwise) and serves the
-        # round it fires, at latency 0.
-        n_served = n_lease.sum(dtype=I32)
-        zero = torch.zeros_like(n_served)
-        lat2 = torch.cat([(lat[0] + n_served)[None], lat[1:]])
-        bump = [zero] * N_READ_STATS
-        bump[RS_ISSUED] = bump[RS_SERVED_LEASE] = n_served
-        return (st2, hl2, rst2, stats2, rstats, safety, rcar,
-                rdstats + torch.stack(bump), lat2)
-
-    def runner(st: sim_mod.SimState, hl: sim_mod.HealthState,
-               rst: reconfig_mod.ReconfigState, rcar: ReadCarry):
-        _check_device(st, hl, rcar, dev)
-        carry = ((st, hl, rst) + reconfig_mod._zero_accumulators(dev) + (rcar,)
-                 + _zero_read_accumulators(dev))
-        fused = 0
-        runner.blocks = []
-        n_blocks = R // k
-        for b in range(n_blocks):
-            r0 = b * k
-            n_lease = steady_block(carry, r0)
-            ran = n_lease is not None
-            if ran:
-                carry = fused_block(carry, r0, n_lease)
-                fused += k * G
-            else:
-                for r in range(r0, r0 + k):
-                    carry = body(carry, r)
-            runner.blocks.append((r0, ran))
-        for r in range(n_blocks * k, R):
-            carry = body(carry, r)
-        stf, hlf, rstf, stats, rstats, safety, rcarf, rdstats, lat_hist = carry
-        # The unsplit runner's tail audit, for bit-parity.
-        safety = reconfig_mod._tail_audit(safety, stf, rstf)[0]
-        return (stf, hlf, rstf, stats, rstats, safety, rcarf, rdstats,
-                lat_hist, fused)
-
-    runner.blocks = []  # type: ignore[attr-defined]
-    return runner
+    return runner_mod.make_runner(
+        cfg, (client, chaos_compiled, reconfig_compiled), split=True, k=k
+    )
 
 
 def _mode_fires(client: CompiledClient, r0: int, horizon: int, code: int):

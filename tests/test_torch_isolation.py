@@ -44,6 +44,13 @@ def _imports(tree):
             yield node.lineno, str(node.args[0].value)
 
 
+def test_every_multiraft_module_is_scanned():
+    """The AST scan covers the registries, the unified runner, the
+    checkpoint and the graph helper with the rest of the package."""
+    names = {p.stem for p in _sources() if p.parent.name == "multiraft"}
+    assert {"planes", "schedules", "runner", "checkpoint", "graphs", "sim"} <= names
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
@@ -84,6 +91,8 @@ def test_importing_the_port_loads_no_reference_module():
     assert "raft_tpu_torch.multiraft.chaos_kernel" in new
     assert "raft_tpu_torch.multiraft.chaos" in new
     assert "raft_tpu_torch.multiraft.reconfig" in new
+    for mod in ("planes", "schedules", "runner", "checkpoint", "graphs"):
+        assert "raft_tpu_torch.multiraft." + mod in new
     for sub in ("eraftpb", "errors", "util", "confchange.changer",
                 "confchange.restore", "quorum.joint", "quorum.majority",
                 "tracker.inflights", "tracker.progress", "tracker.state"):
