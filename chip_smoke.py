@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Eleven paths, all at 100,000 groups × 5 peers.  Three with one append per
+Eleven paths at 100,000 groups × 5 peers, the fused kernels past P = 7,
+and the host driver at 3 × 10,000 groups.  Three with one append per
 group per round (bench.py's bench_device), each bare and instrumented
 (bench.py --health: the counter plane and the health planes ride every
 round, and the fused blocks run each kernel's with_health variant):
@@ -78,12 +79,18 @@ and eight more:
             ClusterSim.run; a checkpoint mid-run; runner.make_runner, the
             factory every scenario runner above is built by.
 
+Past P = 7 each kernel runs from libraries of its own, one a peer count
+(csrc/*_round_wide.cu): held to the plain versions at P = 8, 11 and 15
+(and the steady kernel's runtime-P instance at 16), and driven at P = 8.
+The host driver: examples/multiraft_node.py's node, 3 MultiRaft drivers
+(peer ids 1-3) of 10,000 groups each with the tick on the card.
+
 Phases, in order, each with its wall seconds; any failure raises and the
 script exits nonzero.  Every CPU run goes to one of two worker processes
 (spawned at the start) and runs while the card works: those that need
 nothing of the card are queued first, the others as their input exists;
-phases 13 and 16 to 22 wait for theirs, and the checks of phases 4, 7 and
-10 wait until phase 23.  Every parity phase holds both variants of its
+phases 13, 16 to 22 and 22a wait for theirs, and the checks of phases 4,
+4a, 7 and 10 wait until phase 23.  Every parity phase holds both variants of its
 kernel, with_health=False and with_health=True (the latter with a random
 ticks_since_commit row), against the plain version on the same cases.
 Phases 4, 7 and 10 run their path on the card bare and instrumented
@@ -97,15 +104,22 @@ fused and general block counts must be equal; the end-of-run summary is
 printed as bench.py --health-out writes it.
 
   1. device        require CUDA; print the card's name and power limit
-  2. build         build the three kernels and run_compiled's graph helper
-                   (csrc/graph_cond.cu) from csrc/ with nvcc, in parallel;
-                   print the times and ptxas registers and spills per P and
-                   template flag
+  2. build         build the three kernels (every P <= 7 instance, and
+                   the wide libraries of P = 8, 11, 15 and the steady
+                   runtime-P one) and run_compiled's graph helper
+                   (csrc/graph_cond.cu) from csrc/ with nvcc, one nvcc a
+                   library, in parallel; print the times and ptxas
+                   registers and spills per P and template flag
   3. parity        the steady kernel against its plain PyTorch version on
                    the same card tensors, exact: settled states at
-                   G=100,000 and a ragged G=100,003 (P=5), at P=3, and
-                   random planes
+                   G=100,000 and a ragged G=100,003 (P=5), at P=3, 8 and
+                   16, and random planes at P=3, 5, 7, 8, 11, 15 and 16
   4. main          the steady path: 30 settle rounds, 4 blocks
+ 4a. fast_step     fused_step.fast_step's fused arm (the steady kernel at
+                   k = 1) against its plain version on phase 4's state;
+                   16 rounds of fast_step from it, the acting leader down
+                   in 1% of groups in 4 of them (both arms), the launches
+                   counted, held to the CPU run in phase 23
   5. timing        the steady path on the bench's schedule (64-round
                    scans, 6 scans a rep, median of 5 reps): ticks/s,
                    fused_frac, the kernel's device time (one call captured
@@ -121,7 +135,8 @@ printed as bench.py --health-out writes it.
                    lossy-settled states at G=100,000, G=100,003 (P=5) and
                    P=3, each with and without crashed followers, under 1%
                    and the heavy-loss layout, with the round base small
-                   and near 2**31 - 32; random planes at P=3, 5 and 7
+                   and near 2**31 - 32; P=8 lossy-settled the same way;
+                   random planes at P=3, 5, 7, 8, 11 and 15
   7. lossy         the lossy path at G=8,192 from init_state (192 settle
                    rounds, 4 blocks), bare, on the card and the CPU; then
                    the main path at G=100,000 from phase 6's settled state
@@ -132,8 +147,15 @@ printed as bench.py --health-out writes it.
                    damped-settled states at G=100,000, G=100,003 (P=5) and
                    P=3, each with and without crashed followers, without
                    loss and under 1% and the heavy-loss layout (round base
-                   small and near 2**31 - 32); with_cq off on a
-                   pre-vote-settled state; random planes at P=3, 5 and 7
+                   small and near 2**31 - 32), and at P=8; with_cq off on
+                   a pre-vote-settled state; random planes at P=3, 5, 7,
+                   8, 11 and 15, every flag variant
+ 9a. wide          from the P=8 steady-, lossy- and damped-settled states
+                   at G=100,000, two fast_multi_round(k=32) blocks each,
+                   the launch counts zeroed just before and read just
+                   after, every block equal to 32 general steps on the
+                   card; each kernel's P=8 instance timed cold and hot
+                   against its bound
  10. damped        the check-quorum path: at G=8,192 from init_state (one
                    instrumented 192-round settle each on the card and the
                    CPU, then 4 blocks), then the main path at G=100,000
@@ -262,15 +284,25 @@ printed as bench.py --health-out writes it.
                    blackbox_overhead_pct on run_compiled, the capture's
                    seconds and node count, the election arm, the busy share
                    and launches of 4 rounds each way
- 23. references    the held-back checks of phases 4, 7 and 10 against their
-                   CPU runs
- 24. report        one JSON line of the ten kernel rows (the six variants,
-                   the damped kernel's with_loss instance, its with_loss
-                   with_health instance at k=8, its no-loss with_health
-                   instance at k=8 and the chaos kernel's with_health instance
-                   at k=16), then the device line last
+22a. driver        3 MultiRaft drivers x 10,000 groups on the card
+                   (examples/multiraft_node.run_schedule: elect, one
+                   proposal a group, 32 steady ticks) held to the same
+                   schedule with device="cpu" in a reference worker: every
+                   tick's active count, the ticks to elect, every group's
+                   (term, state, leader_id, committed, last_index) on every
+                   driver and status() but its metrics; the election and
+                   steady timings, the tick's sync latency, the active and
+                   ready-scan shares, and a profile of 4 ticks a driver
+ 23. references    the held-back checks of phases 4, 4a, 7 and 10 against
+                   their CPU runs
+ 24. report        one JSON line of the thirteen kernel rows (the six
+                   variants, the damped kernel's with_loss instance, its
+                   with_loss with_health instance at k=8, its no-loss
+                   with_health instance at k=8, the chaos kernel's
+                   with_health instance at k=16, and each kernel's P=8
+                   instance), then the device line last
 
-With --quick it runs phases 1 to 3, 6 and 9 only (the builds and every
+With --quick it runs phases 1 to 3, 6, 9 and 9a only (the builds and every
 kernel against its plain version) and prints no result.  Exits 2 without a
 result when no CUDA device is available.
 """
@@ -292,7 +324,9 @@ from raft_tpu_torch.multiraft import (
     _build, autopilot, chaos, checkpoint, forensics, fused_step, kernels as pk, reconfig,
     runner, sim, workload,
 )
+from raft_tpu_torch.examples import multiraft_node
 from raft_tpu_torch.multiraft.health import HealthMonitor
+from raft_tpu_torch.scalar.metrics import Metrics
 from raft_tpu_torch.multiraft.chaos_kernel import (
     OUTPUT_NAMES as CHAOS_OUTPUTS,
     chaos_rounds,
@@ -306,6 +340,7 @@ from raft_tpu_torch.multiraft.damped_kernel import (
     damped_work,
 )
 from raft_tpu_torch.multiraft.kernels import LOSS_SCALE, ROLE_LEADER, link_loss_draw
+from raft_tpu_torch.multiraft import steady_kernel
 from raft_tpu_torch.multiraft.steady_kernel import (
     steady_rounds,
     steady_rounds_reference,
@@ -381,12 +416,23 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 # one operation a lane a clock is a quarter of that figure.  Both kernels'
 # work is 32-bit integer operations.
 OPS_PER_S = 67e12 / 4
+# The wide instances (P = 8..15, csrc/*_round_wide.cu): held against their
+# plain versions at WIDE_PEERS on random planes and at WIDE_P on settled
+# 100k states, driven and timed at WIDE_P; the steady kernel's runtime-P
+# instance held at STEADY_RUNTIME_P.
+WIDE_P = 8
+WIDE_PEERS = (8, 11, 15)
+STEADY_RUNTIME_P = 16
+WIDE_BLOCKS = 2
 STEADY_SOURCE = "raft_tpu_torch/multiraft/csrc/steady_round.cu"
 STEADY_REPLACES = "raft_tpu/multiraft/pallas_step.py:116"
 CHAOS_SOURCE = "raft_tpu_torch/multiraft/csrc/chaos_round.cu"
 CHAOS_REPLACES = "raft_tpu/multiraft/pallas_step.py:297"
 DAMPED_SOURCE = "raft_tpu_torch/multiraft/csrc/damped_round.cu"
 DAMPED_REPLACES = "raft_tpu/multiraft/pallas_step.py:889"
+STEADY_WIDE_SOURCE = "raft_tpu_torch/multiraft/csrc/steady_round_wide.cu"
+CHAOS_WIDE_SOURCE = "raft_tpu_torch/multiraft/csrc/chaos_round_wide.cu"
+DAMPED_WIDE_SOURCE = "raft_tpu_torch/multiraft/csrc/damped_round_wide.cu"
 KERNELS = (steady_rounds, chaos_rounds, damped_rounds)
 # ptxas registers and spills by library and template instance, for --out.
 PTXAS = {}
@@ -417,12 +463,19 @@ def phase(name):
 
 @phase("build")
 def phase_build():
-    """The three kernels and run_compiled's graph helper built at once,
-    one nvcc per source."""
+    """The three kernels (the narrow libraries, P <= 7, and the wide ones
+    at WIDE_PEERS and STEADY_RUNTIME_P) and run_compiled's graph helper
+    built at once, one nvcc per library."""
     loaders = {"steady_round": _build.load_steady_cuda,
                "chaos_round": _build.load_chaos_cuda,
                "damped_round": _build.load_damped_cuda,
                "graph_cond": _build.load_graph_cuda}
+    # The wide libraries, one a peer count: those the checks below launch.
+    for kind, load in (("steady", _build.load_steady_cuda),
+                       ("chaos", _build.load_chaos_cuda),
+                       ("damped", _build.load_damped_cuda)):
+        for n_peers in WIDE_PEERS + ((STEADY_RUNTIME_P,) if kind == "steady" else ()):
+            loaders[f"{kind}_round_p{n_peers}"] = lambda n=n_peers, f=load: f(n)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(fn) for fn in loaders.values()]:
             fut.result()  # raises a failed build's error
@@ -434,6 +487,10 @@ def phase_build():
             if "Compiling entry function" in line:
                 # The template arguments: P, then the flags (the damped
                 # kernel's cq and loss), with_health last.
+                if "kernel_np" in line:  # the steady runtime-P instance
+                    entry = (f"P={STEADY_RUNTIME_P}..{steady_kernel.MAX_PEERS} "
+                             f"health={line.split('ILb')[1][0]}")
+                    continue
                 if "ILi" not in line:  # not a kernel templated on P
                     entry = line.split("'")[1] if "'" in line else "?"
                     continue
@@ -448,7 +505,7 @@ def phase_build():
                 spill = int(line.split("bytes spill stores")[0].split(",")[-1])
                 PTXAS[name]["instances"].setdefault(entry, {})["spill_stores"] = spill
         inst = PTXAS[name]["instances"]
-        print(f"build: {name}.cu in {secs:.2f}s, {len(inst)} instances; ptxas "
+        print(f"build: lib{name} in {secs:.2f}s, {len(inst)} instances; ptxas "
               "registers (spill-store bytes where nonzero):")
         for entry in sorted(inst):
             r = inst[entry]
@@ -543,24 +600,32 @@ def crash_followers(st, n_peers, n_groups, dev):
 
 @phase("parity")
 def phase_parity(dev):
-    """Returns (plain, with_health) max |difference|."""
-    err = (0, 0)
-    for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3)):
+    """Returns ((plain, with_health) max |difference|, the same over the
+    wide cases alone, the settled 100k x WIDE_P state)."""
+    err, wide_err, wide_settled = (0, 0), (0, 0), None
+    for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3), (G, WIDE_P),
+                              (G, STEADY_RUNTIME_P)):
         st = settle_on(dev, n_groups, n_peers)
+        if n_peers == WIDE_P:
+            wide_settled = st
         append = torch.ones(n_groups, dtype=torch.int32, device=dev)
         crashed = torch.zeros((n_peers, n_groups), dtype=torch.bool, device=dev)
-        err = worst(err, compare_kernel(
-            fused_step.steady_operands(st, crashed, append), K,
-            f"settled G={n_groups} P={n_peers}"))
+        e = compare_kernel(fused_step.steady_operands(st, crashed, append), K,
+                           f"settled G={n_groups} P={n_peers}")
         crashed = crash_followers(st, n_peers, n_groups, dev)
-        err = worst(err, compare_kernel(
+        e = worst(e, compare_kernel(
             fused_step.steady_operands(st, crashed, append), K,
             f"settled+crashed followers G={n_groups} P={n_peers}"))
-    for n_peers in (3, 5, 7):
-        err = worst(err, compare_kernel(
-            random_inputs(n_peers, G + 3, n_peers, dev), K,
-            f"random planes G={G + 3} P={n_peers}"))
-    return err
+        err = worst(err, e)
+        if n_peers > _build.NARROW_PEERS:
+            wide_err = worst(wide_err, e)
+    for n_peers in (3, 5, 7) + WIDE_PEERS + (STEADY_RUNTIME_P,):
+        e = compare_kernel(random_inputs(n_peers, G + 3, n_peers, dev), K,
+                           f"random planes G={G + 3} P={n_peers}")
+        err = worst(err, e)
+        if n_peers > _build.NARROW_PEERS:
+            wide_err = worst(wide_err, e)
+    return err, wide_err, wide_settled
 
 
 def run_main_path(device):
@@ -627,6 +692,74 @@ def phase_main(dev, pool):
               f"fused {fused}/{MAIN_BLOCKS * K * G}; card {t_gpu:.2f}s")
 
     return cfg, st_gpu, launches, run, h_launches, check
+
+
+# --- the one-round dispatcher (fused_step.fast_step) --------------------------
+
+FAST_STEP_ROUNDS = 16
+FAST_STEP_CRASH = range(6, 10)  # rounds with the acting leader down in 1% of groups
+
+
+def run_fast_step(st):
+    """FAST_STEP_ROUNDS rounds of fast_step from `st` (one append a group a
+    round, the acting leader down in every STORM_EVERY-th group in the
+    FAST_STEP_CRASH rounds): (final state, the rounds whose predicate
+    held)."""
+    cfg = sim.SimConfig(n_groups=st.term.shape[1], n_peers=st.term.shape[0])
+    fast = fused_step.fast_step(cfg)
+    dev = st.term.device
+    append = torch.ones(cfg.n_groups, dtype=torch.int32, device=dev)
+    none = torch.zeros((cfg.n_peers, cfg.n_groups), dtype=torch.bool, device=dev)
+    down = crash_leaders(st, none)
+    fused = []
+    for r in range(FAST_STEP_ROUNDS):
+        crashed = down if r in FAST_STEP_CRASH else none
+        if bool(fused_step.steady_predicate(cfg, st, crashed, 1)):
+            fused.append(r)
+        st = fast(st, crashed, append)
+    return st, fused
+
+
+def cpu_fast_step(start):
+    """In a reference worker: run_fast_step on the CPU from a numpy state."""
+    worker_threads()
+    st, fused = run_fast_step(sim.state_from_numpy(start, "cpu"))
+    return sim.state_to_numpy(st), fused
+
+
+@phase("fast_step")
+def phase_fast_step(dev, st, pool):
+    """fast_step's fused arm (the steady kernel at k = 1) against its plain
+    version on the settled 100k x 5 state, both variants; then
+    FAST_STEP_ROUNDS rounds of fast_step on the card from that state, both
+    arms, the launches counted.  Returns check(), which holds the card's
+    rounds to the CPU's from a reference worker."""
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    err = compare_kernel(fused_step.steady_operands(st, crashed, append), 1,
+                         f"fast_step's fused arm, k=1, settled G={G} P={P}")
+    ref = pool.submit(cpu_fast_step, sim.state_to_numpy(st))
+    zero_launches()
+    got, fused = run_fast_step(st)
+    torch.cuda.synchronize()
+    launches = bare_launches(steady_rounds, "fast_step")
+    if launches != len(fused) or not 0 < len(fused) < FAST_STEP_ROUNDS:
+        raise AssertionError(f"fast_step: {launches} fused launches over the fused "
+                             f"rounds {fused}: both arms must run")
+
+    def check():
+        want, cpu_fused = ref.result()
+        assert_same(got, sim.state_from_numpy(want, "cpu"), "fast_step")
+        if cpu_fused != fused:
+            raise AssertionError(f"fast_step: fused rounds {fused} on the card, "
+                                 f"{cpu_fused} on the CPU")
+        print(f"fast_step {G}x{P}: {FAST_STEP_ROUNDS} rounds from the settled state "
+              f"(the acting leader down in 1% of groups in rounds "
+              f"{FAST_STEP_CRASH.start}-{FAST_STEP_CRASH.stop - 1}): card == CPU on "
+              f"every field; fused arm in rounds {fused} ({launches} steady kernel "
+              f"launches at k=1), the general step in the others")
+
+    return err, check
 
 
 # --- timing helpers ----------------------------------------------------------
@@ -975,12 +1108,15 @@ def compare_chaos(args, round_base, note, election_tick=LOSSY_TICK):
 @phase("chaos parity")
 def phase_chaos_parity(dev):
     """Returns ((plain, with_health) max |difference|, the settled 100k × 5
-    lossy state)."""
-    err, settled = (0, 0), None
-    for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3)):
+    lossy state, the difference over the wide cases alone, the settled
+    100k x WIDE_P lossy state)."""
+    err, wide_err, settled, wide_settled = (0, 0), (0, 0), None, None
+    for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3), (G, WIDE_P)):
         st0 = lossy_settle(dev, n_groups, n_peers)
         if (n_groups, n_peers) == (G, P):
             settled = st0
+        if n_peers == WIDE_P:
+            wide_settled = st0
         cfg = lossy_cfg(n_groups, n_peers)
         append = torch.ones(n_groups, dtype=torch.int32, device=dev)
         link = torch.ones((n_peers, n_peers, n_groups), dtype=torch.bool, device=dev)
@@ -997,15 +1133,21 @@ def phase_chaos_parity(dev):
                     crashed = crash_followers(st, n_peers, n_groups, dev)
                 args = fused_step.chaos_operands(st, crashed, append, loss)
                 for rb in (LOSSY_SETTLE + 4, 2**31 - K):
-                    err = worst(err, compare_chaos(
+                    e = compare_chaos(
                         args, rb, f"lossy-settled G={n_groups} P={n_peers} "
-                        f"{loss_name} loss, {crashed_name}"))
-    for n_peers in (3, 5, 7):
+                        f"{loss_name} loss, {crashed_name}")
+                    err = worst(err, e)
+                    if n_peers > _build.NARROW_PEERS:
+                        wide_err = worst(wide_err, e)
+    for n_peers in (3, 5, 7) + WIDE_PEERS:
         args = random_chaos_inputs(n_peers, G + 3, 10 + n_peers, dev)
         for rb in (7, 2**31 - K):
-            err = worst(err, compare_chaos(
-                args, rb, f"random planes G={G + 3} P={n_peers}", election_tick=6))
-    return err, settled
+            e = compare_chaos(args, rb, f"random planes G={G + 3} P={n_peers}",
+                              election_tick=6)
+            err = worst(err, e)
+            if n_peers > _build.NARROW_PEERS:
+                wide_err = worst(wide_err, e)
+    return err, settled, wide_err, wide_settled
 
 
 def run_lossy_path(device, n_groups, blocks, start=None, cut_last=False):
@@ -1166,26 +1308,32 @@ def compare_damped(args, note, with_cq=True, round_base=CQ_SETTLE,
 def phase_damped_parity(dev):
     """Returns ((plain, with_health) max |difference| over every case, the
     same over the with_loss cases alone, the settled 100k × 5 damped
-    state)."""
+    state, the difference over the wide cases alone, the settled
+    100k x WIDE_P damped state)."""
     err, loss_err, settled = (0, 0), (0, 0), None
-    for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3)):
+    wide_err, wide_settled = (0, 0), None
+    for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3), (G, WIDE_P)):
         st = damped_settle(dev, n_groups, n_peers)
         if (n_groups, n_peers) == (G, P):
             settled = st
+        if n_peers == WIDE_P:
+            wide_settled = st
         append = torch.ones(n_groups, dtype=torch.int32, device=dev)
         for crashed_name in ("no crashes", "crashed followers"):
             crashed = torch.zeros((n_peers, n_groups), dtype=torch.bool, device=dev)
             if crashed_name != "no crashes":
                 crashed = crash_followers(st, n_peers, n_groups, dev)
             note = f"damped-settled G={n_groups} P={n_peers} {crashed_name}"
-            err = worst(err, compare_damped(
-                fused_step.damped_operands(st, crashed, append), note))
+            e = compare_damped(fused_step.damped_operands(st, crashed, append), note)
+            err = worst(err, e)
             for loss_name, make_loss in (("1%", uniform_loss), ("heavy", heavy_loss)):
                 args = fused_step.damped_operands(
                     st, crashed, append, make_loss(n_groups, n_peers, dev))
                 for rb in (CQ_SETTLE, 2**31 - K):
-                    loss_err = worst(loss_err, compare_damped(
-                        args, f"{note} {loss_name} loss", round_base=rb))
+                    le = compare_damped(args, f"{note} {loss_name} loss", round_base=rb)
+                    loss_err, e = worst(loss_err, le), worst(e, le)
+            if n_peers > _build.NARROW_PEERS:
+                wide_err = worst(wide_err, e)
     st = damped_settle(dev, G, P, pre_vote=True)
     append = torch.ones(G, dtype=torch.int32, device=dev)
     crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
@@ -1197,7 +1345,7 @@ def phase_damped_parity(dev):
             err = worst(err, e)
         else:
             loss_err = worst(loss_err, e)
-    for n_peers in (3, 5, 7):
+    for n_peers in (3, 5, 7) + WIDE_PEERS:
         for with_cq in (False, True):
             for loss in (False, True):
                 args = random_damped_inputs(n_peers, G + 3, 20 + n_peers, dev, loss)
@@ -1208,7 +1356,9 @@ def phase_damped_parity(dev):
                     loss_err = worst(loss_err, e)
                 else:
                     err = worst(err, e)
-    return worst(err, loss_err), loss_err, settled
+                if n_peers > _build.NARROW_PEERS:
+                    wide_err = worst(wide_err, e)
+    return worst(err, loss_err), loss_err, settled, wide_err, wide_settled
 
 
 def run_damped_path(device, n_groups, blocks, start=None, crash_blocks=0):
@@ -1318,6 +1468,87 @@ def phase_damped_timing(dev, st):
         raise AssertionError(f"damped timed loop left the fused path: "
                              f"fused_frac {t['fused_frac']}")
     return t
+
+# --- the wide instances (P = 8..15) -------------------------------------------
+
+
+def wide_block_pair(cfg, st, crashed, append, link=None, loss=None, round_base=0):
+    """One fused block of fast_multi_round(k=K) and K general steps on the
+    same card state: (fused block's state, general steps' state, fused)."""
+    fast = fused_step.fast_multi_round(cfg, k=K, with_chaos=loss is not None,
+                                       count_fused=True)
+    lossy = (link, loss, round_base) if loss is not None else ()
+    got, fused = fast(st, crashed, append, *lossy, 0)
+    want = st
+    for r in range(K):
+        kw = {} if loss is None else {
+            "link": link & ~link_loss_draw(round_base + r, loss)}
+        want = sim.step(cfg, want, crashed, append, **kw)
+    return got, want, fused
+
+
+@phase("wide")
+def phase_wide(dev, steady_st, lossy_st, damped_st):
+    """C1 on the card at P = WIDE_P, G = 100,000: from each settled state
+    (steady, lossy under 1% loss, check-quorum), WIDE_BLOCKS blocks of
+    fast_multi_round(k=32) with the launch counts zeroed just before and
+    read just after, each block equal on every field to 32 general steps
+    on the card; then each kernel's WIDE_P instance timed cold and hot on
+    the settled state's operands against its bound.  Returns {kernel:
+    (launches, times)}."""
+    crashed = torch.zeros((WIDE_P, G), dtype=torch.bool, device=dev)
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    link = torch.ones((WIDE_P, WIDE_P, G), dtype=torch.bool, device=dev)
+    loss = uniform_loss(G, WIDE_P, dev)
+    cases = (
+        ("steady", steady_rounds, sim.SimConfig(n_groups=G, n_peers=WIDE_P),
+         steady_st, {}),
+        ("chaos", chaos_rounds, lossy_cfg(G, WIDE_P), lossy_st,
+         dict(link=link, loss=loss, round_base=LOSSY_SETTLE)),
+        ("damped", damped_rounds, damped_cfg(G, WIDE_P), damped_st, {}),
+    )
+    out = {}
+    for label, kernel, cfg, st0, kw in cases:
+        zero_launches()
+        st, fused = st0, 0
+        for b in range(WIDE_BLOCKS):
+            if "round_base" in kw:
+                kw = dict(kw, round_base=LOSSY_SETTLE + b * K)
+            got, want, n = wide_block_pair(cfg, st, crashed, append, **kw)
+            for field in got._fields:
+                a, w = getattr(got, field), getattr(want, field)
+                if (a is None) != (w is None) or (a is not None and not torch.equal(a, w)):
+                    raise AssertionError(f"P={WIDE_P} {label} block {b}: fused and "
+                                         f"general differ in {field}")
+            st, fused = got, fused + n
+        torch.cuda.synchronize()
+        launches = bare_launches(kernel, f"the P={WIDE_P} {label} path")
+        if launches < 1:
+            raise AssertionError(f"P={WIDE_P} {label} path: no fused launch "
+                                 f"(fused {fused}/{WIDE_BLOCKS * K * G})")
+        print(f"wide P={WIDE_P} {label}: {WIDE_BLOCKS} blocks of {K} == {K} general "
+              f"steps each on every field; {label}_rounds launches {launches}, "
+              f"fused {fused}/{WIDE_BLOCKS * K * G}")
+        ticks = dict(rounds=K, election_tick=cfg.election_tick,
+                     heartbeat_tick=cfg.heartbeat_tick)
+        if label == "steady":
+            args, ref = fused_step.steady_operands(st0, crashed, append), steady_rounds_reference
+            work = steady_work(WIDE_P, G, K)
+        elif label == "chaos":
+            args, ref = fused_step.chaos_operands(st0, crashed, append, loss), chaos_rounds_reference
+            ticks["round_base"] = LOSSY_SETTLE
+            work = chaos_work(WIDE_P, G, K)
+        else:
+            args, ref = fused_step.damped_operands(st0, crashed, append), damped_rounds_reference
+            ticks.update(round_base=0, with_cq=True)
+            work = damped_work(WIDE_P, G, K)
+        t = kernel_times(dev, kernel, ref, args, ticks, work)
+        print(f"timing {label}_rounds P={WIDE_P}: {t['ms']:.4f} ms cold, "
+              f"{t['hot_ms']:.4f} hot, bound {t['bound_ms']:.4f} by {t['bound_by']}, "
+              f"plain {t['plain_ms']:.2f}; {t['card']}")
+        out[label] = (launches, t)
+    return out
+
 
 # --- the instrumented paths (bench.py --health) -----------------------------
 
@@ -3414,6 +3645,105 @@ def phase_compiled(dev, cpu_ref, damped_settled, scenario_off):
                 small_cpu_s=t_cpu, checkpoint_bytes=sizes, graphs=graphs_info, **timing)
 
 
+# --- the host driver (MultiRaft over RawNode) --------------------------------
+
+# examples/multiraft_node.py's TiKV-style node at the group count its
+# docstring names: 3 drivers (peer ids 1-3) x DRIVER_G groups, election_tick
+# 10, heartbeat_tick 3, MemStorage, in-memory batched inboxes.  The schedule
+# (multiraft_node.run_schedule): tick and pump until every group has a leader
+# (at most 200 ticks), one proposal a group on its leader's driver, then
+# DRIVER_STEADY ticks with a pump after each.
+DRIVER_G = 10_000
+DRIVER_STEADY = 32
+DRIVER_PROFILE_TICKS = 4
+
+
+class SyncTimes(Metrics):
+    """Metrics that also keeps every tick's sync_seconds observation."""
+
+    def __init__(self):
+        super().__init__()
+        self.sync = []
+
+    def on_driver_tick(self, **kw):
+        self.sync.append(kw["sync_seconds"])
+        super().on_driver_tick(**kw)
+
+
+def cpu_driver():
+    """The driver schedule with device='cpu' (a reference worker)."""
+    out = multiraft_node.run_schedule(DRIVER_G, "cpu", Metrics(), DRIVER_STEADY)
+    return out["record"], out["elect_s"] + out["steady_s"]
+
+
+@phase("driver")
+def phase_driver(dev, cpu_ref):
+    """The schedule on the card, held to the CPU run: every driver tick's
+    active count, the ticks to elect, every group's (term, state,
+    leader_id, committed, last_index) on every driver, and status()
+    without its metrics entry; then the numbers of the card's run and a
+    profile of DRIVER_PROFILE_TICKS ticks of every driver."""
+    m = SyncTimes()
+    t0 = time.perf_counter()
+    out = multiraft_node.run_schedule(DRIVER_G, dev, m, DRIVER_STEADY)
+    card_s = time.perf_counter() - t0
+    rec, drivers = out["record"], out["drivers"]
+    t0 = time.perf_counter()
+    ref, cpu_s = cpu_ref.result()
+    waited = time.perf_counter() - t0
+    if rec["active"] != ref["active"]:
+        raise AssertionError("driver: card and CPU differ in the active counts")
+    if rec["elect_ticks"] != ref["elect_ticks"]:
+        raise AssertionError(f"driver: elections took {rec['elect_ticks']} ticks "
+                             f"on the card, {ref['elect_ticks']} on the CPU")
+    for id in multiraft_node.PEERS:
+        if not np.array_equal(rec["rows"][id], ref["rows"][id]):
+            raise AssertionError(f"driver {id}: card and CPU differ in a group's "
+                                 "(term, state, leader_id, committed, last_index)")
+    if rec["status"] != ref["status"]:
+        raise AssertionError(f"driver: status differs: card {rec['status']}, "
+                             f"CPU {ref['status']}")
+    n = len(multiraft_node.PEERS)
+    steady = rec["active"][n * rec["elect_ticks"]:]
+    snap = m.registry.snapshot()
+    scanned = snap["multiraft_ready_scan_groups_scanned_total"]
+    skipped = snap["multiraft_ready_scan_groups_skipped_total"]
+    sync_ms = np.array(m.sync) * 1e3
+    prof = device_profile(lambda: [d.tick() for _ in range(DRIVER_PROFILE_TICKS)
+                                   for d in drivers.values()])
+    launches = sum(k["count"] for k in prof["kernels"])
+    res = dict(
+        groups=DRIVER_G, drivers=n, elect_ticks=rec["elect_ticks"],
+        elect_s=out["elect_s"], steady_ticks=DRIVER_STEADY, steady_s=out["steady_s"],
+        steady_group_ticks_per_s=n * DRIVER_G * DRIVER_STEADY / out["steady_s"],
+        sync_ms_median=float(np.median(sync_ms)),
+        sync_ms_p99=float(np.percentile(sync_ms, 99)), sync_observations=len(sync_ms),
+        steady_active_share=sum(steady) / (len(steady) * DRIVER_G),
+        ready_scan_skipped_share=skipped / (scanned + skipped),
+        tick_launches=launches / (DRIVER_PROFILE_TICKS * n),
+        tick_device_us=prof["busy_us"] / (DRIVER_PROFILE_TICKS * n),
+        card=card_line(), card_s=card_s, cpu_s=cpu_s, waited_s=waited)
+    print(f"driver {n} x {DRIVER_G} groups (examples/multiraft_node.py's node, "
+          f"election_tick 10, heartbeat_tick 3): card == CPU on every tick's "
+          f"active count ({len(rec['active'])} driver ticks), the ticks to elect "
+          f"({rec['elect_ticks']}), every group's (term, state, leader_id, "
+          f"committed, last_index) on every driver and status() but its metrics; "
+          f"card {card_s:.2f}s, CPU {cpu_s:.2f}s (in a reference worker; waited "
+          f"{waited:.1f}s)")
+    print(f"timing driver [{res['card']}]: elected in {rec['elect_ticks']} ticks, "
+          f"{out['elect_s']:.3f} s; steady {res['steady_group_ticks_per_s']:.1f} "
+          f"group-ticks/s ({DRIVER_STEADY} ticks with pumps, {out['steady_s']:.3f} s); "
+          f"tick sync {res['sync_ms_median']:.4f} ms median, {res['sync_ms_p99']:.4f} "
+          f"p99 ({len(sync_ms)} ticks); {100 * res['steady_active_share']:.2f}% of "
+          f"groups active a steady tick; ready scan skipped "
+          f"{100 * res['ready_scan_skipped_share']:.2f}%; a tick {res['tick_launches']:.1f} "
+          f"device launches (copies included), {res['tick_device_us']:.1f} us of device "
+          f"time (torch.profiler over {DRIVER_PROFILE_TICKS} ticks of each driver)")
+    for row in prof["kernels"][:6]:
+        print(f"  {row['us']:10.1f} us {row['count']:6d}x  {row['name']}")
+    return res
+
+
 @phase("references")
 def phase_references(checks):
     """The deferred checks of the steady, lossy and check-quorum phases:
@@ -3460,10 +3790,11 @@ def main(argv=None):
     print(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     phase_build()
-    steady_err = phase_parity(dev)
+    steady_err, steady_wide_err, steady_wide_st = phase_parity(dev)
     if opts.quick:
-        phase_chaos_parity(dev)
-        phase_damped_parity(dev)
+        *_, chaos_wide_st = phase_chaos_parity(dev)
+        *_, damped_wide_st = phase_damped_parity(dev)
+        phase_wide(dev, steady_wide_st, chaos_wide_st, damped_wide_st)
         print("quick: every kernel variant equals its plain version on the card")
         return 0
     # The CPU references run in reference worker processes while the card
@@ -3486,13 +3817,19 @@ def main(argv=None):
         cfg, st_main, steady_launches, steady_run, steady_h_launches, check = phase_main(
             dev, pool)
         checks.append(check)
+        fast_step_err, check = phase_fast_step(dev, st_main, pool)
+        checks.append(check)
+        steady_err = worst(steady_err, fast_step_err)
         steady = phase_timing(dev, cfg, st_main)
-        chaos_err, settled = phase_chaos_parity(dev)
+        chaos_err, settled, chaos_wide_err, chaos_wide_st = phase_chaos_parity(dev)
         st, chaos_launches, lossy_run, chaos_h_launches, check = phase_lossy(
             dev, settled, pool, lossy_small)
         checks.append(check)
         lossy = phase_lossy_timing(dev, st)
-        damped_err, damped_loss_err, settled = phase_damped_parity(dev)
+        (damped_err, damped_loss_err, settled, damped_wide_err,
+         damped_wide_st) = phase_damped_parity(dev)
+        wide = phase_wide(dev, steady_wide_st, chaos_wide_st, damped_wide_st)
+        del steady_wide_st, chaos_wide_st, damped_wide_st
         cpu_run = pool.submit(cpu_composed, sim.state_to_numpy(settled))
         st, damped_launches, damped_run, damped_h_launches, check = phase_damped(
             dev, settled, pool, damped_small)
@@ -3512,6 +3849,9 @@ def main(argv=None):
         blackbox = phase_forensics(dev, cpu_bb_run, scenario_off,
                                    steady["ticks_per_s_median"])
         compiled_out = phase_compiled(dev, cpu_compiled_run, settled, scenario_off)
+        # Submitted here, so the driver's host-bound CPU run overlaps the
+        # card's driver run and not the timed loops of the phases before.
+        driver = phase_driver(dev, pool.submit(cpu_driver))
         del scenario_off
         phase_references(checks)
 
@@ -3540,7 +3880,14 @@ def main(argv=None):
         reads_launches, reads_err, reads), kernel_entry(
         f"chaos_rounds with_health=True k={AUTO_CADENCE}", CHAOS_SOURCE,
         f"{CHAOS_REPLACES} (with_health=True, k={AUTO_CADENCE})",
-        auto_launches, auto_err, auto)]}
+        auto_launches, auto_err, auto)] + [kernel_entry(
+        f"{label}_rounds P={WIDE_P} with_health=False", source,
+        f"{replaces} (P={WIDE_P}, with_health=False)", wide[label][0], err[0],
+        wide[label][1])
+        for label, source, replaces, err in (
+            ("steady", STEADY_WIDE_SOURCE, STEADY_REPLACES, steady_wide_err),
+            ("chaos", CHAOS_WIDE_SOURCE, CHAOS_REPLACES, chaos_wide_err),
+            ("damped", DAMPED_WIDE_SOURCE, DAMPED_REPLACES, damped_wide_err))]}
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w", encoding="utf-8") as fh:
@@ -3550,7 +3897,7 @@ def main(argv=None):
                 "lossy_health_kernel": lossy_h, "chaos_scenario": scenario,
                 "composed": composed, "reconfig": reconfig_out, "prod_fused": prod,
                 "reads": reads, "autopilot": auto, "blackbox": blackbox,
-                "compiled": compiled_out},
+                "compiled": compiled_out, "wide": wide, "driver": driver},
                 "composed_branches": composed_branches,
                 "steady_hybrid_fused": steady_hybrid_fused}, fh, indent=1,
                 default=str)

@@ -35,11 +35,27 @@ Modules:
   damped_kernel — k fused check-quorum/pre-vote rounds: the CUDA kernel and its
                   plain version
   fused_step    — steady_mask/steady_predicate, steady_round, chaos_round,
-                  damped_round, fast_multi_round, hybrid_multi_round
+                  damped_round, fast_step, fast_multi_round,
+                  hybrid_multi_round
+  planes        — the plane registry: one row per device plane (packing,
+                  checkpoint family, gating flags)
+  schedules     — the schedule registry: one row per compiled schedule
+                  array, family and runner variant
+  runner        — make_runner, the one factory of every scenario runner
+                  (chaos, reconfig, workload, their split forms, the
+                  autopilot's cadence segment)
+  graphs        — CUDA-graph capture with a device-side branch (the
+                  conditional node), for ClusterSim.run_compiled
+  checkpoint    — save and load of the four checkpoint families, whose files
+                  cross between the packages
+  driver        — MultiRaft: G RawNodes behind one peer id, one device tick
+                  a tick, host work only on the fired groups
 """
 
+from .driver import MultiRaft
 from .fused_step import (
     fast_multi_round,
+    fast_step,
     hybrid_multi_round,
     steady_predicate,
     steady_round,
@@ -59,9 +75,11 @@ __all__ = [
     "ClusterSim",
     "HealthMonitor",
     "HealthState",
+    "MultiRaft",
     "SimConfig",
     "SimState",
     "fast_multi_round",
+    "fast_step",
     "hybrid_multi_round",
     "init_health",
     "init_state",

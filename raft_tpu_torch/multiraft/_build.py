@@ -31,7 +31,12 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
-GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-Wno-unknown-pragmas"]
+# The host builds only check the kernels' arithmetic on small planes: -O0
+# builds the wide damped body in seconds where -O2 takes over half a minute.
+GXX_FLAGS = ["-std=c++17", "-O0", "-shared", "-fPIC", "-Wno-unknown-pragmas"]
+# Peer counts above this are built from the *_wide sources (P = 8..15, and
+# the steady kernel's runtime-P instance up to its cap).
+NARROW_PEERS = 7
 
 # One lock per library, so two libraries can build at the same time.
 _locks: Dict[str, threading.Lock] = {}
@@ -124,13 +129,15 @@ def _gxx() -> str:
     return found
 
 
-def _library(name: str, source: str, cuda: bool, fn: str, argtypes) -> ctypes.CDLL:
+def _library(name: str, source: str, cuda: bool, fn: str, argtypes,
+             defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (once) and load csrc/`source` as library `name`: with nvcc for
-    sm_90a when `cuda`, else with g++; declare its C function `fn`."""
+    sm_90a when `cuda`, else with g++, with the `-D` flags `defines`;
+    declare its C function `fn`."""
 
     def build():
         compiler, flags = ([_nvcc()], NVCC_FLAGS) if cuda else ([_gxx()], GXX_FLAGS)
-        return _build(name, compiler, [CSRC / source], flags)
+        return _build(name, compiler, [CSRC / source], flags + list(defines))
 
     lib = _load(name, build)
     func = getattr(lib, fn)
@@ -139,41 +146,64 @@ def _library(name: str, source: str, cuda: bool, fn: str, argtypes) -> ctypes.CD
     return lib
 
 
-def load_steady_cuda() -> ctypes.CDLL:
-    """The CUDA steady-round library; its `steady_round_launch` takes the
-    21 tensor pointers, G, P, rounds, election_tick, heartbeat_tick,
-    with_health and the CUDA stream."""
-    return _library("steady_round", "steady_round.cu", True,
-                    "steady_round_launch", _STEADY_ARGS + [ctypes.c_void_p])
+def _cuda_kernel(kind: str, P: int, argtypes) -> ctypes.CDLL:
+    """The CUDA library of kernel `kind` (steady, chaos, damped) that holds
+    P's instances, its `{kind}_round_launch` declared: for P <= NARROW_PEERS
+    csrc/{kind}_round.cu; past it one library a P, csrc/{kind}_round_wide.cu
+    built with -DRAFT_WIDE_P=P (for the steady kernel every P > 15 shares
+    the runtime-P instance, RAFT_WIDE_P=16)."""
+    fn = f"{kind}_round_launch"
+    if P <= NARROW_PEERS:
+        return _library(f"{kind}_round", f"{kind}_round.cu", True, fn, argtypes)
+    wide = min(P, 16)
+    return _library(f"{kind}_round_p{wide}", f"{kind}_round_wide.cu", True, fn,
+                    argtypes, (f"-DRAFT_WIDE_P={wide}",))
 
 
-def load_steady_host() -> ctypes.CDLL:
+def _host_kernel(kind: str, P: int, argtypes) -> ctypes.CDLL:
+    """The g++ build of kernel `kind`'s body holding P's instances:
+    csrc/{kind}_host.cpp for P <= NARROW_PEERS, else csrc/{kind}_host_wide.cpp
+    (every wide P in one library); its `{kind}_round_host` declared."""
+    name = f"{kind}_host" if P <= NARROW_PEERS else f"{kind}_host_wide"
+    return _library(name, name + ".cpp", False, f"{kind}_round_host", argtypes)
+
+
+def load_steady_cuda(P: int = 1) -> ctypes.CDLL:
+    """The CUDA steady-round library holding P's instances; its
+    `steady_round_launch` takes the 21 tensor pointers, G, P, rounds,
+    election_tick, heartbeat_tick, with_health and the CUDA stream."""
+    return _cuda_kernel("steady", P, _STEADY_ARGS + [ctypes.c_void_p])
+
+
+def load_steady_host(P: int = 1) -> ctypes.CDLL:
     """The host build of the same kernel body (g++), for the CPU tests."""
-    return _library("steady_host", "steady_host.cpp", False,
-                    "steady_round_host", _STEADY_ARGS)
+    return _host_kernel("steady", P, _STEADY_ARGS)
 
 
-def load_chaos_cuda() -> ctypes.CDLL:
-    """The CUDA chaos-round library; its `chaos_round_launch` takes the 27
-    tensor pointers, G, P, round_base, rounds, election_tick,
-    heartbeat_tick, with_health and the CUDA stream."""
-    return _library("chaos_round", "chaos_round.cu", True,
-                    "chaos_round_launch", _CHAOS_ARGS + [ctypes.c_void_p])
+def load_chaos_cuda(P: int = 1) -> ctypes.CDLL:
+    """The CUDA chaos-round library holding P's instances; its
+    `chaos_round_launch` takes the 27 tensor pointers, G, P, round_base,
+    rounds, election_tick, heartbeat_tick, with_health and the CUDA
+    stream."""
+    return _cuda_kernel("chaos", P, _CHAOS_ARGS + [ctypes.c_void_p])
 
 
-def load_chaos_host() -> ctypes.CDLL:
+def load_chaos_host(P: int = 1) -> ctypes.CDLL:
     """The host build of the chaos kernel body (g++), for the CPU tests."""
-    return _library("chaos_host", "chaos_host.cpp", False,
-                    "chaos_round_host", _CHAOS_ARGS)
+    return _host_kernel("chaos", P, _CHAOS_ARGS)
 
 
-def load_damped_cuda() -> ctypes.CDLL:
-    """The CUDA damped-round library; its `damped_round_launch` takes the
-    29 tensor pointers (the loss_rate pointer null without loss), G, P,
-    round_base, rounds, election_tick, heartbeat_tick, with_cq, with_loss,
-    with_health and the CUDA stream."""
-    return _library("damped_round", "damped_round.cu", True,
-                    "damped_round_launch", _DAMPED_ARGS + [ctypes.c_void_p])
+def load_damped_cuda(P: int = 1) -> ctypes.CDLL:
+    """The CUDA damped-round library holding P's instances; its
+    `damped_round_launch` takes the 29 tensor pointers (the loss_rate
+    pointer null without loss), G, P, round_base, rounds, election_tick,
+    heartbeat_tick, with_cq, with_loss, with_health and the CUDA stream."""
+    return _cuda_kernel("damped", P, _DAMPED_ARGS + [ctypes.c_void_p])
+
+
+def load_damped_host(P: int = 1) -> ctypes.CDLL:
+    """The host build of the damped kernel body (g++), for the CPU tests."""
+    return _host_kernel("damped", P, _DAMPED_ARGS)
 
 
 def load_graph_cuda() -> ctypes.CDLL:
@@ -187,9 +217,3 @@ def load_graph_cuda() -> ctypes.CDLL:
                                      ctypes.POINTER(ctypes.c_ulonglong)]
     lib.graph_node_count.restype = ctypes.c_int
     return lib
-
-
-def load_damped_host() -> ctypes.CDLL:
-    """The host build of the damped kernel body (g++), for the CPU tests."""
-    return _library("damped_host", "damped_host.cpp", False,
-                    "damped_round_host", _DAMPED_ARGS)

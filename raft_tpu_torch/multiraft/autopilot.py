@@ -173,9 +173,8 @@ class Autopilot:
 
     `monitor` (a health.HealthMonitor; default the sim's health_monitor)
     receives the per-cadence summaries and the final report; `metrics`
-    (any object with the reference Metrics' `autopilot_actions`,
-    `health_transfer_pending` and `trace`) gets `autopilot.action` trace
-    events, the actions counters and the pending-transfer gauge."""
+    (a scalar.metrics.Metrics) gets `autopilot.action` trace events, the
+    actions counters and the pending-transfer gauge."""
 
     def __init__(
         self,

@@ -32,7 +32,8 @@ parameter so every peer loop unrolls and no register array is indexed at
 run time; loads and stores are peer-major, so neighbouring threads touch
 neighbouring words.  The loss PRNG runs in native uint32, which wraps as
 the reference's does; the group id that keys it is the global thread
-index.
+index.  P = 8..15 build from csrc/chaos_round_wide.cu, a library of its
+own, where the [P, P] blocks spill to local memory.
 
 On CPU tensors `chaos_rounds` runs `chaos_rounds_reference`; on CUDA
 tensors it launches the kernel or raises.  `chaos_rounds.launches` counts
@@ -52,7 +53,10 @@ from .sim import _merge_agree, _quorum_pick
 from .steady_kernel import CommitTracker, health_work
 
 I32 = torch.int32
-MAX_PEERS = 7
+# The largest P of the chaos and damped kernels: the reference's builders
+# assert P <= 15, as its packed roles word budgets 4 bits for leader_id
+# (pallas_step.py:772, :1203).
+MAX_PEERS = 15
 
 Outputs = Tuple[torch.Tensor, ...]
 OUTPUT_NAMES = (
@@ -279,7 +283,7 @@ def _launch(
     outs = tuple(torch.empty((P, G), dtype=I32, device=dev) for _ in range(8))
     outs += (torch.empty((P, P, G), dtype=I32, device=dev),)
     tsc_out = None if tsc is None else torch.empty((G,), dtype=I32, device=dev)
-    lib = _build.load_chaos_cuda()
+    lib = _build.load_chaos_cuda(P)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         args = [t.data_ptr() for t in (*planes.values(), *masks.values(),

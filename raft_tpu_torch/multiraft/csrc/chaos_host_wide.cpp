@@ -1,0 +1,5 @@
+// The wide instances of the chaos host build: P = 8 through 15 from the
+// same wrapper and body as chaos_host.cpp (RAFT_FOR_EACH_WIDE_P).  A
+// library of its own, so it builds beside the narrow one.
+#define RAFT_PEER_LIST RAFT_FOR_EACH_WIDE_P
+#include "chaos_host.cpp"

@@ -66,7 +66,7 @@ extern "C" int chaos_round_launch(
     break;
 #define RAFT_CHAOS_P(NP) RAFT_FOR_EACH_HEALTH(RAFT_CHAOS_LAUNCH, NP)
   switch (P * 2 + (with_health ? 1 : 0)) {
-    RAFT_FOR_EACH_P(RAFT_CHAOS_P)
+    RAFT_PEER_LIST(RAFT_CHAOS_P)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -47,9 +47,8 @@ extern "C" int damped_round_host(
     }                                                                       \
     return 0;
 #define RAFT_DAMPED_P(NP) RAFT_DAMPED_FOR_EACH_FLAG(RAFT_DAMPED_HOST, NP)
-  if (P < 1 || P > 7) return 1;
   switch (P * 8 + flags) {
-    RAFT_FOR_EACH_P(RAFT_DAMPED_P)
+    RAFT_PEER_LIST(RAFT_DAMPED_P)
     default:
       return 1;
   }

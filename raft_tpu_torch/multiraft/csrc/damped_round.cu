@@ -72,7 +72,7 @@ extern "C" int damped_round_launch(
     break;
 #define RAFT_DAMPED_P(NP) RAFT_DAMPED_FOR_EACH_FLAG(RAFT_DAMPED_LAUNCH, NP)
   switch (P * 8 + flags) {
-    RAFT_FOR_EACH_P(RAFT_DAMPED_P)
+    RAFT_PEER_LIST(RAFT_DAMPED_P)
     default:
       return (int)cudaErrorInvalidValue;
   }

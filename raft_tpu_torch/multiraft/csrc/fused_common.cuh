@@ -33,19 +33,30 @@ RAFT_HD int32_t wadd(int32_t a, int32_t b) {
 RAFT_HD int32_t imax(int32_t a, int32_t b) { return a > b ? a : b; }
 RAFT_HD int32_t imin(int32_t a, int32_t b) { return a < b ? a : b; }
 
+// A peer count known at compile time: loops bounded by it unroll fully and
+// the per-peer arrays sized by it live in registers.  The steady kernel's
+// runtime-P instance passes a plain int in its place (steady_body.cuh).
+template <int N>
+struct Fixed {
+  RAFT_HD constexpr operator int() const { return N; }
+};
+
 // Majority index of one group's matched row over its voter slots: the
-// descending odd-even transposition network, then the value at position
-// qpos (the voter count // 2).  Non-voters count as 0.
-template <int P>
-RAFT_HD int32_t quorum_index(const int32_t (&matched)[P],
-                             const bool (&voter)[P], int32_t qpos) {
-  int32_t rows[P];
+// descending odd-even transposition network over the first np slots, then
+// the value at position qpos (the voter count // 2).  Non-voters count as
+// 0.  CAP is the arrays' size, np the peer count (Fixed<CAP> or an int no
+// larger than CAP).
+template <int CAP, class NP>
+RAFT_HD int32_t quorum_index(const int32_t (&matched)[CAP],
+                             const bool (&voter)[CAP], int32_t qpos, NP np) {
+  const int n = np;
+  int32_t rows[CAP];
 #pragma unroll
-  for (int p = 0; p < P; ++p) rows[p] = voter[p] ? matched[p] : 0;
+  for (int p = 0; p < n; ++p) rows[p] = voter[p] ? matched[p] : 0;
 #pragma unroll
-  for (int pass = 0; pass < P; ++pass) {
+  for (int pass = 0; pass < n; ++pass) {
 #pragma unroll
-    for (int i = pass % 2; i < P - 1; i += 2) {
+    for (int i = pass % 2; i < n - 1; i += 2) {
       const int32_t hi = imax(rows[i], rows[i + 1]);
       const int32_t lo = imin(rows[i], rows[i + 1]);
       rows[i] = hi;
@@ -54,10 +65,16 @@ RAFT_HD int32_t quorum_index(const int32_t (&matched)[P],
   }
   int32_t mci = 0;
 #pragma unroll
-  for (int p = 0; p < P; ++p) {
+  for (int p = 0; p < n; ++p) {
     if (qpos == p) mci = rows[p];
   }
   return mci;
+}
+
+template <int P>
+RAFT_HD int32_t quorum_index(const int32_t (&matched)[P],
+                             const bool (&voter)[P], int32_t qpos) {
+  return quorum_index<P>(matched, voter, qpos, Fixed<P>());
 }
 
 // 32-bit murmur3 finalizer, in native uint32 (wraps as the reference's
@@ -129,31 +146,35 @@ RAFT_HD void agree_event(int32_t (&agree)[P][P], const bool (&in_set)[P],
 // is the max over all P rows, crashed rows included; after each round's
 // last commit write, tsc = (the max grew) ? 0 : tsc + 1.  The
 // WITH_HEALTH = false tracker holds nothing and compiles away, so the
-// with_health=False kernels stay the code they were.
-template <int P, bool WITH_HEALTH>
+// with_health=False kernels stay the code they were.  CAP and NP as in
+// quorum_index.
+template <int CAP, bool WITH_HEALTH, class NP = Fixed<CAP>>
 struct CommitTracker {
-  RAFT_HD CommitTracker(const int32_t*, int64_t, const int32_t (&)[P]) {}
-  RAFT_HD void round(const int32_t (&)[P]) {}
+  RAFT_HD CommitTracker(const int32_t*, int64_t, const int32_t (&)[CAP],
+                        NP = NP()) {}
+  RAFT_HD void round(const int32_t (&)[CAP]) {}
   RAFT_HD void store(int32_t*, int64_t) const {}
 };
 
-template <int P>
-RAFT_HD int32_t max_of(const int32_t (&v)[P]) {
+template <int CAP, class NP>
+RAFT_HD int32_t max_of(const int32_t (&v)[CAP], NP np) {
+  const int n = np;
   int32_t m = v[0];
 #pragma unroll
-  for (int p = 1; p < P; ++p) m = imax(m, v[p]);
+  for (int p = 1; p < n; ++p) m = imax(m, v[p]);
   return m;
 }
 
-template <int P>
-struct CommitTracker<P, true> {
+template <int CAP, class NP>
+struct CommitTracker<CAP, true, NP> {
   int32_t tsc;
   int32_t maxc_prev;
+  NP np;
   RAFT_HD CommitTracker(const int32_t* tsc_in, int64_t g,
-                        const int32_t (&commit)[P])
-      : tsc(tsc_in[g]), maxc_prev(max_of<P>(commit)) {}
-  RAFT_HD void round(const int32_t (&commit)[P]) {
-    const int32_t maxc = max_of<P>(commit);
+                        const int32_t (&commit)[CAP], NP n = NP())
+      : tsc(tsc_in[g]), maxc_prev(max_of<CAP>(commit, n)), np(n) {}
+  RAFT_HD void round(const int32_t (&commit)[CAP]) {
+    const int32_t maxc = max_of<CAP>(commit, np);
     tsc = maxc > maxc_prev ? 0 : wadd(tsc, 1);
     maxc_prev = maxc;
   }
@@ -162,10 +183,24 @@ struct CommitTracker<P, true> {
 
 }  // namespace raft_fused
 
-// Expands CASE(P) for every instantiated peer count, 1 through 7; the
-// Python wrappers reject any other P before calling in.
+// Expands CASE(P) for the narrow instances, P = 1 through 7 (*_round.cu,
+// *_host.cpp).
 #define RAFT_FOR_EACH_P(CASE) \
   CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7)
+
+// Expands CASE(P) for the wide instances, P = 8 through 15, of the host
+// builds (*_host_wide.cpp, one library beside the narrow one).  The CUDA
+// builds take one wide P a library (*_round_wide.cu): the [P, P] blocks of
+// the chaos and damped bodies spill to local memory there, and their
+// instances are slow to compile.
+#define RAFT_FOR_EACH_WIDE_P(CASE) \
+  CASE(8) CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15)
+
+// The instance list a translation unit builds: the narrow one unless the
+// file defines RAFT_PEER_LIST before its first include.
+#ifndef RAFT_PEER_LIST
+#define RAFT_PEER_LIST RAFT_FOR_EACH_P
+#endif
 
 // Expands CASE(NP, WITH_HEALTH) for both variants of peer count NP.
 #define RAFT_FOR_EACH_HEALTH(CASE, NP) CASE(NP, false) CASE(NP, true)

@@ -15,27 +15,44 @@ extern "C" int steady_round_host(
     const void* tsc, void* tsc_out, long long G, int P, int rounds,
     int election_tick, int heartbeat_tick, int with_health) {
   if (with_health && (tsc == nullptr || tsc_out == nullptr)) return 1;
+#define RAFT_STEADY_HOST_ARGS                                               \
+  (const int32_t*)state, (const int32_t*)term, (const int32_t*)ee,          \
+      (const int32_t*)hb, (const int32_t*)li, (const int32_t*)lt,           \
+      (const int32_t*)matched, (const int32_t*)commit,                      \
+      (const uint8_t*)voter, (const uint8_t*)member,                        \
+      (const uint8_t*)crashed, (const int32_t*)ts, (const int32_t*)app,     \
+      (const int32_t*)tsc, (int32_t*)ee_out, (int32_t*)hb_out,              \
+      (int32_t*)li_out, (int32_t*)lt_out, (int32_t*)matched_out,            \
+      (int32_t*)commit_out, (int32_t*)tsc_out, rounds, election_tick,       \
+      heartbeat_tick
 #define RAFT_STEADY_HOST(NP, HEALTH)                                        \
   case NP * 2 + (HEALTH ? 1 : 0):                                           \
     for (int64_t g = 0; g < (int64_t)G; ++g) {                              \
-      raft_steady::steady_group<NP, HEALTH>(                                \
-          g, (int64_t)G, (const int32_t*)state, (const int32_t*)term,       \
-          (const int32_t*)ee, (const int32_t*)hb, (const int32_t*)li,       \
-          (const int32_t*)lt, (const int32_t*)matched,                      \
-          (const int32_t*)commit, (const uint8_t*)voter,                    \
-          (const uint8_t*)member, (const uint8_t*)crashed,                  \
-          (const int32_t*)ts, (const int32_t*)app, (const int32_t*)tsc,     \
-          (int32_t*)ee_out, (int32_t*)hb_out, (int32_t*)li_out,             \
-          (int32_t*)lt_out, (int32_t*)matched_out, (int32_t*)commit_out,    \
-          (int32_t*)tsc_out, rounds, election_tick, heartbeat_tick);        \
+      raft_steady::steady_group<NP, HEALTH>(g, (int64_t)G,                  \
+                                            RAFT_STEADY_HOST_ARGS);         \
     }                                                                       \
     return 0;
 #define RAFT_STEADY_P(NP) RAFT_FOR_EACH_HEALTH(RAFT_STEADY_HOST, NP)
   switch (P * 2 + (with_health ? 1 : 0)) {
-    RAFT_FOR_EACH_P(RAFT_STEADY_P)
+    RAFT_PEER_LIST(RAFT_STEADY_P)
     default:
+#ifdef RAFT_STEADY_RUNTIME_P
+      if (P > 15 && P <= raft_steady::kSteadyCap) {
+        for (int64_t g = 0; g < (int64_t)G; ++g) {
+          if (with_health) {
+            raft_steady::steady_group<raft_steady::kSteadyCap, true, int>(
+                g, (int64_t)G, RAFT_STEADY_HOST_ARGS, P);
+          } else {
+            raft_steady::steady_group<raft_steady::kSteadyCap, false, int>(
+                g, (int64_t)G, RAFT_STEADY_HOST_ARGS, P);
+          }
+        }
+        return 0;
+      }
+#endif
       return 1;
   }
 #undef RAFT_STEADY_P
 #undef RAFT_STEADY_HOST
+#undef RAFT_STEADY_HOST_ARGS
 }

@@ -33,7 +33,9 @@ P-column of every plane, its `recent_active` row and its [P, P] `agree`
 block (and `loss_rate` with loss) in registers for all k rounds, P,
 with_cq, with_loss and with_health template parameters so every peer loop
 unrolls and the untaken arms compile away; loads and stores are peer-major, so
-neighbouring threads touch neighbouring words.
+neighbouring threads touch neighbouring words.  P = 8..15 build from
+csrc/damped_round_wide.cu, a library of its own, where the [P, P] blocks
+spill to local memory.
 
 On CPU tensors `damped_rounds` runs `damped_rounds_reference`; on CUDA
 tensors it launches the kernel or raises.  `damped_rounds.launches` counts
@@ -307,7 +309,7 @@ def _launch(
     outs += (torch.empty((P, G), dtype=torch.bool, device=dev),
              torch.empty((P, P, G), dtype=I32, device=dev))
     tsc_out = None if tsc is None else torch.empty((G,), dtype=I32, device=dev)
-    lib = _build.load_damped_cuda()
+    lib = _build.load_damped_cuda(P)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [t.data_ptr() for t in (*planes.values(), *masks.values(), agree)]

@@ -9,7 +9,8 @@ the reconfig and the read arm), `steady_predicate` (:1557), `steady_round` with 
 `_build_chaos_round._run` (:806-886) as `chaos_round` here, the damped
 configs' `_build_damped_round._run` (:1240-1352, plain and with chaos) as
 `damped_round`, the closed-form instrumentation folds `_fold_counters`
-(:505) and `_steady_health_fold` (:530), `fast_multi_round` (:1605-1782,
+(:505) and `_steady_health_fold` (:530), the one-round dispatcher
+`fast_step` (:1572-1600), `fast_multi_round` (:1605-1782,
 every arm, with `count_fused`) and the per-group split
 `hybrid_multi_round` (:1785-1952, with `with_chaos` and `count_fused`).
 As in the reference, a damped config (check_quorum or pre_vote) routes
@@ -34,7 +35,7 @@ import torch
 
 from . import sim as sim_mod
 from . import kernels
-from .chaos_kernel import chaos_rounds, check_round_base
+from .chaos_kernel import MAX_PEERS, chaos_rounds, check_round_base
 from .damped_kernel import damped_rounds
 from .kernels import (
     CTR_COMMIT_ENTRIES,
@@ -369,6 +370,16 @@ def steady_round(
     return _instrumented(cfg, rounds, run, 0, with_counters, with_health)
 
 
+def _check_packed_peers(cfg: SimConfig, name: str) -> None:
+    """The reference's chaos and damped builders assert P <= 15
+    (pallas_step.py:772, :1203); the same limit, as a ValueError."""
+    if cfg.n_peers > MAX_PEERS:
+        raise ValueError(
+            f"{name}: P={cfg.n_peers} > {MAX_PEERS}: the reference's packed "
+            "roles word budgets 4 bits for leader_id"
+        )
+
+
 def chaos_round(
     cfg: SimConfig, rounds: int = 1, with_health: bool = False,
     with_counters: bool = False,
@@ -385,6 +396,7 @@ def chaos_round(
     if cfg.check_quorum or cfg.pre_vote:
         return damped_round(cfg, rounds, with_chaos=True, with_health=with_health,
                             with_counters=with_counters)
+    _check_packed_peers(cfg, "chaos_round")
     ticks = _ticks(cfg, rounds)
 
     def run(st, crashed, append_n, loss_rate, round_base, tsc):
@@ -424,6 +436,7 @@ def damped_round(
     when chaos is on)."""
     if not (cfg.check_quorum or cfg.pre_vote):
         raise ValueError("damped_round needs check_quorum or pre_vote")
+    _check_packed_peers(cfg, "damped_round")
     ticks = dict(_ticks(cfg, rounds), with_cq=cfg.check_quorum)
 
     def run(st, crashed, append_n, *rest):
@@ -453,6 +466,27 @@ def damped_round(
 
     return _instrumented(cfg, rounds, run, 2 if with_chaos else 0,
                          with_counters, with_health)
+
+
+def fast_step(cfg: SimConfig, with_health: bool = False) -> Callable:
+    """Dispatcher for one round (`pallas_step.fast_step`): the fused round
+    at rounds=1 when steady_predicate holds at horizon 1, else the general
+    sim.step.  fn(st, crashed, append_n) -> SimState, as sim.step; with
+    `with_health`, fn(st, crashed, append_n, health) -> (SimState,
+    HealthState).  The reference's `lax.cond` is a host branch here, one
+    device sync a round; on CUDA tensors the fused arm of a plain config
+    launches csrc/steady_round.cu with k = 1."""
+    fused_fn = steady_round(cfg, 1, with_health=with_health)
+
+    def fn(st: SimState, crashed, append_n, *health):
+        if len(health) != int(with_health):
+            raise TypeError(f"expected {int(with_health)} extras, got {len(health)}")
+        if bool(steady_predicate(cfg, st, crashed, horizon=1)):
+            return fused_fn(st, crashed, append_n, *health)
+        kw = {"health": health[0]} if with_health else {}
+        return sim_mod.step(cfg, st, crashed, append_n, **kw)
+
+    return fn
 
 
 def fast_multi_round(

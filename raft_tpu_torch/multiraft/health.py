@@ -14,12 +14,14 @@ reduce on their device to one fixed-size summary dict::
      "lag_hist": [kernels.N_LAG_BUCKETS counts],
      "worst": [{"group": id, "score": s}, ...]}
 
+The MultiRaft driver's numpy planes (driver.py) reduce to the same dict.
 This module is where those summaries land on the host: the monitor hands
-each one to `metrics` (any object with `on_health_summary(summary)` and
-`trace(event, **fields)`), and keeps a fixed-size ring of recent summaries
-with a state snapshot of each worst group for post-mortems
-(ClusterSim.explain installs itself as the snapshot hook).  Summaries
-arrive as plain host dicts; nothing here touches a device tensor.
+each one to `metrics` (a scalar.metrics.Metrics, or any object with
+`on_health_summary(summary)` and `trace(event, **fields)`), and keeps a
+fixed-size ring of recent summaries with a state snapshot of each worst
+group for post-mortems (ClusterSim.explain and MultiRaft.explain install
+themselves as the snapshot hook).  Summaries arrive as plain host dicts;
+nothing here touches a device tensor.
 """
 
 from __future__ import annotations
@@ -39,9 +41,10 @@ __all__ = ["HealthMonitor"]
 class HealthMonitor:
     """Flight recorder and metrics bridge for health summaries.
 
-    metrics:       optional object with on_health_summary(summary) and
-                   trace(event, **fields); each recorded summary is
-                   published and traced through it.
+    metrics:       optional scalar.metrics.Metrics (or any object with
+                   on_health_summary(summary) and trace(event, **fields));
+                   each recorded summary is published and traced through
+                   it.
     recorder_size: ring capacity.
     snapshot_fn:   optional group_id -> dict hook; when set, worst-offender
                    groups with a non-zero score get a state snapshot stored

@@ -1,10 +1,12 @@
-"""Elementwise protocol kernels on [P, G] tensors: the subset of
-`raft_tpu/multiraft/kernels.py` that the ported steps call.
+"""Elementwise protocol kernels on [P, G] tensors: all of
+`raft_tpu/multiraft/kernels.py`.
 
 Counterparts (reference file `raft_tpu/multiraft/kernels.py`):
   INF, VOTE_*          :162-167
   majority_of          :170
   committed_index      :175
+  committed_index_grouped, joint_committed_index  :203-305
+  vote_result, joint_vote_result  :306-328
   _mix32               :331
   LOSS_SCALE           :342
   link_loss_draw       :345
@@ -27,6 +29,7 @@ Counterparts (reference file `raft_tpu/multiraft/kernels.py`):
   BB_*, pack_blackbox_meta, unpack_blackbox_meta, zero_blackbox,
   blackbox_fold, blackbox_mark, blackbox_capture  :1462-1627
   tick_kernel          :1628
+  append_response_update  :1673
 
 The reference computes the timeout and loss PRNGs in uint32.  PyTorch's uint32
 tensors do not support `>>`, `+`, `%` or `<` on every backend, so here the
@@ -84,6 +87,101 @@ def committed_index(
     quorum_idx = torch.gather(srt, -1, idx[..., None])[..., 0]
     return torch.where(count == 0, INF, quorum_idx)
 
+
+
+def committed_index_grouped(
+    matched: torch.Tensor,  # int32[..., P]
+    group_ids: torch.Tensor,  # int32[..., P]
+    voter_mask: torch.Tensor,  # bool[..., P]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group-commit variant (reference: majority.rs:99-124): commits need
+    acks from >= 2 distinct commit groups.  Returns (index int32[...],
+    use_group_commit bool[...]), as the reference's: walking the voters
+    sorted by matched, descending, the first voter whose non-zero group
+    differs from the first non-zero group seen caps the quorum index;
+    with one non-zero group it is the quorum index, with any zero group
+    the smallest matched (unless a differing pair came first); an empty
+    config gives (INF, True)."""
+    p = matched.shape[-1]
+    # Non-voters keyed -1 sort strictly after every voter, so the scan
+    # walks exactly the first `count` sorted entries.
+    keyed = torch.where(voter_mask, matched, -1).to(torch.int32)
+    masked_groups = torch.where(voter_mask, group_ids, 0).to(torch.int32)
+    order = torch.argsort(-keyed, dim=-1, stable=True)
+    masked = torch.where(voter_mask, matched, 0).to(torch.int32)
+    srt_idx = torch.gather(masked, -1, order)
+    srt_grp = torch.gather(masked_groups, -1, order)
+    count = voter_mask.sum(-1, dtype=torch.int32)
+    qpos = torch.clamp(majority_of(count) - 1, 0, p - 1).to(torch.int64)[..., None]
+    quorum_index = torch.gather(srt_idx, -1, qpos)[..., 0]
+    checked_group = torch.gather(srt_grp, -1, qpos)[..., 0]
+    shape = matched.shape[:-1]
+    single_group = torch.ones(shape, dtype=torch.bool, device=matched.device)
+    result = torch.zeros(shape, dtype=torch.int32, device=matched.device)
+    done = torch.zeros(shape, dtype=torch.bool, device=matched.device)
+    # The scalar scan (majority.rs:102-123), one step a sorted voter.
+    for i in range(p):
+        in_range = i < count
+        g, ix = srt_grp[..., i], srt_idx[..., i]
+        single_group = single_group & ~((g == 0) & in_range)
+        take_group = (checked_group == 0) & (g != 0) & in_range & ~done
+        differs = ((checked_group != 0) & (g != 0) & (g != checked_group)
+                   & in_range & ~done)
+        result = torch.where(differs, torch.minimum(ix, quorum_index), result)
+        done = done | differs
+        checked_group = torch.where(take_group, g, checked_group)
+    # Smallest matched among voters (the last in-range sorted entry).
+    last_pos = torch.clamp(count - 1, 0, p - 1).to(torch.int64)[..., None]
+    min_matched = torch.gather(srt_idx, -1, last_pos)[..., 0]
+    index = torch.where(done, result,
+                        torch.where(single_group, quorum_index, min_matched))
+    empty = count == 0
+    return torch.where(empty, INF, index), done | empty
+
+
+def joint_committed_index(
+    matched: torch.Tensor,  # int32[..., P]
+    incoming_mask: torch.Tensor,  # bool[..., P]
+    outgoing_mask: torch.Tensor,  # bool[..., P]
+) -> torch.Tensor:
+    """Joint config: min over both majorities (reference: joint.rs:47-51).
+    An empty outgoing half gives INF from committed_index, so the min is
+    the incoming half's."""
+    return torch.minimum(committed_index(matched, incoming_mask),
+                         committed_index(matched, outgoing_mask))
+
+
+def vote_result(
+    granted: torch.Tensor,  # bool[..., P]
+    rejected: torch.Tensor,  # bool[..., P]
+    voter_mask: torch.Tensor,  # bool[..., P]
+) -> torch.Tensor:
+    """Vote outcome over the peer axis (reference: majority.rs:130-154):
+    int32[...] VOTE_{PENDING,LOST,WON} from the recorded votes (both
+    False = missing); an empty config wins."""
+    g = (granted & voter_mask).sum(-1, dtype=torch.int32)
+    r = (rejected & voter_mask).sum(-1, dtype=torch.int32)
+    count = voter_mask.sum(-1, dtype=torch.int32)
+    q = majority_of(count)
+    won = (g >= q) | (count == 0)
+    pending = (g + (count - g - r) >= q) & ~won
+    out = torch.where(pending, VOTE_PENDING, VOTE_LOST)
+    return torch.where(won, VOTE_WON, out).to(torch.int32)
+
+
+def joint_vote_result(
+    granted: torch.Tensor,  # bool[..., P]
+    rejected: torch.Tensor,  # bool[..., P]
+    incoming_mask: torch.Tensor,  # bool[..., P]
+    outgoing_mask: torch.Tensor,  # bool[..., P]
+) -> torch.Tensor:
+    """reference: joint.rs:56-67"""
+    i = vote_result(granted, rejected, incoming_mask)
+    o = vote_result(granted, rejected, outgoing_mask)
+    won = (i == VOTE_WON) & (o == VOTE_WON)
+    lost = (i == VOTE_LOST) | (o == VOTE_LOST)
+    out = torch.where(lost, VOTE_LOST, VOTE_PENDING)
+    return torch.where(won, VOTE_WON, out).to(torch.int32)
 
 def acting_leader_id(
     state: torch.Tensor,  # int32[P, G]
@@ -997,3 +1095,17 @@ def tick_kernel(
     hb = torch.where(want_heartbeat, 0, hb)
 
     return ee, hb, want_campaign, want_heartbeat, want_check_quorum
+
+
+def append_response_update(
+    matched: torch.Tensor,  # int32[...]
+    next_idx: torch.Tensor,  # int32[...]
+    resp_index: torch.Tensor,  # int32[...]
+    resp_mask: torch.Tensor,  # bool[...]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched Progress.maybe_update for accepted append responses
+    (reference: progress.rs:138-150): matched = max(matched, index),
+    next = max(next, index + 1), applied only under resp_mask."""
+    new_matched = torch.where(resp_mask, torch.maximum(matched, resp_index), matched)
+    new_next = torch.where(resp_mask, torch.maximum(next_idx, resp_index + 1), next_idx)
+    return new_matched, new_next

@@ -35,9 +35,8 @@ class ScalarCluster:
         every group in that (possibly joint) configuration; default: all
         peers voters.  `check_quorum`/`pre_vote` configure every Raft the
         reference way (raft.rs Config), as SimConfig's flags of the same
-        names configure the device sim.  `metrics` (an optional object with
-        the reference Metrics' hooks) is shared by every Raft in the
-        cluster.  `timeout_seed_base` offsets every group's timeout_seed
+        names configure the device sim.  `metrics` (an optional
+        scalar.metrics.Metrics) is shared by every Raft in the cluster.  `timeout_seed_base` offsets every group's timeout_seed
         (group g draws from stream timeout_seed_base + g): the forensics
         one-group repro (forensics.replay) runs global group g as a
         one-group cluster on stream g, the twin of the device run."""

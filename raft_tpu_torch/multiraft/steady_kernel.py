@@ -28,7 +28,11 @@ limited by integer issue: 100k groups give only about 760 threads an SM,
 each running a long dependent chain.  The with_health variant is one
 template flag (csrc/fused_common.cuh's CommitTracker): P + 2 more
 operations a group and round on values already in registers, and the [G]
-`tsc` row in and out.
+`tsc` row in and out.  P = 1..7 are the instances of csrc/steady_round.cu
+and P = 8..15 those of csrc/steady_round_wide.cu, a library of its own;
+for P = 16..MAX_PEERS that library's one runtime-P instance keeps the
+per-peer arrays in local memory (the reference's kernel has no bound on
+P; the cap sizes those arrays).
 
 On CPU tensors `steady_rounds` runs `steady_rounds_reference`, the same
 arithmetic as plain tensor code; on CUDA tensors it launches the kernel or
@@ -47,7 +51,8 @@ from .platform import check_operands
 from .sim import _quorum_pick
 
 I32 = torch.int32
-MAX_PEERS = 7
+# The largest P the kernel takes: csrc/steady_body.cuh's kSteadyCap.
+MAX_PEERS = 64
 
 Outputs = Tuple[torch.Tensor, ...]
 
@@ -175,7 +180,7 @@ def _launch(
     ))
     outs = tuple(torch.empty((P, G), dtype=I32, device=dev) for _ in range(6))
     tsc_out = None if tsc is None else torch.empty((G,), dtype=I32, device=dev)
-    lib = _build.load_steady_cuda()
+    lib = _build.load_steady_cuda(P)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         args = [t.data_ptr() for t in (*planes.values(), *masks.values(), ts,

@@ -8,11 +8,14 @@ also accepts per-group *arrays* of tick bounds (see raft_tpu_torch.multiraft).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 from .errors import ConfigInvalid
 from .read_only_option import ReadOnlyOption
 from .util import NO_LIMIT
+
+if TYPE_CHECKING:
+    from .metrics import Metrics
 
 INVALID_ID = 0
 INVALID_INDEX = 0
@@ -105,13 +108,12 @@ class Config:
     # share peer ids 1..P (the MultiRaft batch) draw independent timeout
     # streams while staying bit-identical to the device kernel.
     timeout_seed: int = 0
-    # raft-tpu extension: an optional observability hook, any object with the
-    # reference Metrics' on_* methods (this package has no Metrics class yet).
+    # raft-tpu extension: observability plane (scalar.metrics.Metrics).
     # None (the default) disables all instrumentation; every hook in the hot
     # path is guarded by a single `is not None` branch.  A deployment shares
     # ONE instance across its nodes/groups — counters aggregate, trace
     # events stay tagged per (group, id).
-    metrics: Optional[object] = None
+    metrics: Optional["Metrics"] = None
 
     def min_election_tick_or_default(self) -> int:
         """reference: config.rs:129-136"""

@@ -46,9 +46,15 @@ def _imports(tree):
 
 def test_every_multiraft_module_is_scanned():
     """The AST scan covers the registries, the unified runner, the
-    checkpoint and the graph helper with the rest of the package."""
+    checkpoint, the graph helper and the host driver with the rest of the
+    package, and the scalar copies and the node examples the driver runs."""
     names = {p.stem for p in _sources() if p.parent.name == "multiraft"}
-    assert {"planes", "schedules", "runner", "checkpoint", "graphs", "sim"} <= names
+    assert {"planes", "schedules", "runner", "checkpoint", "graphs", "sim",
+            "driver"} <= names
+    scalar = {p.stem for p in _sources() if p.parent.name == "scalar"}
+    assert {"raw_node", "status", "metrics", "codec"} <= scalar
+    examples = {p.stem for p in _sources() if p.parent.name == "examples"}
+    assert {"multiraft_node", "multiraft_tcp"} <= examples
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -91,11 +97,14 @@ def test_importing_the_port_loads_no_reference_module():
     assert "raft_tpu_torch.multiraft.chaos_kernel" in new
     assert "raft_tpu_torch.multiraft.chaos" in new
     assert "raft_tpu_torch.multiraft.reconfig" in new
-    for mod in ("planes", "schedules", "runner", "checkpoint", "graphs"):
+    for mod in ("planes", "schedules", "runner", "checkpoint", "graphs", "driver"):
         assert "raft_tpu_torch.multiraft." + mod in new
+    for mod in ("multiraft_node", "multiraft_tcp"):
+        assert "raft_tpu_torch.examples." + mod in new
     for sub in ("eraftpb", "errors", "util", "confchange.changer",
                 "confchange.restore", "quorum.joint", "quorum.majority",
-                "tracker.inflights", "tracker.progress", "tracker.state"):
+                "tracker.inflights", "tracker.progress", "tracker.state",
+                "raw_node", "status", "metrics", "codec"):
         assert "raft_tpu_torch.scalar." + sub in new
     bad = [m for m in new if _forbidden(m)]
     assert not bad, bad
