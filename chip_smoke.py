@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--out results.json]
 
 Eleven paths at 100,000 groups × 5 peers, the fused kernels past P = 7,
-and the host driver at 3 × 10,000 groups.  Three with one append per
+the host driver at 3 × 10,000 groups, and the port's bench entry point
+(`python -m raft_tpu_torch.bench`) in every mode but --mesh.  Three with one append per
 group per round (bench.py's bench_device), each bare and instrumented
 (bench.py --health: the counter plane and the health planes ride every
 round, and the fused blocks run each kernel's with_health variant):
@@ -108,12 +109,32 @@ printed as bench.py --health-out writes it.
                    the wide libraries of P = 8, 11, 15 and the steady
                    runtime-P one) and run_compiled's graph helper
                    (csrc/graph_cond.cu) from csrc/ with nvcc, one nvcc a
-                   library, in parallel; print the times and ptxas
+                   library, and the bench's native anchor
+                   (csrc/multiraft_engine.cpp, g++ -O3), in parallel;
+                   print the times and ptxas
                    registers and spills per P and template flag
   3. parity        the steady kernel against its plain PyTorch version on
                    the same card tensors, exact: settled states at
                    G=100,000 and a ragged G=100,003 (P=5), at P=3, 8 and
                    16, and random planes at P=3, 5, 7, 8, 11, 15 and 16
+ 3a. bench         `python -m raft_tpu_torch.bench` through its line builder
+                   (raft_tpu_torch.bench.main, printing each JSON line as
+                   the command line does) at 100k x 5: default (with the
+                   native CPU anchor, csrc/multiraft_engine.cpp at -O3),
+                   --health, --lossy 0.01, --check-quorum, --check-quorum
+                   --health and --blackbox at 5 reps; --lossy 0.01
+                   --check-quorum, --chaos partition_heal.json and --reconfig
+                   joint_churn.json (each with and without --check-quorum),
+                   --prod-fused, --reads, --autopilot and --autopilot
+                   --autopilot-plan partition_heal.json (its transfer arm
+                   must act) at 1 rep; --health and the damped modes with
+                   --fused-floor 1.0; the launch counts zeroed just before
+                   each mode and read just after (a mode with fused
+                   group-rounds must have launched its kernel); --profile
+                   over the default mode once (the trace's size and CUDA
+                   kernel records); the suites with --quick and the config-3
+                   BASELINE row at 100k x 5; before the reference workers
+                   start, so the bench's host-bound loops run on an idle host
   4. main          the steady path: 30 settle rounds, 4 blocks
  4a. fast_step     fused_step.fast_step's fused arm (the steady kernel at
                    k = 1) against its plain version on phase 4's state;
@@ -172,15 +193,16 @@ printed as bench.py --health-out writes it.
  13. chaos scenario the plan with check_quorum off and on on the card, at
                    G=8,192 and at G=100,000 (no fused launch, zero safety
                    counts), timed as bench_chaos does (G x rounds / wall
-                   from a fresh state, median of 3 reps, fused_frac 0) with
+                   from a fresh state: the median of the parity run and
+                   phase 3a's rep, fused_frac 0) with
                    the busy share of its first 4 rounds; then held to the
                    CPU run at G=8,192: equal reports, every field and the
                    health planes, and the 100k run's first 8,192 groups
- 14. composed timing as phase 5 for the composed path from phase 9's settled
-                   state as it is (3 reps of one scan; fused_frac as
-                   measured; the busy share of 4 of the general rounds its
-                   blocks run), with the damped kernel's with_loss instance
-                   against its bound
+ 14. composed timing the composed path's ticks/s and fused_frac from phase
+                   3a's line; from phase 9's settled state as it is, the
+                   block's parts as phase 5 and the busy share of 4 of the
+                   general rounds its blocks run, with the damped kernel's
+                   with_loss instance against its bound
  15. steady hybrid one hybrid_multi_round(k=32) block on the steady path from
                    phase 4's state with the acting leader crashed in 1% of
                    groups (split), card == CPU
@@ -196,7 +218,8 @@ printed as bench.py --health-out writes it.
                    counts), then split=True (k=8) at G, equal to the unsplit
                    run, its fused kernel launches counted; timed as
                    bench_reconfig does (G x rounds / wall from the bootstrap
-                   state, median of 3 reps) with the busy share of its first
+                   state: the parity run and phase 3a's rep) with the busy
+                   share of its first
                    4 rounds; then held to the CPU run at G=8,192 (report,
                    every field, the health planes) and the G run's first
                    8,192 groups to it
@@ -208,8 +231,9 @@ printed as bench.py --health-out writes it.
                    counters, fused count and segments), the G run's first
                    8,192 groups equal to it, zero safety counts; the damped
                    with_loss with_health k=8 instance against its plain
-                   version on the settled and the final state; timed (3 reps
-                   from the settled state, fused_frac as measured, the busy
+                   version on the settled and the final state; timed (the
+                   parity run and phase 3a's rep, from the settled state,
+                   fused_frac as measured, the busy
                    share of the plan's first 4 rounds) and the kernel
                    against its bound
  19. reads         the settle at G on the card, the split runner (k=8) from
@@ -224,8 +248,9 @@ printed as bench.py --health-out writes it.
                    Zipf draws depend on the width), zero safety counts, the
                    trap's counts and receipts equal; the damped no-loss
                    with_health k=8 instance against its plain version on the
-                   settled and the final state; timed (3 reps from the
-                   settled state, fused_frac and the latency percentiles as
+                   settled and the final state; timed (the parity run and
+                   phase 3a's rep, from the settled state, fused_frac and
+                   the latency percentiles as
                    measured, the busy share and launches of 4 general rounds
                    of the Safe-read phase) and the kernel against its bound
  20. autopilot     the settle at G on the card; the autopilot run from its
@@ -240,8 +265,8 @@ printed as bench.py --health-out writes it.
                    output but the fused count; zero safety counts; the chaos
                    kernel's with_health k=16 instance against its plain
                    version on the settled state and at the entry of the
-                   first fused heal segment; timed (3 reps after the parity
-                   run: ticks/s, fused_frac, the report's MTTR, re-elections,
+                   first fused heal segment; timed (the parity run and phase
+                   3a's rep: ticks/s, fused_frac, the report's MTTR, re-elections,
                    commit-stall group-rounds and actions; the busy share and
                    launches of 4 general rounds of the crash phase) and the
                    kernel against its bound
@@ -311,6 +336,7 @@ import argparse
 import json
 import multiprocessing
 import os
+import platform
 import statistics
 import subprocess
 import sys
@@ -320,9 +346,11 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 import numpy as np
 import torch
 
+from raft_tpu_torch import bench as tbench
+from raft_tpu_torch.benches import suites
 from raft_tpu_torch.multiraft import (
-    _build, autopilot, chaos, checkpoint, forensics, fused_step, kernels as pk, reconfig,
-    runner, sim, workload,
+    _build, autopilot, chaos, checkpoint, forensics, fused_step, kernels as pk, native,
+    reconfig, runner, sim, workload,
 )
 from raft_tpu_torch.examples import multiraft_node
 from raft_tpu_torch.multiraft.health import HealthMonitor
@@ -360,15 +388,15 @@ CQ_SMALL_G, CQ_SMALL_BLOCKS = 8192, 4
 CQ_FUSED_BLOCKS, CQ_CRASH_BLOCKS = 2, 3
 CHAOS_PLAN_NAME = "examples/chaos/partition_heal.json"
 CHAOS_PLAN = os.path.join(os.path.dirname(os.path.abspath(__file__)), CHAOS_PLAN_NAME)
-CHAOS_SMALL_G, CHAOS_REPS, CHAOS_PROFILE_ROUNDS = 8192, 3, 4
+CHAOS_SMALL_G, CHAOS_PROFILE_ROUNDS = 8192, 4
 HERE = os.path.dirname(os.path.abspath(__file__))
 RECONFIG_PLAN_NAME = "examples/reconfig/joint_churn.json"
 RECONFIG_PLAN = os.path.join(HERE, RECONFIG_PLAN_NAME)
-RECONFIG_SMALL_G, RECONFIG_REPS = 8192, 3
+RECONFIG_SMALL_G = 8192
 PROD_PLAN_NAME = "examples/reconfig/prod_fused.json"
 PROD_PLAN = os.path.join(HERE, PROD_PLAN_NAME)
 # bench_prod_fused: election_tick 64, a 3 x 64-round settle, k=8, window 4.
-PROD_TICK, PROD_K, PROD_WINDOW, PROD_REPS = 64, 8, 4, 3
+PROD_TICK, PROD_K, PROD_WINDOW = 64, 8, 4
 # The profile covers 4 rounds, as the other general-step profiles do: a
 # general round here is some 6,800 launches, and the plan's first 72 rounds
 # gave the profiler 272,614 records to process.
@@ -376,13 +404,13 @@ PROD_SETTLE, PROD_PROFILE_ROUNDS = 3 * 64, 4
 READS_PLAN_NAME = "examples/reads/zipf_mixed.json"
 READS_PLAN = os.path.join(HERE, READS_PLAN_NAME)
 # bench_reads: election_tick 64, a 3 x 64-round settle, k=8.
-READS_TICK, READS_K, READS_SETTLE, READS_REPS = 64, 8, 3 * 64, 3
+READS_TICK, READS_K, READS_SETTLE = 64, 8, 3 * 64
 READS_SMALL_G, READS_PROFILE_ROUNDS = 8192, 4
 # The first rounds of the plan's first lease phase and of its Safe-read phase.
 READS_LEASE_AT, READS_SAFE_AT = 64, 160
 # bench_autopilot: election_tick 64, a 3 x 64-round settle, cadence 16, and its
 # inline plan: 192 rounds steady, 32 with peer 2 crashed, 96 healed.
-AUTO_TICK, AUTO_CADENCE, AUTO_SETTLE, AUTO_REPS = 64, 16, 3 * 64, 3
+AUTO_TICK, AUTO_CADENCE, AUTO_SETTLE = 64, 16, 3 * 64
 AUTO_SMALL_G, AUTO_PROFILE_ROUNDS = 8192, 4
 AUTO_DOC = {"name": "autopilot-bench", "peers": 5, "phases": [
     {"rounds": 192, "append": 0},
@@ -403,7 +431,7 @@ GOLDEN_DIR = os.path.join(HERE, "tests", "testdata", "forensics")
 STORM_EVERY = 100  # the acting leader crashed in 1% of groups
 # The composed path's parity blocks from the aligned state: no boundary in
 # the first horizon, every boundary in the second, then 1% of leaders down.
-COMPOSED_BRANCHES, COMPOSED_CRASH_BLOCK, COMPOSED_REPS = ("pure", "slow", "split"), 2, 3
+COMPOSED_BRANCHES, COMPOSED_CRASH_BLOCK = ("pure", "slow", "split"), 2
 ROUNDS_PER_SCAN, SCANS, REPS = 64, 6, 5
 WORKERS = 2  # reference worker processes for the CPU runs
 SLEEP_CYCLES = 4_000_000  # about 2 ms at the H100's 1.98 GHz boost clock
@@ -469,7 +497,8 @@ def phase_build():
     loaders = {"steady_round": _build.load_steady_cuda,
                "chaos_round": _build.load_chaos_cuda,
                "damped_round": _build.load_damped_cuda,
-               "graph_cond": _build.load_graph_cuda}
+               "graph_cond": _build.load_graph_cuda,
+               "multiraft_engine": native.load_library}
     # The wide libraries, one a peer count: those the checks below launch.
     for kind, load in (("steady", _build.load_steady_cuda),
                        ("chaos", _build.load_chaos_cuda),
@@ -481,6 +510,10 @@ def phase_build():
             fut.result()  # raises a failed build's error
     for name in loaders:
         log, secs = _build.build_log.get(name, ("(cached build)", 0.0))
+        if name == "multiraft_engine":
+            print(f"build: lib{name} (the bench's native CPU anchor, g++ "
+                  f"{' '.join(_build.NATIVE_FLAGS)}) in {secs:.2f}s")
+            continue
         PTXAS[name] = {"seconds": secs, "instances": {}}
         entry = None
         for line in log.splitlines():
@@ -929,7 +962,7 @@ def device_profile(run):
 
 def time_path(dev, label, st, rb, block, operands, kernel, reference, kernel_name,
               fused_round, predicate, work, compare_methods=False, reps=REPS,
-              scans=SCANS, part_reps=10, profile=None):
+              scans=SCANS, part_reps=10, profile=None, line=None):
     """The bench's timed loop over `block(st, rb, fused) -> (st, fused)`
     (rb the absolute round of the block's first round; `st` is the loop's
     carry: a SimState, or (SimState, HealthState) on a health path), `reps`
@@ -938,24 +971,29 @@ def time_path(dev, label, st, rb, block, operands, kernel, reference, kernel_nam
     (args, kw)`), its plain version, the fused round, the predicate and the
     block (`part_reps` calls each), and a profile of one rep, or with
     `profile` = (what, fn) of fn(st, rb).  With `compare_methods`, the
-    kernel's time by each timing method as well."""
+    kernel's time by each timing method as well.  With `line` (the bench's
+    JSON line of the same loop, `reps` reps of `scans` scans), its ticks/s
+    and fused_frac stand for the loop's, which does not run here."""
     blocks_per_scan = ROUNDS_PER_SCAN // K
-    for _ in range(blocks_per_scan):  # warm-up scan, as the bench does
-        st, _ = block(st, rb, 0)
-        rb += K
-    torch.cuda.synchronize()
-    samples, fused_total = [], 0
     ticks = G * ROUNDS_PER_SCAN * scans
-    for _ in range(reps):
-        fused = 0
-        t0 = time.perf_counter()
-        for _ in range(scans * blocks_per_scan):
-            st, fused = block(st, rb, fused)
+    if line is not None:
+        samples, fused_frac = bench_samples(line), line["fused_frac"]
+    else:
+        for _ in range(blocks_per_scan):  # warm-up scan, as the bench does
+            st, _ = block(st, rb, 0)
             rb += K
         torch.cuda.synchronize()
-        samples.append(ticks / (time.perf_counter() - t0))
-        fused_total += fused
-    fused_frac = fused_total / (ticks * reps)
+        samples, fused_total = [], 0
+        for _ in range(reps):
+            fused = 0
+            t0 = time.perf_counter()
+            for _ in range(scans * blocks_per_scan):
+                st, fused = block(st, rb, fused)
+                rb += K
+            torch.cuda.synchronize()
+            samples.append(ticks / (time.perf_counter() - t0))
+            fused_total += fused
+        fused_frac = fused_total / (ticks * reps)
 
     args, kw = operands(st, rb)
     t = kernel_times(dev, kernel, reference, args, kw, work, parts=dict(
@@ -979,9 +1017,10 @@ def time_path(dev, label, st, rb, block, operands, kernel, reference, kernel_nam
     t.update(ticks_per_s=samples, ticks_per_s_median=med, fused_frac=fused_frac,
              loop_block_ms=loop_block_ms, profile=prof,
              wrapper_ms=t["fused_round_ms"] - t["call_ms"])
+    source = "the bench line's" if line is not None else ""
     print(f"timing {label} {G}x{P} k={K} [{t['card']}]: ticks/s median {med:.1f} "
-          f"(min {min(samples):.1f}, max {max(samples):.1f}, {reps} reps of {scans} "
-          f"scans), "
+          f"(min {min(samples):.1f}, max {max(samples):.1f}, {source} {reps} reps of "
+          f"{scans} scans), "
           f"fused_frac {fused_frac:.4f}; {kernel_name} {t['ms']:.4f} ms cold "
           f"({t['hot_ms']:.4f} ms hot; a wrapper call {t['call_ms']:.4f} ms), "
           f"plain version {t['plain_ms']:.3f} ms; "
@@ -1933,23 +1972,16 @@ def scenario_parity(dev, check_quorum):
     return small, full, check
 
 
-def scenario_timing(dev, check_quorum, first_s):
+def scenario_timing(dev, check_quorum, first_s, line):
     """bench_chaos: G x rounds / wall of the whole plan from a fresh state,
-    the median of CHAOS_REPS reps, the parity run's run_plan (`first_s`
-    seconds; the host loop compiles nothing, so it needs no warm-up) the
-    first of them; fused_frac 0; and the device's busy share over the first
+    the median of the parity run's run_plan (`first_s` seconds; the host
+    loop compiles nothing, so it needs no warm-up) and the bench line's
+    reps (`line`, bench --chaos [--check-quorum], the same runner);
+    fused_frac 0; and the device's busy share over the first
     CHAOS_PROFILE_ROUNDS rounds."""
     cfg = chaos_cfg(G, check_quorum)
     compiled = chaos.compile_plan(chaos.load_plan(CHAOS_PLAN), G, dev)
-    runner = chaos.make_runner(cfg, compiled)
-    samples = [G * compiled.n_rounds / first_s]
-    for _ in range(CHAOS_REPS - 1):
-        st, health = sim.init_state(cfg, device=dev), sim.init_health(cfg, dev)
-        sync()
-        t0 = time.perf_counter()
-        runner(st, health)
-        sync()
-        samples.append(G * compiled.n_rounds / (time.perf_counter() - t0))
+    samples = [G * compiled.n_rounds / first_s] + bench_samples(line)
     head = chaos.make_runner(cfg, compiled._replace(
         phase_of_round=compiled.phase_of_round[:CHAOS_PROFILE_ROUNDS]))
     st, health = sim.init_state(cfg, device=dev), sim.init_health(cfg, dev)
@@ -1957,8 +1989,9 @@ def scenario_timing(dev, check_quorum, first_s):
     med = statistics.median(samples)
     name = "check_quorum" if check_quorum else "undamped"
     print(f"timing chaos scenario {name} {G}x{P} [{card_line()}]: ticks/s median "
-          f"{med:.1f} (min {min(samples):.1f}, max {max(samples):.1f}, {CHAOS_REPS} "
-          f"reps), fused_frac 0; a round {1e3 * G / med:.2f} ms; profile of rounds "
+          f"{med:.1f} (min {min(samples):.1f}, max {max(samples):.1f}, the parity run "
+          f"and {line['reps']} bench reps), fused_frac 0; a round "
+          f"{1e3 * G / med:.2f} ms; profile of rounds "
           f"0-{CHAOS_PROFILE_ROUNDS - 1}: device busy {prof['busy_us']:.1f} of "
           f"{prof['wall_us']:.1f} us ({100 * prof['busy_share']:.1f}%), "
           f"{sum(r['count'] for r in prof['kernels'])} kernel launches")
@@ -1969,14 +2002,17 @@ def scenario_timing(dev, check_quorum, first_s):
 
 
 @phase("chaos scenario")
-def phase_chaos_scenario(dev, cpu_runs):
+def phase_chaos_scenario(dev, cpu_runs, lines):
     """bench.py --chaos examples/chaos/partition_heal.json [--check-quorum]
-    at G on the card and timed, then held to the CPU runs (`cpu_runs`, the
-    reference worker's future of cpu_scenarios())."""
+    at G on the card and timed (with the bench phase's `lines`), then held
+    to the CPU runs (`cpu_runs`, the reference worker's future of
+    cpu_scenarios())."""
     card = {}
     for check_quorum in (False, True):
         _, full, check = scenario_parity(dev, check_quorum)
-        card[check_quorum] = (check, full, scenario_timing(dev, check_quorum, full[3]))
+        line = lines["chaos_cq" if check_quorum else "chaos"]["line"]
+        card[check_quorum] = (check, full,
+                              scenario_timing(dev, check_quorum, full[3], line))
     cpu = cpu_runs.result()
     out = {}
     for check_quorum, (check, full, timing) in card.items():
@@ -2123,12 +2159,13 @@ def phase_steady_hybrid(dev, start):
 
 
 @phase("composed timing")
-def phase_composed_timing(dev, settled):
-    """bench.py --lossy 0.01 --check-quorum's timed loop from the settled
-    state as it is (the natural boundary phases), COMPOSED_REPS reps of one
-    64-round scan: ticks/s, the measured fused_frac, the block's parts, the
-    busy share of the general rounds every such block runs, and the damped
-    kernel's with_loss instance against its bound."""
+def phase_composed_timing(dev, settled, line):
+    """bench.py --lossy 0.01 --check-quorum: ticks/s and the measured
+    fused_frac from the bench phase's line (`line`: its settle and SCANS
+    scans a rep); from the settled state as it is (the natural boundary
+    phases), the block's parts, the busy share of the general rounds every
+    such block runs, and the damped kernel's with_loss instance against its
+    bound."""
     cfg = damped_cfg(G)
     crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
     append = torch.ones(G, dtype=torch.int32, device=dev)
@@ -2162,9 +2199,9 @@ def phase_composed_timing(dev, settled):
         fused_round=lambda s, rb: round_fn(s, crashed, append, loss, rb),
         predicate=lambda s: int((~fused_step.steady_mask(
             cfg, s, crashed, K, link, loss_rate=loss)).sum()),
-        work=damped_work(P, G, K, with_loss=True), reps=COMPOSED_REPS, scans=1,
+        work=damped_work(P, G, K, with_loss=True), reps=line["reps"], scans=SCANS,
         part_reps=1, profile=(f"{CHAOS_PROFILE_ROUNDS} of the slow branch's general "
-                              "rounds", general_rounds),
+                              "rounds", general_rounds), line=line,
     )
 
 
@@ -2291,28 +2328,21 @@ def reconfig_parity(dev, check_quorum):
     return full, fused_launches, split[0], check
 
 
-def reconfig_timing(dev, check_quorum, first_s):
+def reconfig_timing(dev, check_quorum, first_s, line):
     """bench_reconfig: G x rounds / wall of the whole plan from the bootstrap
-    state (make_runner, unsplit: fused_frac 0), the median of RECONFIG_REPS
-    reps, the parity run's run_reconfig (`first_s`) the first of them; and
-    the device's busy share over the first CHAOS_PROFILE_ROUNDS rounds."""
+    state (make_runner, unsplit: fused_frac 0), the median of the parity
+    run's run_reconfig (`first_s`) and the bench line's reps (`line`, bench
+    --reconfig [--check-quorum]); and the device's busy share over the
+    first CHAOS_PROFILE_ROUNDS rounds."""
     cfg = reconfig_cfg(G, check_quorum)
     plan, _ = plan_docs(RECONFIG_PLAN)
     compiled = reconfig.compile_plan(plan, G, dev)
-    runner = reconfig.make_runner(cfg, compiled)
 
     def fresh():
         st = sim.init_state(cfg, *reconfig.initial_masks(plan, G, dev), device=dev)
         return st, sim.init_health(cfg, dev), reconfig.init_reconfig_state(st)
 
-    samples = [G * compiled.n_rounds / first_s]
-    for _ in range(RECONFIG_REPS - 1):
-        carry = fresh()
-        sync()
-        t0 = time.perf_counter()
-        runner(*carry)
-        sync()
-        samples.append(G * compiled.n_rounds / (time.perf_counter() - t0))
+    samples = [G * compiled.n_rounds / first_s] + bench_samples(line)
     head = reconfig.make_runner(cfg, compiled._replace(
         phase_of_round=compiled.phase_of_round[:CHAOS_PROFILE_ROUNDS]))
     carry = fresh()
@@ -2321,7 +2351,8 @@ def reconfig_timing(dev, check_quorum, first_s):
     name = "check_quorum" if check_quorum else "undamped"
     print(f"timing reconfig {name} {G}x{P} [{card_line()}]: ticks/s median "
           f"{med:.1f} (min {min(samples):.1f}, max {max(samples):.1f}, "
-          f"{RECONFIG_REPS} reps), fused_frac 0; a round {1e3 * G / med:.2f} ms; "
+          f"the parity run and {line['reps']} bench reps), fused_frac 0; a round "
+          f"{1e3 * G / med:.2f} ms; "
           f"profile of rounds 0-{CHAOS_PROFILE_ROUNDS - 1}: device busy "
           f"{prof['busy_us']:.1f} of {prof['wall_us']:.1f} us "
           f"({100 * prof['busy_share']:.1f}%), "
@@ -2333,15 +2364,17 @@ def reconfig_timing(dev, check_quorum, first_s):
 
 
 @phase("reconfig")
-def phase_reconfig(dev, cpu_runs):
+def phase_reconfig(dev, cpu_runs, lines):
     """bench.py --reconfig examples/reconfig/joint_churn.json [--check-quorum]
-    at G on the card, split and unsplit, and timed, then held to the CPU runs
-    (`cpu_runs`, a reference worker's future of cpu_reconfig())."""
+    at G on the card, split and unsplit, and timed (with the bench phase's
+    `lines`), then held to the CPU runs (`cpu_runs`, a reference worker's
+    future of cpu_reconfig())."""
     card = {}
     for check_quorum in (False, True):
         full, launches, split, check = reconfig_parity(dev, check_quorum)
+        line = lines["reconfig_cq" if check_quorum else "reconfig"]["line"]
         card[check_quorum] = (check, full, launches, split,
-                              reconfig_timing(dev, check_quorum, full[3]))
+                              reconfig_timing(dev, check_quorum, full[3], line))
     cpu = cpu_runs.result()
     out = {}
     for check_quorum, (check, full, launches, split, timing) in card.items():
@@ -2442,7 +2475,7 @@ def same_prod(a, b, note, n_groups=None):
 
 
 @phase("prod-fused")
-def phase_prod_fused(dev, cpu_run):
+def phase_prod_fused(dev, cpu_run, line):
     """bench.py --prod-fused examples/reconfig/prod_fused.json: the settle at
     G on the card, the split runner from its first RECONFIG_SMALL_G groups,
     then at G with the launch counts zeroed just before the run and read
@@ -2451,9 +2484,10 @@ def phase_prod_fused(dev, cpu_run):
     fused count and the segments at RECONFIG_SMALL_G, and the G run's first
     RECONFIG_SMALL_G groups; zero safety counts.  Then the damped kernel's
     with_loss with_health instance at k=8 against its plain version on a
-    lossy block's operands, the timing (PROD_REPS reps from the settled
-    state, fused_frac as measured), the busy share of the plan's first 4
-    rounds, and the kernel against its bound.  Returns (launches, parity
+    lossy block's operands, the timing (the parity run and the bench line's
+    reps, `line`, each from the settled state, fused_frac as measured), the
+    busy share of the plan's first 4 rounds, and the kernel against its
+    bound.  Returns (launches, parity
     error, timing)."""
     t0 = time.perf_counter()
     settled = prod_settle(dev, G)
@@ -2518,16 +2552,8 @@ def phase_prod_fused(dev, cpu_run):
     print(f"parity prod-fused damped with_loss with_health k={PROD_K}: exact on the "
           f"settled state and the plan's end state at G={G}, round base {lossy_r0}, "
           "2% loss on every directed link")
-    samples = [total / first_s]
-    fused_total = out[6]
-    for _ in range(PROD_REPS - 1):
-        sync()
-        t0 = time.perf_counter()
-        res = run()
-        sync()
-        samples.append(total / (time.perf_counter() - t0))
-        fused_total += res[6]
-    fused_frac = fused_total / (total * PROD_REPS)
+    samples = [total / first_s] + bench_samples(line)
+    fused_frac = (out[6] + line["fused_rounds"]) / (total * (1 + line["reps"]))
     _, head = prod_runner(settled, PROD_PROFILE_ROUNDS)
     prof = device_profile(head)
     args = fused_step.damped_operands(settled, crashed, append, loss,
@@ -2538,8 +2564,9 @@ def phase_prod_fused(dev, cpu_run):
     t.update(ticks_per_s=samples, ticks_per_s_median=med, fused_frac=fused_frac,
              profile=prof, segments=[list(sg) for sg in segments])
     print(f"timing prod-fused {G}x{P} k={PROD_K} [{t['card']}]: ticks/s median "
-          f"{med:.1f} (min {min(samples):.1f}, max {max(samples):.1f}, {PROD_REPS} reps "
-          f"from the settled state), fused_frac {fused_frac:.4f}; damped_round_kernel "
+          f"{med:.1f} (min {min(samples):.1f}, max {max(samples):.1f}, the parity run "
+          f"and {line['reps']} bench reps from the settled state), fused_frac "
+          f"{fused_frac:.4f}; damped_round_kernel "
           f"(with_loss, with_health) {t['ms']:.4f} ms cold ({t['hot_ms']:.4f} ms hot; "
           f"a wrapper call {t['call_ms']:.4f} ms), plain version {t['plain_ms']:.3f} ms; "
           f"bound {t['bound_ms']:.4f} ms (bytes {t['bytes_bound_ms']:.4f}, operations "
@@ -2709,7 +2736,7 @@ def cpu_reads():
 
 
 @phase("reads")
-def phase_reads(dev, cpu_ref):
+def phase_reads(dev, cpu_ref, line):
     """bench.py --reads examples/reads/zipf_mixed.json: the 192-round settle
     at G on the card; the split runner (k=8) at READS_SMALL_G from the
     settle's first groups with the plan compiled at that width, then at G
@@ -2720,8 +2747,9 @@ def phase_reads(dev, cpu_ref):
     first READS_SMALL_G groups equal to the CPU run over the sliced G
     schedule, zero safety counts, the trap's counts and receipts.  Then the
     damped kernel's no-loss with_health instance at k=8 against its plain
-    version on the settled and the final state, the timing (READS_REPS reps
-    from the settled state, the parity run the first), the busy share and
+    version on the settled and the final state, the timing (the parity run
+    and the bench line's reps, `line`, each from the settled state), the
+    busy share and
     launches of 4 general rounds of the Safe-read phase, and the kernel
     against its bound.  Returns (launches, parity error, timing)."""
     plan = workload.load_plan(READS_PLAN)
@@ -2806,16 +2834,8 @@ def phase_reads(dev, cpu_ref):
                                kw, f"reads {note}", tsc))
     print(f"parity reads damped with_health k={READS_K} (no loss): exact on the settled "
           f"state and the plan's end state at G={G}, the lease phase's Zipf appends")
-    samples = [total / first_s]
-    fused_total = out[9]
-    for _ in range(READS_REPS - 1):
-        sync()
-        t0 = time.perf_counter()
-        res = run()
-        sync()
-        samples.append(total / (time.perf_counter() - t0))
-        fused_total += res[9]
-    fused_frac = fused_total / (total * READS_REPS)
+    samples = [total / first_s] + bench_samples(line)
+    fused_frac = (out[9] + line["fused_rounds"]) / (total * (1 + line["reps"]))
     # 4 general rounds of the Safe-read phase, where every block runs general.
     at = READS_SAFE_AT
     head = compiled._replace(
@@ -2832,7 +2852,8 @@ def phase_reads(dev, cpu_ref):
              profile=prof, report=report, rejected_blocks=rejected_blocks,
              launches_per_general_round=n_launch / READS_PROFILE_ROUNDS)
     print(f"timing reads {G}x{P} k={READS_K} [{t['card']}]: ticks/s median {med:.1f} "
-          f"(min {min(samples):.1f}, max {max(samples):.1f}, {READS_REPS} reps from the "
+          f"(min {min(samples):.1f}, max {max(samples):.1f}, the parity run and "
+          f"{line['reps']} bench reps from the "
           f"settled state), fused_frac {fused_frac:.4f}; read latency p50/p90/p99 "
           f"{full['percentiles']} rounds; damped_round_kernel (with_health) "
           f"{t['ms']:.4f} ms cold ({t['hot_ms']:.4f} ms hot; a wrapper call "
@@ -2987,7 +3008,7 @@ def cpu_autopilot_replay(arrays, actions):
 
 
 @phase("autopilot")
-def phase_autopilot(dev, cpu_ref, pool):
+def phase_autopilot(dev, cpu_ref, pool, line):
     """bench.py --autopilot: the 192-round settle at G on the card; the run
     (fused cadence segments, k=16) from its first AUTO_SMALL_G groups, held to
     the CPU's own procedure at that width (`cpu_ref`, a reference worker's
@@ -2999,8 +3020,8 @@ def phase_autopilot(dev, cpu_ref, pool):
     actions cut to them; fused=False at G equal on every output but the
     fused count; zero safety counts.  Then the chaos kernel's with_health
     k=16 instance against its plain version on the settled state and on the
-    entry of the first fused segment of the heal phase, the timing
-    (AUTO_REPS reps from the settled state after the parity run), the busy
+    entry of the first fused segment of the heal phase, the timing (the
+    parity run and the bench line's reps, `line`), the busy
     share and launches of 4 general rounds of the crash phase, and the
     kernel against its bound.  Returns (launches, parity error, timing)."""
     t0 = time.perf_counter()
@@ -3060,16 +3081,9 @@ def phase_autopilot(dev, cpu_ref, pool):
     print(f"parity autopilot chaos with_health k={AUTO_CADENCE}: exact on the settled "
           f"state and at the entry of the heal segment from round {r_heal} (fused: "
           f"{bool(heal_fused)}) at G={G}, an all-zero loss plane")
-    samples = [G * AUTO_ROUNDS / first_s]
-    fused_total = report["fused_rounds"]
-    for _ in range(AUTO_REPS):
-        sync()
-        t0 = time.perf_counter()
-        rep, _, _ = auto_run(settled)
-        sync()
-        samples.append(G * AUTO_ROUNDS / (time.perf_counter() - t0))
-        fused_total += rep["fused_rounds"]
-    fused_frac = fused_total / (G * AUTO_ROUNDS * (AUTO_REPS + 1))
+    samples = [G * AUTO_ROUNDS / first_s] + bench_samples(line)
+    fused_frac = ((report["fused_rounds"] + line["fused_rounds"])
+                  / (G * AUTO_ROUNDS * (1 + line["reps"])))
     # 4 general rounds of the crash phase.
     compiled = autopilot.empty_reconfig_schedule(cc.n_rounds, P, G, dev)
     compiled = compiled._replace(append=compiled.append + append[None, :])
@@ -3114,8 +3128,8 @@ def phase_autopilot(dev, cpu_ref, pool):
              profile=prof, report=report,
              launches_per_general_round=n_launch / AUTO_PROFILE_ROUNDS)
     print(f"timing autopilot {G}x{P} k={AUTO_CADENCE} [{t['card']}]: ticks/s median "
-          f"{med:.1f} (min {min(samples):.1f}, max {max(samples):.1f}, {len(samples)} "
-          f"runs from the settled state, the parity run first), fused_frac "
+          f"{med:.1f} (min {min(samples):.1f}, max {max(samples):.1f}, the parity run "
+          f"and {line['reps']} bench reps, from the settled state), fused_frac "
           f"{fused_frac:.4f}; mttr_rounds {report['mttr_rounds']}, reelections "
           f"{report['reelections']}, commit_stall_group_rounds "
           f"{report['commit_stall_group_rounds']}, actions {report['actions']}; "
@@ -3744,6 +3758,121 @@ def phase_driver(dev, cpu_ref):
     return res
 
 
+# --- the bench entry point (python -m raft_tpu_torch.bench) -------------------
+
+BENCH_FUSED_REPS, BENCH_SCENARIO_REPS = 5, 1
+# (name, the bench's flags, reps); the fused floor is the one the timing
+# phases hold (--health and the damped paths at 1.0).  The last mode runs
+# the autopilot over partition_heal.json, under which its transfer arm acts.
+BENCH_MODES = (
+    ("default", [], BENCH_FUSED_REPS),
+    ("health", ["--health", "--fused-floor", "1.0"], BENCH_FUSED_REPS),
+    ("lossy", ["--lossy", "0.01"], BENCH_FUSED_REPS),
+    ("check_quorum", ["--check-quorum", "--fused-floor", "1.0"], BENCH_FUSED_REPS),
+    ("check_quorum_health", ["--check-quorum", "--health", "--fused-floor", "1.0"],
+     BENCH_FUSED_REPS),
+    ("blackbox", ["--blackbox"], BENCH_FUSED_REPS),
+    ("composed", ["--lossy", "0.01", "--check-quorum"], BENCH_SCENARIO_REPS),
+    ("chaos", ["--chaos", CHAOS_PLAN], BENCH_SCENARIO_REPS),
+    ("chaos_cq", ["--chaos", CHAOS_PLAN, "--check-quorum"], BENCH_SCENARIO_REPS),
+    ("reconfig", ["--reconfig", RECONFIG_PLAN], BENCH_SCENARIO_REPS),
+    ("reconfig_cq", ["--reconfig", RECONFIG_PLAN, "--check-quorum"], BENCH_SCENARIO_REPS),
+    ("prod_fused", ["--prod-fused", PROD_PLAN], BENCH_SCENARIO_REPS),
+    ("reads", ["--reads", READS_PLAN], BENCH_SCENARIO_REPS),
+    ("autopilot", ["--autopilot"], BENCH_SCENARIO_REPS),
+    ("autopilot_transfer", ["--autopilot", "--autopilot-plan", CHAOS_PLAN],
+     BENCH_SCENARIO_REPS),
+)
+BENCH_PROFILE_DIR = os.path.join(HERE, "build", "bench-profile")
+
+
+def bench_samples(line):
+    """A scenario bench line's per-rep ticks/s (its reps are 1, or its min
+    and max bracket the median)."""
+    return [line["median"]] if line["reps"] == 1 else [line["min"], line["median"],
+                                                       line["max"]]
+
+
+@phase("bench")
+def phase_bench(dev):
+    """Every mode of `python -m raft_tpu_torch.bench` but --mesh at 100k x 5,
+    through its line builder (tbench.main prints each line as the command
+    line does), the launch counts zeroed just before each mode and read just
+    after; a mode with fused group-rounds must have launched its kernel.  A
+    safety count, a failed sanity check or a fused-floor miss exits
+    nonzero.  Then --profile over the default mode once, the suites with
+    --quick and the config-3 BASELINE row at 100k x 5."""
+    print(f"bench: {card_line()}; anchor host CPU: {host_cpu()}")
+    lines = {}
+    for name, flags, reps in BENCH_MODES:
+        zero_launches()
+        t0 = time.perf_counter()
+        line = tbench.main(flags + ["--reps", str(reps)])
+        sync()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        fused = line.get("fused_off", line)["fused_rounds"]
+        launched = sum(sum(c) for c in counts.values())
+        print(f"bench {name}: {secs:.1f} s, launches {counts}")
+        if fused and not launched:
+            raise AssertionError(f"bench {name}: {fused} fused group-rounds and no "
+                                 "fused kernel launch")
+        lines[name] = dict(line=line, seconds=secs, launches=counts)
+    transfers = lines["autopilot_transfer"]["line"]["actions"]["transfers"]
+    if not transfers:
+        raise AssertionError("bench --autopilot --autopilot-plan partition_heal.json: "
+                             "the transfer arm never acted at 100k")
+    print(f"bench: the autopilot's transfer arm acted at G={G}: {transfers} transfers")
+
+    t0 = time.perf_counter()
+    profiled = tbench.main(["--profile", BENCH_PROFILE_DIR, "--reps", "1",
+                            "--skip-anchor"])
+    secs = time.perf_counter() - t0
+    trace = os.path.join(BENCH_PROFILE_DIR, "trace.json")
+    with open(trace, encoding="utf-8") as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sum(1 for ev in events if ev.get("cat") == "kernel")
+    print(f"bench --profile: {secs:.1f} s, {trace} {os.path.getsize(trace)} bytes, "
+          f"{len(events)} events, {kernels} CUDA kernel records")
+    if not kernels:
+        print("bench --profile: the trace holds no CUDA kernel record")
+
+    t0 = time.perf_counter()
+    rows = suites.main(["--quick"])
+    rows.append(suites.baseline_config(*suites.BASELINE_CONFIGS[1], dev))
+    suites.print_table(rows[-1:])
+    print(f"suites: {time.perf_counter() - t0:.1f} s")
+    return dict(lines=lines, profile=dict(line=profiled, bytes=os.path.getsize(trace),
+                                          events=len(events), kernels=kernels),
+                suites=rows, card=card_line(), host_cpu=host_cpu())
+
+
+def host_cpu():
+    """The host CPU as the host reports it (the native anchor's hardware):
+    /proc/cpuinfo's model name and vendor, else lscpu's model name; the
+    machine type and the core count beside it."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo", encoding="utf-8") as fh:
+            for row in fh:
+                key, _, val = row.partition(":")
+                info.setdefault(key.strip().lower(), val.strip())
+    except OSError:
+        pass
+    if "model name" not in info:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            for row in out.splitlines():
+                key, _, val = row.partition(":")
+                info.setdefault(key.strip().lower(), val.strip())
+        except (OSError, subprocess.SubprocessError):
+            pass
+    model = info.get("model name") or "model not reported"
+    vendor = info.get("vendor_id") or info.get("vendor id") or "vendor not reported"
+    return f"{model} ({vendor}, {platform.machine()}, {os.cpu_count()} cores)"
+
+
 @phase("references")
 def phase_references(checks):
     """The deferred checks of the steady, lossy and check-quorum phases:
@@ -3797,6 +3926,10 @@ def main(argv=None):
         phase_wide(dev, steady_wide_st, chaos_wide_st, damped_wide_st)
         print("quick: every kernel variant equals its plain version on the card")
         return 0
+    # The bench's loops are host-bound: they run before the reference workers
+    # load the host.
+    bench_out = phase_bench(dev)
+    lines = {name: v["line"] for name, v in bench_out["lines"].items()}
     # The CPU references run in reference worker processes while the card
     # works: first the ones that need nothing of the card, in the order the
     # card's phases wait for them, then each as its input exists.  The
@@ -3837,15 +3970,17 @@ def main(argv=None):
         damped = phase_damped_timing(dev, st)
         steady_h, damped_h, lossy_h = phase_health_timing(
             dev, {"steady": steady_run, "lossy": lossy_run, "damped": damped_run})
-        scenario, scenario_off = phase_chaos_scenario(dev, cpu_runs)
-        composed = phase_composed_timing(dev, settled)
+        scenario, scenario_off = phase_chaos_scenario(dev, cpu_runs, bench_out["lines"])
+        composed = phase_composed_timing(dev, settled, lines["composed"])
         steady_hybrid_fused = phase_steady_hybrid(dev, st_main)
         composed_launches, composed_err, composed_branches = phase_composed(
             dev, settled, cpu_run)
-        reconfig_out = phase_reconfig(dev, cpu_reconfig_runs)
-        prod_launches, prod_err, prod = phase_prod_fused(dev, cpu_prod_run)
-        reads_launches, reads_err, reads = phase_reads(dev, cpu_reads_run)
-        auto_launches, auto_err, auto = phase_autopilot(dev, cpu_auto_run, pool)
+        reconfig_out = phase_reconfig(dev, cpu_reconfig_runs, bench_out["lines"])
+        prod_launches, prod_err, prod = phase_prod_fused(dev, cpu_prod_run,
+                                                         lines["prod_fused"])
+        reads_launches, reads_err, reads = phase_reads(dev, cpu_reads_run, lines["reads"])
+        auto_launches, auto_err, auto = phase_autopilot(dev, cpu_auto_run, pool,
+                                                        lines["autopilot"])
         blackbox = phase_forensics(dev, cpu_bb_run, scenario_off,
                                    steady["ticks_per_s_median"])
         compiled_out = phase_compiled(dev, cpu_compiled_run, settled, scenario_off)
@@ -3897,7 +4032,8 @@ def main(argv=None):
                 "lossy_health_kernel": lossy_h, "chaos_scenario": scenario,
                 "composed": composed, "reconfig": reconfig_out, "prod_fused": prod,
                 "reads": reads, "autopilot": auto, "blackbox": blackbox,
-                "compiled": compiled_out, "wide": wide, "driver": driver},
+                "compiled": compiled_out, "wide": wide, "driver": driver,
+                "bench": bench_out},
                 "composed_branches": composed_branches,
                 "steady_hybrid_fused": steady_hybrid_fused}, fh, indent=1,
                 default=str)

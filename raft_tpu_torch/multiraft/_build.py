@@ -34,6 +34,10 @@ NVCC_FLAGS = [
 # The host builds only check the kernels' arithmetic on small planes: -O0
 # builds the wide damped body in seconds where -O2 takes over half a minute.
 GXX_FLAGS = ["-std=c++17", "-O0", "-shared", "-fPIC", "-Wno-unknown-pragmas"]
+# The native CPU anchor (csrc/multiraft_engine.cpp) is the baseline the
+# bench's vs_baseline divides by, so it builds optimised, as the reference
+# engine does.
+NATIVE_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 # Peer counts above this are built from the *_wide sources (P = 8..15, and
 # the steady kernel's runtime-P instance up to its cap).
 NARROW_PEERS = 7
@@ -217,3 +221,15 @@ def load_graph_cuda() -> ctypes.CDLL:
                                      ctypes.POINTER(ctypes.c_ulonglong)]
     lib.graph_node_count.restype = ctypes.c_int
     return lib
+
+
+def load_native_engine() -> ctypes.CDLL:
+    """The native multi-group Raft engine (csrc/multiraft_engine.cpp) built
+    with g++ at -O3 into build/; a failed build raises RuntimeError.  The
+    caller declares its C functions (multiraft/native.py)."""
+
+    def build():
+        return _build("multiraft_engine", [_gxx()],
+                      [CSRC / "multiraft_engine.cpp"], NATIVE_FLAGS)
+
+    return _load("multiraft_engine", build)

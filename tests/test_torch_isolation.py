@@ -47,14 +47,24 @@ def _imports(tree):
 def test_every_multiraft_module_is_scanned():
     """The AST scan covers the registries, the unified runner, the
     checkpoint, the graph helper and the host driver with the rest of the
-    package, and the scalar copies and the node examples the driver runs."""
+    package, the scalar copies, the node and scalar examples, the bench,
+    profiling, the native anchor, the report tools and the suites."""
     names = {p.stem for p in _sources() if p.parent.name == "multiraft"}
     assert {"planes", "schedules", "runner", "checkpoint", "graphs", "sim",
             "driver"} <= names
     scalar = {p.stem for p in _sources() if p.parent.name == "scalar"}
     assert {"raw_node", "status", "metrics", "codec"} <= scalar
     examples = {p.stem for p in _sources() if p.parent.name == "examples"}
-    assert {"multiraft_node", "multiraft_tcp"} <= examples
+    assert {"multiraft_node", "multiraft_tcp", "single_mem_node", "five_mem_node",
+            "tcp_cluster"} <= examples
+    assert "native" in names
+    root = {p.stem for p in _sources() if p.parent.name == "raft_tpu_torch"}
+    assert {"bench", "profiling"} <= root
+    tools = {p.stem for p in _sources() if p.parent.name == "tools"}
+    assert {"chaos_churn_report", "reconfig_report", "autopilot_report",
+            "forensics_smoke"} <= tools
+    benches = {p.stem for p in _sources() if p.parent.name == "benches"}
+    assert "suites" in benches
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -99,8 +109,13 @@ def test_importing_the_port_loads_no_reference_module():
     assert "raft_tpu_torch.multiraft.reconfig" in new
     for mod in ("planes", "schedules", "runner", "checkpoint", "graphs", "driver"):
         assert "raft_tpu_torch.multiraft." + mod in new
-    for mod in ("multiraft_node", "multiraft_tcp"):
+    for mod in ("multiraft_node", "multiraft_tcp", "single_mem_node",
+                "five_mem_node", "tcp_cluster"):
         assert "raft_tpu_torch.examples." + mod in new
+    for mod in ("bench", "profiling", "multiraft.native", "benches.suites",
+                "tools.chaos_churn_report", "tools.reconfig_report",
+                "tools.autopilot_report", "tools.forensics_smoke"):
+        assert "raft_tpu_torch." + mod in new
     for sub in ("eraftpb", "errors", "util", "confchange.changer",
                 "confchange.restore", "quorum.joint", "quorum.majority",
                 "tracker.inflights", "tracker.progress", "tracker.state",
