@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--out results.json]
 
 Eleven paths at 100,000 groups × 5 peers, the fused kernels past P = 7,
-the host driver at 3 × 10,000 groups, and the port's bench entry point
-(`python -m raft_tpu_torch.bench`) in every mode but --mesh.  Three with one append per
-group per round (bench.py's bench_device), each bare and instrumented
+the host driver at 3 × 10,000 groups, the port's bench entry point
+(`python -m raft_tpu_torch.bench`) in every mode, and the multi-GPU path
+(ClusterSim(mesh=): `--mesh 1` at 1M × 3, and two ranks sharing the card).
+Three with one append per group per round (bench.py's bench_device), each bare and instrumented
 (bench.py --health: the counter plane and the health planes ride every
 round, and the fused blocks run each kernel's with_health variant):
 
@@ -87,7 +88,8 @@ The host driver: examples/multiraft_node.py's node, 3 MultiRaft drivers
 (peer ids 1-3) of 10,000 groups each with the tick on the card.
 
 Phases, in order, each with its wall seconds; any failure raises and the
-script exits nonzero.  Every CPU run goes to one of two worker processes
+script exits nonzero.  Every settle of a path runs through
+ClusterSim.run_compiled, equal to as many eager rounds (phase 22).  Every CPU run goes to one of two worker processes
 (spawned at the start) and runs while the card works: those that need
 nothing of the card are queued first, the others as their input exists;
 phases 13, 16 to 22 and 22a wait for theirs, and the checks of phases 4,
@@ -318,14 +320,31 @@ printed as bench.py --health-out writes it.
                    driver and status() but its metrics; the election and
                    steady timings, the tick's sync latency, the active and
                    ready-scan shares, and a profile of 4 ticks a driver
+22b. mesh          `python -m raft_tpu_torch.bench --mesh 1 --groups 1000000`
+                   (config 5: one NCCL rank; its line printed) with its end
+                   state == an unsharded run_compiled over the same segments;
+                   2 gloo ranks sharing the card at 100k x 5 (sharding.launch:
+                   run_compiled(64) from the election storm, the lossy path's
+                   compiled settle and 2 fused chaos blocks, prod_fused.json's
+                   compiled settle and run_reconfig(split=True, k=8)) == the
+                   same paths unsharded on the card (end states, the health
+                   planes, the report with fused_frac, the fused counts), the
+                   launch counts zeroed just before each fused path and summed
+                   over the ranks just after; the chaos kernel (k=32) and the
+                   damped kernel's with_loss with_health instance (k=8) at
+                   group bases 50,000 and 8,300,000 == their plain versions
+                   and the slices of whole-batch launches, each timed at base
+                   50,000 on 50,000 groups against its bound
  23. references    the held-back checks of phases 4, 4a, 7 and 10 against
                    their CPU runs
- 24. report        one JSON line of the thirteen kernel rows (the six
+ 24. report        one JSON line of the fifteen kernel rows (the six
                    variants, the damped kernel's with_loss instance, its
                    with_loss with_health instance at k=8, its no-loss
                    with_health instance at k=8, the chaos kernel's
-                   with_health instance at k=16, and each kernel's P=8
-                   instance), then the device line last
+                   with_health instance at k=16, each kernel's P=8 instance,
+                   and the chaos and damped with_loss with_health k=8
+                   instances at a mesh rank's group base), then the device
+                   line last
 
 With --quick it runs phases 1 to 3, 6, 9 and 9a only (the builds and every
 kernel against its plain version) and prints no result.  Exits 2 without a
@@ -1097,12 +1116,22 @@ def lossy_cfg(n_groups, n_peers=P):
     return sim.SimConfig(n_groups=n_groups, n_peers=n_peers, election_tick=LOSSY_TICK)
 
 
+def compiled_settle(cfg, device, rounds, append=None, masks=()):
+    """init_state (from `masks`) and `rounds` rounds of `append` (one a
+    group by default) with no extras, through ClusterSim.run_compiled: the
+    same state as as many sim.step calls (the compiled phase holds
+    run_compiled to run), in a fraction of the eager rounds' time."""
+    s = sim.ClusterSim(cfg._replace(collect_counters=False, collect_health=False),
+                       *masks, device=device)
+    if append is None:
+        append = torch.ones(cfg.n_groups, dtype=torch.int32, device=s.device)
+    s.run_compiled(rounds, append_n=append)
+    return s.state
+
+
 def lossy_settle(device, n_groups, n_peers=P):
     """init_state and LOSSY_SETTLE plain rounds of one append per group."""
-    s = sim.ClusterSim(lossy_cfg(n_groups, n_peers), device=device)
-    s.run(LOSSY_SETTLE, None,
-          torch.ones(n_groups, dtype=torch.int32, device=s.device))
-    return s.state
+    return compiled_settle(lossy_cfg(n_groups, n_peers), device, LOSSY_SETTLE)
 
 
 def uniform_loss(n_groups, n_peers, dev):
@@ -1312,9 +1341,7 @@ def damped_cfg(n_groups, n_peers=P, pre_vote=False):
 
 def damped_settle(device, n_groups, n_peers=P, pre_vote=False):
     """init_state and CQ_SETTLE damped rounds of one append per group."""
-    s = sim.ClusterSim(damped_cfg(n_groups, n_peers, pre_vote), device=device)
-    s.run(CQ_SETTLE, None, torch.ones(n_groups, dtype=torch.int32, device=s.device))
-    return s.state
+    return compiled_settle(damped_cfg(n_groups, n_peers, pre_vote), device, CQ_SETTLE)
 
 
 def random_damped_inputs(n_peers, n_groups, seed, device, loss):
@@ -2397,14 +2424,8 @@ def prod_settle(device, n_groups):
     """bench_prod_fused's settle: init_state from the plan's bootstrap masks,
     then PROD_SETTLE general rounds of one append a group (no extras)."""
     plan, _ = plan_docs(PROD_PLAN)
-    cfg = prod_cfg(n_groups)
-    st = sim.init_state(cfg, *reconfig.initial_masks(plan, n_groups, device),
-                        device=device)
-    crashed = torch.zeros((P, n_groups), dtype=torch.bool, device=device)
-    append = torch.ones(n_groups, dtype=torch.int32, device=device)
-    for _ in range(PROD_SETTLE):
-        st = sim.step(cfg, st, crashed, append)
-    return st
+    return compiled_settle(prod_cfg(n_groups), device, PROD_SETTLE,
+                           masks=reconfig.initial_masks(plan, n_groups, device))
 
 
 def prod_runner(start, rounds=None):
@@ -2594,13 +2615,7 @@ def reads_cfg(n_groups):
 def reads_settle(device, n_groups):
     """bench_reads' settle: init_state, then READS_SETTLE steps of one append
     a group (no extras)."""
-    cfg = reads_cfg(n_groups)
-    st = sim.init_state(cfg, device=device)
-    crashed = torch.zeros((P, n_groups), dtype=torch.bool, device=device)
-    append = torch.ones(n_groups, dtype=torch.int32, device=device)
-    for _ in range(READS_SETTLE):
-        st = sim.step(cfg, st, crashed, append)
-    return st
+    return compiled_settle(reads_cfg(n_groups), device, READS_SETTLE)
 
 
 def sliced_schedule(plan, n_groups, n, device):
@@ -2891,13 +2906,8 @@ def auto_append(n_groups, device):
 def auto_settle(device, n_groups):
     """bench_autopilot's settle: init_state, then AUTO_SETTLE plain steps with
     the workload plane (the transfer pump runs every round)."""
-    cfg = auto_cfg(n_groups)
-    st = sim.init_state(cfg, device=device)
-    crashed = torch.zeros((P, n_groups), dtype=torch.bool, device=device)
-    append = auto_append(n_groups, device)
-    for _ in range(AUTO_SETTLE):
-        st = sim.step(cfg, st, crashed, append)
-    return st
+    return compiled_settle(auto_cfg(n_groups), device, AUTO_SETTLE,
+                           auto_append(n_groups, device))
 
 
 def auto_run(start, fused=True, segments=None):
@@ -3873,6 +3883,274 @@ def host_cpu():
     return f"{model} ({vendor}, {platform.machine()}, {os.cpu_count()} cores)"
 
 
+# --- multi-GPU (ClusterSim(mesh=), bench --mesh) -------------------------------
+
+MESH_G = 1_000_000  # BASELINE config 5: 1M groups x 3 peers
+MESH_REPS = 2
+MESH_RANKS = 2  # gloo ranks sharing the one card
+MESH_BASES = (50_000, 8_300_000)  # kernel group bases: rank 1's, and near 2**23
+MESH_COMPILED_ROUNDS = 64
+MESH_LOSSY_BLOCKS = 2
+
+
+def mesh_prod_cfg(n_groups):
+    """The split prod run's config on the mesh: prod_cfg without counters
+    (ClusterSim.run_reconfig(split=True) refuses a 256-round plan past the
+    counter drain cap at this width)."""
+    return prod_cfg(n_groups)._replace(collect_counters=False)
+
+
+def mesh_paths(s_plain, s_lossy, s_prod, mesh=None):
+    """The mesh phase's three paths on three ClusterSims (each a rank's
+    block on `mesh`, or unsharded): run_compiled(64) of the plain round from
+    the election storm; the lossy path (LOSSY_SETTLE compiled rounds, then
+    fast_multi_round(k=32, with_chaos=True) blocks under 1% loss); the prod
+    plan's settle (PROD_SETTLE compiled rounds) and run_reconfig(split=True,
+    k=8).  The launch counts are zeroed just before each fused path and read
+    just after (summed over the ranks on a mesh).  Returns the whole batch's
+    end states, the health planes, the report, the fused counts, the
+    launches and the seconds of each path."""
+    from raft_tpu_torch.multiraft import sharding
+
+    dev, n_groups = s_plain.device, s_plain.cfg.n_groups
+    ones = torch.ones(n_groups, dtype=torch.int32, device=dev)
+    total = (lambda n: n) if mesh is None else (
+        lambda n: int(sharding.reduce_i32(mesh, n, "sum").item()))
+    whole = (lambda t: t) if mesh is None else (
+        lambda t: sharding.gather_groups(mesh, t, n_groups))
+
+    def state(s):
+        st = s.state if mesh is None else sharding.gather_state(mesh, s.state, n_groups)
+        return sim.state_to_numpy(st)
+
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    s_plain.run_compiled(MESH_COMPILED_ROUNDS, append_n=ones)
+    sync()
+    secs["plain"] = time.perf_counter() - t0
+    out["plain"] = state(s_plain)
+
+    t0 = time.perf_counter()
+    s_lossy.run_compiled(LOSSY_SETTLE, append_n=ones)
+    lcfg = s_lossy._lcfg
+    n = lcfg.n_groups
+    link = torch.ones((P, P, n), dtype=torch.bool, device=dev)
+    loss = uniform_loss(n, P, dev)
+    fast = fused_step.fast_multi_round(lcfg, k=K, with_chaos=True, count_fused=True)
+    (crashed_l, append_l) = s_lossy._block(
+        torch.zeros((P, n_groups), dtype=torch.bool, device=dev), ones)
+    zero_launches()
+    st, fused = s_lossy.state, 0
+    for b in range(MESH_LOSSY_BLOCKS):
+        st, fused = fast(st, crashed_l, append_l, link, loss, LOSSY_SETTLE + b * K, fused)
+    sync()
+    lossy_launches = total(chaos_rounds.launches)
+    s_lossy.state = st
+    secs["lossy"] = time.perf_counter() - t0
+    out["lossy"] = state(s_lossy)
+    out["lossy_fused"] = total(fused)
+
+    plan, chaos_plan = plan_docs(PROD_PLAN)
+    t0 = time.perf_counter()
+    s_prod.run_compiled(PROD_SETTLE, append_n=ones)
+    sync()
+    secs["prod_settle"] = time.perf_counter() - t0
+    zero_launches()
+    t0 = time.perf_counter()
+    report = s_prod.run_reconfig(plan, chaos_plan=chaos_plan, split=True,
+                                 split_k=PROD_K, split_window=PROD_WINDOW)
+    sync()
+    secs["prod"] = time.perf_counter() - t0
+    prod_launches = total(damped_rounds.health_launches)
+    out["prod"] = state(s_prod)
+    out["prod_health"] = whole(s_prod._health.planes).cpu().numpy()
+    out["prod_report"] = report
+    out["launches"] = {"chaos": lossy_launches, "damped": prod_launches}
+    out["seconds"] = secs
+    return out
+
+
+def mesh_sims(dev, mesh=None, n_groups=G):
+    """The three ClusterSims of mesh_paths at n_groups x P on `mesh` (or
+    unsharded on `dev`)."""
+    plan, _ = plan_docs(PROD_PLAN)
+    kw = dict(mesh=mesh) if mesh is not None else dict(device=dev)
+    return (sim.ClusterSim(sim.SimConfig(n_groups=n_groups, n_peers=P), **kw),
+            sim.ClusterSim(lossy_cfg(n_groups), **kw),
+            sim.ClusterSim(mesh_prod_cfg(n_groups),
+                           *reconfig.initial_masks(plan, n_groups, dev), **kw))
+
+
+def mesh_rank(mesh, n_groups=G):
+    """One gloo rank sharing the card: its block of mesh_paths' sims."""
+    return mesh_paths(*mesh_sims(mesh.device, mesh, n_groups), mesh=mesh)
+
+
+def same_mesh_paths(a, b, note):
+    for path in ("plain", "lossy", "prod"):
+        for f, v in b[path].items():
+            if not np.array_equal(a[path][f], v):
+                raise AssertionError(f"{note}: {path} differs in {f}")
+    if not np.array_equal(a["prod_health"], b["prod_health"]):
+        raise AssertionError(f"{note}: prod health planes differ")
+    if a["prod_report"] != b["prod_report"]:
+        raise AssertionError(f"{note}: prod reports differ {a['prod_report']} "
+                             f"{b['prod_report']}")
+    if a["lossy_fused"] != b["lossy_fused"]:
+        raise AssertionError(f"{note}: fused counts differ {a['lossy_fused']} "
+                             f"{b['lossy_fused']}")
+
+
+def base_checks(kernel, reference, names, args, kw, note):
+    """`kernel` at each MESH_BASES base on the operands' groups from the
+    first base on: equal to its plain version at that base, and to the same
+    slice of one launch over all the operands from that base minus the
+    slice's offset.  Returns the max |difference| (0)."""
+    lo = MESH_BASES[0]
+    err = 0
+    for base in MESH_BASES:
+        part = tuple(a[..., lo:].contiguous() for a in args)
+        got = kernel(*part, **kw, group_base=base)
+        err = max(err, compare(kernel, reference, names, part,
+                               dict(kw, group_base=base), f"{note} group_base={base}"))
+        whole = kernel(*args, **kw, group_base=base - lo)
+        for name, g, w in zip(names, got, whole):
+            if not torch.equal(g, w[..., lo:]):
+                raise AssertionError(f"{note} group_base={base}: {name} differs from "
+                                     "the whole-batch launch's slice")
+    return err
+
+
+@phase("mesh")
+def phase_mesh(dev):
+    """The multi-GPU slice on the one card.  `python -m raft_tpu_torch.bench
+    --mesh 1 --groups 1000000` (config 5, NCCL, world 1) with its end state
+    equal to an unsharded run_compiled over the same segments; MESH_RANKS
+    gloo ranks sharing the card at G x P (mesh_paths: run_compiled(64) from
+    the election storm, the lossy path, the prod plan's split run) equal to
+    the same paths unsharded on the card, the launch counts of the lossy
+    and prod paths summed over the ranks; then the chaos kernel (k=32) and
+    the damped kernel's with_loss with_health instance (k=8) at group bases
+    50,000 and 8,300,000 against their plain versions and the slices of
+    whole-batch launches, and each timed at base 50,000 on 50,000 groups.
+    Returns the two kernel rows' (launches, error, timing) and the mesh
+    numbers."""
+    import tempfile
+
+    out = {}
+    # 1. bench --mesh 1 at 1M x 3, held to an unsharded run on the card.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh_state.npz")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "raft_tpu_torch.bench", "--mesh", "1", "--groups",
+             str(MESH_G), "--reps", str(MESH_REPS), "--mesh-state", path],
+            cwd=HERE, capture_output=True, text=True, timeout=600,
+        )
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"bench --mesh 1 exited {res.returncode}:\n"
+                                 f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        print(json.dumps(line))
+        if not (line["n_devices"] == 1 and line["n_leaders"] > 0 and line["total_commit"] > 0):
+            raise AssertionError(f"bench --mesh 1: bad line {line}")
+        cfg = tbench.mesh_config(MESH_G)
+        s = sim.ClusterSim(cfg, device=dev)
+        ones = torch.ones(MESH_G, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        for rounds in tbench.mesh_rounds(False, MESH_REPS):
+            s.run_compiled(rounds, append_n=ones)
+        sync()
+        local_s = time.perf_counter() - t0
+        got = np.load(path)
+        for f, v in sim.state_to_numpy(s.state).items():
+            if not np.array_equal(got[f], v):
+                raise AssertionError(f"bench --mesh 1: the end state differs in {f}")
+        del s, got, ones
+    rounds = sum(tbench.mesh_rounds(False, MESH_REPS))
+    out["bench_mesh1"] = dict(line=line, wall_s=wall, unsharded_s=local_s, rounds=rounds)
+    print(f"mesh: bench --mesh 1 at {MESH_G}x{tbench.MESH_PEERS} [{card_line()}]: "
+          f"{line['median']:.1f} ticks/s median over {MESH_REPS} reps, n_leaders "
+          f"{line['n_leaders']}, total_commit {line['total_commit']}, per-card plane "
+          f"bytes {line['per_chip_plane_bytes']['total_per_chip']}; its end state after "
+          f"{rounds} rounds == an unsharded run_compiled over the same segments "
+          f"({local_s:.2f}s on the card); the command {wall:.1f}s wall")
+    torch.cuda.empty_cache()
+
+    # 2. MESH_RANKS gloo ranks sharing the card, held to the paths unsharded.
+    from raft_tpu_torch.multiraft import sharding
+
+    t0 = time.perf_counter()
+    ranks = sharding.launch(MESH_RANKS, mesh_rank, devices=[dev] * MESH_RANKS,
+                            timeout=900)
+    ranks_wall = time.perf_counter() - t0
+    local_sims = mesh_sims(dev)
+    local = mesh_paths(*local_sims)
+    same_mesh_paths(ranks, local, f"{MESH_RANKS} gloo ranks vs unsharded")
+    # Each rank launches the fused kernel over its own block for every block
+    # the whole batch fuses.
+    if (min(local["launches"].values()) < 1 or ranks["launches"]
+            != {k: MESH_RANKS * v for k, v in local["launches"].items()}):
+        raise AssertionError(f"mesh: launches {ranks['launches']} on the ranks, "
+                             f"{local['launches']} unsharded")
+    if any(ranks["prod_report"]["safety"].values()):
+        raise AssertionError(f"mesh: safety violations {ranks['prod_report']['safety']}")
+    rep = ranks["prod_report"]
+    print(f"mesh: {MESH_RANKS} gloo ranks on the card at {G}x{P} == unsharded on the "
+          f"card: run_compiled({MESH_COMPILED_ROUNDS}) from the election storm, the lossy "
+          f"path ({LOSSY_SETTLE} compiled rounds + {MESH_LOSSY_BLOCKS} fused blocks, "
+          f"fused {ranks['lossy_fused']}), prod_fused.json split k={PROD_K} (report, "
+          f"fused_frac {rep['fused_frac']}, health planes); launches summed over the "
+          f"ranks {ranks['launches']} ({local['launches']} unsharded); rank 0's "
+          f"seconds {ranks['seconds']} "
+          f"(launch to result {ranks_wall:.1f}s), unsharded {local['seconds']}")
+    out["ranks"] = dict(seconds=ranks["seconds"], wall_s=ranks_wall,
+                        unsharded_seconds=local["seconds"], launches=ranks["launches"],
+                        fused_frac=rep["fused_frac"], lossy_fused=ranks["lossy_fused"])
+
+    # 3. The kernels at a nonzero group base, on the unsharded lossy path's
+    # end state and the prod plan's end state.
+    crashed = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    ckw = dict(round_base=LOSSY_SETTLE + MESH_LOSSY_BLOCKS * K, rounds=K,
+               election_tick=LOSSY_TICK, heartbeat_tick=1)
+    cargs = fused_step.chaos_operands(local_sims[1].state, crashed, append,
+                                      uniform_loss(G, P, dev))
+    chaos_err = base_checks(chaos_rounds, chaos_rounds_reference, CHAOS_OUTPUTS,
+                            cargs, ckw, "chaos k=32")
+    plan, chaos_plan = plan_docs(PROD_PLAN)
+    cc = chaos.compile_plan(chaos_plan, G, dev)
+    lossy_r0 = int(torch.nonzero(cc.phase_of_round == 1)[0])
+    _, ploss, pcrashed, _ = chaos.schedule_planes(cc, lossy_r0)
+    dkw = dict(round_base=lossy_r0, rounds=PROD_K, election_tick=PROD_TICK,
+               heartbeat_tick=1, with_cq=True)
+    prod_sim = local_sims[2]
+    dargs = fused_step.damped_operands(prod_sim.state, pcrashed, append, ploss,
+                                       prod_sim._health.planes[pk.HP_SINCE_COMMIT])
+    damped_err = base_checks(damped_rounds, damped_rounds_reference,
+                             DAMPED_OUTPUTS + ("tsc",), dargs, dkw,
+                             f"damped with_loss with_health k={PROD_K}")
+    lo = MESH_BASES[0]
+    n = G - lo
+    part_c = tuple(a[..., lo:].contiguous() for a in cargs)
+    part_d = tuple(a[..., lo:].contiguous() for a in dargs)
+    tc = kernel_times(dev, chaos_rounds, chaos_rounds_reference, part_c,
+                      dict(ckw, group_base=lo), chaos_work(P, n, K))
+    td = kernel_times(dev, damped_rounds, damped_rounds_reference, part_d,
+                      dict(dkw, group_base=lo),
+                      damped_work(P, n, PROD_K, with_loss=True, with_health=True))
+    for label, t in (("chaos k=32", tc), (f"damped with_loss with_health k={PROD_K}", td)):
+        print(f"mesh: {label} at group_base {lo} on {n} groups [{t['card']}]: "
+              f"{t['ms']:.4f} ms cold ({t['hot_ms']:.4f} hot), plain version "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    print(f"mesh: chaos and damped kernels at group_base {MESH_BASES} == their plain "
+          "versions and the slices of whole-batch launches, exact")
+    out.update(chaos_kernel=tc, damped_kernel=td)
+    return ((ranks["launches"]["chaos"], chaos_err, tc),
+            (ranks["launches"]["damped"], damped_err, td), out)
+
+
 @phase("references")
 def phase_references(checks):
     """The deferred checks of the steady, lossy and check-quorum phases:
@@ -3988,6 +4266,7 @@ def main(argv=None):
         # card's driver run and not the timed loops of the phases before.
         driver = phase_driver(dev, pool.submit(cpu_driver))
         del scenario_off
+        mesh_chaos, mesh_damped, mesh_out = phase_mesh(dev)
         phase_references(checks)
 
     rows = (
@@ -4022,7 +4301,14 @@ def main(argv=None):
         for label, source, replaces, err in (
             ("steady", STEADY_WIDE_SOURCE, STEADY_REPLACES, steady_wide_err),
             ("chaos", CHAOS_WIDE_SOURCE, CHAOS_REPLACES, chaos_wide_err),
-            ("damped", DAMPED_WIDE_SOURCE, DAMPED_REPLACES, damped_wide_err))]}
+            ("damped", DAMPED_WIDE_SOURCE, DAMPED_REPLACES, damped_wide_err))] + [
+        kernel_entry(f"chaos_rounds with_health=False group_base={MESH_BASES[0]}",
+                     CHAOS_SOURCE, f"{CHAOS_REPLACES} (a mesh rank's block)",
+                     *mesh_chaos),
+        kernel_entry(f"damped_rounds with_loss=True with_health=True k={PROD_K} "
+                     f"group_base={MESH_BASES[0]}", DAMPED_SOURCE,
+                     f"{DAMPED_REPLACES} (with_loss=True, with_health=True, "
+                     f"k={PROD_K}, a mesh rank's block)", *mesh_damped)]}
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w", encoding="utf-8") as fh:
@@ -4033,7 +4319,7 @@ def main(argv=None):
                 "composed": composed, "reconfig": reconfig_out, "prod_fused": prod,
                 "reads": reads, "autopilot": auto, "blackbox": blackbox,
                 "compiled": compiled_out, "wide": wide, "driver": driver,
-                "bench": bench_out},
+                "bench": bench_out, "mesh": mesh_out},
                 "composed_branches": composed_branches,
                 "steady_hybrid_fused": steady_hybrid_fused}, fh, indent=1,
                 default=str)

@@ -32,8 +32,12 @@ docstring for what each mode measures.  What differs:
   * `--check` keys the baseline `metric@torch-<device type>@gGROUPS`, so
     no entry of the JAX package's runs (`...@cpu@g256`, `...@tpu@...`)
     ever gates the port, nor the port's CPU runs its card runs.
-  * `--mesh` (the sharded config-5 bench) raises NotImplementedError: the
-    multi-GPU slice (ROADMAP A13) is not ported.
+  * `--mesh N` (the sharded config-5 bench) launches N ranks itself
+    (multiraft.sharding.launch): one rank a card over NCCL, or with
+    `--device cpu` N CPU ranks over gloo; rank 0 prints the line, its
+    ticks/s over the slowest rank's time a rep.  N above the visible cards
+    exits 2.  `--mesh-state FILE` also writes the whole batch's end state
+    (.npz, by SimState field), so a caller can hold it to an unsharded run.
   * `--device` (default `cuda`) picks the device; there is no compile cache.
 
 `main(argv)` returns the line it prints, so a caller driving the bench from
@@ -752,6 +756,140 @@ def bench_reads(
     }
 
 
+MESH_PEERS = 3  # BASELINE.json config 5: 1M groups x 3 peers
+MESH_ROUNDS_PER_SCAN = 64
+MESH_SCANS = 6
+
+
+def mesh_plane_bytes(cfg, n_devices: int) -> dict:
+    """Analytic per-card bytes of the sharded fleet state: the [P, P, G]
+    pairwise planes broken out (the damped recent_active plane both as its
+    bool[P, P, G] plane and as the 32:1 packed words run_compiled's carry
+    holds), the per-peer [P, G] planes, and the resident total with
+    recent_active packed.  Every figure is per card: the group axis divides
+    across the mesh, the peer axes stay whole."""
+    import math
+
+    Gs = math.ceil(cfg.n_groups / n_devices)  # groups per card
+    Pn = cfg.n_peers
+    i32 = 4
+    damped = cfg.check_quorum or cfg.pre_vote
+    pairwise = {
+        "matched": Pn * Pn * Gs * i32,
+        "agree": Pn * Pn * Gs * i32,
+    }
+    if damped:
+        pairwise["recent_active_unpacked"] = Pn * Pn * Gs  # bool = 1 byte
+        pairwise["recent_active_packed"] = Pn * Pn * math.ceil(Gs / 32) * i32
+    # Per-peer planes: 11 int32 [P, G] cursors and timers + 3 bool config
+    # masks (+ the optional transferee plane).
+    per_peer = 11 * Pn * Gs * i32 + 3 * Pn * Gs
+    if cfg.transfer:
+        per_peer += Pn * Gs * i32
+    resident_pairwise = (
+        pairwise["matched"] + pairwise["agree"]
+        + pairwise.get("recent_active_packed", 0)
+    )
+    return {
+        "groups_per_chip": Gs,
+        "pairwise": pairwise,
+        "per_peer_total": per_peer,
+        "total_per_chip": resident_pairwise + per_peer,
+    }
+
+
+def mesh_config(groups: int, check_quorum: bool = False):
+    """The config-5 SimConfig of the mesh bench."""
+    from .multiraft.sim import SimConfig
+
+    return SimConfig(
+        n_groups=groups, n_peers=MESH_PEERS,
+        election_tick=64 if check_quorum else 10,
+        check_quorum=check_quorum, pre_vote=check_quorum,
+    )
+
+
+def mesh_rounds(check_quorum: bool, reps: int):
+    """The run_compiled segment lengths bench_mesh runs, in order: the
+    settle, the warm segment and reps x MESH_SCANS timed scans."""
+    settle = 3 * 64 if check_quorum else 30
+    return [settle, MESH_ROUNDS_PER_SCAN] + [MESH_ROUNDS_PER_SCAN] * (MESH_SCANS * reps)
+
+
+def _mesh_rank(mesh, groups: int, reps: int, check_quorum: bool, state_out: str) -> dict:
+    """One rank of bench_mesh: its block of the fleet bootstrapped in place
+    from the election storm, settled, warmed (the CUDA graph is captured),
+    then MESH_SCANS run_compiled scans a rep; a rep's time is the slowest
+    rank's, and the status is reduced over every rank."""
+    from .multiraft import sharding, sim
+
+    cfg = mesh_config(groups, check_quorum)
+    cs = sim.ClusterSim(cfg, mesh=mesh)
+    append = torch.ones((groups,), dtype=torch.int32, device=mesh.device)
+    segs = mesh_rounds(check_quorum, reps)
+    for rounds in segs[:2]:
+        cs.run_compiled(rounds, append_n=append)
+    _sync(mesh.device)
+    ticks = groups * MESH_ROUNDS_PER_SCAN * MESH_SCANS
+    samples = []
+    for _ in range(reps):
+        sharding.reduce_i32(mesh, 0)  # every rank starts the rep together
+        t0 = time.perf_counter()
+        for _ in range(MESH_SCANS):
+            cs.run_compiled(MESH_ROUNDS_PER_SCAN, append_n=append)
+        _sync(mesh.device)
+        us = int((time.perf_counter() - t0) * 1e6)
+        slowest = int(sharding.reduce_i32(mesh, us, "max").item())
+        samples.append(ticks / (slowest / 1e6))
+    status = sharding.global_status(cs.cfg, mesh)(cs.state)
+    assert status["n_leaders"] > 0, "mesh bench sanity: no leaders"
+    assert status["total_commit"] > 0, "mesh bench sanity: no commits"
+    if state_out:
+        whole = sharding.gather_state(mesh, cs.state, groups)
+        if mesh.rank == 0:
+            np.savez(state_out, **sim.state_to_numpy(whole))
+    stats = rep_stats(samples)
+    per_chip = {k: round(stats[k] / mesh.size, 1) for k in ("min", "median", "max")}
+    return {
+        **stats,
+        "n_devices": mesh.size,
+        "per_chip_ticks_per_sec": per_chip,
+        "per_chip_plane_bytes": mesh_plane_bytes(cfg, mesh.size),
+        "n_leaders": status["n_leaders"],
+        "total_commit": status["total_commit"],
+    }
+
+
+def bench_mesh(groups: int, n_devices: int, reps: int = REPS,
+               check_quorum: bool = False, device=None, state_out: str = "") -> dict:
+    """BASELINE config 5 on the mesh: groups x 3 peers from the
+    leader-election storm (init_state's randomized election clocks), split
+    over n_devices ranks that this call launches (one a card over NCCL;
+    with a CPU `device`, CPU ranks over gloo), each advancing its block as
+    ClusterSim(mesh=).run_compiled, a CUDA graph of one round on a card.
+    No rank builds a global [P, P, G] plane (sharding.sharded_init_state).
+    Reports total and per-card ticks/s, the analytic per-card plane bytes
+    and the status reduced over the ranks (n_leaders, total_commit).  More
+    ranks than visible cards exits 2; a rank's failure raises."""
+    from .multiraft import _build, sharding
+
+    dev = torch.device("cuda" if device is None else device)
+    devices = None
+    if dev.type == "cuda":
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if visible < n_devices:
+            print(f"ERROR: --mesh {n_devices} needs {n_devices} CUDA devices but "
+                  f"{visible} are visible; --device cpu runs CPU ranks",
+                  file=sys.stderr)
+            raise SystemExit(2)
+        # run_compiled's graph helper, built once here, not once a rank.
+        _build.load_graph_cuda()
+    else:
+        devices = [dev] * n_devices
+    return sharding.launch(n_devices, _mesh_rank, groups, reps, check_quorum,
+                           state_out, devices=devices)
+
+
 def bench_scalar_anchor(reps: int = REPS) -> dict:
     """The native-CPU anchor: the C++ engine (built at -O3) at
     ANCHOR_GROUPS x P, ANCHOR_ROUNDS rounds a rep after 25 settle rounds."""
@@ -922,6 +1060,9 @@ def parse_args(argv=None):
     ap.add_argument("--reads-out", default="", metavar="FILE")
     ap.add_argument("--blackbox", action="store_true")
     ap.add_argument("--mesh", type=int, default=0, metavar="N_DEVICES")
+    ap.add_argument("--mesh-state", default="", metavar="FILE",
+                    help="with --mesh, write the whole batch's end state "
+                         "(.npz by SimState field)")
     ap.add_argument("--cadence", type=int, default=16)
     ap.add_argument("--split-k", type=int, default=8)
     ap.add_argument("--split-window", type=int, default=4)
@@ -971,6 +1112,8 @@ def parse_args(argv=None):
                  "variant)")
     if args.mesh < 0:
         ap.error("--mesh needs a positive device count")
+    if args.mesh_state and not args.mesh:
+        ap.error("--mesh-state requires --mesh")
     if args.blackbox and (
         args.chaos or args.reconfig or args.prod_fused or args.autopilot
         or args.reads or args.mesh or args.health or args.lossy >= 0.0
@@ -994,6 +1137,23 @@ def _scenario_line(metric: str, groups: int, stats: dict, **flags) -> dict:
 
 def build_line(args) -> dict:
     """Run the mode `args` selects and return its JSON line (not printed)."""
+    if args.mesh:
+        mesh_stats = bench_mesh(
+            args.groups, args.mesh, args.reps, check_quorum=args.check_quorum,
+            device=args.device, state_out=args.mesh_state,
+        )
+        warn_spread("mesh device", mesh_stats)
+        line = {
+            "metric": "raft_ticks_per_sec_1m_groups_3_peers"
+            + ("_cq" if args.check_quorum else "") + "_sharded",
+            "value": mesh_stats["median"],
+            "unit": "ticks/sec",
+            "groups": args.groups,
+            **mesh_stats,
+        }
+        if args.check_quorum:
+            line["check_quorum"] = True
+        return line
     dev = resolve_device(args.device)
     if args.blackbox:
         bb_stats = bench_blackbox(args.groups, args.reps, device=dev)
@@ -1010,12 +1170,6 @@ def build_line(args) -> dict:
             **bb_stats,
         }
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh (the sharded config-5 bench, bench_mesh and "
-            "mesh_plane_bytes) belongs to the multi-GPU slice, ROADMAP A13, "
-            "which the port has not reached"
-        )
 
     if args.reads:
         stats = bench_reads(
@@ -1130,10 +1284,16 @@ def main(argv=None) -> dict:
     """Parse `argv` (default sys.argv[1:]), run the mode, print its JSON
     line, apply --fused-floor and --check, and return the line."""
     args = parse_args(argv)
-    resolve_device(args.device)  # no card and no --device cpu: raise first
+    if not args.mesh:
+        # No card and no --device cpu: raise first (--mesh exits 2 then).
+        resolve_device(args.device)
     line = build_line(args)
     print(json.dumps(line), flush=True)
     if args.blackbox:
+        return line
+    if args.mesh:
+        if args.check:
+            run_check(args, line)
         return line
     if not (args.chaos or args.reconfig):
         enforce_fused_floor(args, line)

@@ -50,8 +50,13 @@ Modules:
                   cross between the packages
   driver        — MultiRaft: G RawNodes behind one peer id, one device tick
                   a tick, host work only on the fired groups
+  sharding      — multi-GPU scale-out: the group axis split over the ranks
+                  of a torch.distributed process group (make_mesh, launch,
+                  the placement specs, the cross-rank reductions,
+                  global_status, ClusterSim(mesh=)'s bootstrap)
 """
 
+from . import sharding
 from .driver import MultiRaft
 from .fused_step import (
     fast_multi_round,
@@ -83,6 +88,7 @@ __all__ = [
     "hybrid_multi_round",
     "init_health",
     "init_state",
+    "sharding",
     "steady_predicate",
     "steady_round",
     "step",

@@ -61,6 +61,10 @@ _CHAOS_ARGS = [ctypes.c_void_p] * 27 + [ctypes.c_longlong] + [ctypes.c_int] * 6
 # 17 operands, 10 outputs; P, round_base, rounds, election_tick,
 # heartbeat_tick, with_cq and with_loss.
 _DAMPED_ARGS = [ctypes.c_void_p] * 29 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+# The chaos and damped launchers, and their hosts' `*_round_host_at`, take
+# the global id of the first group (group_base, the loss draw's group key)
+# after with_health.
+_BASE = [ctypes.c_longlong]
 
 
 def _nvcc() -> str:
@@ -164,12 +168,18 @@ def _cuda_kernel(kind: str, P: int, argtypes) -> ctypes.CDLL:
                     argtypes, (f"-DRAFT_WIDE_P={wide}",))
 
 
-def _host_kernel(kind: str, P: int, argtypes) -> ctypes.CDLL:
+def _host_kernel(kind: str, P: int, argtypes, base: bool = False) -> ctypes.CDLL:
     """The g++ build of kernel `kind`'s body holding P's instances:
     csrc/{kind}_host.cpp for P <= NARROW_PEERS, else csrc/{kind}_host_wide.cpp
-    (every wide P in one library); its `{kind}_round_host` declared."""
+    (every wide P in one library); its `{kind}_round_host` declared, and
+    with `base` also `{kind}_round_host_at`, which takes group_base last."""
     name = f"{kind}_host" if P <= NARROW_PEERS else f"{kind}_host_wide"
-    return _library(name, name + ".cpp", False, f"{kind}_round_host", argtypes)
+    lib = _library(name, name + ".cpp", False, f"{kind}_round_host", argtypes)
+    if base:
+        func = getattr(lib, f"{kind}_round_host_at")
+        func.argtypes = argtypes + _BASE
+        func.restype = ctypes.c_int
+    return lib
 
 
 def load_steady_cuda(P: int = 1) -> ctypes.CDLL:
@@ -187,27 +197,32 @@ def load_steady_host(P: int = 1) -> ctypes.CDLL:
 def load_chaos_cuda(P: int = 1) -> ctypes.CDLL:
     """The CUDA chaos-round library holding P's instances; its
     `chaos_round_launch` takes the 27 tensor pointers, G, P, round_base,
-    rounds, election_tick, heartbeat_tick, with_health and the CUDA
-    stream."""
-    return _cuda_kernel("chaos", P, _CHAOS_ARGS + [ctypes.c_void_p])
+    rounds, election_tick, heartbeat_tick, with_health, group_base and the
+    CUDA stream."""
+    return _cuda_kernel("chaos", P, _CHAOS_ARGS + _BASE + [ctypes.c_void_p])
 
 
 def load_chaos_host(P: int = 1) -> ctypes.CDLL:
-    """The host build of the chaos kernel body (g++), for the CPU tests."""
-    return _host_kernel("chaos", P, _CHAOS_ARGS)
+    """The host build of the chaos kernel body (g++), for the CPU tests:
+    `chaos_round_host` takes the launcher's arguments up to with_health,
+    `chaos_round_host_at` group_base after them."""
+    return _host_kernel("chaos", P, _CHAOS_ARGS, base=True)
 
 
 def load_damped_cuda(P: int = 1) -> ctypes.CDLL:
     """The CUDA damped-round library holding P's instances; its
     `damped_round_launch` takes the 29 tensor pointers (the loss_rate
     pointer null without loss), G, P, round_base, rounds, election_tick,
-    heartbeat_tick, with_cq, with_loss, with_health and the CUDA stream."""
-    return _cuda_kernel("damped", P, _DAMPED_ARGS + [ctypes.c_void_p])
+    heartbeat_tick, with_cq, with_loss, with_health, group_base and the
+    CUDA stream."""
+    return _cuda_kernel("damped", P, _DAMPED_ARGS + _BASE + [ctypes.c_void_p])
 
 
 def load_damped_host(P: int = 1) -> ctypes.CDLL:
-    """The host build of the damped kernel body (g++), for the CPU tests."""
-    return _host_kernel("damped", P, _DAMPED_ARGS)
+    """The host build of the damped kernel body (g++), for the CPU tests:
+    `damped_round_host` takes the launcher's arguments up to with_health,
+    `damped_round_host_at` group_base after them."""
+    return _host_kernel("damped", P, _DAMPED_ARGS, base=True)
 
 
 def load_graph_cuda() -> ctypes.CDLL:

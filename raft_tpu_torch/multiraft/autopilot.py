@@ -174,7 +174,9 @@ class Autopilot:
     `monitor` (a health.HealthMonitor; default the sim's health_monitor)
     receives the per-cadence summaries and the final report; `metrics`
     (a scalar.metrics.Metrics) gets `autopilot.action` trace events, the
-    actions counters and the pending-transfer gauge."""
+    actions counters and the pending-transfer gauge.  The sim is an
+    unsharded one: a rank's block of a mesh run (ClusterSim(mesh=)) raises
+    NotImplementedError, as the policy reads whole-batch planes."""
 
     def __init__(
         self,
@@ -184,6 +186,11 @@ class Autopilot:
         metrics=None,
         fused: bool = False,
     ):
+        if getattr(sim, "mesh", None) is not None:
+            raise NotImplementedError(
+                "the autopilot drives an unsharded ClusterSim; a mesh rank's "
+                "sim holds only its block of groups"
+            )
         self.sim = sim
         self.cfg = cfg.validate()
         self.monitor = (

@@ -303,12 +303,14 @@ def schedule_planes(
 
 
 def schedule_masks(
-    compiled: CompiledChaos, round_idx: int
+    compiled: CompiledChaos, round_idx: int, group_ids=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(link, crashed, append) for one round of the schedule: the phase's
-    words unpacked on their device, the seeded loss sample knocked out."""
+    words unpacked on their device, the seeded loss sample knocked out.
+    `group_ids` (the schedule's global ids, sim.group_ids_of) key the
+    loss draw of a mesh rank's block; None is the iota."""
     link, loss, crashed, append = schedule_planes(compiled, round_idx)
-    drop = kernels.link_loss_draw(round_idx, loss)
+    drop = kernels.link_loss_draw(round_idx, loss, group_ids=group_ids)
     return link & ~drop, crashed, append
 
 

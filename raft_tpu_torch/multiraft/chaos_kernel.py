@@ -32,8 +32,9 @@ parameter so every peer loop unrolls and no register array is indexed at
 run time; loads and stores are peer-major, so neighbouring threads touch
 neighbouring words.  The loss PRNG runs in native uint32, which wraps as
 the reference's does; the group id that keys it is the global thread
-index.  P = 8..15 build from csrc/chaos_round_wide.cu, a library of its
-own, where the [P, P] blocks spill to local memory.
+index plus `group_base`, the first global id of a mesh rank's block.
+P = 8..15 build from csrc/chaos_round_wide.cu, a library of its own,
+where the [P, P] blocks spill to local memory.
 
 On CPU tensors `chaos_rounds` runs `chaos_rounds_reference`; on CUDA
 tensors it launches the kernel or raises.  `chaos_rounds.launches` counts
@@ -42,7 +43,7 @@ kernel launches.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -69,15 +70,18 @@ def chaos_rounds_reference(
     state, leader_id, hb, ee, li, lt, commit, matched_row, voter, member,
     crashed, agree, loss_rate, ts, lead_term, app, tsc=None, *,
     round_base: int, rounds: int, election_tick: int, heartbeat_tick: int,
+    group_base: int = 0,
 ) -> Outputs:
     """Plain PyTorch version of the kernel.  Planes [P, G] int32 (masks bool
     or 0/1 ints), agree and loss_rate [P, P, G] int32, ts, lead_term and
     app [G] int32, and for the with_health variant tsc, the int32 [G]
     ticks_since_commit row; round_base is the absolute index of the first
-    round.  Returns fresh (state, leader_id, hb, ee, li, lt, commit,
+    round and group_base the global id of the first group (the loss draw's
+    group key).  Returns fresh (state, leader_id, hb, ee, li, lt, commit,
     matched_row, agree), and tsc' last when tsc is given."""
-    P = state.shape[0]
+    P, G = state.shape
     dev = state.device
+    gids = group_ids(group_base, G, dev)
     voter, member, crashed = voter != 0, member != 0, crashed != 0
     alive = ~crashed
     role_leader = state == ROLE_LEADER
@@ -100,7 +104,7 @@ def chaos_rounds_reference(
         return (agree * lead_f[:, None, :]).sum(0, dtype=I32)
 
     for r in range(rounds):
-        drop = link_loss_draw(round_base + r, loss_rate)
+        drop = link_loss_draw(round_base + r, loss_rate, group_ids=gids)
         # Forward (leader -> v) and reverse (v -> leader) delivery.
         dfl = (drop & is_lead[:, None, :]).any(0)
         dtl = (drop & is_lead[None, :, :]).any(1)
@@ -251,6 +255,21 @@ def chaos_work(
     return nbytes, ops
 
 
+def check_group_base(group_base: int) -> None:
+    """Raise ValueError unless group_base is a nonnegative int64."""
+    if not 0 <= group_base < 2**63:
+        raise ValueError(f"group_base {group_base} outside 0..2**63 - 1")
+
+
+def group_ids(group_base: int, G: int, device) -> Optional[torch.Tensor]:
+    """The global ids group_base .. group_base + G - 1 as int64[G] for the
+    plain versions' link_loss_draw(group_ids=), or None at base 0 (the
+    iota)."""
+    if group_base == 0:
+        return None
+    return torch.arange(group_base, group_base + G, dtype=torch.int64, device=device)
+
+
 def check_round_base(round_base: int, rounds: int) -> None:
     """Raise ValueError unless every round index round_base + r, r <
     rounds, lies in int32 (the reference's int32 round counter)."""
@@ -263,7 +282,7 @@ def check_round_base(round_base: int, rounds: int) -> None:
 def _launch(
     state, leader_id, hb, ee, li, lt, commit, matched_row, voter, member,
     crashed, agree, loss_rate, ts, lead_term, app, tsc, round_base: int,
-    rounds: int, election_tick: int, heartbeat_tick: int,
+    rounds: int, election_tick: int, heartbeat_tick: int, group_base: int,
 ) -> Outputs:
     P, G = state.shape
     if not 1 <= P <= MAX_PEERS:
@@ -292,7 +311,7 @@ def _launch(
         args += [None if t is None else t.data_ptr() for t in (tsc, tsc_out)]
         rc = lib.chaos_round_launch(
             *args, G, P, round_base, rounds, election_tick, heartbeat_tick,
-            int(tsc is not None), stream,
+            int(tsc is not None), group_base, stream,
         )
     if rc != 0:
         raise RuntimeError(f"chaos_round_launch failed: CUDA error {rc}")
@@ -307,9 +326,12 @@ def chaos_rounds(
     state, leader_id, hb, ee, li, lt, commit, matched_row, voter, member,
     crashed, agree, loss_rate, ts, lead_term, app, tsc=None, *,
     round_base: int, rounds: int, election_tick: int, heartbeat_tick: int,
+    group_base: int = 0,
 ) -> Outputs:
     """`rounds` fused loss-gated steady rounds from absolute round
-    `round_base` (every round index must lie in int32); returns (state,
+    `round_base` (every round index must lie in int32), for the groups
+    whose global ids start at `group_base` (the loss draw's group key: a
+    rank's block of a mesh run passes its first id); returns (state,
     leader_id, hb, ee, li, lt, commit, matched_row, agree), and with `tsc`
     (the with_health variant) the updated ticks_since_commit row last.
     Planes [P, G] int32, masks [P, G] bool, agree and loss_rate [P, P, G]
@@ -320,10 +342,11 @@ def chaos_rounds(
     with_health=False variant, `chaos_rounds.health_launches` those of the
     with_health=True one."""
     check_round_base(round_base, rounds)
+    check_group_base(group_base)
     args = (state, leader_id, hb, ee, li, lt, commit, matched_row, voter,
             member, crashed, agree, loss_rate, ts, lead_term, app, tsc)
     kw = dict(round_base=round_base, rounds=rounds, election_tick=election_tick,
-              heartbeat_tick=heartbeat_tick)
+              heartbeat_tick=heartbeat_tick, group_base=group_base)
     if state.is_cuda:
         return _launch(*args, **kw)
     if any(t is not None and t.is_cuda for t in args):

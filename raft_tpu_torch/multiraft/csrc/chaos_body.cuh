@@ -17,8 +17,9 @@
 // never change who leads.
 //
 // The loss draw keys on (round_base + r, src, dst, gid) with gid the
-// group's global index, in native uint32, bit for bit the reference's
-// link_loss_draw.  WITH_HEALTH (the with_health variant) tracks
+// group's global index (group_base + g: a shard of a mesh run keys its
+// groups by their ids in the whole batch), in native uint32, bit for bit
+// the reference's link_loss_draw.  WITH_HEALTH (the with_health variant) tracks
 // ticks_since_commit from tsc into tsc_out (fused_common.cuh's
 // CommitTracker).
 #pragma once
@@ -74,7 +75,7 @@ struct ChaosPlanes {
 template <int P, bool WITH_HEALTH>
 RAFT_HD void chaos_group(int64_t g, int64_t G, const ChaosPlanes& t,
                          int32_t round_base, int rounds, int election_tick,
-                         int heartbeat_tick) {
+                         int heartbeat_tick, int64_t group_base) {
   int32_t state[P], leader[P], hb[P], ee[P], li[P], lt[P], commit[P], mrow[P];
   bool voter[P], member[P], alive[P], role_leader[P], is_lead[P];
   int32_t agree[P][P], loss[P][P];
@@ -111,7 +112,7 @@ RAFT_HD void chaos_group(int64_t g, int64_t G, const ChaosPlanes& t,
   const int32_t lead_term = t.lead_term[g];
   const int32_t n_app = has_leader ? t.app[g] : 0;
   const bool sent_b = has_leader && n_app > 0;
-  const uint32_t gid = (uint32_t)g;
+  const uint32_t gid = (uint32_t)(group_base + g);
   raft_fused::CommitTracker<P, WITH_HEALTH> tsc(t.tsc, g, commit);
 
   for (int r = 0; r < rounds; ++r) {

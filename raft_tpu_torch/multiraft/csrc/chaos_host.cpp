@@ -1,13 +1,15 @@
 // Host build of chaos_body.cuh: the same per-group body as the CUDA
-// kernel, looped over the groups on the CPU (the loop index is the group
-// id, as the grid's global thread index is).  Compiled with g++ by the
-// tests so the kernel's arithmetic can be held against the plain PyTorch
-// version on a machine without a card; nothing on the card path uses it.
+// kernel, looped over the groups on the CPU (the loop index plus
+// group_base is the group id, as the grid's global thread index plus
+// group_base is; chaos_round_host is chaos_round_host_at at base 0).
+// Compiled with g++ by the tests so the kernel's arithmetic can be held
+// against the plain PyTorch version on a machine without a card; nothing
+// on the card path uses it.
 #include <stdint.h>
 
 #include "chaos_body.cuh"
 
-extern "C" int chaos_round_host(
+extern "C" int chaos_round_host_at(
     const void* state, const void* leader_id, const void* hb, const void* ee,
     const void* li, const void* lt, const void* commit, const void* matched,
     const void* voter, const void* member, const void* crashed,
@@ -16,7 +18,8 @@ extern "C" int chaos_round_host(
     void* leader_id_out, void* hb_out, void* ee_out, void* li_out,
     void* lt_out, void* commit_out, void* matched_out, void* agree_out,
     const void* tsc, void* tsc_out, long long G, int P, int round_base,
-    int rounds, int election_tick, int heartbeat_tick, int with_health) {
+    int rounds, int election_tick, int heartbeat_tick, int with_health,
+    long long group_base) {
   if (with_health && (tsc == nullptr || tsc_out == nullptr)) return 1;
   const raft_chaos::ChaosPlanes t = {
       (const int32_t*)state,    (const int32_t*)leader_id,
@@ -38,7 +41,8 @@ extern "C" int chaos_round_host(
     for (int64_t g = 0; g < (int64_t)G; ++g) {                            \
       raft_chaos::chaos_group<NP, HEALTH>(g, (int64_t)G, t,               \
                                           (int32_t)round_base, rounds,    \
-                                          election_tick, heartbeat_tick); \
+                                          election_tick, heartbeat_tick,  \
+                                          (int64_t)group_base);           \
     }                                                                     \
     return 0;
 #define RAFT_CHAOS_P(NP) RAFT_FOR_EACH_HEALTH(RAFT_CHAOS_HOST, NP)
@@ -49,4 +53,22 @@ extern "C" int chaos_round_host(
   }
 #undef RAFT_CHAOS_P
 #undef RAFT_CHAOS_HOST
+}
+
+extern "C" int chaos_round_host(
+    const void* state, const void* leader_id, const void* hb, const void* ee,
+    const void* li, const void* lt, const void* commit, const void* matched,
+    const void* voter, const void* member, const void* crashed,
+    const void* agree, const void* loss_rate, const void* ts,
+    const void* lead_term, const void* app, void* state_out,
+    void* leader_id_out, void* hb_out, void* ee_out, void* li_out,
+    void* lt_out, void* commit_out, void* matched_out, void* agree_out,
+    const void* tsc, void* tsc_out, long long G, int P, int round_base,
+    int rounds, int election_tick, int heartbeat_tick, int with_health) {
+  return chaos_round_host_at(
+      state, leader_id, hb, ee, li, lt, commit, matched, voter, member,
+      crashed, agree, loss_rate, ts, lead_term, app, state_out, leader_id_out,
+      hb_out, ee_out, li_out, lt_out, commit_out, matched_out, agree_out, tsc,
+      tsc_out, G, P, round_base, rounds, election_tick, heartbeat_tick,
+      with_health, 0);
 }

@@ -1,6 +1,7 @@
 // Grid wrapper around chaos_body.cuh for sm_90a: one thread per group,
 // 256 threads a block, the ragged last block masked by g < G; the global
-// thread index is the group id that keys the loss draw.  Launches on the
+// thread index plus group_base (the block's first id on a rank of a mesh
+// run, else 0) is the group id that keys the loss draw.  Launches on the
 // caller's stream, allocates nothing, does not synchronise, and returns
 // cudaGetLastError() so a refused launch reaches the caller.  with_health
 // picks the WITH_HEALTH instance, which reads tsc and writes tsc_out (both
@@ -17,11 +18,13 @@ constexpr int kThreads = 256;
 template <int P, bool WITH_HEALTH>
 __global__ void __launch_bounds__(kThreads)
     chaos_round_kernel(raft_chaos::ChaosPlanes t, int64_t G, int32_t round_base,
-                       int rounds, int election_tick, int heartbeat_tick) {
+                       int rounds, int election_tick, int heartbeat_tick,
+                       int64_t group_base) {
   const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (g >= G) return;
   raft_chaos::chaos_group<P, WITH_HEALTH>(g, G, t, round_base, rounds,
-                                          election_tick, heartbeat_tick);
+                                          election_tick, heartbeat_tick,
+                                          group_base);
 }
 
 }  // namespace
@@ -36,7 +39,7 @@ extern "C" int chaos_round_launch(
     void* lt_out, void* commit_out, void* matched_out, void* agree_out,
     const void* tsc, void* tsc_out, long long G, int P, int round_base,
     int rounds, int election_tick, int heartbeat_tick, int with_health,
-    void* stream) {
+    long long group_base, void* stream) {
   if (G <= 0) return (int)cudaSuccess;
   if (with_health && (tsc == nullptr || tsc_out == nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -62,7 +65,7 @@ extern "C" int chaos_round_launch(
   case NP * 2 + (HEALTH ? 1 : 0):                                         \
     chaos_round_kernel<NP, HEALTH><<<blocks, kThreads, 0, s>>>(           \
         t, (int64_t)G, (int32_t)round_base, rounds, election_tick,        \
-        heartbeat_tick);                                                  \
+        heartbeat_tick, (int64_t)group_base);                             \
     break;
 #define RAFT_CHAOS_P(NP) RAFT_FOR_EACH_HEALTH(RAFT_CHAOS_LAUNCH, NP)
   switch (P * 2 + (with_health ? 1 : 0)) {

@@ -15,11 +15,11 @@
 // fully unrolled arrays, runs `rounds` rounds on registers, and stores the
 // outputs.  WITH_CQ adds the check-quorum row clear at the leader's
 // election-timeout boundary; WITH_LOSS the per-link loss draw, keyed on
-// (round_base + r, src, dst, gid) with gid the group's global index, as in
-// chaos_body.cuh; WITH_HEALTH tracks ticks_since_commit from tsc into
-// tsc_out (fused_common.cuh's CommitTracker).  The acting leader, its id
-// and term, the voter count and the append count are fixed for the whole
-// horizon.
+// (round_base + r, src, dst, gid) with gid the group's global index
+// (group_base + g), as in chaos_body.cuh; WITH_HEALTH tracks
+// ticks_since_commit from tsc into tsc_out (fused_common.cuh's
+// CommitTracker).  The acting leader, its id and term, the voter count and
+// the append count are fixed for the whole horizon.
 #pragma once
 
 #include <stdint.h>
@@ -93,7 +93,7 @@ RAFT_HD void adopt_event(int32_t (&agree)[P][P], const bool (&adopted)[P],
 template <int P, bool WITH_CQ, bool WITH_LOSS, bool WITH_HEALTH>
 RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
                           int32_t round_base, int rounds, int election_tick,
-                          int heartbeat_tick) {
+                          int heartbeat_tick, int64_t group_base) {
   constexpr int PL = WITH_LOSS ? P : 1;
   int32_t state[P], leader[P], hb[P], ee[P], li[P], lt[P], commit[P], mrow[P];
   bool ra[P], voter[P], member[P], alive[P], role_leader[P], is_lead[P];
@@ -133,7 +133,7 @@ RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
   const int32_t lead_term = t.lead_term[g];
   const int32_t n_app = has_leader ? t.app[g] : 0;
   const bool sent_b = has_leader && n_app > 0;
-  const uint32_t gid = (uint32_t)g;
+  const uint32_t gid = (uint32_t)(group_base + g);
   raft_fused::CommitTracker<P, WITH_HEALTH> tsc(t.tsc, g, commit);
 
   for (int r = 0; r < rounds; ++r) {

@@ -1,6 +1,7 @@
 // Grid wrapper around damped_body.cuh for sm_90a: one thread per group,
 // 256 threads a block, the ragged last block masked by g < G; the global
-// thread index is the group id that keys the loss draw.  Launches on the
+// thread index plus group_base (the block's first id on a rank of a mesh
+// run, else 0) is the group id that keys the loss draw.  Launches on the
 // caller's stream, allocates nothing, does not synchronise, and returns
 // cudaGetLastError() so a refused launch reaches the caller.  with_health
 // picks the WITH_HEALTH instances, which read tsc and write tsc_out (both
@@ -18,11 +19,11 @@ template <int P, bool WITH_CQ, bool WITH_LOSS, bool WITH_HEALTH>
 __global__ void __launch_bounds__(kThreads)
     damped_round_kernel(raft_damped::DampedPlanes t, int64_t G,
                         int32_t round_base, int rounds, int election_tick,
-                        int heartbeat_tick) {
+                        int heartbeat_tick, int64_t group_base) {
   const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (g >= G) return;
   raft_damped::damped_group<P, WITH_CQ, WITH_LOSS, WITH_HEALTH>(
-      g, G, t, round_base, rounds, election_tick, heartbeat_tick);
+      g, G, t, round_base, rounds, election_tick, heartbeat_tick, group_base);
 }
 
 }  // namespace
@@ -37,7 +38,7 @@ extern "C" int damped_round_launch(
     void* lt_out, void* commit_out, void* matched_out, void* ra_out,
     void* agree_out, const void* tsc, void* tsc_out, long long G, int P,
     int round_base, int rounds, int election_tick, int heartbeat_tick,
-    int with_cq, int with_loss, int with_health,
+    int with_cq, int with_loss, int with_health, long long group_base,
     void* stream) {
   if (G <= 0) return (int)cudaSuccess;
   const raft_damped::DampedPlanes t = {
@@ -68,7 +69,7 @@ extern "C" int damped_round_launch(
   case NP * 8 + (CQ ? 1 : 0) + (LOSS ? 2 : 0) + (HEALTH ? 4 : 0):         \
     damped_round_kernel<NP, CQ, LOSS, HEALTH><<<blocks, kThreads, 0, s>>>( \
         t, (int64_t)G, (int32_t)round_base, rounds, election_tick,        \
-        heartbeat_tick);                                                  \
+        heartbeat_tick, (int64_t)group_base);                             \
     break;
 #define RAFT_DAMPED_P(NP) RAFT_DAMPED_FOR_EACH_FLAG(RAFT_DAMPED_LAUNCH, NP)
   switch (P * 8 + flags) {

@@ -49,7 +49,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .chaos_kernel import MAX_PEERS, check_round_base
+from .chaos_kernel import MAX_PEERS, check_group_base, check_round_base, group_ids
 from .kernels import ROLE_FOLLOWER, ROLE_LEADER, link_loss_draw
 from .platform import check_operands
 from .sim import _merge_agree, _quorum_pick
@@ -68,18 +68,20 @@ def damped_rounds_reference(
     state, leader_id, hb, ee, li, lt, commit, matched_row, ra, voter, member,
     crashed, agree, loss_rate, ts, lead_term, app, tsc=None, *,
     round_base: int, rounds: int, election_tick: int, heartbeat_tick: int,
-    with_cq: bool,
+    with_cq: bool, group_base: int = 0,
 ) -> Outputs:
     """Plain PyTorch version of the kernel.  Planes [P, G] int32, the
     acting leader's recent_active row `ra` and the masks bool (or 0/1
     ints), agree [P, P, G] int32, loss_rate [P, P, G] int32 or None (no
     loss), ts, lead_term and app [G] int32, and for the with_health variant
     tsc, the int32 [G] ticks_since_commit row; round_base is the absolute
-    index of the first round (read only with loss).  Returns fresh (state,
+    index of the first round and group_base the global id of the first
+    group (both read only with loss).  Returns fresh (state,
     leader_id, hb, ee, li, lt, commit, matched_row, ra, agree), ra bool,
     and tsc' last when tsc is given."""
-    P = state.shape[0]
+    P, G = state.shape
     dev = state.device
+    gids = group_ids(group_base, G, dev)
     voter, member, crashed, ra = voter != 0, member != 0, crashed != 0, ra != 0
     alive = ~crashed
     role_leader = state == ROLE_LEADER
@@ -120,7 +122,7 @@ def damped_rounds_reference(
 
     for r in range(rounds):
         if loss_rate is not None:
-            drop = link_loss_draw(round_base + r, loss_rate)
+            drop = link_loss_draw(round_base + r, loss_rate, group_ids=gids)
             dfl = (drop & is_lead[:, None, :]).any(0)  # leader -> v dropped
             dtl = (drop & is_lead[None, :, :]).any(1)  # v -> leader dropped
             fwd = ~dfl & alive & ~is_lead
@@ -287,6 +289,7 @@ def _launch(
     state, leader_id, hb, ee, li, lt, commit, matched_row, ra, voter, member,
     crashed, agree, loss_rate, ts, lead_term, app, tsc, round_base: int,
     rounds: int, election_tick: int, heartbeat_tick: int, with_cq: bool,
+    group_base: int,
 ) -> Outputs:
     P, G = state.shape
     if not 1 <= P <= MAX_PEERS:
@@ -319,7 +322,7 @@ def _launch(
         rc = lib.damped_round_launch(
             *ptrs, G, P, round_base, rounds, election_tick, heartbeat_tick,
             int(with_cq), int(loss_rate is not None), int(tsc is not None),
-            stream,
+            group_base, stream,
         )
     if rc != 0:
         raise RuntimeError(f"damped_round_launch failed: CUDA error {rc}")
@@ -335,6 +338,7 @@ def damped_rounds(
     crashed, agree, loss_rate: Optional[torch.Tensor], ts, lead_term, app,
     tsc: Optional[torch.Tensor] = None, *, round_base: int, rounds: int,
     election_tick: int, heartbeat_tick: int, with_cq: bool,
+    group_base: int = 0,
 ) -> Outputs:
     """`rounds` fused damped steady rounds; returns (state, leader_id, hb,
     ee, li, lt, commit, matched_row, ra, agree), and with `tsc` (the
@@ -342,7 +346,9 @@ def damped_rounds(
     [P, G] int32, ra and the masks [P, G] bool, agree [P, P, G] int32,
     loss_rate [P, P, G] int32 or None (no loss: round_base is not read),
     ts, lead_term, app and tsc [G] int32.  With loss, every round index
-    round_base + r must lie in int32.
+    round_base + r must lie in int32, and the loss draw keys each group on
+    its global id, group_base + g (a rank's block of a mesh run passes its
+    first id).
 
     CUDA tensors launch the CUDA kernel (or raise); CPU tensors run the
     plain version.  `damped_rounds.launches` counts launches of the
@@ -350,10 +356,12 @@ def damped_rounds(
     the with_health=True ones."""
     if loss_rate is not None:
         check_round_base(round_base, rounds)
+    check_group_base(group_base)
     args = (state, leader_id, hb, ee, li, lt, commit, matched_row, ra, voter,
             member, crashed, agree, loss_rate, ts, lead_term, app, tsc)
     kw = dict(round_base=round_base, rounds=rounds, election_tick=election_tick,
-              heartbeat_tick=heartbeat_tick, with_cq=with_cq)
+              heartbeat_tick=heartbeat_tick, with_cq=with_cq,
+              group_base=group_base)
     if state.is_cuda:
         return _launch(*args, **kw)
     if any(t is not None and t.is_cuda for t in args):

@@ -222,9 +222,9 @@ def build_incident(sim) -> dict:
     })
     windows: Dict[str, List[dict]] = {}
     for g in groups:
-        meta_c, term_c, commit_c = torch.stack(
-            [bb.meta[:, g], bb.term[:, g], bb.commit[:, g]]
-        ).cpu().numpy()
+        meta_c, term_c, commit_c = sim._group_column(
+            g, [bb.meta, bb.term, bb.commit]
+        ).reshape(3, -1).cpu().numpy()
         windows[str(g)] = decode_window(
             meta_c.view(np.uint32), term_c, commit_c, cap["rounds_folded"]
         )

@@ -21,10 +21,15 @@ ticks_since_commit.
 
 The reference's `lax.cond` on the predicate becomes a host `bool(pred)`
 (in hybrid_multi_round, an `int` of the storm count): one device sync per
-k-round block.  The gathers of the acting leader's rows before the kernel
-and the scatters after it (and, on the plain path, the `agree` update)
-stay plain PyTorch, as the reference leaves them to XLA; at 100k groups × 5 peers they move more bytes than the steady kernel
-itself.
+k-round block.  On a rank of a mesh run (cfg.shard set) the predicate and
+the storm count are reduced over every rank first (sharding.all_ranks,
+sharding.sum_ranks), so all ranks take the arm that the reference's
+predicate over the whole batch takes, and the fused kernels key their
+loss draws on the rank's global group ids.  The gathers of the acting
+leader's rows before the kernel and the scatters after it (and, on the
+plain path, the `agree` update) stay plain PyTorch, as the reference
+leaves them to XLA; at 100k groups × 5 peers they move more bytes than the
+steady kernel itself.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Callable
 
 import torch
 
+from . import sharding
 from . import sim as sim_mod
 from . import kernels
 from .chaos_kernel import MAX_PEERS, chaos_rounds, check_round_base
@@ -403,7 +409,7 @@ def chaos_round(
         (state, leader_id, hb, ee, li, lt, commit, new_row, agree,
          *tsc_out) = chaos_rounds(
             *chaos_operands(st, crashed, append_n, loss_rate, tsc),
-            round_base=round_base, **ticks,
+            round_base=round_base, group_base=sim_mod.group_base(cfg), **ticks,
         )
         out = st._replace(
             state=state,
@@ -445,7 +451,7 @@ def damped_round(
         (state, leader_id, hb, ee, li, lt, commit, new_row, ra, agree,
          *tsc_out) = damped_rounds(
             *damped_operands(st, crashed, append_n, loss_rate, tsc),
-            round_base=round_base, **ticks,
+            round_base=round_base, group_base=sim_mod.group_base(cfg), **ticks,
         )
         f = _leader_flag(st, crashed)
         out = st._replace(
@@ -481,7 +487,7 @@ def fast_step(cfg: SimConfig, with_health: bool = False) -> Callable:
     def fn(st: SimState, crashed, append_n, *health):
         if len(health) != int(with_health):
             raise TypeError(f"expected {int(with_health)} extras, got {len(health)}")
-        if bool(steady_predicate(cfg, st, crashed, horizon=1)):
+        if sharding.all_ranks(cfg, steady_predicate(cfg, st, crashed, horizon=1)):
             return fused_fn(st, crashed, append_n, *health)
         kw = {"health": health[0]} if with_health else {}
         return sim_mod.step(cfg, st, crashed, append_n, **kw)
@@ -522,6 +528,7 @@ def fast_multi_round(
 
     def general(st, crashed, append_n, link, loss_rate, round_base, extras):
         """k sim.steps threading the extras; (SimState, *extras')."""
+        gids = sim_mod.group_ids_of(cfg, st.term.device)
         res = (st,) + tuple(extras)
         for r in range(k):
             kw = {}
@@ -530,7 +537,8 @@ def fast_multi_round(
             if with_health:
                 kw["health"] = res[-1]
             if with_chaos:
-                kw["link"] = link & ~link_loss_draw(round_base + r, loss_rate)
+                kw["link"] = link & ~link_loss_draw(round_base + r, loss_rate,
+                                                    group_ids=gids)
             out = sim_mod.step(cfg, res[0], crashed, append_n, **kw)
             # SimState is itself a tuple: wrap by flag, not by isinstance.
             res = out if n_extra else (out,)
@@ -545,7 +553,7 @@ def fast_multi_round(
             check_round_base(round_base, k)
         if len(rest) != n_extra:
             raise TypeError(f"expected {n_extra} extras, got {len(rest)}")
-        pred = bool(steady_predicate(
+        pred = sharding.all_ranks(cfg, steady_predicate(
             cfg, st, crashed, horizon=k, link=link, loss_rate=loss_rate
         ))
         if pred:
@@ -593,7 +601,12 @@ def hybrid_multi_round(
     on `cuda` unless `device` says otherwise; the state must lie there."""
     dev = resolve_device(device)
     G = cfg.n_groups
-    S = min(storm_slots, G)
+    # The storm slots are of the whole batch; a mesh rank's sub-batch holds
+    # at most its own block, which the "split" branch's global storm count
+    # (<= slots) bounds as well.
+    S_global = min(storm_slots, sim_mod.global_groups(cfg))
+    S = min(S_global, G)
+    base = sim_mod.group_base(cfg)
     fused_fn = (chaos_round if with_chaos else steady_round)(cfg, k)
     sub_cfg = cfg._replace(n_groups=S)
 
@@ -621,12 +634,13 @@ def hybrid_multi_round(
                              f"{st.term.device}")
         mask = steady_mask(cfg, st, crashed, horizon=k, link=link,
                            loss_rate=loss_rate)
-        n_storm = int((~mask).sum())
+        n_local = (~mask).sum(dtype=I32)
+        n_storm = sharding.sum_ranks(cfg, n_local)
         lead = (loss_rate, round_base) if with_chaos else ()
         if n_storm == 0:
             fn.last_branch = "pure"
             out = fused_fn(st, crashed, append_n, *lead)
-        elif n_storm <= S:
+        elif n_storm <= S_global:
             fn.last_branch = "split"
             # A stable sort keeps the original order: storm groups (False)
             # first, then steady padding, which keeps its fused result.
@@ -637,7 +651,7 @@ def hybrid_multi_round(
             if with_chaos:
                 sub_link, sub_loss = link[..., idx], loss_rate[..., idx]
             sub = steps(sub_cfg, sub, crashed[:, idx], append_n[idx], sub_link,
-                        sub_loss, round_base, group_ids=idx)
+                        sub_loss, round_base, group_ids=idx + base)
             fast = fused_fn(st, crashed, append_n, *lead)
 
             def merge(whole, part):
@@ -650,9 +664,11 @@ def hybrid_multi_round(
             out = SimState(*map(merge, fast, sub))
         else:
             fn.last_branch = "slow"
-            out = steps(cfg, st, crashed, append_n, link, loss_rate, round_base)
+            out = steps(cfg, st, crashed, append_n, link, loss_rate, round_base,
+                        group_ids=sim_mod.group_ids_of(cfg, st.term.device))
         if count_fused:
-            return out, acc + k * (G - n_storm if n_storm <= S else 0)
+            ran = G - int(n_local) if n_storm <= S_global else 0
+            return out, acc + k * ran
         return out
 
     fn.last_branch = None

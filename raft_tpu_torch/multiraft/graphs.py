@@ -95,6 +95,10 @@ def cond(
             "graphs.Capture to hold its branch graph"
         )
     outer = torch.cuda.current_stream()
+    # torch.cuda.Stream() hands out a fixed pool of streams in turn, so after
+    # enough of them the side stream can be the very stream being captured.
+    while cap.side.cuda_stream == outer.cuda_stream:
+        cap.side = torch.cuda.Stream(device=outer.device)
     default = tuple(false_fn(*operands))
     body = torch.cuda.CUDAGraph(keep_graph=True)
     taken = {t.data_ptr() for t in operands}

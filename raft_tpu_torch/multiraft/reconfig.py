@@ -811,7 +811,10 @@ def _runner_body(
     kernels.blackbox_fold."""
     P, G = cfg.n_peers, cfg.n_groups
     dev = sched.append.device
+    gids = sim_mod.group_ids_of(cfg, dev)
     no_crash = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    if client is not None:
+        from .workload import unpack_fires
     if actions is not None:
         act_round, act_transfer, act_kick = actions
         no_transfer = torch.zeros((G,), dtype=I32, device=dev)
@@ -828,7 +831,7 @@ def _runner_body(
             ctrs = None
         append = sched.append[int(sched.phase_of_round[r])]
         if chaos_sched is not None:
-            link, crashed, capp = chaos_mod.schedule_masks(chaos_sched, r)
+            link, crashed, capp = chaos_mod.schedule_masks(chaos_sched, r, gids)
             append = append + capp
         else:
             link, crashed = None, no_crash
@@ -845,7 +848,7 @@ def _runner_body(
             cph = int(client.phase_of_round[r])
             append = append + client.append[cph]
             mode_row = client.read_mode[cph]
-            fire = kernels.unpack_bits_g(client.read_fire_packed[r], G) & (mode_row > 0)
+            fire = unpack_fires(client.read_fire_packed[r], G, cfg) & (mode_row > 0)
             fresh = fire & (rcar.pending_mode == 0)
             dropped = fire & (rcar.pending_mode > 0)
             pmode = torch.where(fresh, mode_row, rcar.pending_mode)

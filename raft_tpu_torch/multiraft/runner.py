@@ -13,10 +13,14 @@ with their signatures and outputs unchanged.
 Where the reference traces one jitted ``lax.scan`` a runner and picks a
 split block's arm with ``lax.cond``, a runner here is a host loop over the
 rounds whose body queues device work only, and a split block's arm is one
-host ``bool()`` of the same predicate.  There is no jit boundary, so the
-schedules are closed over; :func:`flatten`, :func:`rebuild` and
-:func:`schedule_args` still give the registry's flat order, and each
-runner exposes it as ``runner.schedule_args``.  The reference's
+host ``bool()`` of the same predicate.  On a rank of a mesh run (the
+config's ``shard`` set) the runner advances the rank's block of groups and
+that predicate is reduced over every rank (``sharding.all_ranks``), so
+every rank takes the reference's arm; the accumulators it returns are the
+rank's partial sums, which ``ClusterSim(mesh=)`` reduces.  There is no
+jit boundary, so the schedules are closed over; :func:`flatten`,
+:func:`rebuild` and :func:`schedule_args` still give the registry's flat
+order, and each runner exposes it as ``runner.schedule_args``.  The reference's
 ``interpret=`` (Pallas interpret mode) has no counterpart: a fused block
 runs the CUDA kernel on a CUDA tensor and its plain version on a CPU one.
 
@@ -45,6 +49,7 @@ import torch
 from . import chaos as chaos_mod
 from . import fused_step
 from . import kernels
+from . import sharding
 from . import reconfig as reconfig_mod
 from . import schedules as schedules_mod
 from . import sim as sim_mod
@@ -139,6 +144,7 @@ def _make_chaos(cfg: sim_mod.SimConfig, compiled: chaos_mod.CompiledChaos):
             f"groups, the config has {cfg.n_peers} x {cfg.n_groups}"
         )
     dev = compiled.append.device
+    gids = sim_mod.group_ids_of(cfg, dev)
 
     def runner(st: sim_mod.SimState, health: sim_mod.HealthState, *bb):
         if st.term.device != dev or health.planes.device != dev:
@@ -150,7 +156,7 @@ def _make_chaos(cfg: sim_mod.SimConfig, compiled: chaos_mod.CompiledChaos):
         stats = torch.zeros((chaos_mod.N_CHAOS_STATS,), dtype=I32, device=dev)
         safety = torch.zeros((N_SAFETY,), dtype=I32, device=dev)
         for r in range(compiled.n_rounds):
-            link, crashed, append = chaos_mod.schedule_masks(compiled, r)
+            link, crashed, append = chaos_mod.schedule_masks(compiled, r, gids)
             prev_leaderless = health.planes[HP_LEADERLESS]
             st2, health = sim_mod.step(cfg, st, crashed, append, health=health,
                                        link=link)
@@ -208,11 +214,14 @@ def _make_reconfig_split(
     k: int,
     window: int,
     with_counters: bool,
+    segments=None,
 ):
     """The split-horizon reconfig runner (reconfig.make_split_runner's
     contract): planned general segments run _runner_body round by round;
     each planned fused block runs the fused kernel when the whole batch is
-    steady for its horizon (one host bool()), else k general rounds."""
+    steady for its horizon (one host bool()), else k general rounds.
+    `segments` overrides the split plan (a mesh rank passes the plan of
+    the whole batch's schedule)."""
     P, G = cfg.n_peers, cfg.n_groups
     if not cfg.collect_health:
         raise ValueError(
@@ -233,7 +242,8 @@ def _make_reconfig_split(
         )
     reconfig_mod._validate_plans(cfg, compiled, chaos_compiled)
     chaos_on = chaos_compiled is not None
-    segments = reconfig_mod.split_plan(compiled, k, chaos_compiled, window)
+    if segments is None:
+        segments = reconfig_mod.split_plan(compiled, k, chaos_compiled, window)
     if not (segments and segments[0].start == 0
             and sum(s.rounds for s in segments) == compiled.n_rounds):
         raise AssertionError("split_plan must tile the horizon exactly")
@@ -261,7 +271,7 @@ def _make_reconfig_split(
             cfg, st, crashed, horizon=k, link=link, reconfig_pending=pend,
             loss_rate=loss,
         )
-        if not bool(mask.all()):
+        if not sharding.all_ranks(cfg, mask.all()):
             for r in range(r0, r0 + k):
                 carry = body(carry, r)
             return carry, False
@@ -408,8 +418,8 @@ def _make_workload_split(
         st, rcar = carry[0], carry[6]
         if phases[r0] != phases[r0 + k - 1]:
             return None
-        read_block = workload_mod.reads_pending_in_horizon(client, rcar, r0, k)
-        n_lease, any_lease = workload_mod.lease_fires_in_block(client, r0, k)
+        read_block = workload_mod.reads_pending_in_horizon(client, rcar, r0, k, cfg)
+        n_lease, any_lease = workload_mod.lease_fires_in_block(client, r0, k, cfg)
         lease_prov = ~any_lease
         if cfg.heartbeat_tick == 1:
             _, lease_entry, _ = kernels.lease_read(
@@ -421,7 +431,7 @@ def _make_workload_split(
             lease_prov = lease_prov | lease_entry
         mask = fused_step.steady_mask(cfg, st, crashed, horizon=k,
                                       read_pending=read_block)
-        return n_lease if bool((mask & lease_prov).all()) else None
+        return n_lease if sharding.all_ranks(cfg, (mask & lease_prov).all()) else None
 
     def fused_block(carry, r0: int, n_lease: torch.Tensor):
         st, hl, rst, stats, rstats, safety, rcar, rdstats, lat = carry
@@ -574,7 +584,7 @@ def _make_cadence(
         if loss is not None:
             progress_ok = progress_ok & (loss == 0).all()
         pred = mask.all() & no_action & progress_ok & (append > 0).all()
-        if not bool(pred):
+        if not sharding.all_ranks(cfg, pred):
             return general(inner, csr, r0, transfer, kick)
         prev_ll = hl.planes[kernels.HP_LEADERLESS]
         fargs = (st, crashed, append) + ((loss, r0) if chaos_on else ())
@@ -607,6 +617,7 @@ def make_runner(
     window: int = 4,
     with_counters: bool = False,
     fused: bool = False,
+    segments=None,
 ):
     """Build a whole-scenario runner from compiled schedules.
 
@@ -618,7 +629,9 @@ def make_runner(
     contract).  Every runner runs on the device its schedules lie on:
     `cuda` unless they were compiled for the CPU.  Each runner exposes
     ``.schedule_args``; the split runners also their block functions and
-    ``.blocks`` (and the reconfig split runner ``.segments``)."""
+    ``.blocks`` (and the reconfig split runner ``.segments``, which
+    `segments` overrides: a mesh rank passes reconfig.split_plan of the
+    whole batch's schedule, since its own block's would differ)."""
     by_family: Dict[str, object] = {}
     for s in schedules:
         if s is None:
@@ -648,7 +661,7 @@ def make_runner(
                 "split runners need a reconfig or client schedule"
             )
         return _make_reconfig_split(
-            cfg, reconfig_c, chaos_c, k, window, with_counters
+            cfg, reconfig_c, chaos_c, k, window, with_counters, segments
         )
     if client_c is not None:
         return _make_workload(cfg, client_c, chaos_c, reconfig_c)

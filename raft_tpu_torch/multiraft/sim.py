@@ -14,11 +14,11 @@ and `health` extras, the `reconfig_propose` extra (`ReconfigProposal`,
 reads behind `step(read_propose=)` on all three rounds (`READ_*` and
 `ReadReceipt`, :357-384; `_read_quorum_damped`, :387; `_read_phase`, :468;
 the Safe-mode barrier `read_index`, :3573), and `ClusterSim` with
-`__init__` (:3657-3785, with `chaos=`), `run_round` (:3950), `run`
+`__init__` (:3657-3785, with `chaos=` and `mesh=`), the mesh placement
+(:3821-3848, :4177-4226), `run_round` (:3950), `run`
 (:4005), the counter drain (:3851-3948), the chaos scenario runner
 `_chaos_runner_for` and `run_plan` (:4227-4295), `run_reconfig`
-(:4299-4505, without the mesh placement), the client-read workload
-`run_reads` (:4506-4638, without the mesh placement),
+(:4299-4505), the client-read workload `run_reads` (:4506-4638),
 the counter and health accessors (:4639-4745) and the read probes
 `read_index` and `lease_read` (:4822-4860).  The black box
 (SimConfig(blackbox=True)) adds `BlackboxState` and `init_blackbox`
@@ -66,13 +66,25 @@ from .platform import DeviceLike, resolve_device
 I32 = torch.int32
 
 
+class GroupShard(NamedTuple):
+    """One rank's block of a mesh run (sharding.py): the global group ids
+    [lo, hi) of its planes, the global batch width and the mesh whose
+    collectives make the run's whole-batch decisions."""
+
+    lo: int
+    hi: int
+    n_groups: int
+    mesh: object
+
+
 class SimConfig(NamedTuple):
     """Static per-sim configuration; same fields, order and defaults as the
     reference's SimConfig: the undamped and damped (`check_quorum`,
     `pre_vote`) rounds, the counters and health instrumentation, lease
     reads (`lease_read`, which needs `check_quorum`), leader transfer
     (`transfer`) and the black box (`blackbox`, a `blackbox_window`-round
-    ring and a `blackbox_topk`-wide capture)."""
+    ring and a `blackbox_topk`-wide capture).  `shard` is None: a rank's
+    block of a mesh run has a ShardConfig instead."""
 
     n_groups: int
     n_peers: int
@@ -95,6 +107,10 @@ class SimConfig(NamedTuple):
     # Run the election phase unconditionally as masked ops instead of
     # behind a host-side `if any(campaigners)` (no device sync per round).
     spmd: bool = False
+
+    @property
+    def shard(self) -> Optional[GroupShard]:
+        return None
 
     @property
     def min_timeout(self) -> int:
@@ -312,15 +328,57 @@ def state_to_numpy(st: SimState) -> Dict[str, np.ndarray]:
     }
 
 
+class ShardConfig(SimConfig):
+    """The config of a rank's block of a mesh run (sharding.local_config):
+    the SimConfig fields, n_groups the block's width, plus the rank's
+    GroupShard as `shard`, so every group-keyed draw keys on the global
+    ids and the whole-batch decisions reduce over the mesh.  It equals, and
+    hashes as, the plain SimConfig of its fields; _replace keeps the
+    shard."""
+
+    def __new__(cls, cfg: SimConfig, shard: GroupShard):
+        self = tuple.__new__(cls, cfg)
+        self._shard = shard
+        return self
+
+    @property
+    def shard(self) -> GroupShard:
+        return self._shard
+
+    def _replace(self, **kw) -> "ShardConfig":
+        return ShardConfig(SimConfig(*self)._replace(**kw), self._shard)
+
+
+def group_base(cfg: SimConfig) -> int:
+    """The global id of the first group of `cfg`'s planes: 0 off a mesh."""
+    return 0 if cfg.shard is None else cfg.shard.lo
+
+
+def global_groups(cfg: SimConfig) -> int:
+    """The whole batch's width: cfg.n_groups off a mesh."""
+    return cfg.n_groups if cfg.shard is None else cfg.shard.n_groups
+
+
+def group_ids_of(cfg: SimConfig, device) -> Optional[torch.Tensor]:
+    """The global ids of `cfg`'s groups as int64[G], or None off a mesh
+    (where the iota is the ids)."""
+    base = group_base(cfg)
+    if base == 0:
+        return None
+    return torch.arange(base, base + cfg.n_groups, dtype=torch.int64, device=device)
+
+
 def _node_key(
     cfg: SimConfig, device: torch.device, group_ids: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """node_key[p, g] = g * 2**16 + (p + 1) mod 2**32 (the reference's
     uint32 arithmetic, which wraps for g >= 65536), as int64 words.
     `group_ids` (the GLOBAL ids of a gathered sub-batch) replace the
-    iota, so each group keeps its own timeout stream."""
+    iota, so each group keeps its own timeout stream; on a rank of a mesh
+    run the iota starts at the rank's first global id."""
     if group_ids is None:
-        g = torch.arange(cfg.n_groups, dtype=torch.int64, device=device)
+        base = group_base(cfg)
+        g = torch.arange(base, base + cfg.n_groups, dtype=torch.int64, device=device)
     else:
         g = group_ids.to(device=device, dtype=torch.int64) & 0xFFFFFFFF
     g = g[None, :]
@@ -334,12 +392,15 @@ def init_state(
     outgoing_mask: Optional[torch.Tensor] = None,
     learner_mask: Optional[torch.Tensor] = None,
     device: DeviceLike = None,
+    group_ids: Optional[torch.Tensor] = None,
 ) -> SimState:
     """All peers start as followers at term 0 with their deterministic
     timeout draw (mirrors Raft.__init__ -> become_follower(0)); damped
     configs get an all-False recent_active plane, and transfer configs an
     all-zero transferee plane.  Runs on `cuda` unless
-    `device` says otherwise."""
+    `device` says otherwise.  `group_ids` (int[G]) are the groups' GLOBAL
+    ids, which key the timeout draws: a shard of a mesh run draws exactly
+    its block of the whole batch's streams."""
     dev = resolve_device(device)
     G, P = cfg.n_groups, cfg.n_peers
     shape = (P, G)
@@ -355,7 +416,8 @@ def init_state(
     lo = torch.full(shape, cfg.min_timeout, dtype=I32, device=dev)
     hi = torch.full(shape, cfg.max_timeout, dtype=I32, device=dev)
     rt = kernels.timeout_draw(
-        _node_key(cfg, dev), torch.zeros(shape, dtype=torch.int64, device=dev),
+        _node_key(cfg, dev, group_ids),
+        torch.zeros(shape, dtype=torch.int64, device=dev),
         lo, hi,
     )
     return SimState(
@@ -2668,7 +2730,21 @@ class ClusterSim:
     record_safety() read and stamp it.  With
     `chaos` (a chaos.ChaosPlan) attached, run_plan() runs the scenario;
     run_reconfig() runs a membership-change plan and run_reads() a client
-    read/write workload; read_index() and lease_read() probe the state."""
+    read/write workload; read_index() and lease_read() probe the state.
+
+    With `mesh` (a sharding.Mesh, from inside a rank that sharding.launch
+    started) the sim is this rank's block of a mesh run: `cfg` stays the
+    whole batch's (promoted to SimConfig(spmd=True), so the plain round
+    has no host branch), `state` and the health and black-box planes hold
+    the rank's groups only, bootstrapped in place from their global ids
+    (sharding.sharded_init_state), every run_* entry point takes the same
+    whole-batch inputs on every rank and keeps the rank's block, and every
+    result that covers the whole batch (the counter totals, the health
+    summary, the forensics capture, the scenario reports and fused_frac)
+    is reduced over the ranks, so each rank returns the reference's
+    values.  read_index() and lease_read() answer for the rank's groups.
+    Every rank calls the same entry points in the same order: the drains,
+    accessors and runners issue collectives."""
 
     _DRAIN_MAX = 128  # never let a window exceed this many rounds
 
@@ -2680,13 +2756,32 @@ class ClusterSim:
         learner_mask: Optional[torch.Tensor] = None,
         health_monitor=None,
         chaos=None,
+        mesh=None,
+        mesh_axis: str = "groups",
         device: DeviceLike = None,
     ):
+        if mesh is not None and not cfg.spmd:
+            cfg = cfg._replace(spmd=True)
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.state = init_state(
-            cfg, voter_mask, outgoing_mask, learner_mask, device=self.device
-        )
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._lcfg = cfg
+            self.state = init_state(
+                cfg, voter_mask, outgoing_mask, learner_mask, device=self.device
+            )
+        else:
+            from . import sharding as sharding_mod
+
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's {mesh.device}")
+            self.device = mesh.device
+            # The rank's planes' config: its block's width, its global ids.
+            self._lcfg = sharding_mod.local_config(cfg, mesh)
+            self.state = sharding_mod.sharded_init_state(
+                cfg, mesh, voter_mask, outgoing_mask, learner_mask, axis=mesh_axis
+            )
         # The attached chaos plan (a chaos.ChaosPlan, or a CompiledChaos on
         # this sim's device); run_plan() runs it, compiling a plan lazily at
         # this sim's batch shape and caching the schedule and its runner.
@@ -2727,22 +2822,21 @@ class ClusterSim:
                 1, min(self._DRAIN_MAX, (1 << 31) // (256 * cfg.n_groups))
             )
         if cfg.collect_health:
-            self._health = init_health(cfg, self.device)
+            self._health = init_health(self._lcfg, self.device)
         self._blackbox: Optional[BlackboxState] = None
         if cfg.blackbox:
-            self._blackbox = init_blackbox(cfg, self.device)
+            self._blackbox = init_blackbox(self._lcfg, self.device)
             # Per-slot offender counts already reported to the monitor, so
             # a drain reports each incident once.
             self._bb_seen = [0] * kernels.N_SAFETY
 
     def _summary(self, planes: torch.Tensor):
         """kernels.health_summary at this config's thresholds, on the
-        planes' device."""
-        cfg = self.cfg
-        return kernels.health_summary(
-            planes, cfg.leaderless_stall_ticks, cfg.commit_stall_ticks,
-            cfg.churn_bumps, min(cfg.health_topk, cfg.n_groups),
-        )
+        planes' device; on a mesh, of the whole batch (sharding's
+        reduction)."""
+        from . import sharding as sharding_mod
+
+        return sharding_mod.health_summary(self._lcfg, planes)
 
     @staticmethod
     def _download_summary(summary) -> dict:
@@ -2767,7 +2861,10 @@ class ClusterSim:
         counters = self._counters
         self._rounds_since_drain = 0
         if counters is not None:
+            from . import sharding as sharding_mod
+
             self._counters = kernels.zero_counters(self.device)
+            counters = sharding_mod.reduce_stats(self._lcfg, counters)
             peak = 0
             for i, v in enumerate(counters.tolist()):
                 if v < 0:
@@ -2801,17 +2898,28 @@ class ClusterSim:
 
     def _round_planes(self, crashed, append_n, link):
         """The round's constant planes on this sim's device, with the
-        defaults (no crashes, no appends) filled in."""
-        G, P = self.cfg.n_groups, self.cfg.n_peers
+        defaults (no crashes, no appends) filled in; on a mesh, whole-batch
+        planes are cut to the rank's block."""
+        G, P = self._lcfg.n_groups, self._lcfg.n_peers
         if crashed is None:
             crashed = torch.zeros((P, G), dtype=torch.bool, device=self.device)
         if append_n is None:
             append_n = torch.zeros((G,), dtype=I32, device=self.device)
+        crashed, append_n, link = self._block(crashed, append_n, link)
         crashed = crashed.to(device=self.device, dtype=torch.bool)
         append_n = append_n.to(device=self.device, dtype=I32)
         if link is not None:
             link = link.to(device=self.device, dtype=torch.bool)
         return crashed, append_n, link
+
+    def _block(self, *xs):
+        """Whole-batch [..., G] planes cut to this rank's block (the
+        identity off a mesh)."""
+        if self.mesh is None:
+            return xs
+        from . import sharding as sharding_mod
+
+        return sharding_mod._local_planes(self._lcfg, *xs)
 
     def _counts_window(self) -> bool:
         """Whether rounds count toward the drain window: with counters or
@@ -2830,10 +2938,10 @@ class ClusterSim:
         cc, ch = self._counters is not None, self._health is not None
         bb = self._blackbox is not None
         if not (cc or ch or bb):
-            self.state = step(self.cfg, self.state, crashed, append_n, link=link)
+            self.state = step(self._lcfg, self.state, crashed, append_n, link=link)
             return self.state
         res = step(
-            self.cfg, self.state, crashed, append_n, counters=self._counters,
+            self._lcfg, self.state, crashed, append_n, counters=self._counters,
             health=self._health, link=link, blackbox=self._blackbox,
         )
         self.state = res[0]
@@ -2875,7 +2983,7 @@ class ClusterSim:
         graph = self._round_graphs.get(layout)
         if graph is None:
             graph = self._round_graphs[layout] = RoundGraph(
-                self.cfg, layout, carry, inputs
+                self._lcfg, layout, carry, inputs
             )
         return graph
 
@@ -2922,7 +3030,8 @@ class ClusterSim:
         the drain cadence's; each segment's carry comes back into the sim
         (fresh tensors, which no later replay overwrites) and the drain
         runs on the same cadence as run_round's.  The drain stays
-        synchronous."""
+        synchronous and outside the graph, so no collective of a mesh run
+        is ever captured."""
         crashed, append_n, link = self._round_planes(crashed, append_n, link)
         cc = self._counters is not None
         ch = self._health is not None
@@ -2950,7 +3059,7 @@ class ClusterSim:
                 )
             else:
                 for _ in range(seg):
-                    carry = compiled_round(self.cfg, layout, carry, *inputs)
+                    carry = compiled_round(self._lcfg, layout, carry, *inputs)
             self._set_carry(layout, carry, seg)
             done += seg
             if self._counts_window():
@@ -2958,6 +3067,46 @@ class ClusterSim:
                 if self._rounds_since_drain >= self._drain_every:
                     self._drain()
         return self.state
+
+    # --- mesh placement (the identity off a mesh) ---
+
+    def _shard_chaos_schedule(self, compiled):
+        """This rank's block of a whole-batch compiled chaos schedule; runs
+        before make_runner, so the cached runner holds the placed one."""
+        if self.mesh is None or compiled is None:
+            return compiled
+        from . import sharding as sharding_mod
+
+        return sharding_mod.shard_chaos(compiled, self.mesh, self.mesh_axis)
+
+    def _shard_reconfig_schedule(self, compiled):
+        """This rank's block of a whole-batch compiled reconfig schedule;
+        the op-protocol carry derives from the already-placed state."""
+        if self.mesh is None or compiled is None:
+            return compiled
+        from . import sharding as sharding_mod
+
+        return sharding_mod.shard_reconfig(compiled, None, self.mesh, self.mesh_axis)[0]
+
+    def _shard_client_schedule(self, compiled):
+        """This rank's block of a whole-batch compiled client schedule, the
+        packed read-fire words split or kept whole
+        (sharding.fire_words_tile)."""
+        if self.mesh is None or compiled is None:
+            return compiled
+        from . import sharding as sharding_mod
+
+        return sharding_mod.shard_client(compiled, None, self.mesh, self.mesh_axis)[0]
+
+    def _reduce_results(self, stats, *sums):
+        """A runner's chaos stats and other int32 accumulators of the whole
+        batch: on a mesh each summed over the ranks, the stats' running
+        maximum taken as a MAX (the identity off a mesh)."""
+        from . import chaos as chaos_mod
+        from . import sharding as sharding_mod
+
+        return (sharding_mod.reduce_stats(self._lcfg, stats, (chaos_mod.CS_MAX_STREAK,)),
+                *(sharding_mod.reduce_stats(self._lcfg, v) for v in sums))
 
     def _chaos_runner_for(self, plan=None):
         """(CompiledChaos, runner) for `plan` (default: the attached one);
@@ -2975,7 +3124,8 @@ class ClusterSim:
             compiled = plan
         else:
             compiled = chaos_mod.compile_plan(plan, self.cfg.n_groups, self.device)
-        runner = runner_mod.make_runner(self.cfg, (compiled,))
+        compiled = self._shard_chaos_schedule(compiled)
+        runner = runner_mod.make_runner(self._lcfg, (compiled,))
         if plan is self._chaos:
             self._chaos_compiled, self._chaos_runner = compiled, runner
         return compiled, runner
@@ -2996,6 +3146,7 @@ class ClusterSim:
         (self.state, self._health), (stats, safety) = out[:2], out[-2:]
         if self._blackbox is not None:
             self._blackbox = out[2]
+        stats, safety = self._reduce_results(stats, safety)
         both = torch.cat([stats, safety]).tolist()
         report = HealthMonitor.chaos_report(
             both[: stats.numel()], both[stats.numel():], compiled.n_rounds
@@ -3044,10 +3195,13 @@ class ClusterSim:
         if isinstance(plan, reconfig_mod.ReconfigPlan):
             # Plans apply absolute target masks walked from the bootstrap
             # config, so the sim must start in exactly that config.
-            want = reconfig_mod.initial_masks(plan, G, self.device)
+            from . import sharding as sharding_mod
+
+            want = self._block(*reconfig_mod.initial_masks(plan, G, self.device))
             cur = (self.state.voter_mask, self.state.outgoing_mask,
                    self.state.learner_mask)
-            if not all(torch.equal(c, w) for c, w in zip(cur, want)):
+            same = all(torch.equal(c, w) for c, w in zip(cur, want))
+            if not sharding_mod.all_ranks(self._lcfg, same):
                 raise ValueError(
                     "sim state masks do not match the plan's bootstrap "
                     "config (voters/learners); start from "
@@ -3072,13 +3226,23 @@ class ClusterSim:
                 chaos_compiled = chaos_plan
             else:
                 chaos_compiled = chaos_mod.compile_plan(chaos_plan, G, self.device)
+            segments = None
+            if split and self.mesh is not None:
+                # The split plan of the whole batch's schedule: a block's own
+                # would differ from rank to rank.
+                segments = reconfig_mod.split_plan(
+                    compiled, split_k, chaos_compiled, split_window
+                )
+            compiled = self._shard_reconfig_schedule(compiled)
+            chaos_compiled = self._shard_chaos_schedule(chaos_compiled)
             runner = runner_mod.make_runner(
-                self.cfg, (compiled, chaos_compiled), split=split, k=split_k,
-                window=split_window, with_counters=wc,
+                self._lcfg, (compiled, chaos_compiled), split=split, k=split_k,
+                window=split_window, with_counters=wc, segments=segments,
             )
             self._reconfig_runner = (plan, chaos_plan, compiled, runner, mode)
         else:
             compiled, runner = cached[2], cached[3]
+        # On a mesh the carry of the placed state is already the rank's block.
         rst = reconfig_mod.init_reconfig_state(self.state)
         fused = None
         if split:
@@ -3110,12 +3274,19 @@ class ClusterSim:
             if self._blackbox is not None:
                 self._blackbox = out[6]
         # One copy for the three result vectors, one each for the two planes
-        # the stall rule reads.
+        # the stall rule reads (on a mesh, gathered whole).
+        stats, rstats, safety = self._reduce_results(stats, rstats, safety)
         ns, nr = stats.numel(), rstats.numel()
         flat = torch.cat([stats, rstats, safety]).tolist()
+        outgoing = self.state.outgoing_mask
+        since = self._health.planes[kernels.HP_SINCE_COMMIT]
+        if self.mesh is not None:
+            from . import sharding as sharding_mod
+
+            outgoing = sharding_mod.gather_groups(self.mesh, outgoing, G)
+            since = sharding_mod.gather_groups(self.mesh, since, G)
         n_stuck, worst = HealthMonitor.reconfig_stall_groups(
-            self.state.outgoing_mask.cpu().numpy(),
-            self._health.planes[kernels.HP_SINCE_COMMIT].cpu().numpy(),
+            outgoing.cpu().numpy(), since.cpu().numpy(),
             self.cfg.election_tick, stall_timeouts=stall_timeouts,
             topk=min(self.cfg.health_topk, G),
         )
@@ -3124,7 +3295,9 @@ class ClusterSim:
             n_stuck, worst,
         )
         if fused is not None or fused_zero:
-            fused = fused or 0
+            from . import sharding as sharding_mod
+
+            fused = sharding_mod.sum_ranks(self._lcfg, fused or 0)
             total = compiled.n_rounds * G
             report["fused_rounds"] = fused
             report["total_rounds"] = total
@@ -3182,6 +3355,7 @@ class ClusterSim:
                 compiled = plan
             else:
                 compiled = workload_mod.compile_plan(plan, G, self.device)
+            compiled = self._shard_client_schedule(compiled)
             if chaos_plan is None or isinstance(chaos_plan, chaos_mod.CompiledChaos):
                 chaos_compiled = chaos_plan
             else:
@@ -3194,8 +3368,10 @@ class ClusterSim:
                 reconfig_compiled = reconfig_mod.compile_plan(
                     reconfig_plan, G, self.device
                 )
+            chaos_compiled = self._shard_chaos_schedule(chaos_compiled)
+            reconfig_compiled = self._shard_reconfig_schedule(reconfig_compiled)
             runner = runner_mod.make_runner(
-                self.cfg, (compiled, chaos_compiled, reconfig_compiled),
+                self._lcfg, (compiled, chaos_compiled, reconfig_compiled),
                 split=split, k=split_k,
             )
             self._read_runner = (
@@ -3205,12 +3381,16 @@ class ClusterSim:
             compiled, runner = cached[3], cached[4]
         out = runner(
             self.state, health, reconfig_mod.init_reconfig_state(self.state),
-            workload_mod.init_read_carry(G, self.device), *self._bb_args(),
+            workload_mod.init_read_carry(self._lcfg.n_groups, self.device),
+            *self._bb_args(),
         )
         (self.state, self._health, _, stats, _, safety, self._read_carry,
          rdstats, lat_hist) = out[:9]
         if self._blackbox is not None:
             self._blackbox = out[9]
+        stats, safety, rdstats, lat_hist = self._reduce_results(
+            stats, safety, rdstats, lat_hist
+        )
         vecs = (rdstats, workload_mod.latency_percentiles(lat_hist), safety, stats)
         flat = torch.cat(vecs).tolist()
         parts, at = [], 0
@@ -3219,7 +3399,9 @@ class ClusterSim:
             at += v.numel()
         report = workload_mod.read_report(*parts, compiled.n_rounds)
         if split or fused_zero:
-            fused = out[9] if split else 0
+            from . import sharding as sharding_mod
+
+            fused = sharding_mod.sum_ranks(self._lcfg, out[9] if split else 0)
             total = compiled.n_rounds * G
             report["fused_rounds"] = fused
             report["total_rounds"] = total
@@ -3231,13 +3413,15 @@ class ClusterSim:
     def read_index(self, crashed=None, link=None) -> torch.Tensor:
         """The batched linearizable ReadIndex barrier on the current state
         (see read_index); `link` threads a reachability plane through the
-        ack quorum.  int32[G] on this sim's device."""
+        ack quorum.  int32[G] on this sim's device (on a mesh, the rank's
+        block)."""
         if crashed is None:
             crashed = torch.zeros(
-                (self.cfg.n_peers, self.cfg.n_groups), dtype=torch.bool,
+                (self._lcfg.n_peers, self._lcfg.n_groups), dtype=torch.bool,
                 device=self.device,
             )
-        return read_index(self.cfg, self.state, crashed, link)
+        crashed, link = self._block(crashed, link)
+        return read_index(self._lcfg, self.state, crashed, link)
 
     def lease_read(self, crashed=None) -> torch.Tensor:
         """The LeaseBased read probe (kernels.lease_read): int32[G], the
@@ -3246,12 +3430,14 @@ class ClusterSim:
         lease-holding leader, an uncommitted term, or lease reads off:
         SimConfig(lease_read=True, check_quorum=True) gives a non-trivial
         answer).  Zero message rounds either way; for the full read path
-        use step(read_propose=) or workload.make_runner."""
+        use step(read_propose=) or workload.make_runner.  On a mesh, the
+        rank's block."""
         if crashed is None:
             crashed = torch.zeros(
-                (self.cfg.n_peers, self.cfg.n_groups), dtype=torch.bool,
+                (self._lcfg.n_peers, self._lcfg.n_groups), dtype=torch.bool,
                 device=self.device,
             )
+        (crashed,) = self._block(crashed)
         cfg, st = self.cfg, self.state
         _, served, index = kernels.lease_read(
             st.state, st.term, st.leader_id, st.election_elapsed, st.commit,
@@ -3307,16 +3493,20 @@ class ClusterSim:
         h = self._require_health()
         g = int(group_id)
         st = self.state
-        planes = h.planes[:, g].tolist()
-        cols = torch.stack([
-            st.term[:, g],
-            st.state[:, g],
-            st.commit[:, g],
-            st.last_index[:, g],
-            st.leader_id[:, g],
-            (st.voter_mask[:, g] | st.outgoing_mask[:, g]).to(I32),
-            st.learner_mask[:, g].to(I32),
+        H = h.planes.shape[0]
+        flat = self._group_column(g, [
+            h.planes,
+            st.term,
+            st.state,
+            st.commit,
+            st.last_index,
+            st.leader_id,
+            (st.voter_mask | st.outgoing_mask).to(I32),
+            st.learner_mask.to(I32),
         ]).tolist()
+        planes = flat[:H]
+        P = st.term.shape[0]
+        cols = [flat[H + i * P:H + (i + 1) * P] for i in range(7)]
         term, role, commit, last_index, leader_id, voter, learner = cols
         return {
             "group": g,
@@ -3332,9 +3522,25 @@ class ClusterSim:
             },
         }
 
+    def _group_column(self, g: int, tensors) -> torch.Tensor:
+        """Global group g's column of each [..., G] tensor, flattened and
+        concatenated (int32).  On a mesh every rank must call it: the
+        owning rank fills the column and a SUM over the ranks hands it to
+        all of them."""
+        if self.mesh is None:
+            return torch.cat([t[..., g].reshape(-1).to(I32) for t in tensors])
+        from . import sharding as sharding_mod
+
+        lo, hi = self._lcfg.shard.lo, self._lcfg.shard.hi
+        j = min(max(g - lo, 0), hi - lo - 1)
+        col = torch.cat([t[..., j].reshape(-1).to(I32) for t in tensors])
+        if not lo <= g < hi:
+            col = torch.zeros_like(col)
+        return sharding_mod.reduce_i32(self.mesh, col, "sum")
+
     def reset_health(self) -> None:
         if self._health is not None:
-            self._health = init_health(self.cfg, self.device)
+            self._health = init_health(self._lcfg, self.device)
 
     # --- black-box forensics (requires SimConfig(blackbox=True)) ---
 
@@ -3356,6 +3562,7 @@ class ClusterSim:
         stepping path, where the caller audits each transition itself
         (kernels.check_safety_groups) and hands the mask back here."""
         bb = self._require_blackbox()
+        (viol,) = self._block(viol)
         meta, trip = kernels.blackbox_mark(
             bb.meta, bb.trip_round, bb.round_idx, viol.to(self.device)
         )
@@ -3367,9 +3574,11 @@ class ClusterSim:
         first-K offenders as [{"group": id, "round": first-trip round}, ...]
         (kernels.blackbox_capture; K = SimConfig.blackbox_topk).  The
         reduction runs on the device; only O(K) values cross to the host."""
+        from . import sharding as sharding_mod
+
         bb = self._require_blackbox()
         k = min(self.cfg.blackbox_topk, self.cfg.n_groups)
-        counts, ids, rounds = kernels.blackbox_capture(bb.trip_round, k)
+        counts, ids, rounds = sharding_mod.blackbox_capture(self._lcfg, bb.trip_round, k)
         flat = torch.cat([counts, ids.flatten(), rounds.flatten()]).tolist()
         n = kernels.N_SAFETY
         ids_h = [flat[n + s * k:n + (s + 1) * k] for s in range(n)]
@@ -3396,5 +3605,5 @@ class ClusterSim:
 
     def reset_forensics(self) -> None:
         if self._blackbox is not None:
-            self._blackbox = init_blackbox(self.cfg, self.device)
+            self._blackbox = init_blackbox(self._lcfg, self.device)
             self._bb_seen = [0] * kernels.N_SAFETY

@@ -458,9 +458,23 @@ def make_split_runner(
     )
 
 
-def _mode_fires(client: CompiledClient, r0: int, horizon: int, code: int):
+def unpack_fires(words: torch.Tensor, n_groups: int, cfg=None) -> torch.Tensor:
+    """The read-fire words `words` (int32[..., Wg]) of `n_groups` groups
+    unpacked to bool[..., n_groups].  On a rank of a mesh run (cfg.shard
+    set) whose words were replicated, not sharded (sharding.shard_client:
+    the word axis did not tile the mesh), the words are the whole batch's
+    and the rank takes its own block of the unpacked bits."""
+    sh = None if cfg is None else cfg.shard
+    if sh is not None and words.shape[-1] == -(-sh.n_groups // 32):
+        return kernels.unpack_bits_g(words, sh.n_groups)[..., sh.lo:sh.hi]
+    return kernels.unpack_bits_g(words, n_groups)
+
+
+def _mode_fires(client: CompiledClient, r0: int, horizon: int, code: int,
+                cfg=None):
     """int32[G]: the scheduled fires of read mode `code` per group in
-    rounds [r0, r0 + horizon) that lie inside the plan (r0 >= 0)."""
+    rounds [r0, r0 + horizon) that lie inside the plan (r0 >= 0); `cfg`
+    as unpack_fires'."""
     G = client.read_mode.shape[1]
     phases = client.phase_of_round
     n = torch.zeros((G,), dtype=I32, device=client.read_mode.device)
@@ -471,7 +485,7 @@ def _mode_fires(client: CompiledClient, r0: int, horizon: int, code: int):
         e = r + 1
         while e < end and int(phases[e]) == ph:
             e += 1
-        fires = kernels.unpack_bits_g(client.read_fire_packed[r:e], G)
+        fires = unpack_fires(client.read_fire_packed[r:e], G, cfg)
         n = n + torch.where(client.read_mode[ph] == code,
                             fires.sum(0, dtype=I32), 0)
         r = e
@@ -483,6 +497,7 @@ def reads_pending_in_horizon(
     rcar: ReadCarry,
     r0: int,
     horizon: int,
+    cfg=None,
 ) -> torch.Tensor:
     """bool[G]: the group has quorum-round read work inside [r0, r0 +
     horizon): an outstanding read (any mode: it retries every round) or a
@@ -490,7 +505,7 @@ def reads_pending_in_horizon(
     mask (fused_step.steady_mask's `read_pending=`); pure lease fires are
     not pending, since on a steady horizon the lease gate holds and the
     serve touches no message plane."""
-    safe = _mode_fires(client, r0, horizon, sim_mod.READ_SAFE)
+    safe = _mode_fires(client, r0, horizon, sim_mod.READ_SAFE, cfg)
     return (rcar.pending_mode > 0) | (safe > 0)
 
 
@@ -498,11 +513,12 @@ def lease_fires_in_block(
     client: CompiledClient,
     r0: int,
     horizon: int,
+    cfg=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(n_lease int32[G], any bool[G]): the scheduled lease-mode fires per
     group inside [r0, r0 + horizon), the closed-form serve count a fused
     block folds into the latency histogram's zero bucket."""
-    n = _mode_fires(client, r0, horizon, sim_mod.READ_LEASE)
+    n = _mode_fires(client, r0, horizon, sim_mod.READ_LEASE, cfg)
     return n, n > 0
 
 

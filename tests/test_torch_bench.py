@@ -199,8 +199,11 @@ def test_flag_checks_match_the_reference(argv, capsys):
 
 
 def test_mesh_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A13"):
-        bench.main(["--mesh", "2", "--device", "cpu", "--groups", "8"])
+    """--mesh is ported (sharding.launch): two CPU ranks print the sharded
+    config-5 line."""
+    line = bench.main(["--mesh", "2", "--device", "cpu", "--groups", "8", "--reps", "1"])
+    assert line["metric"] == "raft_ticks_per_sec_1m_groups_3_peers_sharded"
+    assert line["n_devices"] == 2 and line["n_leaders"] == 8 and line["total_commit"] > 0
 
 
 def test_entry_point_defaults_to_cuda():

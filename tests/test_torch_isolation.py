@@ -48,10 +48,11 @@ def test_every_multiraft_module_is_scanned():
     """The AST scan covers the registries, the unified runner, the
     checkpoint, the graph helper and the host driver with the rest of the
     package, the scalar copies, the node and scalar examples, the bench,
-    profiling, the native anchor, the report tools and the suites."""
+    profiling, the native anchor, the report tools and the suites, and the
+    multi-GPU sharding with its parity tool."""
     names = {p.stem for p in _sources() if p.parent.name == "multiraft"}
     assert {"planes", "schedules", "runner", "checkpoint", "graphs", "sim",
-            "driver"} <= names
+            "driver", "sharding"} <= names
     scalar = {p.stem for p in _sources() if p.parent.name == "scalar"}
     assert {"raw_node", "status", "metrics", "codec"} <= scalar
     examples = {p.stem for p in _sources() if p.parent.name == "examples"}
@@ -62,7 +63,7 @@ def test_every_multiraft_module_is_scanned():
     assert {"bench", "profiling"} <= root
     tools = {p.stem for p in _sources() if p.parent.name == "tools"}
     assert {"chaos_churn_report", "reconfig_report", "autopilot_report",
-            "forensics_smoke"} <= tools
+            "forensics_smoke", "sharded_parity_report"} <= tools
     benches = {p.stem for p in _sources() if p.parent.name == "benches"}
     assert "suites" in benches
 
@@ -107,14 +108,16 @@ def test_importing_the_port_loads_no_reference_module():
     assert "raft_tpu_torch.multiraft.chaos_kernel" in new
     assert "raft_tpu_torch.multiraft.chaos" in new
     assert "raft_tpu_torch.multiraft.reconfig" in new
-    for mod in ("planes", "schedules", "runner", "checkpoint", "graphs", "driver"):
+    for mod in ("planes", "schedules", "runner", "checkpoint", "graphs", "driver",
+                "sharding"):
         assert "raft_tpu_torch.multiraft." + mod in new
     for mod in ("multiraft_node", "multiraft_tcp", "single_mem_node",
                 "five_mem_node", "tcp_cluster"):
         assert "raft_tpu_torch.examples." + mod in new
     for mod in ("bench", "profiling", "multiraft.native", "benches.suites",
                 "tools.chaos_churn_report", "tools.reconfig_report",
-                "tools.autopilot_report", "tools.forensics_smoke"):
+                "tools.autopilot_report", "tools.forensics_smoke",
+                "tools.sharded_parity_report"):
         assert "raft_tpu_torch." + mod in new
     for sub in ("eraftpb", "errors", "util", "confchange.changer",
                 "confchange.restore", "quorum.joint", "quorum.majority",
