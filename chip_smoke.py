@@ -83,7 +83,10 @@ and eight more:
 
 Past P = 7 each kernel runs from libraries of its own, one a peer count
 (csrc/*_round_wide.cu): held to the plain versions at P = 8, 11 and 15
-(and the steady kernel's runtime-P instance at 16), and driven at P = 8.
+(the damped kernel's also at 13 and 14, the steady kernel's runtime-P
+instance at 16), and driven at P = 8.  The damped kernel's bound is its
+body's work (damped_body_work), with the plain version's (damped_work)
+printed beside it.
 The host driver: examples/multiraft_node.py's node, 3 MultiRaft drivers
 (peer ids 1-3) of 10,000 groups each with the tick on the card.
 
@@ -108,13 +111,17 @@ printed as bench.py --health-out writes it.
 
   1. device        require CUDA; print the card's name and power limit
   2. build         build the three kernels (every P <= 7 instance, and
-                   the wide libraries of P = 8, 11, 15 and the steady
-                   runtime-P one) and run_compiled's graph helper
+                   the wide libraries of P = 8, 11, 15, the damped
+                   kernel's also of 13 and 14, and the steady runtime-P
+                   one) and run_compiled's graph helper
                    (csrc/graph_cond.cu) from csrc/ with nvcc, one nvcc a
                    library, and the bench's native anchor
                    (csrc/multiraft_engine.cpp, g++ -O3), in parallel;
                    print the times and ptxas
-                   registers and spills per P and template flag
+                   registers and spills per P and template flag, then on
+                   one line each damped instance's registers, local
+                   (spill) bytes, shared memory a block, threads a block
+                   and resident blocks an SM (damped_round_occupancy)
   3. parity        the steady kernel against its plain PyTorch version on
                    the same card tensors, exact: settled states at
                    G=100,000 and a ragged G=100,003 (P=5), at P=3, 8 and
@@ -172,7 +179,8 @@ printed as bench.py --health-out writes it.
                    loss and under 1% and the heavy-loss layout (round base
                    small and near 2**31 - 32), and at P=8; with_cq off on
                    a pre-vote-settled state; random planes at P=3, 5, 7,
-                   8, 11 and 15, every flag variant
+                   8, 11, 13, 14 and 15, every flag variant (13 and 14
+                   the two sides of the kernel's 64/32-thread switch)
  9a. wide          from the P=8 steady-, lossy- and damped-settled states
                    at G=100,000, two fast_multi_round(k=32) blocks each,
                    the launch counts zeroed just before and read just
@@ -334,7 +342,9 @@ printed as bench.py --health-out writes it.
                    damped kernel's with_loss with_health instance (k=8) at
                    group bases 50,000 and 8,300,000 == their plain versions
                    and the slices of whole-batch launches, each timed at base
-                   50,000 on 50,000 groups against its bound
+                   50,000 on 50,000 groups against its bound; the damped
+                   instance also at base 0 on those 50,000 groups, and on
+                   all 100,000 groups at bases 0 and 50,000
  23. references    the held-back checks of phases 4, 4a, 7 and 10 against
                    their CPU runs
  24. report        one JSON line of the fifteen kernel rows (the six
@@ -352,6 +362,8 @@ result when no CUDA device is available.
 """
 
 import argparse
+import ctypes
+import itertools
 import json
 import multiprocessing
 import os
@@ -384,6 +396,7 @@ from raft_tpu_torch.multiraft.damped_kernel import (
     OUTPUT_NAMES as DAMPED_OUTPUTS,
     damped_rounds,
     damped_rounds_reference,
+    damped_body_work,
     damped_work,
 )
 from raft_tpu_torch.multiraft.kernels import LOSS_SCALE, ROLE_LEADER, link_loss_draw
@@ -469,6 +482,10 @@ OPS_PER_S = 67e12 / 4
 # instance held at STEADY_RUNTIME_P.
 WIDE_P = 8
 WIDE_PEERS = (8, 11, 15)
+# The damped kernel's shape changes past P = 13 (csrc/damped_round.cu's
+# DampedShape: 32 threads a block, not 64): these wide instances are also
+# built and held against their plain versions on random planes.
+DAMPED_SHAPE_PEERS = (13, 14)
 STEADY_RUNTIME_P = 16
 WIDE_BLOCKS = 2
 STEADY_SOURCE = "raft_tpu_torch/multiraft/csrc/steady_round.cu"
@@ -522,7 +539,8 @@ def phase_build():
     for kind, load in (("steady", _build.load_steady_cuda),
                        ("chaos", _build.load_chaos_cuda),
                        ("damped", _build.load_damped_cuda)):
-        for n_peers in WIDE_PEERS + ((STEADY_RUNTIME_P,) if kind == "steady" else ()):
+        extra = {"steady": (STEADY_RUNTIME_P,), "damped": DAMPED_SHAPE_PEERS}.get(kind, ())
+        for n_peers in WIDE_PEERS + extra:
             loaders[f"{kind}_round_p{n_peers}"] = lambda n=n_peers, f=load: f(n)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(fn) for fn in loaders.values()]:
@@ -563,6 +581,31 @@ def phase_build():
             r = inst[entry]
             spill = f" ({r['spill_stores']} B spilled)" if r.get("spill_stores") else ""
             print(f"  {entry}: {r.get('registers')}{spill}")
+
+
+OCCUPANCY_KEYS = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
+
+
+def damped_occupancy():
+    """Each built damped instance's registers a thread, local (spill) bytes
+    a thread, shared memory bytes a block, threads a block and resident
+    blocks an SM (the library's damped_round_occupancy), printed on one
+    line."""
+    rows = {}
+    for n_peers in (tuple(range(1, _build.NARROW_PEERS + 1)) + WIDE_PEERS
+                    + DAMPED_SHAPE_PEERS):
+        lib = _build.load_damped_cuda(n_peers)
+        for cq, loss, health in itertools.product((0, 1), repeat=3):
+            out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+            rc = lib.damped_round_occupancy(n_peers, cq, loss, health, out)
+            if rc != 0:
+                raise RuntimeError(f"damped_round_occupancy failed: CUDA error {rc}")
+            rows[f"P={n_peers} cq={cq} loss={loss} health={health}"] = dict(
+                zip(OCCUPANCY_KEYS, out))
+    print(f"damped occupancy [{card_line()}] (registers / local bytes a thread / "
+          "shared bytes a block / threads a block / resident blocks an SM): " + "; ".join(
+              f"{k} {'/'.join(str(v) for v in r.values())}" for k, r in rows.items()))
+    return rows
 
 
 # --- the steady path -------------------------------------------------------
@@ -1047,7 +1090,7 @@ def time_path(dev, label, st, rb, block, operands, kernel, reference, kernel_nam
           f"predicate {t['predicate_ms']:.3f} + fused round {t['fused_round_ms']:.3f} "
           f"(wrapper {t['wrapper_ms']:.3f} + the kernel call); bound "
           f"{t['bound_ms']:.4f} ms (bytes {t['bytes_bound_ms']:.4f}, operations "
-          f"{t['ops_bound_ms']:.4f})")
+          f"{t['ops_bound_ms']:.4f}){plain_bound_note(t)}")
     print(f"profile of {what}: device "
           f"busy {prof['busy_us']:.1f} of {prof['wall_us']:.1f} us "
           f"({100 * prof['busy_share']:.1f}%)")
@@ -1081,12 +1124,34 @@ def kernel_times(dev, kernel, reference, args, kw, work, parts=None,
     if methods_of is not None:
         t["methods"] = timing_methods(dev, launch, methods_of, flush)
     del scratch
-    nbytes, ops = work
+    nbytes, ops, *plain = work
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
     t.update(bound_ms=max(bytes_ms, ops_ms), bytes_bound_ms=bytes_ms,
              ops_bound_ms=ops_ms, bound_by="bytes" if bytes_ms >= ops_ms else "operations",
              bytes=nbytes, operations=ops, card=card_line())
+    if plain:  # the plain version's count beside the kernel's (damped_bound_work)
+        pbytes, pops = plain[0]
+        t["plain_work_bound_ms"] = max(pbytes / HBM_BYTES_PER_S, pops / OPS_PER_S) * 1e3
     return t
+
+
+def plain_bound_note(t):
+    """The plain version's bound and the kernel's share of it, where
+    kernel_times recorded one (the damped kernel), for a printed line."""
+    if "plain_work_bound_ms" not in t:
+        return ""
+    b = t["plain_work_bound_ms"]
+    return f"; the plain version's work {b:.4f} ms ({100 * b / t['ms']:.1f} % of it)"
+
+
+def damped_bound_work(n_peers, n_groups, rounds, **flags):
+    """The damped kernel's work for kernel_times: its body's (bytes,
+    operations), damped_body_work, which sets its bound, then the plain
+    version's, damped_work, whose bound is recorded beside it as
+    plain_work_bound_ms (the yardstick the rows before the redesign were
+    held to)."""
+    return damped_body_work(n_peers, n_groups, rounds, **flags) + (
+        damped_work(n_peers, n_groups, rounds, **flags),)
 
 
 @phase("timing")
@@ -1411,7 +1476,7 @@ def phase_damped_parity(dev):
             err = worst(err, e)
         else:
             loss_err = worst(loss_err, e)
-    for n_peers in (3, 5, 7) + WIDE_PEERS:
+    for n_peers in (3, 5, 7) + WIDE_PEERS + DAMPED_SHAPE_PEERS:
         for with_cq in (False, True):
             for loss in (False, True):
                 args = random_damped_inputs(n_peers, G + 3, 20 + n_peers, dev, loss)
@@ -1528,7 +1593,7 @@ def phase_damped_timing(dev, st):
         kernel_name="damped_round_kernel",
         fused_round=lambda s, rb: round_fn(s, crashed, append),
         predicate=lambda s: fused_step.steady_predicate(cfg, s, crashed, K),
-        work=damped_work(P, G, K),
+        work=damped_bound_work(P, G, K),
     )
     if t["fused_frac"] < 1.0:
         raise AssertionError(f"damped timed loop left the fused path: "
@@ -1607,11 +1672,11 @@ def phase_wide(dev, steady_st, lossy_st, damped_st):
         else:
             args, ref = fused_step.damped_operands(st0, crashed, append), damped_rounds_reference
             ticks.update(round_base=0, with_cq=True)
-            work = damped_work(WIDE_P, G, K)
+            work = damped_bound_work(WIDE_P, G, K)
         t = kernel_times(dev, kernel, ref, args, ticks, work)
         print(f"timing {label}_rounds P={WIDE_P}: {t['ms']:.4f} ms cold, "
               f"{t['hot_ms']:.4f} hot, bound {t['bound_ms']:.4f} by {t['bound_by']}, "
-              f"plain {t['plain_ms']:.2f}; {t['card']}")
+              f"plain {t['plain_ms']:.2f}{plain_bound_note(t)}; {t['card']}")
         out[label] = (launches, t)
     return out
 
@@ -1872,7 +1937,7 @@ def phase_health_timing(dev, card):
             fused_step.damped_operands(s, c, a, None, tsc), cq_ticks),
         kernel=damped_rounds, reference=damped_rounds_reference,
         kernel_name="damped_round_kernel",
-        work=damped_work(P, G, K, with_health=True))
+        work=damped_bound_work(P, G, K, with_health=True))
     lossy = kernel_timing(
         dev, "lossy with_health", card["lossy"]["state"], card["lossy"]["health"])
     return steady, damped, lossy
@@ -1894,7 +1959,7 @@ def kernel_timing(dev, label, st, health):
           f"{t['ms']:.4f} ms cold ({t['hot_ms']:.4f} ms hot; a wrapper call "
           f"{t['call_ms']:.4f} ms), plain version {t['plain_ms']:.3f} ms; bound "
           f"{t['bound_ms']:.4f} ms (bytes {t['bytes_bound_ms']:.4f}, operations "
-          f"{t['ops_bound_ms']:.4f})")
+          f"{t['ops_bound_ms']:.4f}){plain_bound_note(t)}")
     return t
 
 
@@ -2226,7 +2291,7 @@ def phase_composed_timing(dev, settled, line):
         fused_round=lambda s, rb: round_fn(s, crashed, append, loss, rb),
         predicate=lambda s: int((~fused_step.steady_mask(
             cfg, s, crashed, K, link, loss_rate=loss)).sum()),
-        work=damped_work(P, G, K, with_loss=True), reps=line["reps"], scans=SCANS,
+        work=damped_bound_work(P, G, K, with_loss=True), reps=line["reps"], scans=SCANS,
         part_reps=1, profile=(f"{CHAOS_PROFILE_ROUNDS} of the slow branch's general "
                               "rounds", general_rounds), line=line,
     )
@@ -2580,7 +2645,7 @@ def phase_prod_fused(dev, cpu_run, line):
     args = fused_step.damped_operands(settled, crashed, append, loss,
                                       random_tsc(G, 6, dev))
     t = kernel_times(dev, damped_rounds, damped_rounds_reference, args, kw,
-                     damped_work(P, G, PROD_K, with_loss=True, with_health=True))
+                     damped_bound_work(P, G, PROD_K, with_loss=True, with_health=True))
     med = statistics.median(samples)
     t.update(ticks_per_s=samples, ticks_per_s_median=med, fused_frac=fused_frac,
              profile=prof, segments=[list(sg) for sg in segments])
@@ -2591,7 +2656,7 @@ def phase_prod_fused(dev, cpu_run, line):
           f"(with_loss, with_health) {t['ms']:.4f} ms cold ({t['hot_ms']:.4f} ms hot; "
           f"a wrapper call {t['call_ms']:.4f} ms), plain version {t['plain_ms']:.3f} ms; "
           f"bound {t['bound_ms']:.4f} ms (bytes {t['bytes_bound_ms']:.4f}, operations "
-          f"{t['ops_bound_ms']:.4f})")
+          f"{t['ops_bound_ms']:.4f}){plain_bound_note(t)}")
     print(f"profile of the plan's first {PROD_PROFILE_ROUNDS} rounds: device busy "
           f"{prof['busy_us']:.1f} of {prof['wall_us']:.1f} us "
           f"({100 * prof['busy_share']:.1f}%), "
@@ -2861,7 +2926,7 @@ def phase_reads(dev, cpu_ref, line):
     n_launch = sum(r["count"] for r in prof["kernels"])
     args = fused_step.damped_operands(settled, crashed, append, None, random_tsc(G, 7, dev))
     t = kernel_times(dev, damped_rounds, damped_rounds_reference, args, kw,
-                     damped_work(P, G, READS_K, with_health=True))
+                     damped_bound_work(P, G, READS_K, with_health=True))
     med = statistics.median(samples)
     t.update(ticks_per_s=samples, ticks_per_s_median=med, fused_frac=fused_frac,
              profile=prof, report=report, rejected_blocks=rejected_blocks,
@@ -2874,7 +2939,7 @@ def phase_reads(dev, cpu_ref, line):
           f"{t['ms']:.4f} ms cold ({t['hot_ms']:.4f} ms hot; a wrapper call "
           f"{t['call_ms']:.4f} ms), plain version {t['plain_ms']:.3f} ms; bound "
           f"{t['bound_ms']:.4f} ms (bytes {t['bytes_bound_ms']:.4f}, operations "
-          f"{t['ops_bound_ms']:.4f})")
+          f"{t['ops_bound_ms']:.4f}){plain_bound_note(t)}")
     print(f"profile of {READS_PROFILE_ROUNDS} general rounds of the Safe-read phase (rounds "
           f"{at}-{at + READS_PROFILE_ROUNDS - 1}, and the tail audit): device busy "
           f"{prof['busy_us']:.1f} of {prof['wall_us']:.1f} us "
@@ -3146,7 +3211,7 @@ def phase_autopilot(dev, cpu_ref, pool, line):
           f"chaos_round_kernel (with_health) {t['ms']:.4f} ms cold ({t['hot_ms']:.4f} ms "
           f"hot; a wrapper call {t['call_ms']:.4f} ms), plain version {t['plain_ms']:.3f} "
           f"ms; bound {t['bound_ms']:.4f} ms (bytes {t['bytes_bound_ms']:.4f}, operations "
-          f"{t['ops_bound_ms']:.4f})")
+          f"{t['ops_bound_ms']:.4f}){plain_bound_note(t)}")
     print(f"profile of {AUTO_PROFILE_ROUNDS} general rounds of the crash phase (rounds "
           f"{AUTO_CRASH_AT}-{AUTO_CRASH_AT + AUTO_PROFILE_ROUNDS - 1}) [{t['card']}]: device "
           f"busy {prof['busy_us']:.1f} of {prof['wall_us']:.1f} us "
@@ -4137,16 +4202,22 @@ def phase_mesh(dev):
     part_d = tuple(a[..., lo:].contiguous() for a in dargs)
     tc = kernel_times(dev, chaos_rounds, chaos_rounds_reference, part_c,
                       dict(ckw, group_base=lo), chaos_work(P, n, K))
-    td = kernel_times(dev, damped_rounds, damped_rounds_reference, part_d,
-                      dict(dkw, group_base=lo),
-                      damped_work(P, n, PROD_K, with_loss=True, with_health=True))
-    for label, t in (("chaos k=32", tc), (f"damped with_loss with_health k={PROD_K}", td)):
-        print(f"mesh: {label} at group_base {lo} on {n} groups [{t['card']}]: "
+    dlabel = f"damped with_loss with_health k={PROD_K}"
+    dtimes = {(groups, base): kernel_times(
+        dev, damped_rounds, damped_rounds_reference, args, dict(dkw, group_base=base),
+        damped_bound_work(P, groups, PROD_K, with_loss=True, with_health=True))
+        for groups, args in ((n, part_d), (G, dargs)) for base in (lo, 0)}
+    td = dtimes[(n, lo)]
+    for label, groups, base, t in [("chaos k=32", n, lo, tc)] + [
+            (dlabel, groups, base, t) for (groups, base), t in dtimes.items()]:
+        print(f"mesh: {label} at group_base {base} on {groups} groups [{t['card']}]: "
               f"{t['ms']:.4f} ms cold ({t['hot_ms']:.4f} hot), plain version "
-              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f} % of it){plain_bound_note(t)}")
     print(f"mesh: chaos and damped kernels at group_base {MESH_BASES} == their plain "
           "versions and the slices of whole-batch launches, exact")
-    out.update(chaos_kernel=tc, damped_kernel=td)
+    out.update(chaos_kernel=tc, damped_kernel=td, damped_kernel_bases={
+        f"{groups} groups at base {base}": t for (groups, base), t in dtimes.items()})
     return ((ranks["launches"]["chaos"], chaos_err, tc),
             (ranks["launches"]["damped"], damped_err, td), out)
 
@@ -4197,6 +4268,7 @@ def main(argv=None):
     print(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     phase_build()
+    occupancy = damped_occupancy()
     steady_err, steady_wide_err, steady_wide_st = phase_parity(dev)
     if opts.quick:
         *_, chaos_wide_st = phase_chaos_parity(dev)
@@ -4312,7 +4384,8 @@ def main(argv=None):
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w", encoding="utf-8") as fh:
-            json.dump({**kernels, "ptxas": PTXAS, "timing": {
+            json.dump({**kernels, "ptxas": PTXAS, "damped_occupancy": occupancy,
+                       "timing": {
                 "steady": steady, "lossy": lossy, "damped": damped,
                 "steady_health": steady_h, "damped_health": damped_h,
                 "lossy_health_kernel": lossy_h, "chaos_scenario": scenario,

@@ -214,15 +214,27 @@ def load_damped_cuda(P: int = 1) -> ctypes.CDLL:
     `damped_round_launch` takes the 29 tensor pointers (the loss_rate
     pointer null without loss), G, P, round_base, rounds, election_tick,
     heartbeat_tick, with_cq, with_loss, with_health, group_base and the
-    CUDA stream."""
-    return _cuda_kernel("damped", P, _DAMPED_ARGS + _BASE + [ctypes.c_void_p])
+    CUDA stream; its `damped_round_occupancy` takes P, with_cq, with_loss,
+    with_health and a pointer to 5 ints, which it fills with the instance's
+    registers a thread, local (spill) bytes a thread, shared memory bytes a
+    block, threads a block and resident blocks an SM."""
+    lib = _cuda_kernel("damped", P, _DAMPED_ARGS + _BASE + [ctypes.c_void_p])
+    lib.damped_round_occupancy.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.damped_round_occupancy.restype = ctypes.c_int
+    return lib
 
 
 def load_damped_host(P: int = 1) -> ctypes.CDLL:
     """The host build of the damped kernel body (g++), for the CPU tests:
     `damped_round_host` takes the launcher's arguments up to with_health,
-    `damped_round_host_at` group_base after them."""
-    return _host_kernel("damped", P, _DAMPED_ARGS, base=True)
+    `damped_round_host_at` group_base after them, and
+    `damped_round_host_strided_at` the same as `_at` over the CUDA build's
+    shared-memory layout of the agree block."""
+    lib = _host_kernel("damped", P, _DAMPED_ARGS, base=True)
+    lib.damped_round_host_strided_at.argtypes = _DAMPED_ARGS + _BASE
+    lib.damped_round_host_strided_at.restype = ctypes.c_int
+    return lib
 
 
 def load_graph_cuda() -> ctypes.CDLL:

@@ -10,16 +10,37 @@
 // Layout: every [P, G] plane is peer-major (group g's column is
 // plane[p * G + g]) and every [P, P, G] plane pair-major
 // (plane[(a * P + b) * G + g]).  One call handles one group: it loads the
-// group's P-column of every plane, the acting leader's recent_active row
-// and its [P, P] agree block (and loss_rate block when WITH_LOSS) into
-// fully unrolled arrays, runs `rounds` rounds on registers, and stores the
-// outputs.  WITH_CQ adds the check-quorum row clear at the leader's
+// group's P-column of every plane into unrolled per-peer arrays and its
+// per-peer flags into bit masks (registers on the card), copies its
+// [P, P] agree block into `blk`, runs `rounds` rounds and stores the
+// outputs.  The block's storage is the Block template parameter:
+// ArrayBlock, a plain array (the g++ build, and the CUDA build up to
+// P = 8, where it sits in registers), or StridedBlock, the thread's column
+// of a shared-memory block (the CUDA build past P = 8; damped_round.cu).
+// WITH_CQ adds the check-quorum row clear at the leader's
 // election-timeout boundary; WITH_LOSS the per-link loss draw, keyed on
 // (round_base + r, src, dst, gid) with gid the group's global index
 // (group_base + g), as in chaos_body.cuh; WITH_HEALTH tracks
 // ticks_since_commit from tsc into tsc_out (fused_common.cuh's
-// CommitTracker).  The acting leader, its id and term, the voter count and
-// the append count are fixed for the whole horizon.
+// CommitTracker).  The acting leaders (alive peers in the leader role),
+// their id and term, the voter count and the append count are fixed for
+// the whole horizon.
+//
+// Two facts of that horizon keep the work to what the outputs need:
+// - Every agreement event puts all acting leaders in its set whenever the
+//   set is not empty (adopt_event adds them; wave 6's set holds them as
+//   soon as any member syncs).  Each leader's row then becomes the same
+//   row, so the leaders' summed row, which the reference reads back
+//   (lead_row(agree)), is n_lead times that row.  The body carries the
+//   sum in registers from the load on and only writes the block in the
+//   rounds; the block is read once, to store it.
+// - Only the links with an acting leader at one end reach the delivery
+//   masks.  With loss the body draws only those: with one acting leader L
+//   (every group of a fused block), the links of L's row and column, with
+//   their 2P rates loaded once; with several, each leader's row and column
+//   in turn, the rates read from the plane; with none, nothing.  A draw is
+//   a pure function of (round, src, dst, gid, rate), so these are the
+//   reference's bits.
 #pragma once
 
 #include <stdint.h>
@@ -73,33 +94,108 @@ struct DampedPlanes {
   int32_t* tsc_out;
 };
 
-// A wholesale adoption from the leader by the members flagged in
-// `adopted`, the leader joining the set when anyone adopted: the pairwise
-// agreement event off the leader's current row.
+// One group's [P, P] agree block as a plain array: registers on the card,
+// since the body indexes it only with compile-time constants.
 template <int P>
-RAFT_HD void adopt_event(int32_t (&agree)[P][P], const bool (&adopted)[P],
-                         const bool (&is_lead)[P], int32_t value) {
-  bool any = false;
-#pragma unroll
-  for (int p = 0; p < P; ++p) any = any || adopted[p];
-  bool in_set[P];
-#pragma unroll
-  for (int p = 0; p < P; ++p) in_set[p] = adopted[p] || (is_lead[p] && any);
-  int32_t lead_row[P];
-  raft_fused::flagged_row<P>(agree, is_lead, lead_row);
-  raft_fused::agree_event<P>(agree, in_set, value, lead_row);
+struct ArrayBlock {
+  int32_t v[P][P];
+  RAFT_HD void set(int a, int b, int32_t x) { v[a][b] = x; }
+  RAFT_HD int32_t get(int a, int b) const { return v[a][b]; }
+};
+
+// One group's [P, P] agree block as a column of a block of S such columns,
+// pair (a, b) at base[(a * P + b) * S]: with `base` a thread's word of a
+// shared-memory block of S threads, a warp's accesses to one pair fall on
+// 32 consecutive words, one a bank.  Every index the body passes is a
+// compile-time constant, so each access is one instruction at a fixed
+// offset.
+template <int P, int S>
+struct StridedBlock {
+  int32_t* base;
+  RAFT_HD void set(int a, int b, int32_t x) { base[(a * P + b) * S] = x; }
+  RAFT_HD int32_t get(int a, int b) const { return base[(a * P + b) * S]; }
+};
+
+// Bit p of a per-peer mask: the body keeps every per-peer flag (voter,
+// member, alive, the leader role, acting leader, recent_active, and each
+// round's delivery and wave sets) as one uint32 a group, bit p for peer p,
+// so a set operation on all peers is one instruction and a flag costs no
+// register of its own.
+RAFT_HD bool bit(uint32_t mask, int p) { return ((mask >> p) & 1u) != 0; }
+
+RAFT_HD uint32_t flag(bool on, int p) { return (uint32_t)on << p; }
+
+// v, hidden from the CUDA compiler's optimiser: an address computed from
+// it is computed where it is used.  The body's stores and its rare
+// several-leader draws index the planes through it, so that the 64-bit
+// offsets of the loads are not kept live in registers through every round.
+// Without it ptxas spills 24 B at P = 8 and up to 2.4 KB at P = 15 (the
+// card's readings are in PERF.md, section 6).
+RAFT_HD int64_t opaque(int64_t v) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("" : "+l"(v));
+#endif
+  return v;
 }
 
-template <int P, bool WITH_CQ, bool WITH_LOSS, bool WITH_HEALTH>
+// One agreement event (fused_common.cuh's agree_event) on `blk`: pairs
+// inside the set `in` agree to `value`; a pair with one side inside
+// inherits the sender's row at the other side; the rest keep their value.
+// The sender's row is `lead_row`, the sum of the n_lead acting leaders'
+// rows, which the event then brings up to date.  Needs every acting
+// leader in the set when any peer is (see the header).
+template <int P, class Block>
+RAFT_HD void block_event(Block& blk, uint32_t in, int32_t value,
+                         int32_t (&lead_row)[P], uint32_t n_lead) {
+  if (in == 0) return;
+  // The row every member of the set, so every acting leader, now holds.
+  int32_t row[P];
+#pragma unroll
+  for (int b = 0; b < P; ++b) row[b] = bit(in, b) ? value : lead_row[b];
+#pragma unroll
+  for (int a = 0; a < P; ++a) {
+#pragma unroll
+    for (int b = 0; b < P; ++b) {
+      if (bit(in, a)) {
+        blk.set(a, b, row[b]);
+      } else if (bit(in, b)) {
+        blk.set(a, b, lead_row[a]);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < P; ++b) lead_row[b] = (int32_t)(n_lead * (uint32_t)row[b]);
+}
+
+// A wholesale adoption from the leader by the members in `adopted`, the
+// acting leaders `lead` joining the set when anyone adopted.
+template <int P, class Block>
+RAFT_HD void adopt_event(Block& blk, uint32_t adopted, uint32_t lead,
+                         int32_t value, int32_t (&lead_row)[P],
+                         uint32_t n_lead) {
+  block_event<P>(blk, adopted != 0 ? adopted | lead : 0u, value, lead_row,
+                 n_lead);
+}
+
+// The voters' majority index of `mrow` (fused_common.cuh's quorum_index).
+template <int P>
+RAFT_HD int32_t quorum_of(const int32_t (&mrow)[P], uint32_t voter,
+                          int32_t qpos) {
+  bool v[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) v[p] = bit(voter, p);
+  return raft_fused::quorum_index<P>(mrow, v, qpos);
+}
+
+template <int P, bool WITH_CQ, bool WITH_LOSS, bool WITH_HEALTH, class Block>
 RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
                           int32_t round_base, int rounds, int election_tick,
-                          int heartbeat_tick, int64_t group_base) {
-  constexpr int PL = WITH_LOSS ? P : 1;
+                          int heartbeat_tick, int64_t group_base, Block& blk) {
+  // The leader's links to the other P - 1 peers (at least one slot).
+  constexpr int PO = WITH_LOSS && P > 1 ? P - 1 : 1;
   int32_t state[P], leader[P], hb[P], ee[P], li[P], lt[P], commit[P], mrow[P];
-  bool ra[P], voter[P], member[P], alive[P], role_leader[P], is_lead[P];
-  int32_t agree[P][P], loss[PL][PL];
-  bool has_leader = false;
-  int32_t lead_id_val = 0, count = 0;
+  uint32_t ra = 0, voter = 0, member = 0, alive = 0, role = 0;
+  int32_t count = 0;
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int64_t i = (int64_t)p * G + g;
@@ -111,20 +207,51 @@ RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
     lt[p] = t.lt[i];
     commit[p] = t.commit[i];
     mrow[p] = t.matched[i];
-    ra[p] = t.ra[i] != 0;
-    voter[p] = t.voter[i] != 0;
-    member[p] = t.member[i] != 0;
-    alive[p] = t.crashed[i] == 0;
-    role_leader[p] = state[p] == kRoleLeader;
-    is_lead[p] = role_leader[p] && alive[p];
-    has_leader = has_leader || is_lead[p];
-    if (is_lead[p]) lead_id_val = wadd(lead_id_val, p + 1);
-    if (voter[p]) count += 1;
+    ra |= flag(t.ra[i] != 0, p);
+    voter |= flag(t.voter[i] != 0, p);
+    member |= flag(t.member[i] != 0, p);
+    alive |= flag(t.crashed[i] == 0, p);
+    role |= flag(state[p] == kRoleLeader, p);
+    if (t.voter[i] != 0) count += 1;
+  }
+  // The acting leaders: alive peers in the leader role.
+  const uint32_t lead = role & alive;
+  const bool has_leader = lead != 0;
+  int32_t lead_id_val = 0;
+  uint32_t n_lead = 0;
+  int lone = 0;  // the acting leader's slot when n_lead == 1
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (bit(lead, p)) {
+      lead_id_val = wadd(lead_id_val, p + 1);
+      n_lead += 1;
+      lone = p;
+    }
+  }
+  // The block, and the leaders' summed row of it (flagged_row's value).
+  int32_t lead_row[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) lead_row[q] = 0;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
 #pragma unroll
     for (int q = 0; q < P; ++q) {
-      const int64_t j = ((int64_t)p * P + q) * G + g;
-      agree[p][q] = t.agree[j];
-      if (WITH_LOSS) loss[p % PL][q % PL] = t.loss_rate[j];
+      const int32_t v = t.agree[((int64_t)p * P + q) * G + g];
+      blk.set(p, q, v);
+      if (bit(lead, p)) lead_row[q] = wadd(lead_row[q], v);
+    }
+  }
+  // With one acting leader, the rates of its links to and from each other
+  // peer, the o-th other peer being o + (o >= lone).
+  int32_t rate_out[PO], rate_in[PO];
+  if constexpr (WITH_LOSS) {
+    if (n_lead == 1) {
+#pragma unroll
+      for (int o = 0; o < P - 1; ++o) {
+        const int p = o + (o >= lone ? 1 : 0);
+        rate_out[o] = t.loss_rate[((int64_t)lone * P + p) * G + g];
+        rate_in[o] = t.loss_rate[((int64_t)p * P + lone) * G + g];
+      }
     }
   }
   const int32_t qpos = count / 2;
@@ -134,37 +261,41 @@ RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
   const int32_t n_app = has_leader ? t.app[g] : 0;
   const bool sent_b = has_leader && n_app > 0;
   const uint32_t gid = (uint32_t)(group_base + g);
+  const uint32_t up = alive & ~lead;  // alive peers other than the leaders
   raft_fused::CommitTracker<P, WITH_HEALTH> tsc(t.tsc, g, commit);
 
   for (int r = 0; r < rounds; ++r) {
     // --- delivery: forward (leader -> v) and reverse (v -> leader).  The
     // link plane is all-up among alive peers (the steady predicate), so
-    // only the loss sample gates.
-    bool fwd[P], rev[P];
-    if (WITH_LOSS) {
+    // only the loss sample gates, and only on the leaders' links.
+    uint32_t fwd = up, rev = up;
+    if constexpr (WITH_LOSS) {
       const uint32_t key =
           raft_fused::loss_round_key(gid, (uint32_t)round_base + (uint32_t)r);
-      bool dfl[P], dtl[P];
+      uint32_t dfl = 0, dtl = 0;  // leader -> p dropped, p -> leader dropped
+      if (n_lead == 1) {
 #pragma unroll
-      for (int p = 0; p < P; ++p) dfl[p] = dtl[p] = false;
+        for (int o = 0; o < P - 1; ++o) {
+          const int p = o + (o >= lone ? 1 : 0);
+          dfl |= flag(raft_fused::loss_drop<P>(key, lone, p, rate_out[o]), p);
+          dtl |= flag(raft_fused::loss_drop<P>(key, p, lone, rate_in[o]), p);
+        }
+      } else {
+#pragma unroll 1
+        for (int s = 0; s < P; ++s) {
+          if (!bit(lead, s)) continue;
+          const int64_t gs = opaque(g), Gs = opaque(G);
 #pragma unroll
-      for (int s = 0; s < P; ++s) {
-#pragma unroll
-        for (int d = 0; d < P; ++d) {
-          const bool drop =
-              raft_fused::loss_drop<P>(key, s, d, loss[s % PL][d % PL]);
-          if (drop && is_lead[s]) dfl[d] = true;
-          if (drop && is_lead[d]) dtl[s] = true;
+          for (int p = 0; p < P; ++p) {
+            const int32_t r_out = t.loss_rate[((int64_t)s * P + p) * Gs + gs];
+            const int32_t r_in = t.loss_rate[((int64_t)p * P + s) * Gs + gs];
+            dfl |= flag(raft_fused::loss_drop<P>(key, s, p, r_out), p);
+            dtl |= flag(raft_fused::loss_drop<P>(key, p, s, r_in), p);
+          }
         }
       }
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        fwd[p] = !dfl[p] && alive[p] && !is_lead[p];
-        rev[p] = !dtl[p] && alive[p] && !is_lead[p];
-      }
-    } else {
-#pragma unroll
-      for (int p = 0; p < P; ++p) fwd[p] = rev[p] = alive[p] && !is_lead[p];
+      fwd &= ~dfl;
+      rev &= ~dtl;
     }
 
     // --- tick, with the leader's election-timeout boundary: with check
@@ -173,24 +304,21 @@ RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       ee[p] = wadd(ee[p], 1);
-      const bool boundary = role_leader[p] && ee[p] >= election_tick;
+      const bool boundary = bit(role, p) && ee[p] >= election_tick;
       if (boundary) ee[p] = 0;
-      lead_bnd = lead_bnd || (boundary && is_lead[p]);
-      if (role_leader[p]) hb[p] = wadd(hb[p], 1);
-      const bool want_beat = role_leader[p] && hb[p] >= heartbeat_tick;
+      lead_bnd = lead_bnd || (boundary && bit(lead, p));
+      if (bit(role, p)) hb[p] = wadd(hb[p], 1);
+      const bool want_beat = bit(role, p) && hb[p] >= heartbeat_tick;
       if (want_beat) hb[p] = 0;
-      beat = beat || (want_beat && is_lead[p]);
+      beat = beat || (want_beat && bit(lead, p));
     }
-    if (WITH_CQ && lead_bnd) {
-#pragma unroll
-      for (int p = 0; p < P; ++p) ra[p] = is_lead[p];
-    }
+    if (WITH_CQ && lead_bnd) ra = lead;
 
     // --- round-start snapshots of the leader's cursors
     int32_t c_l = 0, li_l = 0, lt_l = 0;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      if (is_lead[p]) {
+      if (bit(lead, p)) {
         c_l = wadd(c_l, commit[p]);
         li_l = wadd(li_l, li[p]);
         lt_l = wadd(lt_l, lt[p]);
@@ -201,140 +329,138 @@ RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
     // probes and set recent_active bits; wave 3: catch-up appends under
     // the damped probe rule (a probe that does not match starts a retry
     // chain, which lands after stage A).
-    bool resumed[P], adopt[P], retry3[P];
-    int32_t lead_row[P];
-    raft_fused::flagged_row<P>(agree, is_lead, lead_row);
+    const uint32_t h_acc = beat ? fwd & member : 0u;
+    const uint32_t resumed = h_acc & rev;
+    ra |= resumed;
+    uint32_t adopt = 0, retry3 = 0;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const bool h_acc = fwd[p] && beat && member[p];
-      if (h_acc) {
+      if (bit(h_acc, p)) {
         state[p] = kRoleFollower;
         leader[p] = lead_id_val;
         ee[p] = 0;
         commit[p] = imax(commit[p], imin(mrow[p], c_l));
       }
-      resumed[p] = h_acc && rev[p];
-      ra[p] = ra[p] || resumed[p];
-      const bool cu = resumed[p] && mrow[p] < li_l;
+      const bool cu = bit(resumed, p) && mrow[p] < li_l;
       const bool probe = lead_row[p] >= (mrow[p] == 0 ? ts_prev : li_l);
-      adopt[p] = cu && probe;
-      retry3[p] = cu && !probe;
-      if (adopt[p]) {
+      adopt |= flag(cu && probe, p);
+      retry3 |= flag(cu && !probe, p);
+      if (cu && probe) {
         commit[p] = imax(commit[p], c_l);
         li[p] = li_l;
         lt[p] = lt_l;
       }
     }
-    adopt_event<P>(agree, adopt, is_lead, li_l);
+    adopt_event<P>(blk, adopt, lead, li_l, lead_row, n_lead);
 
     // --- wave 4: the probe-matched acks, then the stage-A commit
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      if (adopt[p]) {
-        mrow[p] = imax(mrow[p], li_l);
-        ra[p] = true;
-      }
+      if (bit(adopt, p)) mrow[p] = imax(mrow[p], li_l);
     }
-    const int32_t mci = raft_fused::quorum_index<P>(mrow, voter, qpos);
+    ra |= adopt;
+    const int32_t mci = quorum_of<P>(mrow, voter, qpos);
     const bool ok_a = has_leader && count > 0 && mci >= ts;
     const int32_t c_new = ok_a ? imax(c_l, mci) : c_l;
     const bool adv = c_new > c_l;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      if (is_lead[p]) commit[p] = c_new;
+      if (bit(lead, p)) commit[p] = c_new;
       // the wave-3 retry resends land after stage A
-      if (retry3[p]) {
+      if (bit(retry3, p)) {
         commit[p] = imax(commit[p], c_l);
         li[p] = li_l;
         lt[p] = lt_l;
       }
     }
-    adopt_event<P>(agree, retry3, is_lead, li_l);
+    adopt_event<P>(blk, retry3, lead, li_l, lead_row, n_lead);
 
     // --- wave 5: the commit-advance re-broadcast, damped probe rule
-    bool retry5[P], ack5[P];
-    raft_fused::flagged_row<P>(agree, is_lead, lead_row);
+    uint32_t adopt5 = 0, retry5 = 0;
+    if (adv) {
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const bool rb5 = fwd[p] && member[p] && adv && (mrow[p] > 0 || resumed[p]);
-      const bool probe = lead_row[p] >= (mrow[p] == 0 ? ts_prev : li_l);
-      adopt[p] = rb5 && probe;
-      retry5[p] = rb5 && !probe && rev[p];
-      if (rb5) {
-        state[p] = kRoleFollower;
-        leader[p] = lead_id_val;
-        ee[p] = 0;
+      for (int p = 0; p < P; ++p) {
+        const bool rb5 = bit(fwd & member, p) && (mrow[p] > 0 || bit(resumed, p));
+        const bool probe = lead_row[p] >= (mrow[p] == 0 ? ts_prev : li_l);
+        const bool a5 = rb5 && probe;
+        const bool r5 = rb5 && !probe && bit(rev, p);
+        if (rb5) {
+          state[p] = kRoleFollower;
+          leader[p] = lead_id_val;
+          ee[p] = 0;
+        }
+        if (a5 || r5) {
+          li[p] = li_l;
+          lt[p] = lt_l;
+        }
+        adopt5 |= flag(a5, p);
+        retry5 |= flag(r5, p);
       }
-      if (adopt[p] || retry5[p]) {
-        li[p] = li_l;
-        lt[p] = lt_l;
-      }
-      ack5[p] = (adopt[p] && rev[p]) || retry3[p] || retry5[p];
     }
-    adopt_event<P>(agree, adopt, is_lead, li_l);
-    adopt_event<P>(agree, retry5, is_lead, li_l);
+    const uint32_t ack5 = (adopt5 & rev) | retry3 | retry5;
+    adopt_event<P>(blk, adopt5, lead, li_l, lead_row, n_lead);
+    adopt_event<P>(blk, retry5, lead, li_l, lead_row, n_lead);
 
     // --- wave 6: the deferred acks, the stage-B commit and its
     // propagation to sendable members
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      if (ack5[p]) {
-        mrow[p] = imax(mrow[p], li_l);
-        ra[p] = true;
-      }
+      if (bit(ack5, p)) mrow[p] = imax(mrow[p], li_l);
     }
-    const int32_t mci2 = raft_fused::quorum_index<P>(mrow, voter, qpos);
+    ra |= ack5;
+    const int32_t mci2 = quorum_of<P>(mrow, voter, qpos);
     const bool ok_b = has_leader && count > 0 && mci2 >= ts;
     const int32_t c_new2 = ok_b ? imax(c_new, mci2) : c_new;
-    raft_fused::flagged_row<P>(agree, is_lead, lead_row);
-    bool sync_b[P], in_set[P];
     const int32_t lead_last = wadd(li_l, n_app);
+    uint32_t sync_b = 0;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      if (is_lead[p]) commit[p] = c_new2;
-      const bool sendable = mrow[p] > 0 || resumed[p];
-      const bool elig = fwd[p] && member[p] && sendable &&
-                        (lead_row[p] >= li_l || rev[p]) && c_new2 > c_l;
+      if (bit(lead, p)) commit[p] = c_new2;
+      const bool sendable = mrow[p] > 0 || bit(resumed, p);
+      const bool elig = bit(fwd & member, p) && sendable &&
+                        (lead_row[p] >= li_l || bit(rev, p)) && c_new2 > c_l;
       if (elig) commit[p] = imax(commit[p], c_new2);
-      if (elig && rev[p]) ra[p] = true;
+      ra |= flag(elig && bit(rev, p), p);
 
       // --- the round's append workload at the acting leader
-      if (is_lead[p]) {
+      if (bit(lead, p)) {
         li[p] = wadd(li[p], n_app);
         if (sent_b) lt[p] = lead_term;
       }
-      const bool send_w = sent_b && fwd[p] && member[p] && sendable;
+      const bool send_w = sent_b && bit(fwd & member, p) && sendable;
       const bool probe = lead_row[p] >= (mrow[p] == 0 ? ts_prev : li_l);
-      sync_b[p] = send_w && (probe || rev[p]);
+      const bool sync = send_w && (probe || bit(rev, p));
       if (send_w) {
         state[p] = kRoleFollower;
         leader[p] = lead_id_val;
         ee[p] = 0;
       }
-      if (sync_b[p]) {
+      if (sync) {
         li[p] = lead_last;
         lt[p] = lead_term;
       }
-      const bool ack_w = sync_b[p] && rev[p];
-      if (ack_w || (is_lead[p] && sent_b)) mrow[p] = imax(mrow[p], lead_last);
-      if (ack_w) ra[p] = true;
-      in_set[p] = sync_b[p] || (is_lead[p] && sent_b);
+      const bool ack_w = sync && bit(rev, p);
+      if (ack_w || (bit(lead, p) && sent_b)) mrow[p] = imax(mrow[p], lead_last);
+      ra |= flag(ack_w, p);
+      sync_b |= flag(sync, p);
     }
-    raft_fused::agree_event<P>(agree, in_set, lead_last, lead_row);
-    const int32_t mci3 = raft_fused::quorum_index<P>(mrow, voter, qpos);
+    block_event<P>(blk, sync_b | (sent_b ? lead : 0u), lead_last, lead_row,
+                   n_lead);
+    const int32_t mci3 = quorum_of<P>(mrow, voter, qpos);
     const bool ok_c = sent_b && count > 0 && mci3 >= ts;
     const int32_t lead_commit = ok_c ? imax(c_new2, mci3) : c_new2;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      if (is_lead[p]) commit[p] = lead_commit;
-      if (sync_b[p]) commit[p] = imax(commit[p], lead_commit);
+      if (bit(lead, p)) commit[p] = lead_commit;
+      if (bit(sync_b, p)) commit[p] = imax(commit[p], lead_commit);
     }
     tsc.round(commit);
   }
 
+  const int64_t gs = opaque(g), Gs = opaque(G);
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    const int64_t i = (int64_t)p * G + g;
+    const int64_t i = (int64_t)p * Gs + gs;
     t.state_out[i] = state[p];
     t.leader_id_out[i] = leader[p];
     t.hb_out[i] = hb[p];
@@ -343,13 +469,13 @@ RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
     t.lt_out[i] = lt[p];
     t.commit_out[i] = commit[p];
     t.matched_out[i] = mrow[p];
-    t.ra_out[i] = ra[p] ? 1 : 0;
+    t.ra_out[i] = bit(ra, p) ? 1 : 0;
 #pragma unroll
     for (int q = 0; q < P; ++q) {
-      t.agree_out[((int64_t)p * P + q) * G + g] = agree[p][q];
+      t.agree_out[((int64_t)p * P + q) * Gs + gs] = blk.get(p, q);
     }
   }
-  tsc.store(t.tsc_out, g);
+  tsc.store(t.tsc_out, gs);
 }
 
 }  // namespace raft_damped

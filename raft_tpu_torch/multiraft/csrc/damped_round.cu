@@ -1,11 +1,17 @@
 // Grid wrapper around damped_body.cuh for sm_90a: one thread per group,
-// 256 threads a block, the ragged last block masked by g < G; the global
-// thread index plus group_base (the block's first id on a rank of a mesh
-// run, else 0) is the group id that keys the loss draw.  Launches on the
-// caller's stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() so a refused launch reaches the caller.  with_health
-// picks the WITH_HEALTH instances, which read tsc and write tsc_out (both
-// null otherwise).
+// DampedShape<P>::kThreads threads a block, the ragged last block masked
+// by g < G; the global thread index plus group_base (the block's first id
+// on a rank of a mesh run, else 0) is the group id that keys the loss
+// draw.  Each thread keeps its group's [P, P] agree block in registers
+// (P <= 8) or in its own column of the block's dynamic shared memory
+// (P > 8), and the shape's minimum of resident blocks caps the registers
+// so that 16 warps an SM fit at P <= 5.  Launches on the caller's stream,
+// allocates nothing, does not synchronise, and returns cudaGetLastError()
+// so a refused launch reaches the caller.  with_health picks the
+// WITH_HEALTH instances, which read tsc and write tsc_out (both null
+// otherwise).  damped_round_occupancy reports an instance's registers,
+// local (spill) bytes, shared memory, threads a block and resident blocks
+// an SM.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -13,17 +19,79 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// Where each group's [P, P] agree block lives, threads a block, and the
+// minimum of resident blocks an SM that __launch_bounds__ asks for (which
+// caps the registers at 65,536 / (threads * blocks)), by peer count, as
+// the card measured them (PERF.md, section 6): up to P = 8 the block sits in
+// registers (ArrayBlock), which ran faster than the shared-memory column
+// at P = 3, 5 and 7; past it in the thread's column of the block's dynamic
+// shared memory (StridedBlock, P * P * 4 bytes a thread, conflict-free),
+// which ran P = 15 in half the time.  128 threads and 4 blocks (16 warps)
+// at P <= 5; 3 blocks at P = 6 and 7; at P = 8 no cap, so 255 registers
+// hold it without a spill; past P = 13 a block of 32 keeps the shared
+// memory under the 48 KB a block gets without opting in.
+template <int P>
+struct DampedShape {
+  static constexpr bool kShared = P > 8;
+  static constexpr int kThreads = P <= 8 ? 128 : (P <= 13 ? 64 : 32);
+  static constexpr int kMinBlocks = P <= 5 ? 4 : (P <= 7 ? 3 : 1);
+  static constexpr int kSharedBytes = kShared ? P * P * 4 * kThreads : 0;
+};
 
 template <int P, bool WITH_CQ, bool WITH_LOSS, bool WITH_HEALTH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(DampedShape<P>::kThreads,
+                                  DampedShape<P>::kMinBlocks)
     damped_round_kernel(raft_damped::DampedPlanes t, int64_t G,
                         int32_t round_base, int rounds, int election_tick,
                         int heartbeat_tick, int64_t group_base) {
-  const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  constexpr int T = DampedShape<P>::kThreads;
+  const int64_t g = (int64_t)blockIdx.x * T + threadIdx.x;
   if (g >= G) return;
-  raft_damped::damped_group<P, WITH_CQ, WITH_LOSS, WITH_HEALTH>(
-      g, G, t, round_base, rounds, election_tick, heartbeat_tick, group_base);
+  if constexpr (DampedShape<P>::kShared) {
+    extern __shared__ int32_t damped_agree_smem[];
+    raft_damped::StridedBlock<P, T> blk{damped_agree_smem + threadIdx.x};
+    raft_damped::damped_group<P, WITH_CQ, WITH_LOSS, WITH_HEALTH>(
+        g, G, t, round_base, rounds, election_tick, heartbeat_tick,
+        group_base, blk);
+  } else {
+    raft_damped::ArrayBlock<P> blk;
+    raft_damped::damped_group<P, WITH_CQ, WITH_LOSS, WITH_HEALTH>(
+        g, G, t, round_base, rounds, election_tick, heartbeat_tick,
+        group_base, blk);
+  }
+}
+
+template <int P, bool WITH_CQ, bool WITH_LOSS, bool WITH_HEALTH>
+cudaError_t launch(const raft_damped::DampedPlanes& t, int64_t G,
+                   int32_t round_base, int rounds, int election_tick,
+                   int heartbeat_tick, int64_t group_base, cudaStream_t s) {
+  using Shape = DampedShape<P>;
+  const unsigned blocks = (unsigned)((G + Shape::kThreads - 1) / Shape::kThreads);
+  damped_round_kernel<P, WITH_CQ, WITH_LOSS, WITH_HEALTH>
+      <<<blocks, Shape::kThreads, Shape::kSharedBytes, s>>>(
+          t, G, round_base, rounds, election_tick, heartbeat_tick, group_base);
+  return cudaGetLastError();
+}
+
+// out[0..4]: registers a thread, local memory bytes a thread (spills),
+// shared memory bytes a block, threads a block, resident blocks an SM.
+template <int P, bool WITH_CQ, bool WITH_LOSS, bool WITH_HEALTH>
+cudaError_t occupancy(int* out) {
+  using Shape = DampedShape<P>;
+  const auto kernel = damped_round_kernel<P, WITH_CQ, WITH_LOSS, WITH_HEALTH>;
+  cudaFuncAttributes attr;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
+  if (rc != cudaSuccess) return rc;
+  int resident = 0;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &resident, kernel, Shape::kThreads, Shape::kSharedBytes);
+  if (rc != cudaSuccess) return rc;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes + Shape::kSharedBytes;
+  out[3] = Shape::kThreads;
+  out[4] = resident;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -63,14 +131,12 @@ extern "C" int damped_round_launch(
   if (with_health && (tsc == nullptr || tsc_out == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const unsigned blocks = (unsigned)((G + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
 #define RAFT_DAMPED_LAUNCH(NP, CQ, LOSS, HEALTH)                          \
   case NP * 8 + (CQ ? 1 : 0) + (LOSS ? 2 : 0) + (HEALTH ? 4 : 0):         \
-    damped_round_kernel<NP, CQ, LOSS, HEALTH><<<blocks, kThreads, 0, s>>>( \
+    return (int)launch<NP, CQ, LOSS, HEALTH>(                             \
         t, (int64_t)G, (int32_t)round_base, rounds, election_tick,        \
-        heartbeat_tick, (int64_t)group_base);                             \
-    break;
+        heartbeat_tick, (int64_t)group_base, s);
 #define RAFT_DAMPED_P(NP) RAFT_DAMPED_FOR_EACH_FLAG(RAFT_DAMPED_LAUNCH, NP)
   switch (P * 8 + flags) {
     RAFT_PEER_LIST(RAFT_DAMPED_P)
@@ -79,5 +145,21 @@ extern "C" int damped_round_launch(
   }
 #undef RAFT_DAMPED_P
 #undef RAFT_DAMPED_LAUNCH
-  return (int)cudaGetLastError();
+}
+
+extern "C" int damped_round_occupancy(int P, int with_cq, int with_loss,
+                                      int with_health, int* out) {
+  const int flags =
+      (with_cq ? 1 : 0) + (with_loss ? 2 : 0) + (with_health ? 4 : 0);
+#define RAFT_DAMPED_OCCUPANCY(NP, CQ, LOSS, HEALTH)               \
+  case NP * 8 + (CQ ? 1 : 0) + (LOSS ? 2 : 0) + (HEALTH ? 4 : 0): \
+    return (int)occupancy<NP, CQ, LOSS, HEALTH>(out);
+#define RAFT_DAMPED_P(NP) RAFT_DAMPED_FOR_EACH_FLAG(RAFT_DAMPED_OCCUPANCY, NP)
+  switch (P * 8 + flags) {
+    RAFT_PEER_LIST(RAFT_DAMPED_P)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RAFT_DAMPED_P
+#undef RAFT_DAMPED_OCCUPANCY
 }

@@ -20,7 +20,7 @@ horizon (no campaigns, uniform terms), so they need no state.  The
 with_health variant (`tsc` given) also carries ticks_since_commit, as the
 steady kernel's does (steady_kernel.py's CommitTracker).
 
-Bound on an H100 (`damped_work`, which counts what the outputs need): one
+Bound on an H100, first by the plain version's work (`damped_work`): one
 call must read 8 int32 and 4 one-byte [P, G] planes, the int32 [P, P, G]
 `agree` plane and 3 int32 [G] rows, and write 8 int32 and 1 one-byte
 [P, G] planes and `agree`: 55.7 MB at P=5, G=100k, or 17 us at 3.35 TB/s.
@@ -28,14 +28,29 @@ The integer work per group and round (five [P, P] agreement events with
 their leader-row gathers, the odd-even quorum network three times, some
 140 selects a peer) is 1,542 operations at P=5, 4.9 G a call at k=32, or
 295 us at the card's 16.75 T/s INT32 rate, so operations set the bound.
-The design (csrc/damped_body.cuh): one thread per group holds its
-P-column of every plane, its `recent_active` row and its [P, P] `agree`
-block (and `loss_rate` with loss) in registers for all k rounds, P,
-with_cq, with_loss and with_health template parameters so every peer loop
-unrolls and the untaken arms compile away; loads and stores are peer-major, so
-neighbouring threads touch neighbouring words.  P = 8..15 build from
-csrc/damped_round_wide.cu, a library of its own, where the [P, P] blocks
-spill to local memory.
+The CUDA body needs less than the plain version does (`damped_body_work`:
+739 operations a group-round at P=5 on a settled horizon, 142 us a call at
+k=32), and that smaller count is the kernel's bound.
+The design (csrc/damped_body.cuh, csrc/damped_round.cu): one thread per
+group holds its P-column of every int32 plane, and its per-peer flags
+(the masks, `recent_active` and each round's delivery and wave sets) as
+bit masks, in registers for all k rounds, P, with_cq, with_loss and
+with_health template parameters so every peer loop unrolls and the
+untaken arms compile away; loads and stores are peer-major, so
+neighbouring threads touch neighbouring words.  Every agreement event of
+a steady horizon holds all acting leaders whenever its set is not empty,
+so the leaders' summed row, the one the probes read, is carried in
+registers and the rounds only write the [P, P] `agree` block: in
+registers up to P = 8, in the thread's own column of the block's shared
+memory past it (each the faster on the card).  128 threads a block and a
+register cap give 16 warps an SM at P <= 5.  With loss only the links
+with an acting leader at one end are drawn (with one leader, as in every
+fused block, its 2(P - 1) links to the others, their rates loaded once;
+with several, each one's row and column from the plane), which gives the
+reference's bits since a draw is a pure function of (round, src, dst,
+group, rate).  `damped_round_occupancy` in the library reports each
+instance's registers, spills, shared memory and resident blocks.
+P = 8..15 build from csrc/damped_round_wide.cu, a library of its own.
 
 On CPU tensors `damped_rounds` runs `damped_rounds_reference`; on CUDA
 tensors it launches the kernel or raises.  `damped_rounds.launches` counts
@@ -282,6 +297,53 @@ def damped_work(
     if with_health:
         hb, hops = health_work(P, G, rounds)
         nbytes, ops = nbytes + hb, ops + hops
+    return nbytes, ops
+
+
+def damped_body_work(
+    P: int, G: int, rounds: int, with_cq: bool = True, with_loss: bool = False,
+    with_health: bool = False,
+) -> Tuple[int, int]:
+    """(bytes, integer operations) of the CUDA body (csrc/damped_body.cuh)
+    for G groups that each have one acting leader, on a settled horizon:
+    appends every round, so wave 6's agreement event holds the leader,
+    while the four adoption events are empty and wave 5 is skipped (stage
+    A advances nothing).  `damped_work` counts the plain version's work,
+    which the body does not all need (it carries the leader's row instead
+    of reading it back from the block, and skips empty events), so this
+    count is the smaller; a round that runs more events only adds to it.
+
+    Bytes: `damped_work`'s (the body reads and writes just those).
+
+    Operations: per group and round, read off the body's code, each add,
+    compare, select, min/max and bit operation one, a set operation on a
+    peer mask one:
+      delivery         0 without loss; with loss 12 (the round key, the
+                       masks) + 15 for each of the 2(P - 1) leader links
+                       (the draw as chaos_work counts it, 12; the slot and
+                       the bit)
+      tick             15P, with check_quorum 1 more
+      leader snapshots 4P
+      waves 1 to 3     23P + 7;  wave 4 and the retries 10P + 10;  wave 5 10
+      wave 6           44P + 8;  the workload's commit 5P + 5
+      quorum picks     3 × (4P + 2 per comparator of the network)
+      agreement        wave 6's event, 2P² + 4P + 3
+    and per group once: the loads' masks, the leader and its summed row,
+    P² + 23P, with loss P - 1 more (the leader's link slots).  The
+    with_health variant adds health_work's bytes and operations.
+    """
+    nbytes, _ = damped_work(P, G, rounds, with_cq, with_loss, with_health)
+    comparators = sum(len(range(s % 2, P - 1, 2)) for s in range(P))
+    per_round = 2 * P * P + 117 * P + 6 * comparators + 43
+    per_call = P * P + 23 * P
+    if with_cq:
+        per_round += 1
+    if with_loss:
+        per_round += 12 + 15 * 2 * (P - 1)
+        per_call += P - 1
+    ops = (per_round * rounds + per_call) * G
+    if with_health:
+        ops += health_work(P, G, rounds)[1]
     return nbytes, ops
 
 

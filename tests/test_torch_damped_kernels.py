@@ -28,6 +28,7 @@ from raft_tpu_torch.multiraft import sim as tsim
 from raft_tpu_torch.multiraft.damped_kernel import (
     OUTPUT_NAMES,
     damped_rounds,
+    damped_body_work,
     damped_rounds_reference,
     damped_work,
 )
@@ -335,6 +336,140 @@ def test_host_body_rejects_what_it_cannot_take():
     assert lib.damped_round_host(*([null] * 29), 4, 3, 0, 1, 10, 1, 1, 0, 1) != 0
 
 
+# --- the body's leader arms: none, one and several acting leaders ----------
+
+MESH_BASE = 8_300_000  # one of chip_smoke.py's mesh group bases, near 2**23
+
+
+def place_leaders(P, G, n_leaders, seed, slot=None):
+    """(state, crashed) planes with exactly `n_leaders` acting leaders in
+    every group, set on purpose: slots g, g + 1, ... (mod P), or `slot`
+    alone; the other peers followers or candidates, one of them in every
+    odd group in the leader role but crashed, so not acting."""
+    rng = np.random.default_rng(seed)
+    state = rng.integers(0, 2, size=(P, G)).astype(np.int32)
+    crashed = rng.random((P, G)) < 0.2
+    for g in range(G):
+        lead = [slot] if slot is not None else [(g + j) % P for j in range(n_leaders)]
+        state[lead, g] = tk.ROLE_LEADER
+        crashed[lead, g] = False
+        rest = [p for p in range(P) if p not in lead]
+        if rest and g % 2:
+            q = rest[g % len(rest)]
+            state[q, g], crashed[q, g] = tk.ROLE_LEADER, True
+    state, crashed = _t(state), _t(crashed)
+    acting = (state == tk.ROLE_LEADER) & ~crashed
+    assert (acting.sum(0) == n_leaders).all()
+    return state, crashed
+
+
+def leader_operands(P, G, n_leaders, seed, loss, slot=None):
+    """random_operands with place_leaders' roles and crashes."""
+    args = list(random_operands(P, G, seed, loss))
+    args[0], args[11] = place_leaders(P, G, n_leaders, seed + 1, slot)
+    return tuple(args)
+
+
+def _host_at(args, kw, tsc, strided):
+    """damped_round_host_at (the body over a plain array) or, `strided`,
+    damped_round_host_strided_at (over the CUDA build's shared-memory
+    layout), from the narrow or the wide library by P."""
+    P, G = args[0].shape
+    lib = _build.load_damped_host(P)
+    fn = lib.damped_round_host_strided_at if strided else lib.damped_round_host_at
+    outs = [torch.empty((P, G), dtype=torch.int32) for _ in range(8)]
+    outs.append(torch.empty((P, G), dtype=torch.bool))
+    outs.append(torch.empty((P, P, G), dtype=torch.int32))
+    tsc_out = None if tsc is None else torch.empty(G, dtype=torch.int32)
+    rc = fn(
+        *[None if a is None else a.contiguous().data_ptr() for a in args],
+        *[t.data_ptr() for t in outs],
+        *[None if t is None else t.data_ptr() for t in (tsc, tsc_out)],
+        G, P, kw["round_base"], kw["rounds"], kw["election_tick"],
+        kw["heartbeat_tick"], int(kw["with_cq"]), int(args[13] is not None),
+        int(tsc is not None), kw["group_base"],
+    )
+    assert rc == 0
+    return outs + ([] if tsc is None else [tsc_out])
+
+
+def assert_arms_match(args, kw):
+    """Both storages of the g++ body, both health variants, equal to the
+    plain version."""
+    G = args[0].shape[1]
+    tsc = _t(np.random.default_rng(G).integers(0, 100, size=G).astype(np.int32))
+    for t in (None, tsc):
+        want = damped_rounds_reference(*args, t, **kw)
+        for strided in (False, True):
+            got = _host_at(args, kw, t, strided)
+            for name, w, g in zip(OUTPUT_NAMES + ("tsc",), want, got):
+                assert w.dtype == g.dtype, name
+                np.testing.assert_array_equal(
+                    g.numpy(), w.numpy(),
+                    err_msg=f"{name} strided={strided} health={t is not None} {kw}")
+    return want
+
+
+@needs_gxx
+@pytest.mark.parametrize("P", [2, 5, 8, 15])
+@pytest.mark.parametrize("n_leaders", [0, 1, 3])
+@pytest.mark.parametrize("loss", [False, True])
+@pytest.mark.parametrize("group_base", [0, MESH_BASE])
+def test_host_body_leader_arms(P, n_leaders, loss, group_base):
+    """0, 1 and 3 acting leaders (2 at P = 2): no draw, the leader's row and
+    column from registers, and each leader's links from the plane."""
+    n = min(n_leaders, P)
+    args = leader_operands(P, 13, n, 1000 * P + 10 * n + loss, loss)
+    kw = dict(round_base=2**31 - 16, rounds=16, election_tick=6, heartbeat_tick=1,
+              with_cq=bool(n % 2), group_base=group_base)
+    want = assert_arms_match(args, kw)
+    if loss and n and P >= 5:  # the draws gate something (at P = 2 they may not)
+        dry = damped_rounds_reference(*args[:13], None, *args[14:], **kw)
+        assert any(not torch.equal(w, d) for w, d in zip(want, dry))
+
+
+@needs_gxx
+@pytest.mark.parametrize("P", [5, 15])
+@pytest.mark.parametrize("slot", ["first", "last"])
+def test_host_body_single_leader_at_either_end(P, slot):
+    """One acting leader at slot 0 or P - 1 in every group: the leader's
+    row and column rates, and its draw lanes, at the ends of the block."""
+    where = 0 if slot == "first" else P - 1
+    args = leader_operands(P, 13, 1, 7 * P + where, True, slot=where)
+    for group_base in (0, MESH_BASE):
+        assert_arms_match(args, dict(round_base=40, rounds=16, election_tick=6,
+                                     heartbeat_tick=1, with_cq=True,
+                                     group_base=group_base))
+
+
+@needs_gxx
+@pytest.mark.parametrize("n_leaders, slot", [(0, None), (1, None), (3, None), (1, 4)])
+@pytest.mark.parametrize("loss", [False, True])
+def test_leader_arms_match_pallas(n_leaders, slot, loss):
+    """Random states at P = 5 with exactly 0, 1 or 3 acting leaders (or one
+    at slot P - 1 in every group): the port's damped round against the
+    Pallas kernel in interpret mode, and the g++ body, both storages, on
+    the same operands against the plain version, so each arm of the body
+    meets the JAX package on one input."""
+    P, G, rb = 5, 16, 2**31 - 4
+    st = random_damped_state(P, G, 60 + n_leaders)
+    state, crashed = place_leaders(P, G, n_leaders, 70 + n_leaders, slot)
+    st = st._replace(state=state)
+    got = check_against_pallas(st, crashed, "cq", loss, rb)
+    assert not torch.equal(got.commit, st.commit) or n_leaders == 0
+    _, tcfg = cfgs(G, P, "cq")
+    append = torch.ones(G, dtype=torch.int32)
+    append[::4] = 0  # as check_against_pallas
+    rates = _t(loss_plane(P, G, rb % 97)) if loss else None
+    args = fused_step.damped_operands(st, crashed, append, rates)
+    kw = dict(round_base=rb, rounds=4, election_tick=tcfg.election_tick,
+              heartbeat_tick=tcfg.heartbeat_tick, with_cq=True, group_base=0)
+    want = assert_arms_match(args, kw)
+    if loss and n_leaders:  # the draws gate something
+        dry = damped_rounds_reference(*args[:13], None, *args[14:], **kw)
+        assert any(not torch.equal(w, d) for w, d in zip(want, dry))
+
+
 def test_wrapper_on_cpu_tensors_runs_the_plain_version():
     args = random_operands(3, 16, 9, True)
     kw = dict(round_base=7, rounds=4, election_tick=10, heartbeat_tick=1, with_cq=True)
@@ -362,3 +497,22 @@ def test_damped_work_counts():
     nb_loss, ops_loss = damped_work(5, 10, 1, with_loss=True)
     assert nb_loss == 557 * 10 + 4 * 8 * 10
     assert ops_loss == (1542 - 10 + 10 + 12 * 8 + 60) * 10
+
+
+def test_damped_body_work_counts():
+    """The body's count: the plain version's bytes, fewer operations."""
+    nbytes, ops = damped_body_work(5, 100_000, 32)
+    assert nbytes == damped_work(5, 100_000, 32)[0]
+    # 739 operations a group-round at P=5 with check_quorum, no loss:
+    # 2P² + 117P + 6 × 10 comparators + 43 + 1; 140 once a group.
+    assert ops == (739 * 32 + 140) * 100_000
+    assert damped_body_work(5, 10, 1, with_cq=False)[1] == (738 + 140) * 10
+    nb_loss, ops_loss = damped_body_work(5, 10, 1, with_loss=True)
+    assert nb_loss == damped_work(5, 10, 1, with_loss=True)[0]
+    assert ops_loss == (739 + 12 + 15 * 8 + 140 + 4) * 10
+    # with_health adds health_work's count, as damped_work does.
+    h = damped_body_work(5, 10, 8, with_health=True)[1] - damped_body_work(5, 10, 8)[1]
+    assert h == damped_work(5, 10, 8, with_health=True)[1] - damped_work(5, 10, 8)[1]
+    for P in range(1, 16):
+        for flags in ({}, dict(with_loss=True), dict(with_health=True)):
+            assert damped_body_work(P, 7, 8, **flags)[1] < damped_work(P, 7, 8, **flags)[1]
