@@ -83,10 +83,11 @@ and eight more:
 
 Past P = 7 each kernel runs from libraries of its own, one a peer count
 (csrc/*_round_wide.cu): held to the plain versions at P = 8, 11 and 15
-(the damped kernel's also at 13 and 14, the steady kernel's runtime-P
-instance at 16), and driven at P = 8.  The damped kernel's bound is its
-body's work (damped_body_work), with the plain version's (damped_work)
-printed beside it.
+(the chaos and damped kernels' also at 13 and 14, the steady kernel's
+runtime-P instance at 16), and driven at P = 8.  The chaos and damped
+kernels' bounds are their bodies' work (chaos_body_work,
+damped_body_work), with the plain versions' (chaos_work, damped_work)
+printed beside them.
 The host driver: examples/multiraft_node.py's node, 3 MultiRaft drivers
 (peer ids 1-3) of 10,000 groups each with the tick on the card.
 
@@ -111,17 +112,20 @@ printed as bench.py --health-out writes it.
 
   1. device        require CUDA; print the card's name and power limit
   2. build         build the three kernels (every P <= 7 instance, and
-                   the wide libraries of P = 8, 11, 15, the damped
-                   kernel's also of 13 and 14, and the steady runtime-P
-                   one) and run_compiled's graph helper
+                   the wide libraries of P = 8, 11, 15, the chaos and
+                   the damped kernels' also of 13 and 14, each side of
+                   their shape switches, and
+                   the steady runtime-P one) and run_compiled's graph
+                   helper
                    (csrc/graph_cond.cu) from csrc/ with nvcc, one nvcc a
                    library, and the bench's native anchor
                    (csrc/multiraft_engine.cpp, g++ -O3), in parallel;
                    print the times and ptxas
                    registers and spills per P and template flag, then on
-                   one line each damped instance's registers, local
-                   (spill) bytes, shared memory a block, threads a block
-                   and resident blocks an SM (damped_round_occupancy)
+                   one line a kernel each chaos and damped instance's
+                   registers, local (spill) bytes, shared memory a block,
+                   threads a block and resident blocks an SM
+                   (chaos_round_occupancy, damped_round_occupancy)
   3. parity        the steady kernel against its plain PyTorch version on
                    the same card tensors, exact: settled states at
                    G=100,000 and a ragged G=100,003 (P=5), at P=3, 8 and
@@ -166,7 +170,10 @@ printed as bench.py --health-out writes it.
                    P=3, each with and without crashed followers, under 1%
                    and the heavy-loss layout, with the round base small
                    and near 2**31 - 32; P=8 lossy-settled the same way;
-                   random planes at P=3, 5, 7, 8, 11 and 15
+                   random planes at P=3, 5, 7, 8, 11, 13, 14 and 15,
+                   and at each of those P random planes with exactly 0, 1
+                   and 3 acting leaders a group at group bases 50,000 and
+                   8,300,000
   7. lossy         the lossy path at G=8,192 from init_state (192 settle
                    rounds, 4 blocks), bare, on the card and the CPU; then
                    the main path at G=100,000 from phase 6's settled state
@@ -390,6 +397,7 @@ from raft_tpu_torch.multiraft.chaos_kernel import (
     OUTPUT_NAMES as CHAOS_OUTPUTS,
     chaos_rounds,
     chaos_rounds_reference,
+    chaos_body_work,
     chaos_work,
 )
 from raft_tpu_torch.multiraft.damped_kernel import (
@@ -486,6 +494,15 @@ WIDE_PEERS = (8, 11, 15)
 # DampedShape: 32 threads a block, not 64): these wide instances are also
 # built and held against their plain versions on random planes.
 DAMPED_SHAPE_PEERS = (13, 14)
+# The chaos kernel's shape changes past P = 13 (csrc/chaos_round.cu's
+# ChaosShape: the agree block leaves the registers for shared memory, 32
+# threads a block, not 128): these wide instances, the two sides of the
+# switch, are also built and held against their plain versions.
+CHAOS_SHAPE_PEERS = (13, 14)
+# Random chaos planes with exactly 0, 1 and 3 acting leaders in every
+# group (each arm of the body's loss draws and agreement events), held at
+# the mesh group bases on this many groups.
+ARMS_G = 16_387
 STEADY_RUNTIME_P = 16
 WIDE_BLOCKS = 2
 STEADY_SOURCE = "raft_tpu_torch/multiraft/csrc/steady_round.cu"
@@ -539,7 +556,8 @@ def phase_build():
     for kind, load in (("steady", _build.load_steady_cuda),
                        ("chaos", _build.load_chaos_cuda),
                        ("damped", _build.load_damped_cuda)):
-        extra = {"steady": (STEADY_RUNTIME_P,), "damped": DAMPED_SHAPE_PEERS}.get(kind, ())
+        extra = {"steady": (STEADY_RUNTIME_P,), "chaos": CHAOS_SHAPE_PEERS,
+                 "damped": DAMPED_SHAPE_PEERS}[kind]
         for n_peers in WIDE_PEERS + extra:
             loaders[f"{kind}_round_p{n_peers}"] = lambda n=n_peers, f=load: f(n)
     with ThreadPoolExecutor(len(loaders)) as pool:
@@ -586,23 +604,28 @@ def phase_build():
 OCCUPANCY_KEYS = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
 
 
-def damped_occupancy():
-    """Each built damped instance's registers a thread, local (spill) bytes
-    a thread, shared memory bytes a block, threads a block and resident
-    blocks an SM (the library's damped_round_occupancy), printed on one
-    line."""
+def kernel_occupancy(kind):
+    """Each built chaos or damped (`kind`) instance's registers a thread,
+    local (spill) bytes a thread, shared memory bytes a block, threads a
+    block and resident blocks an SM (the library's `{kind}_round_occupancy`),
+    printed on one line."""
+    narrow = tuple(range(1, _build.NARROW_PEERS + 1))
+    if kind == "chaos":
+        load, peers, names = _build.load_chaos_cuda, CHAOS_SHAPE_PEERS, ("health",)
+    else:
+        load, peers, names = _build.load_damped_cuda, DAMPED_SHAPE_PEERS, (
+            "cq", "loss", "health")
     rows = {}
-    for n_peers in (tuple(range(1, _build.NARROW_PEERS + 1)) + WIDE_PEERS
-                    + DAMPED_SHAPE_PEERS):
-        lib = _build.load_damped_cuda(n_peers)
-        for cq, loss, health in itertools.product((0, 1), repeat=3):
+    for n_peers in narrow + WIDE_PEERS + peers:
+        fn = getattr(load(n_peers), f"{kind}_round_occupancy")
+        for flags in itertools.product((0, 1), repeat=len(names)):
             out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
-            rc = lib.damped_round_occupancy(n_peers, cq, loss, health, out)
+            rc = fn(n_peers, *flags, out)
             if rc != 0:
-                raise RuntimeError(f"damped_round_occupancy failed: CUDA error {rc}")
-            rows[f"P={n_peers} cq={cq} loss={loss} health={health}"] = dict(
-                zip(OCCUPANCY_KEYS, out))
-    print(f"damped occupancy [{card_line()}] (registers / local bytes a thread / "
+                raise RuntimeError(f"{kind}_round_occupancy failed: CUDA error {rc}")
+            key = " ".join([f"P={n_peers}"] + [f"{n}={v}" for n, v in zip(names, flags)])
+            rows[key] = dict(zip(OCCUPANCY_KEYS, out))
+    print(f"{kind} occupancy [{card_line()}] (registers / local bytes a thread / "
           "shared bytes a block / threads a block / resident blocks an SM): " + "; ".join(
               f"{k} {'/'.join(str(v) for v in r.values())}" for k, r in rows.items()))
     return rows
@@ -1129,7 +1152,7 @@ def kernel_times(dev, kernel, reference, args, kw, work, parts=None,
     t.update(bound_ms=max(bytes_ms, ops_ms), bytes_bound_ms=bytes_ms,
              ops_bound_ms=ops_ms, bound_by="bytes" if bytes_ms >= ops_ms else "operations",
              bytes=nbytes, operations=ops, card=card_line())
-    if plain:  # the plain version's count beside the kernel's (damped_bound_work)
+    if plain:  # the plain version's count beside the body's (bound_work)
         pbytes, pops = plain[0]
         t["plain_work_bound_ms"] = max(pbytes / HBM_BYTES_PER_S, pops / OPS_PER_S) * 1e3
     return t
@@ -1137,21 +1160,29 @@ def kernel_times(dev, kernel, reference, args, kw, work, parts=None,
 
 def plain_bound_note(t):
     """The plain version's bound and the kernel's share of it, where
-    kernel_times recorded one (the damped kernel), for a printed line."""
+    kernel_times recorded one (the chaos and damped kernels), for a printed
+    line."""
     if "plain_work_bound_ms" not in t:
         return ""
     b = t["plain_work_bound_ms"]
     return f"; the plain version's work {b:.4f} ms ({100 * b / t['ms']:.1f} % of it)"
 
 
-def damped_bound_work(n_peers, n_groups, rounds, **flags):
-    """The damped kernel's work for kernel_times: its body's (bytes,
-    operations), damped_body_work, which sets its bound, then the plain
-    version's, damped_work, whose bound is recorded beside it as
-    plain_work_bound_ms (the yardstick the rows before the redesign were
-    held to)."""
-    return damped_body_work(n_peers, n_groups, rounds, **flags) + (
-        damped_work(n_peers, n_groups, rounds, **flags),)
+# The chaos and damped kernels' work counts: the body's (chaos_body_work,
+# damped_body_work), which sets the kernel's bound, and the plain
+# version's (chaos_work, damped_work), the yardstick the rows before each
+# kernel's redesign were held to.
+WORK_COUNTS = {"chaos": (chaos_body_work, chaos_work),
+               "damped": (damped_body_work, damped_work)}
+
+
+def bound_work(kernel, n_peers, n_groups, rounds, **flags):
+    """`kernel`'s ("chaos" or "damped") work for kernel_times: its body's
+    (bytes, operations), then the plain version's, whose bound
+    kernel_times records beside the kernel's as plain_work_bound_ms."""
+    body, plain = WORK_COUNTS[kernel]
+    work = (n_peers, n_groups, rounds)
+    return body(*work, **flags) + (plain(*work, **flags),)
 
 
 @phase("timing")
@@ -1231,11 +1262,37 @@ def random_chaos_inputs(n_peers, n_groups, seed, device):
             ints(3, (n_groups,)))
 
 
-def compare_chaos(args, round_base, note, election_tick=LOSSY_TICK):
+def place_leaders(args, n_leaders, seed):
+    """Chaos operands `args` with new roles and crashes: exactly
+    `n_leaders` acting leaders in every group (slots g, g + 1, ... mod P,
+    alive in the leader role), the other peers followers or candidates,
+    one of them in every odd group in the leader role but crashed, so not
+    acting."""
+    P, n_groups = args[0].shape
+    dev = args[0].device
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    state = torch.randint(0, 2, (P, n_groups), generator=gen, dtype=torch.int32).to(dev)
+    crashed = args[10].clone()
+    idx = torch.arange(n_groups, device=dev)
+    for j in range(n_leaders):
+        state[(idx + j) % P, idx] = ROLE_LEADER
+        crashed[(idx + j) % P, idx] = False
+    if n_leaders < P:
+        odd = idx[1::2]
+        state[(odd + n_leaders) % P, odd] = ROLE_LEADER
+        crashed[(odd + n_leaders) % P, odd] = True
+    acting = (state == ROLE_LEADER) & ~crashed
+    if not bool((acting.sum(0) == n_leaders).all()):
+        raise AssertionError(f"place_leaders: not {n_leaders} acting leaders a group")
+    return (state,) + tuple(args[1:10]) + (crashed,) + tuple(args[11:])
+
+
+def compare_chaos(args, round_base, note, election_tick=LOSSY_TICK, group_base=0):
     kw = dict(round_base=round_base, rounds=K, election_tick=election_tick,
-              heartbeat_tick=1)
+              heartbeat_tick=1, group_base=group_base)
     return compare_variants(chaos_rounds, chaos_rounds_reference, CHAOS_OUTPUTS,
-                            args, kw, f"{note} round_base={round_base}")
+                            args, kw, f"{note} round_base={round_base}"
+                            + (f" group_base={group_base}" if group_base else ""))
 
 
 @phase("chaos parity")
@@ -1272,7 +1329,7 @@ def phase_chaos_parity(dev):
                     err = worst(err, e)
                     if n_peers > _build.NARROW_PEERS:
                         wide_err = worst(wide_err, e)
-    for n_peers in (3, 5, 7) + WIDE_PEERS:
+    for n_peers in (3, 5, 7) + WIDE_PEERS + CHAOS_SHAPE_PEERS:
         args = random_chaos_inputs(n_peers, G + 3, 10 + n_peers, dev)
         for rb in (7, 2**31 - K):
             e = compare_chaos(args, rb, f"random planes G={G + 3} P={n_peers}",
@@ -1280,6 +1337,17 @@ def phase_chaos_parity(dev):
             err = worst(err, e)
             if n_peers > _build.NARROW_PEERS:
                 wide_err = worst(wide_err, e)
+        # Each leader arm of the body: no acting leader, one, and three.
+        for n_leaders in (0, 1, 3):
+            arms = place_leaders(random_chaos_inputs(n_peers, ARMS_G, 30 + n_peers, dev),
+                                 n_leaders, 40 + n_peers)
+            for base in MESH_BASES:
+                e = compare_chaos(arms, 2**31 - K, f"random planes G={ARMS_G} "
+                                  f"P={n_peers} {n_leaders} acting leaders",
+                                  election_tick=6, group_base=base)
+                err = worst(err, e)
+                if n_peers > _build.NARROW_PEERS:
+                    wide_err = worst(wide_err, e)
     return err, settled, wide_err, wide_settled
 
 
@@ -1391,7 +1459,7 @@ def phase_lossy_timing(dev, st):
         fused_round=lambda s, rb: round_fn(s, crashed, append, loss, rb),
         predicate=lambda s: fused_step.steady_predicate(
             cfg, s, crashed, K, link, loss_rate=loss),
-        work=chaos_work(P, G, K),
+        work=bound_work("chaos", P, G, K),
     )
 
 
@@ -1593,7 +1661,7 @@ def phase_damped_timing(dev, st):
         kernel_name="damped_round_kernel",
         fused_round=lambda s, rb: round_fn(s, crashed, append),
         predicate=lambda s: fused_step.steady_predicate(cfg, s, crashed, K),
-        work=damped_bound_work(P, G, K),
+        work=bound_work("damped", P, G, K),
     )
     if t["fused_frac"] < 1.0:
         raise AssertionError(f"damped timed loop left the fused path: "
@@ -1668,11 +1736,11 @@ def phase_wide(dev, steady_st, lossy_st, damped_st):
         elif label == "chaos":
             args, ref = fused_step.chaos_operands(st0, crashed, append, loss), chaos_rounds_reference
             ticks["round_base"] = LOSSY_SETTLE
-            work = chaos_work(WIDE_P, G, K)
+            work = bound_work("chaos", WIDE_P, G, K)
         else:
             args, ref = fused_step.damped_operands(st0, crashed, append), damped_rounds_reference
             ticks.update(round_base=0, with_cq=True)
-            work = damped_bound_work(WIDE_P, G, K)
+            work = bound_work("damped", WIDE_P, G, K)
         t = kernel_times(dev, kernel, ref, args, ticks, work)
         print(f"timing {label}_rounds P={WIDE_P}: {t['ms']:.4f} ms cold, "
               f"{t['hot_ms']:.4f} hot, bound {t['bound_ms']:.4f} by {t['bound_by']}, "
@@ -1937,7 +2005,7 @@ def phase_health_timing(dev, card):
             fused_step.damped_operands(s, c, a, None, tsc), cq_ticks),
         kernel=damped_rounds, reference=damped_rounds_reference,
         kernel_name="damped_round_kernel",
-        work=damped_bound_work(P, G, K, with_health=True))
+        work=bound_work("damped", P, G, K, with_health=True))
     lossy = kernel_timing(
         dev, "lossy with_health", card["lossy"]["state"], card["lossy"]["health"])
     return steady, damped, lossy
@@ -1954,7 +2022,7 @@ def kernel_timing(dev, label, st, health):
     kw = dict(round_base=LOSSY_SETTLE, rounds=K, election_tick=cfg.election_tick,
               heartbeat_tick=cfg.heartbeat_tick)
     t = kernel_times(dev, chaos_rounds, chaos_rounds_reference, args, kw,
-                     chaos_work(P, G, K, with_health=True))
+                     bound_work("chaos", P, G, K, with_health=True))
     print(f"timing {label} {G}x{P} k={K} [{t['card']}]: chaos_round_kernel "
           f"{t['ms']:.4f} ms cold ({t['hot_ms']:.4f} ms hot; a wrapper call "
           f"{t['call_ms']:.4f} ms), plain version {t['plain_ms']:.3f} ms; bound "
@@ -2291,7 +2359,7 @@ def phase_composed_timing(dev, settled, line):
         fused_round=lambda s, rb: round_fn(s, crashed, append, loss, rb),
         predicate=lambda s: int((~fused_step.steady_mask(
             cfg, s, crashed, K, link, loss_rate=loss)).sum()),
-        work=damped_bound_work(P, G, K, with_loss=True), reps=line["reps"], scans=SCANS,
+        work=bound_work("damped", P, G, K, with_loss=True), reps=line["reps"], scans=SCANS,
         part_reps=1, profile=(f"{CHAOS_PROFILE_ROUNDS} of the slow branch's general "
                               "rounds", general_rounds), line=line,
     )
@@ -2645,7 +2713,7 @@ def phase_prod_fused(dev, cpu_run, line):
     args = fused_step.damped_operands(settled, crashed, append, loss,
                                       random_tsc(G, 6, dev))
     t = kernel_times(dev, damped_rounds, damped_rounds_reference, args, kw,
-                     damped_bound_work(P, G, PROD_K, with_loss=True, with_health=True))
+                     bound_work("damped", P, G, PROD_K, with_loss=True, with_health=True))
     med = statistics.median(samples)
     t.update(ticks_per_s=samples, ticks_per_s_median=med, fused_frac=fused_frac,
              profile=prof, segments=[list(sg) for sg in segments])
@@ -2926,7 +2994,7 @@ def phase_reads(dev, cpu_ref, line):
     n_launch = sum(r["count"] for r in prof["kernels"])
     args = fused_step.damped_operands(settled, crashed, append, None, random_tsc(G, 7, dev))
     t = kernel_times(dev, damped_rounds, damped_rounds_reference, args, kw,
-                     damped_bound_work(P, G, READS_K, with_health=True))
+                     bound_work("damped", P, G, READS_K, with_health=True))
     med = statistics.median(samples)
     t.update(ticks_per_s=samples, ticks_per_s_median=med, fused_frac=fused_frac,
              profile=prof, report=report, rejected_blocks=rejected_blocks,
@@ -3174,7 +3242,7 @@ def phase_autopilot(dev, cpu_ref, pool, line):
     args = fused_step.chaos_operands(settled, crashed, append, loss, random_tsc(G, 8, dev))
     kw = dict(round_base=0, rounds=AUTO_CADENCE, election_tick=AUTO_TICK, heartbeat_tick=1)
     t = kernel_times(dev, chaos_rounds, chaos_rounds_reference, args, kw,
-                     chaos_work(P, G, AUTO_CADENCE, with_health=True))
+                     bound_work("chaos", P, G, AUTO_CADENCE, with_health=True))
     cpu_small, t_cpu = cpu_ref.result()
     same_auto(small, cpu_small, f"autopilot G={AUTO_SMALL_G}")
     t_wait = time.perf_counter()
@@ -4201,11 +4269,11 @@ def phase_mesh(dev):
     part_c = tuple(a[..., lo:].contiguous() for a in cargs)
     part_d = tuple(a[..., lo:].contiguous() for a in dargs)
     tc = kernel_times(dev, chaos_rounds, chaos_rounds_reference, part_c,
-                      dict(ckw, group_base=lo), chaos_work(P, n, K))
+                      dict(ckw, group_base=lo), bound_work("chaos", P, n, K))
     dlabel = f"damped with_loss with_health k={PROD_K}"
     dtimes = {(groups, base): kernel_times(
         dev, damped_rounds, damped_rounds_reference, args, dict(dkw, group_base=base),
-        damped_bound_work(P, groups, PROD_K, with_loss=True, with_health=True))
+        bound_work("damped", P, groups, PROD_K, with_loss=True, with_health=True))
         for groups, args in ((n, part_d), (G, dargs)) for base in (lo, 0)}
     td = dtimes[(n, lo)]
     for label, groups, base, t in [("chaos k=32", n, lo, tc)] + [
@@ -4268,7 +4336,7 @@ def main(argv=None):
     print(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     phase_build()
-    occupancy = damped_occupancy()
+    occupancy = {kind: kernel_occupancy(kind) for kind in ("chaos", "damped")}
     steady_err, steady_wide_err, steady_wide_st = phase_parity(dev)
     if opts.quick:
         *_, chaos_wide_st = phase_chaos_parity(dev)
@@ -4384,7 +4452,8 @@ def main(argv=None):
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w", encoding="utf-8") as fh:
-            json.dump({**kernels, "ptxas": PTXAS, "damped_occupancy": occupancy,
+            json.dump({**kernels, "ptxas": PTXAS, "chaos_occupancy": occupancy["chaos"],
+                       "damped_occupancy": occupancy["damped"],
                        "timing": {
                 "steady": steady, "lossy": lossy, "damped": damped,
                 "steady_health": steady_h, "damped_health": damped_h,

@@ -198,15 +198,25 @@ def load_chaos_cuda(P: int = 1) -> ctypes.CDLL:
     """The CUDA chaos-round library holding P's instances; its
     `chaos_round_launch` takes the 27 tensor pointers, G, P, round_base,
     rounds, election_tick, heartbeat_tick, with_health, group_base and the
-    CUDA stream."""
-    return _cuda_kernel("chaos", P, _CHAOS_ARGS + _BASE + [ctypes.c_void_p])
+    CUDA stream; its `chaos_round_occupancy` takes P, with_health and a
+    pointer to 5 ints, which it fills as `damped_round_occupancy` does."""
+    lib = _cuda_kernel("chaos", P, _CHAOS_ARGS + _BASE + [ctypes.c_void_p])
+    lib.chaos_round_occupancy.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.chaos_round_occupancy.restype = ctypes.c_int
+    return lib
 
 
 def load_chaos_host(P: int = 1) -> ctypes.CDLL:
     """The host build of the chaos kernel body (g++), for the CPU tests:
     `chaos_round_host` takes the launcher's arguments up to with_health,
-    `chaos_round_host_at` group_base after them."""
-    return _host_kernel("chaos", P, _CHAOS_ARGS, base=True)
+    `chaos_round_host_at` group_base after them, and
+    `chaos_round_host_strided_at` the same as `_at` over the CUDA build's
+    shared-memory layout of the agree block."""
+    lib = _host_kernel("chaos", P, _CHAOS_ARGS, base=True)
+    lib.chaos_round_host_strided_at.argtypes = _CHAOS_ARGS + _BASE
+    lib.chaos_round_host_strided_at.restype = ctypes.c_int
+    return lib
 
 
 def load_damped_cuda(P: int = 1) -> ctypes.CDLL:

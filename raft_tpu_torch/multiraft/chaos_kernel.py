@@ -15,26 +15,42 @@ adoption.  The with_health variant (`tsc` given) also carries
 ticks_since_commit, as the steady kernel's does (steady_kernel.py's
 CommitTracker).
 
-Bound on an H100 (`chaos_work`, which counts what the outputs need: the
-loss draws and `loss_rate` entries of the leader's 2(P - 1) links only):
-one call must read 8 int32 and 3 one-byte [P, G] planes, the int32
-[P, P, G] `agree` plane, the leader's row and column of `loss_rate` and 3
-int32 [G] rows, and write 8 int32 [P, G] planes and `agree`: 57.9 MB at
-P=5, G=100k, or 17 us at 3.35 TB/s.  The integer work per group and round
-(8 loss draws, three [P, P] agreement events, the odd-even quorum network
-three times) is far larger, 4.1 G operations at P=5, k=32, or 246 us at
-the card's 16.75 T/s INT32 rate, so operations set the bound.  The kernel
-itself still draws and loads all P² links.  The design
-(csrc/chaos_body.cuh):
-one thread per group holds its P-column of every plane and its [P, P]
-`agree` and `loss_rate` blocks in registers for all k rounds, P a template
-parameter so every peer loop unrolls and no register array is indexed at
-run time; loads and stores are peer-major, so neighbouring threads touch
-neighbouring words.  The loss PRNG runs in native uint32, which wraps as
-the reference's does; the group id that keys it is the global thread
-index plus `group_base`, the first global id of a mesh rank's block.
-P = 8..15 build from csrc/chaos_round_wide.cu, a library of its own,
-where the [P, P] blocks spill to local memory.
+Bound on an H100, first by what the outputs need (`chaos_work`: the loss
+draws and `loss_rate` entries of the leader's 2(P - 1) links only, and the
+plain version's elementwise work): one call must read 8 int32 and 3
+one-byte [P, G] planes, the int32 [P, P, G] `agree` plane, the leader's
+row and column of `loss_rate` and 3 int32 [G] rows, and write 8 int32
+[P, G] planes and `agree`: 57.9 MB at P=5, G=100k, or 17 us at 3.35 TB/s.
+The integer work per group and round (8 loss draws, three [P, P]
+agreement events with four read-backs of the leader's row, the odd-even
+quorum network three times) is far larger, 1,289 operations at P=5, 4.1 G
+a call at k=32, or 246 us at the card's 16.75 T/s INT32 rate, so
+operations set the bound.  The CUDA body needs less than that
+(`chaos_body_work`: 729 operations a group-round at P=5 on a settled
+horizon, 140 us a call at k=32), and that smaller count is the kernel's
+bound.
+The design (csrc/chaos_body.cuh, csrc/chaos_round.cu): one thread per
+group holds its P-column of every int32 plane, and its per-peer flags
+(the masks and each round's delivery and wave sets) as bit masks, in
+registers for all k rounds, P and with_health template parameters so
+every peer loop unrolls; loads and stores are peer-major, so neighbouring
+threads touch neighbouring words.  Every agreement event of a steady
+horizon holds all acting leaders whenever its set is not empty, so the
+leaders' summed row, the one the reference reads back from the block, is
+carried in registers and the rounds only write the [P, P] `agree` block:
+in registers up to P = 13, in the thread's own column of the block's
+shared memory past it (each the faster on the card).  Only the links
+with an acting leader at one end are drawn (with one leader, as in every
+fused block, its 2(P - 1) links, their rates loaded once; with several,
+each one's row and column from the plane), which gives the reference's
+bits since a draw is a pure function of (round, src, dst, group, rate);
+the `loss_rate` block is never held.  128 threads a block and a register
+cap give 16 warps an SM at P <= 5.  The loss PRNG runs in native uint32, which wraps as the
+reference's does; the group id that keys it is the global thread index
+plus `group_base`, the first global id of a mesh rank's block.
+`chaos_round_occupancy` in the library reports each instance's
+registers, spills, shared memory and resident blocks.  P = 8..15 build
+from csrc/chaos_round_wide.cu, one library a P.
 
 On CPU tensors `chaos_rounds` runs `chaos_rounds_reference`; on CUDA
 tensors it launches the kernel or raises.  `chaos_rounds.launches` counts
@@ -252,6 +268,48 @@ def chaos_work(
     if with_health:
         hb, hops = health_work(P, G, rounds)
         nbytes, ops = nbytes + hb, ops + hops
+    return nbytes, ops
+
+
+def chaos_body_work(
+    P: int, G: int, rounds: int, with_health: bool = False
+) -> Tuple[int, int]:
+    """(bytes, integer operations) of the CUDA body (csrc/chaos_body.cuh)
+    for G groups that each have one acting leader, on a settled horizon:
+    appends every round, so the workload's agreement event holds the
+    leader, while the catch-up and pass-2 events are empty and pass 2 is
+    skipped (stage A advances nothing).  `chaos_work` counts the plain
+    version's work, which the body does not all need (it carries the
+    leader's row instead of reading it back from the block, and skips
+    empty events), so this count is the smaller; a round that runs more
+    events only adds to it.
+
+    Bytes: `chaos_work`'s (the body reads and writes just those).
+
+    Operations: per group and round, read off the body's code by
+    `damped_body_work`'s rules, each add, compare, select, min/max and bit
+    operation one, a set operation on a peer mask one:
+      delivery         12 (the round key, the masks) + 15 for each of the
+                       2(P - 1) leader links (the draw as chaos_work counts
+                       it, 12; the slot and the bit)
+      tick             13P;  leader snapshots 4P
+      wave 1, pass 1   18P + 5 (with the empty event's guard)
+      stage A          2P + 7;  pass 2 skipped, 3
+      stage B and the workload  33P + 9
+      quorum picks     3 × (4P + 2 per comparator of the network)
+      agreement        the workload's event, 2P² + 4P + 3
+      the workload's commit  5P + 5
+    and per group once: the loads' masks, the leader and its summed row,
+    P² + 20P, and the leader's link slots, P - 1.  The with_health variant
+    adds health_work's bytes and operations.
+    """
+    nbytes, _ = chaos_work(P, G, rounds, with_health)
+    comparators = sum(len(range(s % 2, P - 1, 2)) for s in range(P))
+    per_round = 2 * P * P + 91 * P + 12 + 15 * 2 * (P - 1) + 6 * comparators + 32
+    per_call = P * P + 20 * P + P - 1
+    ops = (per_round * rounds + per_call) * G
+    if with_health:
+        ops += health_work(P, G, rounds)[1]
     return nbytes, ops
 
 

@@ -10,18 +10,52 @@
 // Layout: every [P, G] plane is peer-major (group g's column is
 // plane[p * G + g]) and every [P, P, G] plane pair-major
 // (plane[(a * P + b) * G + g]).  One call handles one group: it loads the
-// group's P-column of every plane and its [P, P] agree and loss_rate
-// blocks into fully unrolled arrays, runs `rounds` rounds on registers,
-// and stores the outputs.  The acting leader, its id and term, the voter
-// count and the append count are fixed for the whole horizon: the rounds
-// never change who leads.
+// group's P-column of every plane into unrolled per-peer arrays and its
+// per-peer flags into bit masks (registers on the card), copies its
+// [P, P] agree block into `blk`, runs `rounds` rounds and stores the
+// outputs.  The block's storage is the Block template parameter
+// (fused_common.cuh): ArrayBlock, a plain array (the g++ build, and the
+// CUDA build where the card ran it faster, in registers), or StridedBlock,
+// the thread's column of a shared-memory block (chaos_round.cu's
+// ChaosShape picks it by P).  The acting leaders (alive peers in the
+// leader role), their id and term, the voter count and the append count
+// are fixed for the whole horizon: the rounds never change who leads.
 //
 // The loss draw keys on (round_base + r, src, dst, gid) with gid the
 // group's global index (group_base + g: a shard of a mesh run keys its
 // groups by their ids in the whole batch), in native uint32, bit for bit
-// the reference's link_loss_draw.  WITH_HEALTH (the with_health variant) tracks
-// ticks_since_commit from tsc into tsc_out (fused_common.cuh's
+// the reference's link_loss_draw.  WITH_HEALTH (the with_health variant)
+// tracks ticks_since_commit from tsc into tsc_out (fused_common.cuh's
 // CommitTracker).
+//
+// Three facts of that horizon keep the work to what the outputs need:
+// - Every non-empty agreement event holds all acting leaders.  Event 1's
+//   set is the catch-up set plus the leaders once anyone caught up, event
+//   2's the pass-2 adopters plus the leaders once anyone adopted, and
+//   event 3's the synced members plus the leaders when the round appends
+//   (sent_b); a member syncs only when sent_b holds, and sent_b implies an
+//   acting leader, so that set too is empty or holds them all.  After an
+//   event with set S and value v every leader's row is the same row,
+//   R[b] = (b in S ? v : the leaders' old summed row at b), so their new
+//   sum is n_lead * R[b] in wrapping int32.  The body carries that sum in
+//   registers from the load on (the reference reads it back from the
+//   block before each event and before the stage-B and workload checks),
+//   skips an empty event, and only writes the block in the rounds; the
+//   block is read once, to store it.
+// - Only the links with an acting leader at one end reach the delivery
+//   masks: fwd and rev exclude the leaders, and the reference's dfl[v]
+//   and dtl[v] are ORs over the leaders s of drop(s, v) and drop(v, s).
+//   So the body draws only those (fused_common.cuh's LeaderLinks): with
+//   one acting leader L (every group of a fused block), the 2(P - 1) links
+//   of L's row and column, their rates loaded once before the rounds and
+//   held; with several, each leader's row and column in turn, the rates
+//   read from the plane; with none, nothing.  A draw is a pure function of
+//   (round, src, dst, gid, rate), so these are the reference's bits, and
+//   the loss_rate block is never held.
+// - Every per-peer flag (voter, member, alive, the leader role, the acting
+//   leaders, each round's delivery masks and wave sets) is a uint32 bit
+//   mask, bit p for peer p, so a set operation on all peers is one
+//   instruction and a flag holds no register of its own.
 #pragma once
 
 #include <stdint.h>
@@ -30,10 +64,16 @@
 
 namespace raft_chaos {
 
+using raft_fused::adopt_event;
+using raft_fused::bit;
+using raft_fused::block_event;
+using raft_fused::flag;
 using raft_fused::imax;
 using raft_fused::imin;
 using raft_fused::kRoleFollower;
 using raft_fused::kRoleLeader;
+using raft_fused::opaque;
+using raft_fused::quorum_of;
 using raft_fused::wadd;
 
 // Operand and output pointers of one call.  [P, G] planes: state,
@@ -72,15 +112,13 @@ struct ChaosPlanes {
   int32_t* tsc_out;
 };
 
-template <int P, bool WITH_HEALTH>
+template <int P, bool WITH_HEALTH, class Block>
 RAFT_HD void chaos_group(int64_t g, int64_t G, const ChaosPlanes& t,
                          int32_t round_base, int rounds, int election_tick,
-                         int heartbeat_tick, int64_t group_base) {
+                         int heartbeat_tick, int64_t group_base, Block& blk) {
   int32_t state[P], leader[P], hb[P], ee[P], li[P], lt[P], commit[P], mrow[P];
-  bool voter[P], member[P], alive[P], role_leader[P], is_lead[P];
-  int32_t agree[P][P], loss[P][P];
-  bool has_leader = false;
-  int32_t lead_id_val = 0, count = 0;
+  uint32_t voter = 0, member = 0, alive = 0, role = 0;
+  int32_t count = 0;
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int64_t i = (int64_t)p * G + g;
@@ -92,71 +130,78 @@ RAFT_HD void chaos_group(int64_t g, int64_t G, const ChaosPlanes& t,
     lt[p] = t.lt[i];
     commit[p] = t.commit[i];
     mrow[p] = t.matched[i];
-    voter[p] = t.voter[i] != 0;
-    member[p] = t.member[i] != 0;
-    alive[p] = t.crashed[i] == 0;
-    role_leader[p] = state[p] == kRoleLeader;
-    is_lead[p] = role_leader[p] && alive[p];
-    has_leader = has_leader || is_lead[p];
-    if (is_lead[p]) lead_id_val = wadd(lead_id_val, p + 1);
-    if (voter[p]) count += 1;
+    voter |= flag(t.voter[i] != 0, p);
+    member |= flag(t.member[i] != 0, p);
+    alive |= flag(t.crashed[i] == 0, p);
+    role |= flag(state[p] == kRoleLeader, p);
+    if (t.voter[i] != 0) count += 1;
+  }
+  // The acting leaders: alive peers in the leader role.
+  const uint32_t lead = role & alive;
+  const bool has_leader = lead != 0;
+  int32_t lead_id_val = 0;
+  uint32_t n_lead = 0;
+  int lone = 0;  // the acting leader's slot when n_lead == 1
 #pragma unroll
-    for (int q = 0; q < P; ++q) {
-      const int64_t j = ((int64_t)p * P + q) * G + g;
-      agree[p][q] = t.agree[j];
-      loss[p][q] = t.loss_rate[j];
+  for (int p = 0; p < P; ++p) {
+    if (bit(lead, p)) {
+      lead_id_val = wadd(lead_id_val, p + 1);
+      n_lead += 1;
+      lone = p;
     }
   }
+  // The block, and the leaders' summed row of it (the reference's
+  // lead_row(agree)).
+  int32_t lead_row[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) lead_row[q] = 0;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const int32_t v = t.agree[((int64_t)p * P + q) * G + g];
+      blk.set(p, q, v);
+      if (bit(lead, p)) lead_row[q] = wadd(lead_row[q], v);
+    }
+  }
+  const raft_fused::LeaderLinks<P, true> links(t.loss_rate, g, G, n_lead, lone);
   const int32_t qpos = count / 2;
   const int32_t ts = t.ts[g];
   const int32_t lead_term = t.lead_term[g];
   const int32_t n_app = has_leader ? t.app[g] : 0;
   const bool sent_b = has_leader && n_app > 0;
   const uint32_t gid = (uint32_t)(group_base + g);
+  const uint32_t up = alive & ~lead;  // alive peers other than the leaders
   raft_fused::CommitTracker<P, WITH_HEALTH> tsc(t.tsc, g, commit);
 
   for (int r = 0; r < rounds; ++r) {
     // --- per-link loss: forward (leader -> v) and reverse (v -> leader)
     // delivery for this round.  The link plane is all-up among alive
-    // peers (the steady predicate), so only the loss sample gates.
+    // peers (the steady predicate), so only the loss sample gates, and
+    // only on the leaders' links.
     const uint32_t key =
         raft_fused::loss_round_key(gid, (uint32_t)round_base + (uint32_t)r);
-    bool dfl[P], dtl[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) dfl[p] = dtl[p] = false;
-#pragma unroll
-    for (int s = 0; s < P; ++s) {
-#pragma unroll
-      for (int d = 0; d < P; ++d) {
-        const bool drop = raft_fused::loss_drop<P>(key, s, d, loss[s][d]);
-        if (drop && is_lead[s]) dfl[d] = true;
-        if (drop && is_lead[d]) dtl[s] = true;
-      }
-    }
-    bool fwd[P], rev[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      fwd[p] = !dfl[p] && alive[p] && !is_lead[p];
-      rev[p] = !dtl[p] && alive[p] && !is_lead[p];
-    }
+    uint32_t dfl, dtl;  // leader -> p dropped, p -> leader dropped
+    links.draw(t.loss_rate, g, G, key, lead, dfl, dtl);
+    const uint32_t fwd = up & ~dfl, rev = up & ~dtl;
 
     // --- tick (as the plain steady kernel)
     bool beat = false;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       ee[p] = wadd(ee[p], 1);
-      if (role_leader[p] && ee[p] >= election_tick) ee[p] = 0;
-      if (role_leader[p]) hb[p] = wadd(hb[p], 1);
-      const bool want_beat = role_leader[p] && hb[p] >= heartbeat_tick;
+      if (bit(role, p) && ee[p] >= election_tick) ee[p] = 0;
+      if (bit(role, p)) hb[p] = wadd(hb[p], 1);
+      const bool want_beat = bit(role, p) && hb[p] >= heartbeat_tick;
       if (want_beat) hb[p] = 0;
-      beat = beat || (want_beat && is_lead[p]);
+      beat = beat || (want_beat && bit(lead, p));
     }
 
     // --- round-start snapshots of the leader's cursors
     int32_t c_l = 0, li_l = 0, lt_l = 0;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      if (is_lead[p]) {
+      if (bit(lead, p)) {
         c_l = wadd(c_l, commit[p]);
         li_l = wadd(li_l, li[p]);
         lt_l = wadd(lt_l, lt[p]);
@@ -165,123 +210,113 @@ RAFT_HD void chaos_group(int64_t g, int64_t G, const ChaosPlanes& t,
 
     // --- wave 1: heartbeat delivery and the reverse-link response;
     // pass 1: heartbeat-triggered catch-up appends for lagging members.
-    bool resumed[P], in_set[P];
-    bool sent1 = false;
+    const uint32_t h_acc = beat ? fwd & member : 0u;
+    const uint32_t resumed = h_acc & rev;
+    uint32_t cu = 0;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const bool h_acc = fwd[p] && beat && member[p];
-      if (h_acc) {
+      if (bit(h_acc, p)) {
         state[p] = kRoleFollower;
         leader[p] = lead_id_val;
         ee[p] = 0;
         commit[p] = imax(commit[p], imin(mrow[p], c_l));
       }
-      resumed[p] = h_acc && rev[p];
-      const bool cu = resumed[p] && mrow[p] < li_l;
-      if (cu) {
+      const bool c = bit(resumed, p) && mrow[p] < li_l;
+      if (c) {
         commit[p] = imax(commit[p], c_l);
         mrow[p] = imax(mrow[p], li_l);
         li[p] = li_l;
         lt[p] = lt_l;
       }
-      in_set[p] = cu;
-      sent1 = sent1 || cu;
+      cu |= flag(c, p);
     }
-    int32_t lead_row[P];
-    raft_fused::flagged_row<P>(agree, is_lead, lead_row);
-#pragma unroll
-    for (int p = 0; p < P; ++p) in_set[p] = in_set[p] || (is_lead[p] && sent1);
-    raft_fused::agree_event<P>(agree, in_set, li_l, lead_row);
+    adopt_event<P>(blk, cu, lead, li_l, lead_row, n_lead);
 
     // --- stage-A quorum commit at the leader off the fresh acks
-    const int32_t mci = raft_fused::quorum_index<P>(mrow, voter, qpos);
+    const int32_t mci = quorum_of<P>(mrow, voter, qpos);
     const bool ok_a = has_leader && count > 0 && mci >= ts;
     const int32_t c_new = ok_a ? imax(c_l, mci) : c_l;
     const bool adv = c_new > c_l;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      if (is_lead[p]) commit[p] = c_new;
+      if (bit(lead, p)) commit[p] = c_new;
     }
 
     // --- pass 2: a commit advance re-broadcasts to sendable members
-    raft_fused::flagged_row<P>(agree, is_lead, lead_row);
-    bool any2 = false;
+    uint32_t adopt2 = 0;
+    if (adv) {
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const bool sendable = mrow[p] > 0 || resumed[p];
-      const bool msg2 = fwd[p] && member[p] && adv && sendable;
-      const bool adopt2 = msg2 && (lead_row[p] >= li_l || rev[p]);
-      if (msg2) {
-        state[p] = kRoleFollower;
-        leader[p] = lead_id_val;
-        ee[p] = 0;
+      for (int p = 0; p < P; ++p) {
+        const bool sendable = mrow[p] > 0 || bit(resumed, p);
+        const bool msg2 = bit(fwd & member, p) && sendable;
+        const bool a2 = msg2 && (lead_row[p] >= li_l || bit(rev, p));
+        if (msg2) {
+          state[p] = kRoleFollower;
+          leader[p] = lead_id_val;
+          ee[p] = 0;
+        }
+        if (a2) {
+          li[p] = li_l;
+          lt[p] = lt_l;
+          if (bit(rev, p)) mrow[p] = imax(mrow[p], li_l);
+        }
+        adopt2 |= flag(a2, p);
       }
-      if (adopt2) {
-        li[p] = li_l;
-        lt[p] = lt_l;
-        if (rev[p]) mrow[p] = imax(mrow[p], li_l);
-      }
-      in_set[p] = adopt2;
-      any2 = any2 || adopt2;
     }
-#pragma unroll
-    for (int p = 0; p < P; ++p) in_set[p] = in_set[p] || (is_lead[p] && any2);
-    raft_fused::agree_event<P>(agree, in_set, li_l, lead_row);
+    adopt_event<P>(blk, adopt2, lead, li_l, lead_row, n_lead);
 
-    // --- stage-B commit and the post-advance commit propagation
-    const int32_t mci2 = raft_fused::quorum_index<P>(mrow, voter, qpos);
+    // --- stage-B commit and the post-advance commit propagation, then
+    // the round's append workload at the leader
+    const int32_t mci2 = quorum_of<P>(mrow, voter, qpos);
     const bool ok_b = has_leader && count > 0 && mci2 >= ts;
     const int32_t c_new2 = ok_b ? imax(c_new, mci2) : c_new;
-    raft_fused::flagged_row<P>(agree, is_lead, lead_row);
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      if (is_lead[p]) commit[p] = c_new2;
-      const bool elig = fwd[p] && member[p] && (mrow[p] > 0 || resumed[p]) &&
-                        (lead_row[p] >= li_l || rev[p]) && c_new2 > c_l;
-      if (elig) commit[p] = imax(commit[p], c_new2);
-    }
-
-    // --- the round's append workload at the leader
     const int32_t lead_last = wadd(li_l, n_app);
-    bool sync_b[P];
+    uint32_t sync_b = 0;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      if (is_lead[p]) {
+      if (bit(lead, p)) commit[p] = c_new2;
+      const bool sendable = mrow[p] > 0 || bit(resumed, p);
+      const bool ahead = lead_row[p] >= li_l || bit(rev, p);
+      const bool elig = bit(fwd & member, p) && sendable && ahead && c_new2 > c_l;
+      if (elig) commit[p] = imax(commit[p], c_new2);
+
+      if (bit(lead, p)) {
         li[p] = wadd(li[p], n_app);
         if (sent_b) lt[p] = lead_term;
       }
-      const bool pr_ok = mrow[p] > 0 || resumed[p];
-      const bool sync_msg = sent_b && fwd[p] && member[p] && !is_lead[p] && pr_ok;
-      sync_b[p] = sync_msg && (lead_row[p] >= li_l || rev[p]);
+      const bool sync_msg = sent_b && bit(fwd & member, p) && sendable;
+      const bool sync = sync_msg && ahead;
       if (sync_msg) {
         state[p] = kRoleFollower;
         leader[p] = lead_id_val;
         ee[p] = 0;
       }
-      if (sync_b[p]) {
+      if (sync) {
         li[p] = lead_last;
         lt[p] = lead_term;
       }
-      if ((sync_b[p] && rev[p]) || (is_lead[p] && sent_b)) {
+      if ((sync && bit(rev, p)) || (bit(lead, p) && sent_b)) {
         mrow[p] = imax(mrow[p], lead_last);
       }
-      in_set[p] = sync_b[p] || (is_lead[p] && sent_b);
+      sync_b |= flag(sync, p);
     }
-    raft_fused::agree_event<P>(agree, in_set, lead_last, lead_row);
-    const int32_t mci3 = raft_fused::quorum_index<P>(mrow, voter, qpos);
+    block_event<P>(blk, sync_b | (sent_b ? lead : 0u), lead_last, lead_row,
+                   n_lead);
+    const int32_t mci3 = quorum_of<P>(mrow, voter, qpos);
     const bool ok_c = sent_b && count > 0 && mci3 >= ts;
     const int32_t lead_commit = ok_c ? imax(c_new2, mci3) : c_new2;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      if (is_lead[p]) commit[p] = lead_commit;
-      if (sync_b[p]) commit[p] = imax(commit[p], lead_commit);
+      if (bit(lead, p)) commit[p] = lead_commit;
+      if (bit(sync_b, p)) commit[p] = imax(commit[p], lead_commit);
     }
     tsc.round(commit);
   }
 
+  const int64_t gs = opaque(g), Gs = opaque(G);
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    const int64_t i = (int64_t)p * G + g;
+    const int64_t i = (int64_t)p * Gs + gs;
     t.state_out[i] = state[p];
     t.leader_id_out[i] = leader[p];
     t.hb_out[i] = hb[p];
@@ -292,10 +327,10 @@ RAFT_HD void chaos_group(int64_t g, int64_t G, const ChaosPlanes& t,
     t.matched_out[i] = mrow[p];
 #pragma unroll
     for (int q = 0; q < P; ++q) {
-      t.agree_out[((int64_t)p * P + q) * G + g] = agree[p][q];
+      t.agree_out[((int64_t)p * P + q) * Gs + gs] = blk.get(p, q);
     }
   }
-  tsc.store(t.tsc_out, g);
+  tsc.store(t.tsc_out, gs);
 }
 
 }  // namespace raft_chaos

@@ -4,12 +4,39 @@
 // group_base is; chaos_round_host is chaos_round_host_at at base 0).
 // Compiled with g++ by the tests so the kernel's arithmetic can be held
 // against the plain PyTorch version on a machine without a card; nothing
-// on the card path uses it.
+// on the card path uses it.  chaos_round_host_at keeps each group's agree
+// block in a plain array (ArrayBlock); chaos_round_host_strided_at runs
+// the same body over the CUDA build's shared-memory layout (StridedBlock),
+// kViewStride groups' blocks interleaved in one buffer.
 #include <stdint.h>
 
 #include "chaos_body.cuh"
 
-extern "C" int chaos_round_host_at(
+namespace {
+
+constexpr int kViewStride = 3;
+
+template <int P, bool HEALTH>
+void host_groups(const raft_chaos::ChaosPlanes& t, int64_t G,
+                 int32_t round_base, int rounds, int election_tick,
+                 int heartbeat_tick, int64_t group_base, bool strided) {
+  int32_t view[P * P * kViewStride];
+  for (int64_t g = 0; g < G; ++g) {
+    if (strided) {
+      raft_fused::StridedBlock<P, kViewStride> blk{view + g % kViewStride};
+      raft_chaos::chaos_group<P, HEALTH>(g, G, t, round_base, rounds,
+                                         election_tick, heartbeat_tick,
+                                         group_base, blk);
+    } else {
+      raft_fused::ArrayBlock<P> blk;
+      raft_chaos::chaos_group<P, HEALTH>(g, G, t, round_base, rounds,
+                                         election_tick, heartbeat_tick,
+                                         group_base, blk);
+    }
+  }
+}
+
+int host_rounds(
     const void* state, const void* leader_id, const void* hb, const void* ee,
     const void* li, const void* lt, const void* commit, const void* matched,
     const void* voter, const void* member, const void* crashed,
@@ -19,7 +46,7 @@ extern "C" int chaos_round_host_at(
     void* lt_out, void* commit_out, void* matched_out, void* agree_out,
     const void* tsc, void* tsc_out, long long G, int P, int round_base,
     int rounds, int election_tick, int heartbeat_tick, int with_health,
-    long long group_base) {
+    long long group_base, bool strided) {
   if (with_health && (tsc == nullptr || tsc_out == nullptr)) return 1;
   const raft_chaos::ChaosPlanes t = {
       (const int32_t*)state,    (const int32_t*)leader_id,
@@ -36,14 +63,11 @@ extern "C" int chaos_round_host_at(
       (int32_t*)commit_out,     (int32_t*)matched_out,
       (int32_t*)agree_out,      (const int32_t*)tsc,
       (int32_t*)tsc_out};
-#define RAFT_CHAOS_HOST(NP, HEALTH)                                       \
-  case NP * 2 + (HEALTH ? 1 : 0):                                         \
-    for (int64_t g = 0; g < (int64_t)G; ++g) {                            \
-      raft_chaos::chaos_group<NP, HEALTH>(g, (int64_t)G, t,               \
-                                          (int32_t)round_base, rounds,    \
-                                          election_tick, heartbeat_tick,  \
-                                          (int64_t)group_base);           \
-    }                                                                     \
+#define RAFT_CHAOS_HOST(NP, HEALTH)                                     \
+  case NP * 2 + (HEALTH ? 1 : 0):                                       \
+    host_groups<NP, HEALTH>(t, (int64_t)G, (int32_t)round_base, rounds, \
+                            election_tick, heartbeat_tick,              \
+                            (int64_t)group_base, strided);              \
     return 0;
 #define RAFT_CHAOS_P(NP) RAFT_FOR_EACH_HEALTH(RAFT_CHAOS_HOST, NP)
   switch (P * 2 + (with_health ? 1 : 0)) {
@@ -53,6 +77,46 @@ extern "C" int chaos_round_host_at(
   }
 #undef RAFT_CHAOS_P
 #undef RAFT_CHAOS_HOST
+}
+
+}  // namespace
+
+extern "C" int chaos_round_host_at(
+    const void* state, const void* leader_id, const void* hb, const void* ee,
+    const void* li, const void* lt, const void* commit, const void* matched,
+    const void* voter, const void* member, const void* crashed,
+    const void* agree, const void* loss_rate, const void* ts,
+    const void* lead_term, const void* app, void* state_out,
+    void* leader_id_out, void* hb_out, void* ee_out, void* li_out,
+    void* lt_out, void* commit_out, void* matched_out, void* agree_out,
+    const void* tsc, void* tsc_out, long long G, int P, int round_base,
+    int rounds, int election_tick, int heartbeat_tick, int with_health,
+    long long group_base) {
+  return host_rounds(
+      state, leader_id, hb, ee, li, lt, commit, matched, voter, member,
+      crashed, agree, loss_rate, ts, lead_term, app, state_out, leader_id_out,
+      hb_out, ee_out, li_out, lt_out, commit_out, matched_out, agree_out, tsc,
+      tsc_out, G, P, round_base, rounds, election_tick, heartbeat_tick,
+      with_health, group_base, false);
+}
+
+extern "C" int chaos_round_host_strided_at(
+    const void* state, const void* leader_id, const void* hb, const void* ee,
+    const void* li, const void* lt, const void* commit, const void* matched,
+    const void* voter, const void* member, const void* crashed,
+    const void* agree, const void* loss_rate, const void* ts,
+    const void* lead_term, const void* app, void* state_out,
+    void* leader_id_out, void* hb_out, void* ee_out, void* li_out,
+    void* lt_out, void* commit_out, void* matched_out, void* agree_out,
+    const void* tsc, void* tsc_out, long long G, int P, int round_base,
+    int rounds, int election_tick, int heartbeat_tick, int with_health,
+    long long group_base) {
+  return host_rounds(
+      state, leader_id, hb, ee, li, lt, commit, matched, voter, member,
+      crashed, agree, loss_rate, ts, lead_term, app, state_out, leader_id_out,
+      hb_out, ee_out, li_out, lt_out, commit_out, matched_out, agree_out, tsc,
+      tsc_out, G, P, round_base, rounds, election_tick, heartbeat_tick,
+      with_health, group_base, true);
 }
 
 extern "C" int chaos_round_host(

@@ -1,9 +1,9 @@
 // The wide instances of the chaos CUDA kernel, one library a peer count:
 // built with -DRAFT_WIDE_P=P, P = 8..15, from the same wrapper and body as
-// chaos_round.cu.  The [P, P] blocks spill to local memory there and an
-// instance takes seconds to compile, so each P is a translation unit of its
-// own: the wide instances build in parallel, and only for the peer counts
-// a caller uses.
+// chaos_round.cu (its ChaosShape gives each P its block storage and launch
+// shape).  An instance takes seconds to compile, so each P is a
+// translation unit of its own: the wide instances build in parallel, and
+// only for the peer counts a caller uses.
 #if !defined(RAFT_WIDE_P) || RAFT_WIDE_P < 8 || RAFT_WIDE_P > 15
 #error "build with -DRAFT_WIDE_P=P, P in 8..15"
 #endif

@@ -13,10 +13,11 @@
 // group's P-column of every plane into unrolled per-peer arrays and its
 // per-peer flags into bit masks (registers on the card), copies its
 // [P, P] agree block into `blk`, runs `rounds` rounds and stores the
-// outputs.  The block's storage is the Block template parameter:
-// ArrayBlock, a plain array (the g++ build, and the CUDA build up to
-// P = 8, where it sits in registers), or StridedBlock, the thread's column
-// of a shared-memory block (the CUDA build past P = 8; damped_round.cu).
+// outputs.  The block's storage is the Block template parameter
+// (fused_common.cuh, shared with chaos_body.cuh): ArrayBlock, a plain
+// array (the g++ build, and the CUDA build up to P = 8, where it sits in
+// registers), or StridedBlock, the thread's column of a shared-memory
+// block (the CUDA build past P = 8; damped_round.cu).
 // WITH_CQ adds the check-quorum row clear at the leader's
 // election-timeout boundary; WITH_LOSS the per-link loss draw, keyed on
 // (round_base + r, src, dst, gid) with gid the group's global index
@@ -35,7 +36,8 @@
 //   sum in registers from the load on and only writes the block in the
 //   rounds; the block is read once, to store it.
 // - Only the links with an acting leader at one end reach the delivery
-//   masks.  With loss the body draws only those: with one acting leader L
+//   masks.  With loss the body draws only those (fused_common.cuh's
+//   LeaderLinks, shared with chaos_body.cuh): with one acting leader L
 //   (every group of a fused block), the links of L's row and column, with
 //   their 2P rates loaded once; with several, each leader's row and column
 //   in turn, the rates read from the plane; with none, nothing.  A draw is
@@ -49,10 +51,16 @@
 
 namespace raft_damped {
 
+using raft_fused::adopt_event;
+using raft_fused::bit;
+using raft_fused::block_event;
+using raft_fused::flag;
 using raft_fused::imax;
 using raft_fused::imin;
 using raft_fused::kRoleFollower;
 using raft_fused::kRoleLeader;
+using raft_fused::opaque;
+using raft_fused::quorum_of;
 using raft_fused::wadd;
 
 // Operand and output pointers of one call.  [P, G] planes: state,
@@ -94,105 +102,10 @@ struct DampedPlanes {
   int32_t* tsc_out;
 };
 
-// One group's [P, P] agree block as a plain array: registers on the card,
-// since the body indexes it only with compile-time constants.
-template <int P>
-struct ArrayBlock {
-  int32_t v[P][P];
-  RAFT_HD void set(int a, int b, int32_t x) { v[a][b] = x; }
-  RAFT_HD int32_t get(int a, int b) const { return v[a][b]; }
-};
-
-// One group's [P, P] agree block as a column of a block of S such columns,
-// pair (a, b) at base[(a * P + b) * S]: with `base` a thread's word of a
-// shared-memory block of S threads, a warp's accesses to one pair fall on
-// 32 consecutive words, one a bank.  Every index the body passes is a
-// compile-time constant, so each access is one instruction at a fixed
-// offset.
-template <int P, int S>
-struct StridedBlock {
-  int32_t* base;
-  RAFT_HD void set(int a, int b, int32_t x) { base[(a * P + b) * S] = x; }
-  RAFT_HD int32_t get(int a, int b) const { return base[(a * P + b) * S]; }
-};
-
-// Bit p of a per-peer mask: the body keeps every per-peer flag (voter,
-// member, alive, the leader role, acting leader, recent_active, and each
-// round's delivery and wave sets) as one uint32 a group, bit p for peer p,
-// so a set operation on all peers is one instruction and a flag costs no
-// register of its own.
-RAFT_HD bool bit(uint32_t mask, int p) { return ((mask >> p) & 1u) != 0; }
-
-RAFT_HD uint32_t flag(bool on, int p) { return (uint32_t)on << p; }
-
-// v, hidden from the CUDA compiler's optimiser: an address computed from
-// it is computed where it is used.  The body's stores and its rare
-// several-leader draws index the planes through it, so that the 64-bit
-// offsets of the loads are not kept live in registers through every round.
-// Without it ptxas spills 24 B at P = 8 and up to 2.4 KB at P = 15 (the
-// card's readings are in PERF.md, section 6).
-RAFT_HD int64_t opaque(int64_t v) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("" : "+l"(v));
-#endif
-  return v;
-}
-
-// One agreement event (fused_common.cuh's agree_event) on `blk`: pairs
-// inside the set `in` agree to `value`; a pair with one side inside
-// inherits the sender's row at the other side; the rest keep their value.
-// The sender's row is `lead_row`, the sum of the n_lead acting leaders'
-// rows, which the event then brings up to date.  Needs every acting
-// leader in the set when any peer is (see the header).
-template <int P, class Block>
-RAFT_HD void block_event(Block& blk, uint32_t in, int32_t value,
-                         int32_t (&lead_row)[P], uint32_t n_lead) {
-  if (in == 0) return;
-  // The row every member of the set, so every acting leader, now holds.
-  int32_t row[P];
-#pragma unroll
-  for (int b = 0; b < P; ++b) row[b] = bit(in, b) ? value : lead_row[b];
-#pragma unroll
-  for (int a = 0; a < P; ++a) {
-#pragma unroll
-    for (int b = 0; b < P; ++b) {
-      if (bit(in, a)) {
-        blk.set(a, b, row[b]);
-      } else if (bit(in, b)) {
-        blk.set(a, b, lead_row[a]);
-      }
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < P; ++b) lead_row[b] = (int32_t)(n_lead * (uint32_t)row[b]);
-}
-
-// A wholesale adoption from the leader by the members in `adopted`, the
-// acting leaders `lead` joining the set when anyone adopted.
-template <int P, class Block>
-RAFT_HD void adopt_event(Block& blk, uint32_t adopted, uint32_t lead,
-                         int32_t value, int32_t (&lead_row)[P],
-                         uint32_t n_lead) {
-  block_event<P>(blk, adopted != 0 ? adopted | lead : 0u, value, lead_row,
-                 n_lead);
-}
-
-// The voters' majority index of `mrow` (fused_common.cuh's quorum_index).
-template <int P>
-RAFT_HD int32_t quorum_of(const int32_t (&mrow)[P], uint32_t voter,
-                          int32_t qpos) {
-  bool v[P];
-#pragma unroll
-  for (int p = 0; p < P; ++p) v[p] = bit(voter, p);
-  return raft_fused::quorum_index<P>(mrow, v, qpos);
-}
-
 template <int P, bool WITH_CQ, bool WITH_LOSS, bool WITH_HEALTH, class Block>
 RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
                           int32_t round_base, int rounds, int election_tick,
                           int heartbeat_tick, int64_t group_base, Block& blk) {
-  // The leader's links to the other P - 1 peers (at least one slot).
-  constexpr int PO = WITH_LOSS && P > 1 ? P - 1 : 1;
   int32_t state[P], leader[P], hb[P], ee[P], li[P], lt[P], commit[P], mrow[P];
   uint32_t ra = 0, voter = 0, member = 0, alive = 0, role = 0;
   int32_t count = 0;
@@ -228,7 +141,7 @@ RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
       lone = p;
     }
   }
-  // The block, and the leaders' summed row of it (flagged_row's value).
+  // The block, and the leaders' summed row of it (the reference's lead_row(agree)).
   int32_t lead_row[P];
 #pragma unroll
   for (int q = 0; q < P; ++q) lead_row[q] = 0;
@@ -241,19 +154,9 @@ RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
       if (bit(lead, p)) lead_row[q] = wadd(lead_row[q], v);
     }
   }
-  // With one acting leader, the rates of its links to and from each other
-  // peer, the o-th other peer being o + (o >= lone).
-  int32_t rate_out[PO], rate_in[PO];
-  if constexpr (WITH_LOSS) {
-    if (n_lead == 1) {
-#pragma unroll
-      for (int o = 0; o < P - 1; ++o) {
-        const int p = o + (o >= lone ? 1 : 0);
-        rate_out[o] = t.loss_rate[((int64_t)lone * P + p) * G + g];
-        rate_in[o] = t.loss_rate[((int64_t)p * P + lone) * G + g];
-      }
-    }
-  }
+  // With loss, the draws on the acting leaders' links (fused_common.cuh).
+  const raft_fused::LeaderLinks<P, WITH_LOSS> links(t.loss_rate, g, G, n_lead,
+                                                    lone);
   const int32_t qpos = count / 2;
   const int32_t ts = t.ts[g];
   const int32_t ts_prev = wadd(ts, -1);  // a never-acked member's probe prev
@@ -272,28 +175,8 @@ RAFT_HD void damped_group(int64_t g, int64_t G, const DampedPlanes& t,
     if constexpr (WITH_LOSS) {
       const uint32_t key =
           raft_fused::loss_round_key(gid, (uint32_t)round_base + (uint32_t)r);
-      uint32_t dfl = 0, dtl = 0;  // leader -> p dropped, p -> leader dropped
-      if (n_lead == 1) {
-#pragma unroll
-        for (int o = 0; o < P - 1; ++o) {
-          const int p = o + (o >= lone ? 1 : 0);
-          dfl |= flag(raft_fused::loss_drop<P>(key, lone, p, rate_out[o]), p);
-          dtl |= flag(raft_fused::loss_drop<P>(key, p, lone, rate_in[o]), p);
-        }
-      } else {
-#pragma unroll 1
-        for (int s = 0; s < P; ++s) {
-          if (!bit(lead, s)) continue;
-          const int64_t gs = opaque(g), Gs = opaque(G);
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            const int32_t r_out = t.loss_rate[((int64_t)s * P + p) * Gs + gs];
-            const int32_t r_in = t.loss_rate[((int64_t)p * P + s) * Gs + gs];
-            dfl |= flag(raft_fused::loss_drop<P>(key, s, p, r_out), p);
-            dtl |= flag(raft_fused::loss_drop<P>(key, p, s, r_in), p);
-          }
-        }
-      }
+      uint32_t dfl, dtl;  // leader -> p dropped, p -> leader dropped
+      links.draw(t.loss_rate, g, G, key, lead, dfl, dtl);
       fwd &= ~dfl;
       rev &= ~dtl;
     }

@@ -23,12 +23,12 @@ void host_groups(const raft_damped::DampedPlanes& t, int64_t G,
   int32_t view[P * P * kViewStride];
   for (int64_t g = 0; g < G; ++g) {
     if (strided) {
-      raft_damped::StridedBlock<P, kViewStride> blk{view + g % kViewStride};
+      raft_fused::StridedBlock<P, kViewStride> blk{view + g % kViewStride};
       raft_damped::damped_group<P, CQ, LOSS, HEALTH>(
           g, G, t, round_base, rounds, election_tick, heartbeat_tick,
           group_base, blk);
     } else {
-      raft_damped::ArrayBlock<P> blk;
+      raft_fused::ArrayBlock<P> blk;
       raft_damped::damped_group<P, CQ, LOSS, HEALTH>(
           g, G, t, round_base, rounds, election_tick, heartbeat_tick,
           group_base, blk);

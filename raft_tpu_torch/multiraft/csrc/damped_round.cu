@@ -49,12 +49,12 @@ __global__ void __launch_bounds__(DampedShape<P>::kThreads,
   if (g >= G) return;
   if constexpr (DampedShape<P>::kShared) {
     extern __shared__ int32_t damped_agree_smem[];
-    raft_damped::StridedBlock<P, T> blk{damped_agree_smem + threadIdx.x};
+    raft_fused::StridedBlock<P, T> blk{damped_agree_smem + threadIdx.x};
     raft_damped::damped_group<P, WITH_CQ, WITH_LOSS, WITH_HEALTH>(
         g, G, t, round_base, rounds, election_tick, heartbeat_tick,
         group_base, blk);
   } else {
-    raft_damped::ArrayBlock<P> blk;
+    raft_fused::ArrayBlock<P> blk;
     raft_damped::damped_group<P, WITH_CQ, WITH_LOSS, WITH_HEALTH>(
         g, G, t, round_base, rounds, election_tick, heartbeat_tick,
         group_base, blk);
