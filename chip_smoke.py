@@ -83,11 +83,15 @@ and eight more:
 
 Past P = 7 each kernel runs from libraries of its own, one a peer count
 (csrc/*_round_wide.cu): held to the plain versions at P = 8, 11 and 15
-(the chaos and damped kernels' also at 13 and 14, the steady kernel's
-runtime-P instance at 16), and driven at P = 8.  The chaos and damped
+(the chaos and damped kernels' also at 12, 13 and 14), and driven
+at P = 8.  From P = 13 the steady kernel is one library for every width,
+csrc/steady_round_warp.cu, half a warp or a warp a group: held to its
+plain version at P = 13 to 128, and driven and timed at 100,000 groups x
+P = 65, the first width the port refused before it.  The chaos and damped
 kernels' bounds are their bodies' work (chaos_body_work,
-damped_body_work), with the plain versions' (chaos_work, damped_work)
-printed beside them.
+damped_body_work), the steady warp instance's its body's
+(steady_wide_body_work), with the plain versions' (chaos_work,
+damped_work, steady_work) printed beside them.
 The host driver: examples/multiraft_node.py's node, 3 MultiRaft drivers
 (peer ids 1-3) of 10,000 groups each with the tick on the card.
 
@@ -114,8 +118,8 @@ printed as bench.py --health-out writes it.
   2. build         build the three kernels (every P <= 7 instance, and
                    the wide libraries of P = 8, 11, 15, the chaos and
                    the damped kernels' also of 13 and 14, each side of
-                   their shape switches, and
-                   the steady runtime-P one) and run_compiled's graph
+                   their shape switches, and of 12, and the
+                   steady kernel's warp library) and run_compiled's graph
                    helper
                    (csrc/graph_cond.cu) from csrc/ with nvcc, one nvcc a
                    library, and the bench's native anchor
@@ -125,11 +129,19 @@ printed as bench.py --health-out writes it.
                    one line a kernel each chaos and damped instance's
                    registers, local (spill) bytes, shared memory a block,
                    threads a block and resident blocks an SM
-                   (chaos_round_occupancy, damped_round_occupancy)
+                   (chaos_round_occupancy, damped_round_occupancy), and
+                   the same for the steady warp instance at P = 16 to 128
+                   and 200 (steady_round_occupancy; its P = 16 is a half-warp
+                   group)
   3. parity        the steady kernel against its plain PyTorch version on
                    the same card tensors, exact: settled states at
                    G=100,000 and a ragged G=100,003 (P=5), at P=3, 8 and
-                   16, and random planes at P=3, 5, 7, 8, 11, 15 and 16
+                   13 (the warp instance), random planes at P=3, 5, 7, 8,
+                   11 and 15 (the warp instance), and the warp instance on
+                   random planes and
+                   on random planes with one acting leader a group at P =
+                   16, 17, 31, 32, 33, 64, 65, 96 and 128 (G=16,387; k=8
+                   past P = 64)
  3a. bench         `python -m raft_tpu_torch.bench` through its line builder
                    (raft_tpu_torch.bench.main, printing each JSON line as
                    the command line does) at 100k x 5: default (with the
@@ -170,7 +182,7 @@ printed as bench.py --health-out writes it.
                    P=3, each with and without crashed followers, under 1%
                    and the heavy-loss layout, with the round base small
                    and near 2**31 - 32; P=8 lossy-settled the same way;
-                   random planes at P=3, 5, 7, 8, 11, 13, 14 and 15,
+                   random planes at P=3, 5, 7, 8, 11, 12, 13, 14 and 15,
                    and at each of those P random planes with exactly 0, 1
                    and 3 acting leaders a group at group bases 50,000 and
                    8,300,000
@@ -186,14 +198,24 @@ printed as bench.py --health-out writes it.
                    loss and under 1% and the heavy-loss layout (round base
                    small and near 2**31 - 32), and at P=8; with_cq off on
                    a pre-vote-settled state; random planes at P=3, 5, 7,
-                   8, 11, 13, 14 and 15, every flag variant (13 and 14
-                   the two sides of the kernel's 64/32-thread switch)
+                   8, 11, 12, 13, 14 and 15, every flag variant (13
+                   and 14 the two sides of the kernel's 64/32-thread
+                   switch)
  9a. wide          from the P=8 steady-, lossy- and damped-settled states
                    at G=100,000, two fast_multi_round(k=32) blocks each,
                    the launch counts zeroed just before and read just
                    after, every block equal to 32 general steps on the
                    card; each kernel's P=8 instance timed cold and hot
                    against its bound
+ 9b. wide steady   the steady path at G=100,000 x P=65 on the warp
+                   instance: a 30-round settle through run_compiled, two
+                   fast_multi_round(k=32) blocks, the launch counts zeroed
+                   just before and read just after, each equal to 32
+                   general steps on the card on every field; the instance
+                   against its plain version on the settled operands (k=8,
+                   both variants), then timed cold and hot at k=32 against
+                   its body's bound and the reference's, the plain
+                   version's time beside
  10. damped        the check-quorum path: at G=8,192 from init_state (one
                    instrumented 192-round settle each on the card and the
                    CPU, then 4 blocks), then the main path at G=100,000
@@ -300,7 +322,7 @@ printed as bench.py --health-out writes it.
                    repros replay RED, then green with the trap disabled; one
                    stamped violation reaches a HealthMonitor's
                    record_incident once; then timed (ClusterSim.run, off and
-                   on, 5 alternating reps a side: blackbox_overhead_pct, and
+                   on, 3 alternating reps a side: blackbox_overhead_pct, and
                    blackbox_overhead_fused_pct against phase 5's median; the
                    launches and busy share of 4 rounds each), and
                    fast_multi_round(k=32) on a black-box config runs the
@@ -310,9 +332,13 @@ printed as bench.py --health-out writes it.
                    box off and on: ring, trip plane, round count), from
                    init_state (elections: the conditional node's taken arm),
                    with counters and health and a HealthMonitor (counter
-                   totals) and with health and a monitor (the summary
-                   stream); the check-quorum round with the black box on from
-                   phase 9's settled state: run_compiled(12), save_state and
+                   totals), with health and a monitor (the summary
+                   stream), and the link-gated round (a one-way 0 -> 1 cut
+                   in even groups, health on, from init_state: one capture
+                   of _linked_step's round, replayed 64 rounds == 64
+                   run_round(link=) calls); the check-quorum round with
+                   the black box on from phase 9's settled state:
+                   run_compiled(12), save_state and
                    save_blackbox_state, load into a fresh ClusterSim,
                    run_compiled(12) == run(24); the four checkpoint families
                    round trip at G (file sizes printed); card == CPU at
@@ -320,7 +346,7 @@ printed as bench.py --health-out writes it.
                    compiled check-quorum and pre-vote rounds, from
                    init_state); runner.make_runner on partition_heal.json at
                    G == phase 13's run (report, end state, health planes);
-                   then timed: run(64) against run_compiled(64), 3
+                   then timed: run(64) against run_compiled(64), 2
                    alternating reps a side, plain with the black box off and
                    on and check-quorum: ticks/s, the ratio,
                    blackbox_overhead_pct on run_compiled, the capture's
@@ -354,16 +380,17 @@ printed as bench.py --health-out writes it.
                    all 100,000 groups at bases 0 and 50,000
  23. references    the held-back checks of phases 4, 4a, 7 and 10 against
                    their CPU runs
- 24. report        one JSON line of the fifteen kernel rows (the six
-                   variants, the damped kernel's with_loss instance, its
-                   with_loss with_health instance at k=8, its no-loss
-                   with_health instance at k=8, the chaos kernel's
-                   with_health instance at k=16, each kernel's P=8 instance,
-                   and the chaos and damped with_loss with_health k=8
+ 24. report        each phase's seconds and their sum, then one JSON line
+                   of the sixteen kernel rows (the six variants, the damped
+                   kernel's with_loss instance, its with_loss with_health
+                   instance at k=8, its no-loss with_health instance at
+                   k=8, the chaos kernel's with_health instance at k=16,
+                   each kernel's P=8 instance, the steady warp instance at
+                   P=65, and the chaos and damped with_loss with_health k=8
                    instances at a mesh rank's group base), then the device
                    line last
 
-With --quick it runs phases 1 to 3, 6, 9 and 9a only (the builds and every
+With --quick it runs phases 1 to 3, 6, 9, 9a and 9b only (the builds and every
 kernel against its plain version) and prints no result.  Exits 2 without a
 result when no CUDA device is available.
 """
@@ -375,6 +402,7 @@ import json
 import multiprocessing
 import os
 import platform
+import re
 import statistics
 import subprocess
 import sys
@@ -412,6 +440,7 @@ from raft_tpu_torch.multiraft import steady_kernel
 from raft_tpu_torch.multiraft.steady_kernel import (
     steady_rounds,
     steady_rounds_reference,
+    steady_wide_body_work,
     steady_work,
 )
 
@@ -461,7 +490,7 @@ AUTO_ROUNDS, AUTO_CRASH_AT, AUTO_HEAL_AT = 320, 192, 224
 # capture width 8), one append a group a round, after a 30-round settle; a rep
 # is SCANS runs of 64 rounds (the bench's rep), the two sides alternating rep
 # by rep, as the host's speed drifts (three 64-round reps a side spread 30%).
-BB_SMALL_G, BB_ROUNDS, BB_SETTLE, BB_REPS, BB_PROFILE_ROUNDS = 8192, 64, 30, 5, 4
+BB_SMALL_G, BB_ROUNDS, BB_SETTLE, BB_REPS, BB_PROFILE_ROUNDS = 8192, 64, 30, 3, 4
 # The injected traps' offender groups: both ends of the batch, and a group
 # past 65,536, where the timeout stream's group key wraps 32 bits.
 REGRESS_OFFENDERS = [1, 4097, 50_000, 99_999]
@@ -474,6 +503,10 @@ STORM_EVERY = 100  # the acting leader crashed in 1% of groups
 COMPOSED_BRANCHES, COMPOSED_CRASH_BLOCK = ("pure", "slow", "split"), 2
 ROUNDS_PER_SCAN, SCANS, REPS = 64, 6, 5
 WORKERS = 2  # reference worker processes for the CPU runs
+# Calls of a kernel's plain version a timing takes the median of: the plain
+# version repeats the kernel's arithmetic in thousands of launches, up to
+# 1.7 s a call at P = 65.
+PLAIN_REPS = 3
 SLEEP_CYCLES = 4_000_000  # about 2 ms at the H100's 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 # H100 SXM INT32 rate: the published 67 TFLOP/s float32 counts an FMA as two
@@ -486,10 +519,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 OPS_PER_S = 67e12 / 4
 # The wide instances (P = 8..15, csrc/*_round_wide.cu): held against their
 # plain versions at WIDE_PEERS on random planes and at WIDE_P on settled
-# 100k states, driven and timed at WIDE_P; the steady kernel's runtime-P
-# instance held at STEADY_RUNTIME_P.
+# 100k states, driven and timed at WIDE_P.
 WIDE_P = 8
 WIDE_PEERS = (8, 11, 15)
+# A chaos and damped wide instance that no earlier run built with nvcc:
+# built beside the others and held against its plain versions on random
+# planes (P = 9 and 10 too would take the run past its time budget).
+FILL_PEERS = (12,)
 # The damped kernel's shape changes past P = 13 (csrc/damped_round.cu's
 # DampedShape: 32 threads a block, not 64): these wide instances are also
 # built and held against their plain versions on random planes.
@@ -503,7 +539,16 @@ CHAOS_SHAPE_PEERS = (13, 14)
 # group (each arm of the body's loss draws and agreement events), held at
 # the mesh group bases on this many groups.
 ARMS_G = 16_387
-STEADY_RUNTIME_P = 16
+# The steady kernel's warp instance (csrc/steady_round_warp.cu, from
+# steady_kernel.WARP_PEERS on): held against its plain version on random
+# planes, and on random planes with one acting leader a group, at
+# WARP_PARITY_PEERS on ARMS_G groups (k = K to P = 64, WARP_WIDE_K past it,
+# where the plain version's network costs thousands of launches a round),
+# and on a settled 100k state at steady_kernel.WARP_PEERS; driven and timed
+# at WARP_P, the first P the port refused before the warp instance.
+WARP_PARITY_PEERS = (16, 17, 31, 32, 33, 64, 65, 96, 128)
+WARP_WIDE_K = 8
+WARP_P = 65
 WIDE_BLOCKS = 2
 STEADY_SOURCE = "raft_tpu_torch/multiraft/csrc/steady_round.cu"
 STEADY_REPLACES = "raft_tpu/multiraft/pallas_step.py:116"
@@ -512,11 +557,14 @@ CHAOS_REPLACES = "raft_tpu/multiraft/pallas_step.py:297"
 DAMPED_SOURCE = "raft_tpu_torch/multiraft/csrc/damped_round.cu"
 DAMPED_REPLACES = "raft_tpu/multiraft/pallas_step.py:889"
 STEADY_WIDE_SOURCE = "raft_tpu_torch/multiraft/csrc/steady_round_wide.cu"
+STEADY_WARP_SOURCE = "raft_tpu_torch/multiraft/csrc/steady_round_warp.cu"
 CHAOS_WIDE_SOURCE = "raft_tpu_torch/multiraft/csrc/chaos_round_wide.cu"
 DAMPED_WIDE_SOURCE = "raft_tpu_torch/multiraft/csrc/damped_round_wide.cu"
 KERNELS = (steady_rounds, chaos_rounds, damped_rounds)
 # ptxas registers and spills by library and template instance, for --out.
 PTXAS = {}
+# Each phase's wall seconds, in order.
+PHASE_SECONDS = {}
 
 
 def card_line():
@@ -536,7 +584,9 @@ def phase(name):
             out = fn(*args, **kw)
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
-            print(f"[phase {name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+            secs = time.perf_counter() - t0
+            PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + secs
+            print(f"[phase {name}: {secs:.1f} s]", flush=True)
             return out
         return run
     return wrap
@@ -544,21 +594,25 @@ def phase(name):
 
 @phase("build")
 def phase_build():
-    """The three kernels (the narrow libraries, P <= 7, and the wide ones
-    at WIDE_PEERS and STEADY_RUNTIME_P) and run_compiled's graph helper
-    built at once, one nvcc per library."""
+    """The three kernels (the narrow libraries, P <= 7, the wide ones at
+    WIDE_PEERS, the chaos and damped kernels' also at their shape switches
+    and FILL_PEERS, and the steady kernel's warp instance) and
+    run_compiled's graph helper built at once, one nvcc per library."""
     loaders = {"steady_round": _build.load_steady_cuda,
                "chaos_round": _build.load_chaos_cuda,
                "damped_round": _build.load_damped_cuda,
                "graph_cond": _build.load_graph_cuda,
+               "steady_round_warp": _build.load_steady_warp_cuda,
                "multiraft_engine": native.load_library}
     # The wide libraries, one a peer count: those the checks below launch.
     for kind, load in (("steady", _build.load_steady_cuda),
                        ("chaos", _build.load_chaos_cuda),
                        ("damped", _build.load_damped_cuda)):
-        extra = {"steady": (STEADY_RUNTIME_P,), "chaos": CHAOS_SHAPE_PEERS,
-                 "damped": DAMPED_SHAPE_PEERS}[kind]
+        extra = {"steady": (), "chaos": CHAOS_SHAPE_PEERS + FILL_PEERS,
+                 "damped": DAMPED_SHAPE_PEERS + FILL_PEERS}[kind]
         for n_peers in WIDE_PEERS + extra:
+            if kind == "steady" and n_peers >= steady_kernel.WARP_PEERS:
+                continue  # the warp library's
             loaders[f"{kind}_round_p{n_peers}"] = lambda n=n_peers, f=load: f(n)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(fn) for fn in loaders.values()]:
@@ -574,10 +628,13 @@ def phase_build():
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 # The template arguments: P, then the flags (the damped
-                # kernel's cq and loss), with_health last.
-                if "kernel_np" in line:  # the steady runtime-P instance
-                    entry = (f"P={STEADY_RUNTIME_P}..{steady_kernel.MAX_PEERS} "
-                             f"health={line.split('ILb')[1][0]}")
+                # kernel's cq and loss), with_health last; the steady warp
+                # instance's J (peers a lane, 0 for the runtime-J one),
+                # with_health and its lanes a group.
+                if "steady_warp_kernel" in line:
+                    j, health, lanes = re.search(
+                        r"ILi(\d+)ELb(\d)ELi(\d+)E", line).groups()
+                    entry = f"J={j} health={health} lanes={lanes}"
                     continue
                 if "ILi" not in line:  # not a kernel templated on P
                     entry = line.split("'")[1] if "'" in line else "?"
@@ -616,7 +673,7 @@ def kernel_occupancy(kind):
         load, peers, names = _build.load_damped_cuda, DAMPED_SHAPE_PEERS, (
             "cq", "loss", "health")
     rows = {}
-    for n_peers in narrow + WIDE_PEERS + peers:
+    for n_peers in sorted(set(narrow + WIDE_PEERS + peers + FILL_PEERS)):
         fn = getattr(load(n_peers), f"{kind}_round_occupancy")
         for flags in itertools.product((0, 1), repeat=len(names)):
             out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
@@ -626,6 +683,26 @@ def kernel_occupancy(kind):
             key = " ".join([f"P={n_peers}"] + [f"{n}={v}" for n, v in zip(names, flags)])
             rows[key] = dict(zip(OCCUPANCY_KEYS, out))
     print(f"{kind} occupancy [{card_line()}] (registers / local bytes a thread / "
+          "shared bytes a block / threads a block / resident blocks an SM): " + "; ".join(
+              f"{k} {'/'.join(str(v) for v in r.values())}" for k, r in rows.items()))
+    return rows
+
+
+def warp_occupancy():
+    """The steady warp instance's registers, local bytes, shared bytes a
+    block, threads a block and resident blocks an SM at each P of
+    WARP_PARITY_PEERS (J = 1..4) and at P = 200 (the runtime-J instance),
+    both variants (steady_round_occupancy), printed on one line."""
+    lib = _build.load_steady_warp_cuda()
+    rows = {}
+    for n_peers in WARP_PARITY_PEERS + (200,):
+        for health in (0, 1):
+            out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+            rc = lib.steady_round_occupancy(n_peers, health, out)
+            if rc != 0:
+                raise RuntimeError(f"steady_round_occupancy failed: CUDA error {rc}")
+            rows[f"P={n_peers} health={health}"] = dict(zip(OCCUPANCY_KEYS, out))
+    print(f"steady warp occupancy [{card_line()}] (registers / local bytes a thread / "
           "shared bytes a block / threads a block / resident blocks an SM): " + "; ".join(
               f"{k} {'/'.join(str(v) for v in r.values())}" for k, r in rows.items()))
     return rows
@@ -706,6 +783,23 @@ def compare_kernel(args, rounds, note):
                             kw, note)
 
 
+def one_acting_leader(args, seed):
+    """Steady operands `args` with new roles and crashes: exactly one acting
+    leader in every group (a random slot, alive in the leader role), the
+    other peers random followers and candidates."""
+    n_peers, n_groups = args[0].shape
+    dev = args[0].device
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    state = torch.randint(0, 2, (n_peers, n_groups), generator=gen,
+                          dtype=torch.int32).to(dev)
+    lead = torch.randint(0, n_peers, (n_groups,), generator=gen).to(dev)
+    idx = torch.arange(n_groups, device=dev)
+    crashed = args[10].clone()
+    state[lead, idx] = ROLE_LEADER
+    crashed[lead, idx] = False
+    return (state,) + tuple(args[1:10]) + (crashed,) + tuple(args[11:])
+
+
 def crash_followers(st, n_peers, n_groups, dev):
     """bool[P, G]: the peer after each group's leader is down in every
     third group."""
@@ -719,10 +813,12 @@ def crash_followers(st, n_peers, n_groups, dev):
 @phase("parity")
 def phase_parity(dev):
     """Returns ((plain, with_health) max |difference|, the same over the
-    wide cases alone, the settled 100k x WIDE_P state)."""
-    err, wide_err, wide_settled = (0, 0), (0, 0), None
+    wide cases (P = 8..15) alone, the settled 100k x WIDE_P state, and the
+    same over the warp instance's cases)."""
+    err, wide_err, wide_settled, warp_err = (0, 0), (0, 0), None, (0, 0)
+    warp_from = steady_kernel.WARP_PEERS
     for n_groups, n_peers in ((G, P), (G + 3, P), (G, 3), (G, WIDE_P),
-                              (G, STEADY_RUNTIME_P)):
+                              (G, warp_from)):
         st = settle_on(dev, n_groups, n_peers)
         if n_peers == WIDE_P:
             wide_settled = st
@@ -735,15 +831,26 @@ def phase_parity(dev):
             fused_step.steady_operands(st, crashed, append), K,
             f"settled+crashed followers G={n_groups} P={n_peers}"))
         err = worst(err, e)
-        if n_peers > _build.NARROW_PEERS:
+        if n_peers >= warp_from:
+            warp_err = worst(warp_err, e)
+        elif n_peers > _build.NARROW_PEERS:
             wide_err = worst(wide_err, e)
-    for n_peers in (3, 5, 7) + WIDE_PEERS + (STEADY_RUNTIME_P,):
+    for n_peers in (3, 5, 7) + WIDE_PEERS:
         e = compare_kernel(random_inputs(n_peers, G + 3, n_peers, dev), K,
                            f"random planes G={G + 3} P={n_peers}")
         err = worst(err, e)
-        if n_peers > _build.NARROW_PEERS:
+        if n_peers >= warp_from:
+            warp_err = worst(warp_err, e)
+        elif n_peers > _build.NARROW_PEERS:
             wide_err = worst(wide_err, e)
-    return err, wide_err, wide_settled
+    for n_peers in WARP_PARITY_PEERS:
+        rounds = K if n_peers <= 64 else WARP_WIDE_K
+        planes = random_inputs(n_peers, ARMS_G, n_peers, dev)
+        for note, args in (("random planes", planes),
+                           ("one acting leader", one_acting_leader(planes, n_peers))):
+            e = compare_kernel(args, rounds, f"{note} G={ARMS_G} P={n_peers} k={rounds}")
+            err, warp_err = worst(err, e), worst(warp_err, e)
+    return err, wide_err, wide_settled, warp_err
 
 
 def run_main_path(device):
@@ -1141,7 +1248,7 @@ def kernel_times(dev, kernel, reference, args, kw, work, parts=None,
 
     t = dict(ms=kernel_device_ms(launch, 30, flush), hot_ms=kernel_device_ms(launch, 30),
              call_ms=cuda_ms(launch, 30, flush),
-             plain_ms=cuda_ms(lambda: reference(*args, **kw), 5, flush))
+             plain_ms=cuda_ms(lambda: reference(*args, **kw), PLAIN_REPS, flush))
     for name, fn in (parts or {}).items():
         t[name] = cuda_ms(fn, part_reps, flush)
     if methods_of is not None:
@@ -1329,7 +1436,7 @@ def phase_chaos_parity(dev):
                     err = worst(err, e)
                     if n_peers > _build.NARROW_PEERS:
                         wide_err = worst(wide_err, e)
-    for n_peers in (3, 5, 7) + WIDE_PEERS + CHAOS_SHAPE_PEERS:
+    for n_peers in (3, 5, 7) + WIDE_PEERS + CHAOS_SHAPE_PEERS + FILL_PEERS:
         args = random_chaos_inputs(n_peers, G + 3, 10 + n_peers, dev)
         for rb in (7, 2**31 - K):
             e = compare_chaos(args, rb, f"random planes G={G + 3} P={n_peers}",
@@ -1544,7 +1651,7 @@ def phase_damped_parity(dev):
             err = worst(err, e)
         else:
             loss_err = worst(loss_err, e)
-    for n_peers in (3, 5, 7) + WIDE_PEERS + DAMPED_SHAPE_PEERS:
+    for n_peers in (3, 5, 7) + WIDE_PEERS + DAMPED_SHAPE_PEERS + FILL_PEERS:
         for with_cq in (False, True):
             for loss in (False, True):
                 args = random_damped_inputs(n_peers, G + 3, 20 + n_peers, dev, loss)
@@ -1747,6 +1854,60 @@ def phase_wide(dev, steady_st, lossy_st, damped_st):
               f"plain {t['plain_ms']:.2f}{plain_bound_note(t)}; {t['card']}")
         out[label] = (launches, t)
     return out
+
+
+@phase("wide steady")
+def phase_warp(dev):
+    """The steady path at P = WARP_P, G = 100,000 on the warp instance: a
+    settle of SETTLE rounds through ClusterSim.run_compiled, then
+    WIDE_BLOCKS blocks of fast_multi_round(k=32) with the launch counts
+    zeroed just before and read just after, each block equal on every
+    field to 32 general steps on the card; the warp instance against its
+    plain version on the settled state's operands (k = WARP_WIDE_K, both
+    variants); then timed cold and hot at k = 32 on those operands against
+    both bounds: steady_wide_body_work's (the body's operations, with the
+    selections these operands take) and steady_work's (the reference's
+    network), with the plain version's time beside.  Returns (launches,
+    (plain, with_health) max |difference|, times)."""
+    cfg = sim.SimConfig(n_groups=G, n_peers=WARP_P)
+    crashed = torch.zeros((WARP_P, G), dtype=torch.bool, device=dev)
+    append = torch.ones(G, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    st0 = compiled_settle(cfg, dev, SETTLE)
+    sync()
+    settle_s = time.perf_counter() - t0
+    zero_launches()
+    st, fused = st0, 0
+    for b in range(WIDE_BLOCKS):
+        got, want, n = wide_block_pair(cfg, st, crashed, append)
+        for field in got._fields:
+            a, w = getattr(got, field), getattr(want, field)
+            if (a is None) != (w is None) or (a is not None and not torch.equal(a, w)):
+                raise AssertionError(f"P={WARP_P} steady block {b}: fused and general "
+                                     f"differ in {field}")
+        st, fused = got, fused + n
+    sync()
+    launches = bare_launches(steady_rounds, f"the P={WARP_P} steady path")
+    if launches < 1:
+        raise AssertionError(f"P={WARP_P} steady path: no fused launch "
+                             f"(fused {fused}/{WIDE_BLOCKS * K * G})")
+    print(f"wide P={WARP_P} steady: settled in {settle_s:.2f}s ({SETTLE} compiled "
+          f"rounds); {WIDE_BLOCKS} blocks of {K} == {K} general steps each on every "
+          f"field; steady_rounds launches {launches}, fused {fused}/{WIDE_BLOCKS * K * G}")
+    args = fused_step.steady_operands(st0, crashed, append)
+    err = compare_kernel(args, WARP_WIDE_K, f"settled G={G} P={WARP_P} k={WARP_WIDE_K}")
+    sel = steady_kernel.warp_selections(*(args[i] for i in (0, 8, 9, 10, 6)))
+    kw = dict(rounds=K, election_tick=cfg.election_tick, heartbeat_tick=cfg.heartbeat_tick)
+    work = steady_wide_body_work(WARP_P, G, K, selections=sel) + (
+        steady_work(WARP_P, G, K),)
+    t = kernel_times(dev, steady_rounds, steady_rounds_reference, args, kw, work)
+    t["selections"] = sel
+    print(f"timing steady_rounds P={WARP_P} (the warp instance): {t['ms']:.4f} ms cold, "
+          f"{t['hot_ms']:.4f} hot, bound {t['bound_ms']:.4f} by {t['bound_by']} "
+          f"(steady_wide_body_work, {sel[0]} selections of {sel[1]} radix steps; "
+          f"{100 * t['bound_ms'] / t['ms']:.1f} % of it), plain {t['plain_ms']:.2f}"
+          f"{plain_bound_note(t)}; {t['card']}")
+    return launches, err, t
 
 
 # --- the instrumented paths (bench.py --health) -----------------------------
@@ -3530,7 +3691,7 @@ def phase_forensics(dev, cpu_ref, scenario_off, steady_med):
 
 # --- the compiled scan (ClusterSim.run_compiled), checkpoints, make_runner ---
 
-COMPILED_ROUNDS, COMPILED_HALF, COMPILED_REPS = 64, 12, 3
+COMPILED_ROUNDS, COMPILED_HALF, COMPILED_REPS = 64, 12, 2
 COMPILED_SMALL_G, COMPILED_PROFILE_ROUNDS = 8192, 4
 
 
@@ -3554,11 +3715,22 @@ def summaries(mon):
     return [e["summary"] for e in mon.summary_ring()]
 
 
-def loop_against_graph(dev, cfg, note, settle=SETTLE, start=None, monitor=False):
+def one_way_cut(n_groups, dev):
+    """tests/test_chaos_parity.py's link plane: all links up but 0 -> 1 in
+    even groups."""
+    link = torch.ones((P, P, n_groups), dtype=torch.bool, device=dev)
+    link[0, 1, ::2] = False
+    return link
+
+
+def loop_against_graph(dev, cfg, note, settle=SETTLE, start=None, monitor=False,
+                       link=None):
     """ClusterSim.run against run_compiled over COMPILED_ROUNDS rounds of one
     append a group, from `start` (else init_state) after `settle` rounds on
     both: equal sims, counter totals, and, with a monitor and no counters,
-    equal summary streams.  Returns the run_compiled sim."""
+    equal summary streams; with `link`, COMPILED_ROUNDS run_round(link=)
+    calls against run_compiled(link=), the graph of the link-gated round.
+    Returns the run_compiled sim."""
     app = torch.ones(cfg.n_groups, dtype=torch.int32, device=dev)
     mons = (HealthMonitor(), HealthMonitor()) if monitor else (None, None)
     a, b = (sim.ClusterSim(cfg, health_monitor=m, device=dev) for m in mons)
@@ -3566,8 +3738,12 @@ def loop_against_graph(dev, cfg, note, settle=SETTLE, start=None, monitor=False)
         if start is not None:
             s.state = start
         s.run(settle, append_n=app)
-    a.run(COMPILED_ROUNDS, append_n=app)
-    b.run_compiled(COMPILED_ROUNDS, append_n=app)
+    if link is None:
+        a.run(COMPILED_ROUNDS, append_n=app)
+    else:
+        for _ in range(COMPILED_ROUNDS):
+            a.run_round(append_n=app, link=link)
+    b.run_compiled(COMPILED_ROUNDS, append_n=app, link=link)
     if cfg.collect_counters and a.counters() != b.counters():
         raise AssertionError(f"{note}: counter totals differ")
     same_sims(a, b, note)
@@ -3722,7 +3898,9 @@ def phase_compiled(dev, cpu_ref, damped_settled, scenario_off):
             ("black box", plain._replace(blackbox=True), {}),
             ("counters, health, monitor", plain._replace(
                 collect_counters=True, collect_health=True), dict(monitor=True)),
-            ("health, monitor", plain._replace(collect_health=True), dict(monitor=True))):
+            ("health, monitor", plain._replace(collect_health=True), dict(monitor=True)),
+            ("link-gated from init_state, health", plain._replace(collect_health=True),
+             dict(settle=0, link=one_way_cut(G, dev)))):
         g = next(iter(loop_against_graph(dev, cfg, f"compiled {note}", **kw)
                       ._round_graphs.values()))
         graphs_info[note] = dict(nodes=g.nodes, branch_nodes=g.branch_nodes,
@@ -3770,7 +3948,8 @@ def phase_compiled(dev, cpu_ref, damped_settled, scenario_off):
     print(f"compiled {G}x{P} [{card}]: run_compiled == run over {COMPILED_ROUNDS} rounds "
           f"(plain settled, plain from init_state, black box on with ring, trip plane and "
           f"round count, counters and health with a monitor: counter totals, health "
-          f"summary stream) and damped with the black box on: run_compiled({COMPILED_HALF}), "
+          f"summary stream; the link-gated round with a one-way 0 -> 1 cut in even "
+          f"groups and health from init_state == {COMPILED_ROUNDS} run_round(link=)) and damped with the black box on: run_compiled({COMPILED_HALF}), "
           f"save_state + save_blackbox_state, load into a fresh sim, run_compiled("
           f"{COMPILED_HALF}) == run({2 * COMPILED_HALF}) ({t_parity:.2f}s); checkpoint "
           f"files at G: {json.dumps(sizes)} bytes; card == CPU at {COMPILED_SMALL_G}x{P} "
@@ -4335,13 +4514,16 @@ def main(argv=None):
     print(card_line())
     print(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    t_start = time.perf_counter()
     phase_build()
     occupancy = {kind: kernel_occupancy(kind) for kind in ("chaos", "damped")}
-    steady_err, steady_wide_err, steady_wide_st = phase_parity(dev)
+    occupancy["steady_warp"] = warp_occupancy()
+    steady_err, steady_wide_err, steady_wide_st, steady_warp_err = phase_parity(dev)
     if opts.quick:
         *_, chaos_wide_st = phase_chaos_parity(dev)
         *_, damped_wide_st = phase_damped_parity(dev)
         phase_wide(dev, steady_wide_st, chaos_wide_st, damped_wide_st)
+        phase_warp(dev)
         print("quick: every kernel variant equals its plain version on the card")
         return 0
     # The bench's loops are host-bound: they run before the reference workers
@@ -4381,6 +4563,8 @@ def main(argv=None):
          damped_wide_st) = phase_damped_parity(dev)
         wide = phase_wide(dev, steady_wide_st, chaos_wide_st, damped_wide_st)
         del steady_wide_st, chaos_wide_st, damped_wide_st
+        warp_launches, warp_err, warp = phase_warp(dev)
+        steady_warp_err = worst(steady_warp_err, warp_err)
         cpu_run = pool.submit(cpu_composed, sim.state_to_numpy(settled))
         st, damped_launches, damped_run, damped_h_launches, check = phase_damped(
             dev, settled, pool, damped_small)
@@ -4442,6 +4626,9 @@ def main(argv=None):
             ("steady", STEADY_WIDE_SOURCE, STEADY_REPLACES, steady_wide_err),
             ("chaos", CHAOS_WIDE_SOURCE, CHAOS_REPLACES, chaos_wide_err),
             ("damped", DAMPED_WIDE_SOURCE, DAMPED_REPLACES, damped_wide_err))] + [
+        kernel_entry(f"steady_rounds P={WARP_P} with_health=False (the warp instance)",
+                     STEADY_WARP_SOURCE, f"{STEADY_REPLACES} (P={WARP_P}, with_health=False)",
+                     warp_launches, steady_warp_err[0], warp),
         kernel_entry(f"chaos_rounds with_health=False group_base={MESH_BASES[0]}",
                      CHAOS_SOURCE, f"{CHAOS_REPLACES} (a mesh rank's block)",
                      *mesh_chaos),
@@ -4454,17 +4641,23 @@ def main(argv=None):
         with open(opts.out, "w", encoding="utf-8") as fh:
             json.dump({**kernels, "ptxas": PTXAS, "chaos_occupancy": occupancy["chaos"],
                        "damped_occupancy": occupancy["damped"],
+                       "steady_warp_occupancy": occupancy["steady_warp"],
+                       "phase_seconds": PHASE_SECONDS,
                        "timing": {
                 "steady": steady, "lossy": lossy, "damped": damped,
                 "steady_health": steady_h, "damped_health": damped_h,
                 "lossy_health_kernel": lossy_h, "chaos_scenario": scenario,
                 "composed": composed, "reconfig": reconfig_out, "prod_fused": prod,
                 "reads": reads, "autopilot": auto, "blackbox": blackbox,
-                "compiled": compiled_out, "wide": wide, "driver": driver,
+                "compiled": compiled_out, "wide": wide, "wide_steady": warp,
+                "driver": driver,
                 "bench": bench_out, "mesh": mesh_out},
                 "composed_branches": composed_branches,
                 "steady_hybrid_fused": steady_hybrid_fused}, fh, indent=1,
                 default=str)
+    print(f"phases: {sum(PHASE_SECONDS.values()):.1f} s in all, "
+          f"{time.perf_counter() - t_start:.1f} s from the first build; "
+          + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

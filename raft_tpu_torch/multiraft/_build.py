@@ -38,9 +38,12 @@ GXX_FLAGS = ["-std=c++17", "-O0", "-shared", "-fPIC", "-Wno-unknown-pragmas"]
 # bench's vs_baseline divides by, so it builds optimised, as the reference
 # engine does.
 NATIVE_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
-# Peer counts above this are built from the *_wide sources (P = 8..15, and
-# the steady kernel's runtime-P instance up to its cap).
+# Peer counts above this are built from the *_wide sources (P = 8..15).
 NARROW_PEERS = 7
+# From this P the steady kernel runs csrc/steady_round_warp.cu, half a warp
+# or a warp a group, at any width (steady_kernel.WARP_PEERS); the steady
+# host build gets it as RAFT_STEADY_WARP_FROM.
+STEADY_WARP_PEERS = 13
 
 # One lock per library, so two libraries can build at the same time.
 _locks: Dict[str, threading.Lock] = {}
@@ -158,23 +161,30 @@ def _cuda_kernel(kind: str, P: int, argtypes) -> ctypes.CDLL:
     """The CUDA library of kernel `kind` (steady, chaos, damped) that holds
     P's instances, its `{kind}_round_launch` declared: for P <= NARROW_PEERS
     csrc/{kind}_round.cu; past it one library a P, csrc/{kind}_round_wide.cu
-    built with -DRAFT_WIDE_P=P (for the steady kernel every P > 15 shares
-    the runtime-P instance, RAFT_WIDE_P=16)."""
+    built with -DRAFT_WIDE_P=P (the steady kernel from STEADY_WARP_PEERS
+    on: csrc/steady_round_warp.cu, every P in one library)."""
     fn = f"{kind}_round_launch"
     if P <= NARROW_PEERS:
         return _library(f"{kind}_round", f"{kind}_round.cu", True, fn, argtypes)
-    wide = min(P, 16)
-    return _library(f"{kind}_round_p{wide}", f"{kind}_round_wide.cu", True, fn,
-                    argtypes, (f"-DRAFT_WIDE_P={wide}",))
+    if kind == "steady" and P >= STEADY_WARP_PEERS:
+        return load_steady_warp_cuda()
+    return _library(f"{kind}_round_p{P}", f"{kind}_round_wide.cu", True, fn,
+                    argtypes, (f"-DRAFT_WIDE_P={P}",))
 
 
-def _host_kernel(kind: str, P: int, argtypes, base: bool = False) -> ctypes.CDLL:
+def _host_kernel(kind: str, P: int, argtypes, base: bool = False,
+                 defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The g++ build of kernel `kind`'s body holding P's instances:
     csrc/{kind}_host.cpp for P <= NARROW_PEERS, else csrc/{kind}_host_wide.cpp
-    (every wide P in one library); its `{kind}_round_host` declared, and
-    with `base` also `{kind}_round_host_at`, which takes group_base last."""
-    name = f"{kind}_host" if P <= NARROW_PEERS else f"{kind}_host_wide"
-    lib = _library(name, name + ".cpp", False, f"{kind}_round_host", argtypes)
+    (every wide P in one library, built with the `-D` flags `defines`); its
+    `{kind}_round_host` declared, and with `base` also
+    `{kind}_round_host_at`, which takes group_base last."""
+    if P <= NARROW_PEERS:
+        name, defines = f"{kind}_host", ()
+    else:
+        name = f"{kind}_host_wide"
+    lib = _library(name, name + ".cpp", False, f"{kind}_round_host", argtypes,
+                   defines)
     if base:
         func = getattr(lib, f"{kind}_round_host_at")
         func.argtypes = argtypes + _BASE
@@ -189,9 +199,38 @@ def load_steady_cuda(P: int = 1) -> ctypes.CDLL:
     return _cuda_kernel("steady", P, _STEADY_ARGS + [ctypes.c_void_p])
 
 
+def load_steady_warp_cuda() -> ctypes.CDLL:
+    """The steady kernel's warp instance (csrc/steady_round_warp.cu), which
+    load_steady_cuda returns from STEADY_WARP_PEERS on: its
+    `steady_round_launch` takes load_steady_cuda's arguments at any P >= 1,
+    `steady_warp_block_groups` P and returns the groups a block (0 where one
+    group's tile does not fit), and `steady_round_occupancy` P, with_health
+    and a pointer to 5 ints, which it fills as `damped_round_occupancy`
+    does."""
+    lib = _library("steady_round_warp", "steady_round_warp.cu", True,
+                   "steady_round_launch", _STEADY_ARGS + [ctypes.c_void_p])
+    lib.steady_warp_block_groups.argtypes = [ctypes.c_int]
+    lib.steady_warp_block_groups.restype = ctypes.c_int
+    lib.steady_round_occupancy.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.steady_round_occupancy.restype = ctypes.c_int
+    return lib
+
+
 def load_steady_host(P: int = 1) -> ctypes.CDLL:
-    """The host build of the same kernel body (g++), for the CPU tests."""
-    return _host_kernel("steady", P, _STEADY_ARGS)
+    """The host build of the same kernel body (g++), for the CPU tests.
+    Past NARROW_PEERS the library also holds the warp body's host shim:
+    `steady_round_host` runs it from STEADY_WARP_PEERS on,
+    `steady_warp_host` (the same arguments) at any P, and
+    `steady_warp_block_groups` is the card's block shape."""
+    lib = _host_kernel("steady", P, _STEADY_ARGS, defines=(
+        f"-DRAFT_STEADY_WARP_FROM={STEADY_WARP_PEERS}",))
+    if P > NARROW_PEERS:
+        lib.steady_warp_host.argtypes = _STEADY_ARGS
+        lib.steady_warp_host.restype = ctypes.c_int
+        lib.steady_warp_block_groups.argtypes = [ctypes.c_int]
+        lib.steady_warp_block_groups.restype = ctypes.c_int
+    return lib
 
 
 def load_chaos_cuda(P: int = 1) -> ctypes.CDLL:

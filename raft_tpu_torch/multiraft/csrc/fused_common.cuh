@@ -36,30 +36,19 @@ RAFT_HD int32_t wadd(int32_t a, int32_t b) {
 RAFT_HD int32_t imax(int32_t a, int32_t b) { return a > b ? a : b; }
 RAFT_HD int32_t imin(int32_t a, int32_t b) { return a < b ? a : b; }
 
-// A peer count known at compile time: loops bounded by it unroll fully and
-// the per-peer arrays sized by it live in registers.  The steady kernel's
-// runtime-P instance passes a plain int in its place (steady_body.cuh).
-template <int N>
-struct Fixed {
-  RAFT_HD constexpr operator int() const { return N; }
-};
-
 // Majority index of one group's matched row over its voter slots: the
-// descending odd-even transposition network over the first np slots, then
-// the value at position qpos (the voter count // 2).  Non-voters count as
-// 0.  CAP is the arrays' size, np the peer count (Fixed<CAP> or an int no
-// larger than CAP).
-template <int CAP, class NP>
-RAFT_HD int32_t quorum_index(const int32_t (&matched)[CAP],
-                             const bool (&voter)[CAP], int32_t qpos, NP np) {
-  const int n = np;
-  int32_t rows[CAP];
+// descending odd-even transposition network over the P slots, then the
+// value at position qpos (the voter count // 2).  Non-voters count as 0.
+template <int P>
+RAFT_HD int32_t quorum_index(const int32_t (&matched)[P],
+                             const bool (&voter)[P], int32_t qpos) {
+  int32_t rows[P];
 #pragma unroll
-  for (int p = 0; p < n; ++p) rows[p] = voter[p] ? matched[p] : 0;
+  for (int p = 0; p < P; ++p) rows[p] = voter[p] ? matched[p] : 0;
 #pragma unroll
-  for (int pass = 0; pass < n; ++pass) {
+  for (int pass = 0; pass < P; ++pass) {
 #pragma unroll
-    for (int i = pass % 2; i < n - 1; i += 2) {
+    for (int i = pass % 2; i < P - 1; i += 2) {
       const int32_t hi = imax(rows[i], rows[i + 1]);
       const int32_t lo = imin(rows[i], rows[i + 1]);
       rows[i] = hi;
@@ -68,16 +57,10 @@ RAFT_HD int32_t quorum_index(const int32_t (&matched)[CAP],
   }
   int32_t mci = 0;
 #pragma unroll
-  for (int p = 0; p < n; ++p) {
+  for (int p = 0; p < P; ++p) {
     if (qpos == p) mci = rows[p];
   }
   return mci;
-}
-
-template <int P>
-RAFT_HD int32_t quorum_index(const int32_t (&matched)[P],
-                             const bool (&voter)[P], int32_t qpos) {
-  return quorum_index<P>(matched, voter, qpos, Fixed<P>());
 }
 
 // 32-bit murmur3 finalizer, in native uint32 (wraps as the reference's
@@ -111,35 +94,31 @@ RAFT_HD bool loss_drop(uint32_t round_key, int src, int dst, int32_t rate) {
 // is the max over all P rows, crashed rows included; after each round's
 // last commit write, tsc = (the max grew) ? 0 : tsc + 1.  The
 // WITH_HEALTH = false tracker holds nothing and compiles away, so the
-// with_health=False kernels stay the code they were.  CAP and NP as in
-// quorum_index.
-template <int CAP, bool WITH_HEALTH, class NP = Fixed<CAP>>
+// with_health=False kernels stay the code they were.
+template <int P, bool WITH_HEALTH>
 struct CommitTracker {
-  RAFT_HD CommitTracker(const int32_t*, int64_t, const int32_t (&)[CAP],
-                        NP = NP()) {}
-  RAFT_HD void round(const int32_t (&)[CAP]) {}
+  RAFT_HD CommitTracker(const int32_t*, int64_t, const int32_t (&)[P]) {}
+  RAFT_HD void round(const int32_t (&)[P]) {}
   RAFT_HD void store(int32_t*, int64_t) const {}
 };
 
-template <int CAP, class NP>
-RAFT_HD int32_t max_of(const int32_t (&v)[CAP], NP np) {
-  const int n = np;
+template <int P>
+RAFT_HD int32_t max_of(const int32_t (&v)[P]) {
   int32_t m = v[0];
 #pragma unroll
-  for (int p = 1; p < n; ++p) m = imax(m, v[p]);
+  for (int p = 1; p < P; ++p) m = imax(m, v[p]);
   return m;
 }
 
-template <int CAP, class NP>
-struct CommitTracker<CAP, true, NP> {
+template <int P>
+struct CommitTracker<P, true> {
   int32_t tsc;
   int32_t maxc_prev;
-  NP np;
   RAFT_HD CommitTracker(const int32_t* tsc_in, int64_t g,
-                        const int32_t (&commit)[CAP], NP n = NP())
-      : tsc(tsc_in[g]), maxc_prev(max_of<CAP>(commit, n)), np(n) {}
-  RAFT_HD void round(const int32_t (&commit)[CAP]) {
-    const int32_t maxc = max_of<CAP>(commit, np);
+                        const int32_t (&commit)[P])
+      : tsc(tsc_in[g]), maxc_prev(max_of<P>(commit)) {}
+  RAFT_HD void round(const int32_t (&commit)[P]) {
+    const int32_t maxc = max_of<P>(commit);
     tsc = maxc > maxc_prev ? 0 : wadd(tsc, 1);
     maxc_prev = maxc;
   }
@@ -320,8 +299,9 @@ struct LeaderLinks<P, true> {
 #define RAFT_FOR_EACH_P(CASE) \
   CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7)
 
-// Expands CASE(P) for the wide instances, P = 8 through 15, of the host
-// builds (*_host_wide.cpp, one library beside the narrow one).  The CUDA
+// Expands CASE(P) for the wide instances, P = 8 through 15, of the chaos
+// and damped host builds (*_host_wide.cpp, one library beside the narrow
+// one; the steady host build's wide list stops at its switch).  The CUDA
 // builds take one wide P a library (*_round_wide.cu): the chaos and damped
 // bodies' instances are slow to compile there, so each P builds in
 // parallel, and only for the peer counts a caller uses.

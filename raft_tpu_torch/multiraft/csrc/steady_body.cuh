@@ -21,10 +21,10 @@
 // Integer sums and increments wrap modulo 2**32 like PyTorch's int32
 // arithmetic (fused_common.cuh's wadd).
 //
-// CAP sizes the per-peer arrays and NP is the peer count: Fixed<CAP> for
-// the instances templated on P = 1..15, whose loops unroll into registers,
-// or a plain int for the one runtime-P instance (P = 16..kSteadyCap), whose
-// arrays of kSteadyCap entries live in local memory.
+// P is a template parameter (P = 1..12, below the switch), so the peer
+// loops and the odd-even network unroll and the per-peer arrays live in
+// registers; wider groups run steady_warp_body.cuh, half a warp or a warp a
+// group.
 #pragma once
 
 #include <stdint.h>
@@ -37,10 +37,7 @@ using raft_fused::imax;
 using raft_fused::kRoleLeader;
 using raft_fused::wadd;
 
-// The largest peer count the runtime-P instance takes.
-constexpr int kSteadyCap = 64;
-
-template <int CAP, bool WITH_HEALTH, class NP = raft_fused::Fixed<CAP>>
+template <int P, bool WITH_HEALTH>
 RAFT_HD void steady_group(
     int64_t g, int64_t G,
     const int32_t* __restrict__ state_in, const int32_t* __restrict__ term_in,
@@ -56,11 +53,9 @@ RAFT_HD void steady_group(
     int32_t* __restrict__ li_out, int32_t* __restrict__ lt_out,
     int32_t* __restrict__ matched_out, int32_t* __restrict__ commit_out,
     int32_t* __restrict__ tsc_out, int rounds, int election_tick,
-    int heartbeat_tick, NP np = NP()) {
-  const int P = np;
-  int32_t term[CAP], ee[CAP], hb[CAP], li[CAP], lt[CAP], matched[CAP],
-      commit[CAP];
-  bool role_leader[CAP], is_leader[CAP], voter[CAP], alive_member[CAP];
+    int heartbeat_tick) {
+  int32_t term[P], ee[P], hb[P], li[P], lt[P], matched[P], commit[P];
+  bool role_leader[P], is_leader[P], voter[P], alive_member[P];
   bool has_leader = false;
   int32_t count = 0;
 #pragma unroll
@@ -86,7 +81,7 @@ RAFT_HD void steady_group(
   const int32_t qpos = count / 2;
   const int32_t term_start = ts_in[g];
   const int32_t n_app = has_leader ? app_in[g] : 0;
-  raft_fused::CommitTracker<CAP, WITH_HEALTH, NP> tsc(tsc_in, g, commit, np);
+  raft_fused::CommitTracker<P, WITH_HEALTH> tsc(tsc_in, g, commit);
 
   for (int r = 0; r < rounds; ++r) {
     // --- tick (no campaigns by the steady invariant)
@@ -113,7 +108,7 @@ RAFT_HD void steady_group(
     }
     const bool sent = has_leader && (lead_beat || n_app > 0);
     // --- in-round sync of alive members; the acting matched row follows
-    bool sync[CAP];
+    bool sync[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       sync[p] = sent && alive_member[p] && !is_leader[p];
@@ -125,7 +120,7 @@ RAFT_HD void steady_group(
       if (sync[p] || (is_leader[p] && sent)) matched[p] = li[p];
     }
     // --- majority index over the voters
-    const int32_t mci = raft_fused::quorum_index<CAP>(matched, voter, qpos, np);
+    const int32_t mci = raft_fused::quorum_index<P>(matched, voter, qpos);
     // --- commit, gated on the leader's own term
     int32_t lead_commit = 0;
 #pragma unroll

@@ -36,18 +36,13 @@ extern "C" int steady_round_host(
   switch (P * 2 + (with_health ? 1 : 0)) {
     RAFT_PEER_LIST(RAFT_STEADY_P)
     default:
-#ifdef RAFT_STEADY_RUNTIME_P
-      if (P > 15 && P <= raft_steady::kSteadyCap) {
-        for (int64_t g = 0; g < (int64_t)G; ++g) {
-          if (with_health) {
-            raft_steady::steady_group<raft_steady::kSteadyCap, true, int>(
-                g, (int64_t)G, RAFT_STEADY_HOST_ARGS, P);
-          } else {
-            raft_steady::steady_group<raft_steady::kSteadyCap, false, int>(
-                g, (int64_t)G, RAFT_STEADY_HOST_ARGS, P);
-          }
-        }
-        return 0;
+#ifdef RAFT_STEADY_WARP_FROM
+      if (P >= RAFT_STEADY_WARP_FROM) {
+        return steady_warp_host(state, term, ee, hb, li, lt, matched, commit,
+                                voter, member, crashed, ts, app, ee_out,
+                                hb_out, li_out, lt_out, matched_out,
+                                commit_out, tsc, tsc_out, G, P, rounds,
+                                election_tick, heartbeat_tick, with_health);
       }
 #endif
       return 1;

@@ -35,32 +35,6 @@ __global__ void __launch_bounds__(kThreads) steady_round_kernel(
       commit_out, tsc_out, rounds, election_tick, heartbeat_tick);
 }
 
-#ifdef RAFT_STEADY_RUNTIME_P
-// The runtime-P instance (steady_round_wide.cu): P = 16..kSteadyCap, the
-// per-peer arrays in local memory.
-template <bool WITH_HEALTH>
-__global__ void __launch_bounds__(kThreads) steady_round_kernel_np(
-    const int32_t* __restrict__ state, const int32_t* __restrict__ term,
-    const int32_t* __restrict__ ee, const int32_t* __restrict__ hb,
-    const int32_t* __restrict__ li, const int32_t* __restrict__ lt,
-    const int32_t* __restrict__ matched, const int32_t* __restrict__ commit,
-    const uint8_t* __restrict__ voter, const uint8_t* __restrict__ member,
-    const uint8_t* __restrict__ crashed, const int32_t* __restrict__ ts,
-    const int32_t* __restrict__ app, const int32_t* __restrict__ tsc,
-    int32_t* __restrict__ ee_out, int32_t* __restrict__ hb_out,
-    int32_t* __restrict__ li_out, int32_t* __restrict__ lt_out,
-    int32_t* __restrict__ matched_out, int32_t* __restrict__ commit_out,
-    int32_t* __restrict__ tsc_out, int64_t G, int rounds, int election_tick,
-    int heartbeat_tick, int P) {
-  const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (g >= G) return;
-  raft_steady::steady_group<raft_steady::kSteadyCap, WITH_HEALTH, int>(
-      g, G, state, term, ee, hb, li, lt, matched, commit, voter, member,
-      crashed, ts, app, tsc, ee_out, hb_out, li_out, lt_out, matched_out,
-      commit_out, tsc_out, rounds, election_tick, heartbeat_tick, P);
-}
-#endif
-
 }  // namespace
 
 extern "C" int steady_round_launch(
@@ -96,18 +70,6 @@ extern "C" int steady_round_launch(
   switch (P * 2 + (with_health ? 1 : 0)) {
     RAFT_PEER_LIST(RAFT_STEADY_P)
     default:
-#ifdef RAFT_STEADY_RUNTIME_P
-      if (P > 15 && P <= raft_steady::kSteadyCap) {
-        if (with_health) {
-          steady_round_kernel_np<true><<<blocks, kThreads, 0, s>>>(
-              RAFT_STEADY_ARGS, P);
-        } else {
-          steady_round_kernel_np<false><<<blocks, kThreads, 0, s>>>(
-              RAFT_STEADY_ARGS, P);
-        }
-        break;
-      }
-#endif
       return (int)cudaErrorInvalidValue;
   }
 #undef RAFT_STEADY_ARGS

@@ -29,10 +29,25 @@ each running a long dependent chain.  The with_health variant is one
 template flag (csrc/fused_common.cuh's CommitTracker): P + 2 more
 operations a group and round on values already in registers, and the [G]
 `tsc` row in and out.  P = 1..7 are the instances of csrc/steady_round.cu
-and P = 8..15 those of csrc/steady_round_wide.cu, a library of its own;
-for P = 16..MAX_PEERS that library's one runtime-P instance keeps the
-per-peer arrays in local memory (the reference's kernel has no bound on
-P; the cap sizes those arrays).
+and P = 8..12 those of csrc/steady_round_wide.cu, a library a P.
+
+From P = WARP_PEERS (13) on, the kernel is csrc/steady_round_warp.cu
+(csrc/steady_warp_body.cuh), one library for every P, with no cap but the
+card's shared memory: one group across half a warp's lanes up to P = 16
+(the body's kHalfWarpPeers) and across a warp's 32 past it, J = ceil(P / lanes) peers
+a lane (in registers up to P = 128, in the block's shared-memory tile past
+it), the planes copied through that tile 256 threads' groups at a time so
+every row read and write is a whole sector, the per-round sums and any-of
+tests as warp collectives or closed forms, and the majority index as an
+exact selection instead of the network: with one acting leader (every
+group of a fused block) two order statistics selected once a call give
+every round's index in closed form.  A settled round is then the per-peer
+updates and one vote, so the instance is bound by the integer ALU: its
+bound is `steady_wide_body_work`, the operations of its source counted on
+the group's P peers; it does different work from the reference's round (`steady_work`, the
+network's count), so a time is held against both.  The switch at 13 is the
+narrowest P where the warp instance ran faster than the thread-a-group one
+on an H100 (PERF.md, section 6).
 
 On CPU tensors `steady_rounds` runs `steady_rounds_reference`, the same
 arithmetic as plain tensor code; on CUDA tensors it launches the kernel or
@@ -51,8 +66,8 @@ from .platform import check_operands
 from .sim import _quorum_pick
 
 I32 = torch.int32
-# The largest P the kernel takes: csrc/steady_body.cuh's kSteadyCap.
-MAX_PEERS = 64
+# From this P the kernel is the warp instance (csrc/steady_round_warp.cu).
+WARP_PEERS = _build.STEADY_WARP_PEERS
 
 Outputs = Tuple[torch.Tensor, ...]
 
@@ -161,13 +176,88 @@ def steady_work(
     return nbytes, ops
 
 
-def _launch(
-    state, term, ee, hb, li, lt, acting_row, commit, voter, member, crashed,
-    ts, app, tsc, rounds: int, election_tick: int, heartbeat_tick: int,
+def check_peers(lib, P: int) -> None:
+    """Raise ValueError for a P that the library `lib` (load_steady_cuda's
+    or a host build holding the warp body) cannot take: below 1, or so wide
+    that one group's tile does not fit a block's shared memory (P > 8,015),
+    as its steady_warp_block_groups says."""
+    if P < 1:
+        raise ValueError(f"steady_rounds: P={P} < 1")
+    if P >= WARP_PEERS and lib.steady_warp_block_groups(P) == 0:
+        raise ValueError(
+            f"steady_rounds: P={P}: one group's tile does not fit a block's "
+            "shared memory"
+        )
+
+
+def warp_selections(state, voter, member, crashed, acting_row) -> Tuple[int, int]:
+    """(selections, radix steps) the warp body's selections take on these
+    operands (steady_rounds' planes): in each group with one acting leader,
+    the order statistics of the values a sent round leaves fixed (position
+    qpos - m where qpos >= m, position qpos where the fixed part has one),
+    each as many steps as the bit length of its least and largest biased
+    value's XOR."""
+    voter, member, crashed = voter != 0, member != 0, crashed != 0
+    lead = (state == ROLE_LEADER) & ~crashed
+    written = lead | (member & ~crashed)
+    fixed = ~(voter & written)
+    vals = torch.where(voter, acting_row, 0).to(torch.int64) + 2**31
+    lo = torch.where(fixed, vals, 2**32).amin(0)
+    hi = torch.where(fixed, vals, -1).amax(0)
+    bits = torch.where(hi > lo, torch.frexp((lo ^ hi).to(torch.float64))[1], 0)
+    m = (voter & written).sum(0)
+    qpos = voter.sum(0) // 2
+    n_sel = (qpos >= m).to(torch.int64) + (qpos < fixed.sum(0)).to(torch.int64)
+    n_sel = torch.where(lead.sum(0) == 1, n_sel, 0)
+    return int(n_sel.sum()), int((n_sel * bits.to(torch.int64)).sum())
+
+
+def steady_wide_body_work(
+    P: int, G: int, rounds: int, with_health: bool = False,
+    selections: Tuple[int, int] = (0, 0),
+) -> Tuple[int, int]:
+    """(bytes, integer operations) of one call of the warp instance
+    (csrc/steady_warp_body.cuh) on G groups of P peers that each have one
+    acting leader, every round sending (a settled horizon), with
+    `selections` = (selections, radix steps) over all groups
+    (warp_selections).  `steady_work` counts the reference's round, which
+    sorts every round; this is the smaller count of what the body does.
+
+    Bytes: `steady_work`'s (each operand read once, each output written
+    once).
+
+    Operations, read off the body's source, one for each add, compare,
+    select, min/max, bit operation and flag test, a warp collective one
+    for each of the P slots it combines, counted on the group's P peers
+    (not on the lanes' padded slots); the tile copies' moves and index
+    arithmetic and the loops' control are left out.  Per group and round:
+      tick             5P (the election timer) + 4 (the leader's
+                       heartbeat) + P (the lead-beat vote)
+      append, sent     5
+      sync             7 (P - 1) at the members, 4 at the leader
+      majority index   4 (the closed form); commit 4; its writes 2P
+    and per group once: the flag byte 14P, the five counts and three
+    leader sums 16P + 4.  A selection adds 9P + 10 (its values, least and
+    largest) and each of its radix steps 2P + 4.  The with_health variant
+    adds 5 a round and 6P once, and health_work's bytes.
+    """
+    per_round = 15 * P + 14 + (5 if with_health else 0)
+    per_call = 30 * P + 4 + (6 * P if with_health else 0)
+    n_sel, steps = selections
+    ops = (per_round * rounds + per_call) * G + (9 * P + 10) * n_sel + (2 * P + 4) * steps
+    nbytes = steady_work(P, G, rounds, with_health)[0]
+    return nbytes, ops
+
+
+def launch(
+    lib, state, term, ee, hb, li, lt, acting_row, commit, voter, member, crashed,
+    ts, app, tsc=None, *, rounds: int, election_tick: int, heartbeat_tick: int,
 ) -> Outputs:
+    """steady_rounds' launch on the card through `lib`, a library that
+    holds P's instance: load_steady_cuda(P)'s, or load_steady_warp_cuda()'s
+    at any P."""
     P, G = state.shape
-    if not 1 <= P <= MAX_PEERS:
-        raise ValueError(f"steady_rounds: P={P} outside 1..{MAX_PEERS}")
+    check_peers(lib, P)
     dev = state.device
     planes = dict(state=state, term=term, ee=ee, hb=hb, li=li, lt=lt,
                   acting_row=acting_row, commit=commit)
@@ -180,7 +270,6 @@ def _launch(
     ))
     outs = tuple(torch.empty((P, G), dtype=I32, device=dev) for _ in range(6))
     tsc_out = None if tsc is None else torch.empty((G,), dtype=I32, device=dev)
-    lib = _build.load_steady_cuda(P)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         args = [t.data_ptr() for t in (*planes.values(), *masks.values(), ts,
@@ -218,7 +307,7 @@ def steady_rounds(
     kw = dict(rounds=rounds, election_tick=election_tick,
               heartbeat_tick=heartbeat_tick)
     if state.is_cuda:
-        return _launch(*args, **kw)
+        return launch(_build.load_steady_cuda(state.shape[0]), *args, **kw)
     if any(t is not None and t.is_cuda for t in args):
         raise ValueError("steady_rounds: tensors on mixed devices")
     return steady_rounds_reference(*args, **kw)

@@ -442,19 +442,30 @@ def test_leader_arms_match_pallas(n_leaders, slot):
 def test_timing_tool_variants_rewrite_both_kernels(tmp_path):
     """raft_tpu_torch/tools/damped_kernel_times.py --variant: the copy of
     csrc/ it builds from has the shape constants rewritten in the chosen
-    kernel's wrapper, and nothing else changed."""
+    kernel's wrapper (the steady warp body's half-warp width in its
+    header), or the steady warp body's one-leader tests made false
+    (select=rounds), and nothing else changed."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "raft_tpu_torch" / "tools"))
     try:
         import damped_kernel_times as tool
     finally:
         sys.path.pop(0)
-    variants = {"agree": "shared", "min_blocks": "2"}
-    for kernel in ("chaos", "damped"):
+    for kernel, variants in (("chaos", {"agree": "shared", "min_blocks": "2"}),
+                             ("damped", {"agree": "shared", "min_blocks": "2"}),
+                             ("steady", {"half_warp": "0"})):
         out = tool.variant_csrc(tmp_path, _build.CSRC, kernel, variants)
-        src = (out / f"{kernel}_round.cu").read_text()
         for key, value in variants.items():
+            name, head = tool.SHAPE_CONSTANTS[key]
+            src = (out / name.format(kernel=kernel)).read_text()
             want = tool.PLACES[value] if key == "agree" else value
-            assert src.count(tool.SHAPE_CONSTANTS[key] + " = ") == 1
-            assert f"{tool.SHAPE_CONSTANTS[key]} = {want};" in src
+            assert src.count(head + " = ") == 1
+            assert f"{head} = {want};" in src
         assert (out / "chaos_body.cuh").read_text() == (_build.CSRC / "chaos_body.cuh").read_text()
-    assert set(tool.ROWS) == {"chaos", "damped"}
+    out = tool.variant_csrc(tmp_path, _build.CSRC, "steady", {"select": "rounds"})
+    orig = (_build.CSRC / "steady_warp_body.cuh").read_text()
+    body = (out / "steady_warp_body.cuh").read_text()
+    assert orig.count("n_lead == 1") == 2 and "n_lead == 1" not in body
+    assert body == orig.replace("n_lead == 1", "false")
+    assert (out / "steady_round_warp.cu").read_text() == (
+        _build.CSRC / "steady_round_warp.cu").read_text()
+    assert set(tool.ROWS) == {"chaos", "damped", "steady"}

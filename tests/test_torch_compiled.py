@@ -8,7 +8,9 @@ against the port's own loop and against the JAX package, exactly:
     HealthMonitor, with the drain cadence and a residual window from
     run_round included;
   * the port's run_compiled equals the reference's at G=16, plain and damped,
-    the monitor's summary stream and the counter totals included;
+    the monitor's summary stream and the counter totals included, and with
+    a link plane (the reference's own schedule: a one-way cut, health on,
+    12 rounds) equals 12 run_round(link=) calls and the reference's;
   * the device-scalar forms of window_pos (kernels.update_health) and
     round_idx (kernels.blackbox_fold), which the CUDA graph carries, give
     the planes of the int forms;
@@ -168,6 +170,31 @@ def test_run_compiled_equals_jax(damped):
     np.testing.assert_array_equal(t._health.planes.numpy(), np.asarray(j._health.planes))
     assert t._health.window_pos == int(j._health.window_pos)
     assert summaries(tm) == summaries(jm)
+
+
+def test_run_compiled_link_equals_rounds_and_jax():
+    """The reference's schedule for run_compiled with a link plane
+    (tests/test_chaos_parity.py::test_run_compiled_matches_stepping): a
+    one-way 0 -> 1 cut in even groups, health on, 12 rounds from
+    init_state; the port's run_compiled(12, link=) equals 12
+    run_round(link=) calls and raft_tpu's run_compiled, on every state
+    field and the health planes."""
+    n, p = 8, 3
+    cfg = tsim.SimConfig(n_groups=n, n_peers=p, collect_health=True, health_window=8)
+    link_np = np.ones((p, p, n), bool)
+    link_np[0, 1, ::2] = False
+    link = torch.from_numpy(link_np)
+    app = torch.ones(n, dtype=torch.int32)
+    loop, graph = (tsim.ClusterSim(cfg, device="cpu") for _ in range(2))
+    for _ in range(12):
+        loop.run_round(append_n=app, link=link)
+    graph.run_compiled(12, append_n=app, link=link)
+    assert_sims_equal(loop, graph, "run_compiled(link=) against run_round(link=)")
+    j = jsim.ClusterSim(jsim.SimConfig(**cfg._asdict()))
+    j.run_compiled(12, append_n=jnp.ones((n,), jnp.int32), link=jnp.asarray(link_np))
+    assert_states_equal(j.state, graph.state, "run_compiled(link=) against raft_tpu")
+    np.testing.assert_array_equal(graph._health.planes.numpy(), np.asarray(j._health.planes))
+    assert graph._health.window_pos == int(j._health.window_pos)
 
 
 # --- what the graph runs -----------------------------------------------------

@@ -1,11 +1,14 @@
 """The port's steady path past P = 7 against raft_tpu's, its Pallas kernel in
 interpret mode: from a settled state, two blocks of the port's
 fast_multi_round equal the reference's fast_multi_round at P = 8 (k = 32),
-and its steady_round at P = 16 (k = 4; on the card the runtime-P steady
-instance, where the reference's kernel has no bound), both taking the
-fused branch; every SimState field, exact.  The settled state comes from
-the port's general step (held to the reference's by test_torch_sim.py).
-A file of its own for the interpret builds' compile time."""
+and its steady_round at P = 16 (k = 4), 17 (k = 4) and 33 (k = 2) (on the
+card the steady kernel's warp instance, where the reference's kernel has
+no bound), both taking the fused branch; every SimState field, exact.  The
+settled state comes from the port's general step (held to the
+reference's by test_torch_sim.py).  A file of its own for the interpret
+builds' compile time; past P = 33 an interpret build takes 28 s or more,
+so the wider widths are held to the port's plain version
+(test_torch_wide_peers.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +31,7 @@ def to_jax(st):
                             for f, v in tsim.state_to_numpy(st).items()})
 
 
-@pytest.mark.parametrize("P,k", [(8, 32), (16, 4)])
+@pytest.mark.parametrize("P,k", [(8, 32), (16, 4), (17, 4), (33, 2)])
 def test_fast_multi_round_past_seven_peers(P, k):
     cfg = tsim.SimConfig(n_groups=G, n_peers=P)
     s = tsim.ClusterSim(cfg, device="cpu")
