@@ -1,0 +1,9 @@
+"""steady_round_roofline (%, kernel layer: `steady_kernel.steady_rounds` ->
+csrc/steady_round.cu): the frozen bound of one call (bounds.py) over the
+kernel's device time a call, in the traced fused blocks."""
+
+from portbench import bounds
+
+
+def read(ctx):
+    return bounds.roofline_share(ctx, "steady")
