@@ -413,6 +413,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import bench as tbench
+from raft_tpu_torch import profiling
 from raft_tpu_torch.benches import suites
 from raft_tpu_torch.multiraft import (
     _build, autopilot, chaos, checkpoint, forensics, fused_step, kernels as pk, native,
@@ -1074,24 +1075,35 @@ def queued_ms(fn, reps, flush=None):
     return statistics.median(times)
 
 
+def device_rows(averages):
+    """The rows of a profile's key_averages() that are the card's own work:
+    kernels, copies and sets.  With CUDA activity on, each record_function
+    range that encloses device work (a span of the program's, were one not
+    muted) has a CUDA row of its own over the same kernels; those rows are
+    left out, or the work inside them would count again."""
+    from torch.autograd import DeviceType
+
+    return [e for e in averages if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profiler_ms(fn, name, reps, flush=None):
     """(ms, launches seen): torch.profiler's device time a launch of the
     kernel whose name contains `name` over `reps` calls of fn() (`flush`
     before each), the mean over the launches it recorded; ms is None when
     it recorded none."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.muted(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             if flush is not None:
                 flush()
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name in e.key]
+    rows = [e for e in device_rows(prof.key_averages()) if name in e.key]
     count = sum(e.count for e in rows)
     us = sum(e.self_device_time_total for e in rows)
     return (us / count / 1e3 if count else None), count
@@ -1130,20 +1142,19 @@ def device_profile(run):
     """torch.profiler over run(): the device's busy share of the wall time
     and the device time by kernel name, largest first.  The profiler's own
     host cost lengthens the wall time, so the idle share it implies is an
-    upper bound."""
-    from torch.autograd import DeviceType
+    upper bound; the program's spans are muted, as each would add its own."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.muted(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = sorted(
         ((e.key, e.self_device_time_total, e.count)
-         for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+         for e in device_rows(prof.key_averages()) if e.self_device_time_total > 0),
         key=lambda r: -r[1],
     )
     busy_us = sum(r[1] for r in kernels)

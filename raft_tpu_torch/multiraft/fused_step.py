@@ -38,6 +38,7 @@ from typing import Callable
 
 import torch
 
+from .. import profiling
 from . import sharding
 from . import sim as sim_mod
 from . import kernels
@@ -349,10 +350,15 @@ def steady_round(
                             with_counters=with_counters)
     ticks = _ticks(cfg, rounds)
 
+    @profiling.phased
     def run(st, crashed, append_n, tsc):
-        ee, hb, li, lt, new_row, commit, *tsc_out = steady_rounds(
-            *steady_operands(st, crashed, append_n, tsc), **ticks
-        )
+        ph = profiling.phases()
+        ph("fused.operands")
+        operands = steady_operands(st, crashed, append_n, tsc)
+        ph("fused.kernel")
+        ee, hb, li, lt, new_row, commit, *tsc_out = steady_rounds(*operands, **ticks)
+        del operands  # the gathered rows go before the merge's temporaries
+        ph("fused.merge")
         f = _leader_flag(st, crashed)
         is_leader = f != 0
         # Pairwise log agreement, applied once for the whole horizon (the
@@ -405,12 +411,19 @@ def chaos_round(
     _check_packed_peers(cfg, "chaos_round")
     ticks = _ticks(cfg, rounds)
 
+    @profiling.phased
     def run(st, crashed, append_n, loss_rate, round_base, tsc):
+        ph = profiling.phases()
+        ph("fused.operands")
+        operands = chaos_operands(st, crashed, append_n, loss_rate, tsc)
+        ph("fused.kernel")
         (state, leader_id, hb, ee, li, lt, commit, new_row, agree,
          *tsc_out) = chaos_rounds(
-            *chaos_operands(st, crashed, append_n, loss_rate, tsc),
-            round_base=round_base, group_base=sim_mod.group_base(cfg), **ticks,
+            *operands, round_base=round_base, group_base=sim_mod.group_base(cfg),
+            **ticks,
         )
+        del operands  # the gathered rows go before the merge's temporaries
+        ph("fused.merge")
         out = st._replace(
             state=state,
             leader_id=leader_id,
@@ -445,14 +458,21 @@ def damped_round(
     _check_packed_peers(cfg, "damped_round")
     ticks = dict(_ticks(cfg, rounds), with_cq=cfg.check_quorum)
 
+    @profiling.phased
     def run(st, crashed, append_n, *rest):
         *lead, tsc = rest
         loss_rate, round_base = lead if with_chaos else (None, 0)
+        ph = profiling.phases()
+        ph("fused.operands")
+        operands = damped_operands(st, crashed, append_n, loss_rate, tsc)
+        ph("fused.kernel")
         (state, leader_id, hb, ee, li, lt, commit, new_row, ra, agree,
          *tsc_out) = damped_rounds(
-            *damped_operands(st, crashed, append_n, loss_rate, tsc),
-            round_base=round_base, group_base=sim_mod.group_base(cfg), **ticks,
+            *operands, round_base=round_base, group_base=sim_mod.group_base(cfg),
+            **ticks,
         )
+        del operands  # the gathered rows go before the merge's temporaries
+        ph("fused.merge")
         f = _leader_flag(st, crashed)
         out = st._replace(
             state=state,
@@ -487,7 +507,11 @@ def fast_step(cfg: SimConfig, with_health: bool = False) -> Callable:
     def fn(st: SimState, crashed, append_n, *health):
         if len(health) != int(with_health):
             raise TypeError(f"expected {int(with_health)} extras, got {len(health)}")
-        if sharding.all_ranks(cfg, steady_predicate(cfg, st, crashed, horizon=1)):
+        with profiling.annotate("dispatch.predicate"):
+            pred = steady_predicate(cfg, st, crashed, horizon=1)
+        with profiling.annotate("dispatch.wait"):
+            pred = sharding.all_ranks(cfg, pred)
+        if pred:
             return fused_fn(st, crashed, append_n, *health)
         kw = {"health": health[0]} if with_health else {}
         return sim_mod.step(cfg, st, crashed, append_n, **kw)
@@ -553,9 +577,11 @@ def fast_multi_round(
             check_round_base(round_base, k)
         if len(rest) != n_extra:
             raise TypeError(f"expected {n_extra} extras, got {len(rest)}")
-        pred = sharding.all_ranks(cfg, steady_predicate(
-            cfg, st, crashed, horizon=k, link=link, loss_rate=loss_rate
-        ))
+        with profiling.annotate("dispatch.predicate"):
+            pred = steady_predicate(cfg, st, crashed, horizon=k, link=link,
+                                    loss_rate=loss_rate)
+        with profiling.annotate("dispatch.wait"):
+            pred = sharding.all_ranks(cfg, pred)
         if pred:
             lead = (loss_rate, round_base) if with_chaos else ()
             res = fused_fn(st, crashed, append_n, *lead, *rest)
@@ -632,10 +658,12 @@ def hybrid_multi_round(
         if st.term.device.type != dev.type:
             raise ValueError(f"hybrid_multi_round on {dev}: the state lies on "
                              f"{st.term.device}")
-        mask = steady_mask(cfg, st, crashed, horizon=k, link=link,
-                           loss_rate=loss_rate)
-        n_local = (~mask).sum(dtype=I32)
-        n_storm = sharding.sum_ranks(cfg, n_local)
+        with profiling.annotate("dispatch.predicate"):
+            mask = steady_mask(cfg, st, crashed, horizon=k, link=link,
+                               loss_rate=loss_rate)
+            n_local = (~mask).sum(dtype=I32)
+        with profiling.annotate("dispatch.wait"):
+            n_storm = sharding.sum_ranks(cfg, n_local)
         lead = (loss_rate, round_base) if with_chaos else ()
         if n_storm == 0:
             fn.last_branch = "pure"

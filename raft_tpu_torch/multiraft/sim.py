@@ -47,12 +47,14 @@ the reference's pure step, so a caller may keep the previous state.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import profiling
 from . import graphs, kernels, planes
 from .kernels import (
     ROLE_CANDIDATE,
@@ -526,6 +528,14 @@ def _weighted_row(plane: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     return (plane * f).sum(0, dtype=I32)
 
 
+def _draw(node_key: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+          term: torch.Tensor) -> torch.Tensor:
+    """The randomized election timeouts of `term`: kernels.timeout_draw
+    keyed on its low 32 bits, as the reference's rounds draw them."""
+    with profiling.annotate("general.draw"):
+        return kernels.timeout_draw(node_key, term.to(torch.int64) & 0xFFFFFFFF, lo, hi)
+
+
 def _transfer_phase(
     cfg: SimConfig,
     st: SimState,
@@ -566,10 +576,7 @@ def _transfer_phase(
     lo = torch.full((P, G), cfg.min_timeout, dtype=I32, device=dev)
     hi = torch.full((P, G), cfg.max_timeout, dtype=I32, device=dev)
 
-    def draw(term):
-        return kernels.timeout_draw(
-            node_key, term.to(torch.int64) & 0xFFFFFFFF, lo, hi
-        )
+    draw = functools.partial(_draw, node_key, lo, hi)
 
     promotable = st.voter_mask | st.outgoing_mask
     member = promotable | st.learner_mask
@@ -849,6 +856,7 @@ def _transfer_phase(
     return out, cg, won_t
 
 
+@profiling.phased
 def step(
     cfg: SimConfig,
     st: SimState,
@@ -924,6 +932,7 @@ def step(
             "requires check_quorum); undamped sims serve reads through "
             "the ReadIndex quorum round only"
         )
+    profiling.phases()("general.round")
     node_key = _node_key(cfg, st.term.device, group_ids)
     damped = cfg.check_quorum or cfg.pre_vote
     if damped and link is None:
@@ -954,9 +963,10 @@ def step(
         )
     else:
         out, facts = _plain_step(cfg, st, crashed, append_n, node_key, campaign_kick)
-    extras = _extras(
-        cfg, st_in, out, crashed, facts, counters, health, transfer_facts
-    )
+    with profiling.annotate("general.extras"):
+        extras = _extras(
+            cfg, st_in, out, crashed, facts, counters, health, transfer_facts
+        )
     if blackbox is not None:
         no_viol = torch.zeros(
             (kernels.N_SAFETY, cfg.n_groups), dtype=torch.bool,
@@ -1162,6 +1172,7 @@ def _extras(cfg, st, out, crashed, facts: _RoundFacts, counters, health,
     return extras
 
 
+@profiling.phased
 def _plain_step(
     cfg: SimConfig,
     st: SimState,
@@ -1181,12 +1192,11 @@ def _plain_step(
     lo = torch.full((P, G), cfg.min_timeout, dtype=I32, device=dev)
     hi = torch.full((P, G), cfg.max_timeout, dtype=I32, device=dev)
 
-    def draw(term):
-        return kernels.timeout_draw(
-            node_key, term.to(torch.int64) & 0xFFFFFFFF, lo, hi
-        )
+    draw = functools.partial(_draw, node_key, lo, hi)
 
+    ph = profiling.phases()
     # ---- Phase A: tick every peer (crashed peers tick too).
+    ph("general.tick")
     promotable = st.voter_mask | st.outgoing_mask
     member = promotable | st.learner_mask
     ee, hb, want_campaign, want_heartbeat, want_cq = kernels.tick_kernel(
@@ -1203,6 +1213,7 @@ def _plain_step(
     )
 
     # ---- Phase B: campaigners become candidates: term+1, vote self, redraw.
+    ph("general.campaign")
     term = st.term + want_campaign.to(I32)
     state = torch.where(want_campaign, ROLE_CANDIDATE, st.state)
     vote = torch.where(want_campaign, self_id, st.vote)
@@ -1214,6 +1225,7 @@ def _plain_step(
     # conditional node inside ClusterSim.run_compiled's CUDA graph; with
     # spmd=True the phase runs unconditionally, which is bit-identical
     # because every write in it is masked on this round's campaigners.
+    ph("general.elect")
     req = want_campaign & alive
 
     def elect(term, state, vote, leader_id, ee, hb, rt, li, lt, matched, ts,
@@ -1395,6 +1407,7 @@ def _plain_step(
     hb = torch.where(solo_win, 0, hb)
 
     # ---- Phase D: replication round for groups with an alive leader.
+    ph("general.replicate")
     is_leader = (state == ROLE_LEADER) & alive
     has_leader = is_leader.any(0)
     lead_term = torch.where(is_leader, term, -1).amax(0)
@@ -1595,6 +1608,7 @@ def _cut_before(eff: torch.Tensor, dim: int) -> torch.Tensor:
     return (torch.cumsum(e, dim=dim, dtype=I32) - e) > 0
 
 
+@profiling.phased
 def _linked_step(
     cfg: SimConfig,
     st: SimState,
@@ -1629,11 +1643,10 @@ def _linked_step(
     lo = torch.full((P, G), cfg.min_timeout, dtype=I32, device=dev)
     hi = torch.full((P, G), cfg.max_timeout, dtype=I32, device=dev)
 
-    def draw(term):
-        return kernels.timeout_draw(
-            node_key, term.to(torch.int64) & 0xFFFFFFFF, lo, hi
-        )
+    draw = functools.partial(_draw, node_key, lo, hi)
 
+    ph = profiling.phases()
+    ph("general.tick")
     promotable = st.voter_mask | st.outgoing_mask
     member = promotable | st.learner_mask
     ee, hb, want_campaign, want_heartbeat, want_cq = kernels.tick_kernel(
@@ -1651,6 +1664,7 @@ def _linked_step(
 
     # Campaign side effects are local; isolation cuts the network, never
     # the clock.
+    ph("general.campaign")
     term = st.term + want_campaign.to(I32)
     state = torch.where(want_campaign, ROLE_CANDIDATE, st.state)
     vote = torch.where(want_campaign, self_id, st.vote)
@@ -1661,6 +1675,7 @@ def _linked_step(
 
     # ---- wave 1: tick-queued traffic, per receiver in sender order.
     # Candidate payloads are the pre-round cursors.
+    ph("general.wave1")
     T, V, Ld, St, EE, HB, RT, C = (
         term, vote, leader_id, state, ee, hb, rt, st.commit
     )
@@ -1713,6 +1728,7 @@ def _linked_step(
 
     # ---- wave 2: responses over the reverse links; each candidate tallies
     # in voter order with the scalar cutoffs.
+    ph("general.wave2")
     C, won, lost = _real_tally(
         st, C, req & (St == ROLE_CANDIDATE), grants, resps, rej_snap, Erev,
         st.agree,
@@ -1720,6 +1736,7 @@ def _linked_step(
 
     # Winners become leaders and append their noop; losers of a decided
     # election step down.
+    ph("general.elect")
     li2 = st.last_index + won.to(I32)
     lt2 = torch.where(won, term, st.last_term)
     TS = torch.where(won, li2, st.term_start_index)
@@ -1737,6 +1754,7 @@ def _linked_step(
     # reverse link).  A delivered, term-accepted append resets the
     # receiver's timer and leader; the log is adopted only on a probe match
     # (`agree[s, v] >= prev`) or a live reverse link (the retry chain).
+    ph("general.wave3")
     agree_run = st.agree
     St2 = St  # send-time snapshots
     C_send = C
@@ -1844,6 +1862,7 @@ def _linked_step(
         C = torch.where(elig, torch.maximum(C, c_new[None, :]), C)
 
     # ---- the round's append workload at the acting leader, link-gated.
+    ph("general.workload")
     is_leader = (St == ROLE_LEADER) & alive
     has_leader = is_leader.any(0)
     lead_term = torch.where(is_leader, T, -1).amax(0)
@@ -1933,6 +1952,7 @@ def _linked_step(
                             blocked=blocked)
 
 
+@profiling.phased
 def _damped_linked_step(
     cfg: SimConfig,
     st: SimState,
@@ -1985,11 +2005,10 @@ def _damped_linked_step(
     hi = torch.full((P, G), cfg.max_timeout, dtype=I32, device=dev)
     no = torch.zeros((P, G), dtype=torch.bool, device=dev)
 
-    def draw(term):
-        return kernels.timeout_draw(
-            node_key, term.to(torch.int64) & 0xFFFFFFFF, lo, hi
-        )
+    draw = functools.partial(_draw, node_key, lo, hi)
 
+    ph = profiling.phases()
+    ph("general.tick")
     promotable = st.voter_mask | st.outgoing_mask
     member = promotable | st.learner_mask
     ee, hb, want_campaign, want_heartbeat, want_cq = kernels.tick_kernel(
@@ -2027,6 +2046,7 @@ def _damped_linked_step(
     # ---- campaign local effects.  Real: term + 1, vote self, redraw.
     # Pre-vote: only the role and leader_id change; the request goes out
     # at term + 1.
+    ph("general.campaign")
     if pv:
         term = st.term
         state = torch.where(want_campaign, ROLE_PRE_CANDIDATE, state0)
@@ -2054,6 +2074,7 @@ def _damped_linked_step(
 
     # ---- wave 1: heartbeats and (pre-)vote requests, per receiver in
     # sender order, with lease ignores and low-term nudges.
+    ph("general.wave1")
     T, V, Ld, St, EE, HB, RT, C = term, vote, leader_id, state, ee, hb, rt, st.commit
     grants, resps, snaps, resp_ts = [], [], [], []
     hb_accs, hb_ndg, hb_ndg_t = [], [], []
@@ -2116,6 +2137,7 @@ def _damped_linked_step(
     # ---- wave 2a: heartbeat responses and nudges back at each leader, in
     # receiver order: the first nudge above the leader's term cuts off
     # every later response and deposes it at the largest nudge term.
+    ph("general.wave2")
     eff_hn = hb_ndg & Erev & (hb_ndg_t > T[:, None, :])
     resumed2 = (
         hb_accs
@@ -2200,10 +2222,7 @@ def _damped_linked_step(
             settled = won_f | lost_f | dep_f
             rt_new = torch.where(
                 won_f | dep_f,
-                kernels.timeout_draw(
-                    node_key[sid], t_new.to(torch.int64) & 0xFFFFFFFF,
-                    lo[sid], hi[sid],
-                ),
+                _draw(node_key[sid], lo[sid], hi[sid], t_new),
                 RT[sid],
             )
             T = _set_row(T, sid, t_new)
@@ -2218,6 +2237,7 @@ def _damped_linked_step(
 
     # ---- after the real election (no pre-vote): winners become leaders
     # and append their noop; losers of a decided election step down.
+    ph("general.elect")
     if not pv:
         li2 = st.last_index + won.to(I32)
         lt2 = torch.where(won, term, st.last_term)
@@ -2257,6 +2277,7 @@ def _damped_linked_step(
     # ---- wave 3: appends (winner noops and catch-ups) and, with pre-vote,
     # the real vote requests, per receiver in sender order.  A probe that
     # does not match starts a retry chain, applied after the wave.
+    ph("general.wave3")
     ack3, ndg3, ndg3_t, retry3 = [], [], [], []
     r_grants, r_resps, r_snaps = [], [], []
     for sid in range(P):
@@ -2350,6 +2371,7 @@ def _damped_linked_step(
 
     # ---- wave 4: the stage fold over the wave-3 acks; with pre-vote, the
     # real tally and its winner effects.
+    ph("general.wave4")
     T, V, St, Ld, EE, HB, RT, RA, matched3, C, adv = stage_fold(
         T, V, St, Ld, EE, HB, RT, RA, matched3, C, TS, ack3, ndg3, ndg3_t,
         term, li2,
@@ -2400,6 +2422,7 @@ def _damped_linked_step(
     # winners' noop broadcasts, one sender-ordered pass.  Re-broadcasts
     # carry prev = the leader's current last; a pre-vote winner's noop
     # carries its pre-noop cursor.
+    ph("general.wave5")
     C_send5 = C
     if pv:
         w5_prev = torch.where(won, li2 - 1, li2)
@@ -2441,6 +2464,7 @@ def _damped_linked_step(
     # ---- wave 6: the stage fold over the wave-5 acks, then the settled
     # commit propagated to in-sync sendable members, whose sends draw
     # nudges from higher-term receivers.
+    ph("general.wave6")
     T, V, St, Ld, EE, HB, RT, RA, matched3, C, _ = stage_fold(
         T, V, St, Ld, EE, HB, RT, RA, matched3, C, TS, ack5, ndg5, ndg5_t,
         sent_term5, li2,
@@ -2475,6 +2499,7 @@ def _damped_linked_step(
 
     # ---- the round's append workload at the acting leader, with the same
     # nudge cutoffs on its ack stream.
+    ph("general.workload")
     is_leader = (St == ROLE_LEADER) & alive
     has_leader = is_leader.any(0)
     lead_term = torch.where(is_leader, T, -1).amax(0)

@@ -15,6 +15,11 @@ Usage:
         torch.cuda.synchronize()
     print(timer.summary())
 
+Inside a trace the program marks its layers with `annotate` and, in a
+`phased` function, `phases` (the dispatcher's `dispatch.*`, the fused
+wrappers' `fused.*`, the general round's `general.*`); with no profiler
+recording, or inside `muted()`, each mark is a shared no-op.
+
 The profiler drops kernel records over a long process on the card, so a
 trace should bracket one short region (`bench --profile` brackets one
 mode's timed loop).
@@ -23,8 +28,10 @@ mode's timed loop).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import os
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -84,9 +91,101 @@ def device_trace(log_dir: str, host_profiler: bool = False):
         stop_trace()
 
 
+class _Quiet:
+    """What `annotate` and `phases` return with no profiler recording: a
+    context that does nothing and a phase sequence whose marks do nothing."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def __call__(self, name: str) -> None:
+        pass
+
+
+QUIET = _Quiet()
+_muted = False  # inside `muted()`
+
+
 def annotate(name: str):
-    """Named region inside a trace (shows up on the host timeline)."""
-    return torch.profiler.record_function(name)
+    """Named region inside a trace (shows up on the host timeline): a
+    `record_function` range while a profiler records, else QUIET.  It only
+    marks the host's timeline, on the clock the profiler aligns the device's
+    records to: it launches no device work, never synchronises, allocates no
+    tensor and changes no value."""
+    if torch.autograd._profiler_enabled() and not _muted:
+        return torch.profiler.record_function(name)
+    return QUIET
+
+
+@contextlib.contextmanager
+def muted():
+    """No span inside, a profiler recording or not: for a profile that
+    reads the host's own pace, which each span would lengthen by its cost
+    under the profiler (tens of microseconds beside CUDA work)."""
+    global _muted
+    was, _muted = _muted, True
+    try:
+        yield
+    finally:
+        _muted = was
+
+
+class _Phases:
+    """Straight-line phases of one call, each a `record_function` range:
+    `ph(name)` closes the open phase and opens the next."""
+
+    def __init__(self) -> None:
+        self._open = None
+
+    def __call__(self, name: str) -> None:
+        self.end()
+        self._open = torch.profiler.record_function(name)
+        self._open.__enter__()
+
+    def end(self) -> None:
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
+
+
+class _Calls(threading.local):
+    def __init__(self) -> None:
+        self.stack: List[_Phases] = []  # the running `phased` calls' sequences
+
+
+_calls = _Calls()
+
+
+def phased(fn):
+    """Decorator for a function whose body marks its straight-line phases
+    with `ph = phases()`, then `ph(name)` at each phase's start, so that a
+    phase boundary is one line.  While a profiler records, each call gets
+    its own sequence, and the phase still open when the call returns or
+    raises is closed then; otherwise the call runs as it is."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if not torch.autograd._profiler_enabled() or _muted:
+            return fn(*args, **kwargs)
+        stack = _calls.stack
+        stack.append(_Phases())
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            stack.pop().end()
+
+    return run
+
+
+def phases():
+    """The phase sequence of the innermost running `phased` call that began
+    while a profiler recorded, else (and inside `muted()`) QUIET; the same
+    guarantees as `annotate`."""
+    stack = _calls.stack
+    return stack[-1] if stack and not _muted else QUIET
 
 
 class RoundTimer:
