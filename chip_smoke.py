@@ -160,12 +160,26 @@ printed as bench.py --health-out writes it.
                    kernel records); the suites with --quick and the config-3
                    BASELINE row at 100k x 5; before the reference workers
                    start, so the bench's host-bound loops run on an idle host
-  4. main          the steady path: 30 settle rounds, 4 blocks
+  4. main          the steady path: 30 settle rounds, 4 blocks; the
+                   steady predicate kernel's launches counted, one a block
  4a. fast_step     fused_step.fast_step's fused arm (the steady kernel at
                    k = 1) against its plain version on phase 4's state;
                    16 rounds of fast_step from it, the acting leader down
                    in 1% of groups in 4 of them (both arms), the launches
                    counted, held to the CPU run in phase 23
+ 4b. predicate     the dispatcher's steady predicate kernel
+                   (csrc/steady_predicate.cu) against its plain version,
+                   fused_step.steady_mask_reference, both on the card, at
+                   1M x 3 for the benchmark's two fleets (raft-rs's ticks
+                   at k = 32; TiKV's with check quorum and pre-vote at
+                   k = 8), each settled by 64 general rounds, with nothing
+                   down and with one of 30 stores down, at horizons 1 and
+                   k: the bool mask group by group and the whole-batch
+                   flag, exact; then on the settled fleet at its k the
+                   call (the flag's set and the kernel) timed cold and hot
+                   against the composition and its .all(), its device
+                   records a call, and its bound, predicate_work's bytes
+                   at 3.35 TB/s
   5. timing        the steady path on the bench's schedule (64-round
                    scans, 6 scans a rep, median of 5 reps): ticks/s,
                    fused_frac, the kernel's device time (one call captured
@@ -222,7 +236,8 @@ printed as bench.py --health-out writes it.
                    from phase 9's settled state (2 fused blocks, then 3
                    with the acting leader crashed in 1% of groups: general
                    blocks with check-quorum step-downs and elections);
-                   recent_active included
+                   recent_active included; the steady predicate kernel's
+                   launches at G=100,000 counted, one a block
  11. damped timing as phase 5, for the damped path and kernel; fused_frac
                    must be 1.0
  12. health timing as phase 5 for the steady and the check-quorum path with
@@ -381,16 +396,17 @@ printed as bench.py --health-out writes it.
  23. references    the held-back checks of phases 4, 4a, 7 and 10 against
                    their CPU runs
  24. report        each phase's seconds and their sum, then one JSON line
-                   of the sixteen kernel rows (the six variants, the damped
+                   of the eighteen kernel rows (the six variants, the damped
                    kernel's with_loss instance, its with_loss with_health
                    instance at k=8, its no-loss with_health instance at
                    k=8, the chaos kernel's with_health instance at k=16,
                    each kernel's P=8 instance, the steady warp instance at
                    P=65, and the chaos and damped with_loss with_health k=8
-                   instances at a mesh rank's group base), then the device
-                   line last
+                   instances at a mesh rank's group base, and the steady
+                   predicate kernel at each fleet of phase 4b), then the
+                   device line last
 
-With --quick it runs phases 1 to 3, 6, 9, 9a and 9b only (the builds and every
+With --quick it runs phases 1 to 3, 4b, 6, 9, 9a and 9b only (the builds and every
 kernel against its plain version) and prints no result.  Exits 2 without a
 result when no CUDA device is available.
 """
@@ -417,7 +433,7 @@ from raft_tpu_torch import profiling
 from raft_tpu_torch.benches import suites
 from raft_tpu_torch.multiraft import (
     _build, autopilot, chaos, checkpoint, forensics, fused_step, kernels as pk, native,
-    reconfig, runner, sim, workload,
+    predicate_kernel, reconfig, runner, sim, workload,
 )
 from raft_tpu_torch.examples import multiraft_node
 from raft_tpu_torch.multiraft.health import HealthMonitor
@@ -561,6 +577,8 @@ STEADY_WIDE_SOURCE = "raft_tpu_torch/multiraft/csrc/steady_round_wide.cu"
 STEADY_WARP_SOURCE = "raft_tpu_torch/multiraft/csrc/steady_round_warp.cu"
 CHAOS_WIDE_SOURCE = "raft_tpu_torch/multiraft/csrc/chaos_round_wide.cu"
 DAMPED_WIDE_SOURCE = "raft_tpu_torch/multiraft/csrc/damped_round_wide.cu"
+PREDICATE_SOURCE = "raft_tpu_torch/multiraft/csrc/steady_predicate.cu"
+PREDICATE_REPLACES = "raft_tpu/multiraft/pallas_step.py:1355 (steady_mask)"
 KERNELS = (steady_rounds, chaos_rounds, damped_rounds)
 # ptxas registers and spills by library and template instance, for --out.
 PTXAS = {}
@@ -895,14 +913,16 @@ def phase_main(dev, pool):
     """The steady path on the card, bare and instrumented; the CPU's
     instrumented run (the reference for both) goes to a reference worker.
     Returns (cfg, the bare final state, its steady kernel launches, the
-    instrumented card run, its with_health launches, check), check() holding
-    both card runs to the CPU run."""
+    instrumented card run, its with_health launches, check, its steady
+    predicate kernel launches), check() holding both card runs to the CPU
+    run."""
     zero_launches()
     t0 = time.perf_counter()
     cfg, st_gpu, fused = run_main_path(dev)
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
     launches = bare_launches(steady_rounds, "the steady main path")
+    pred_launches = predicate_launches(MAIN_BLOCKS, "the steady main path")
     check_state(st_gpu)
     kw = dict(cfg=cfg, blocks=MAIN_BLOCKS, settle=SETTLE)
     run, check_run, h_launches = instrumented_pair(
@@ -914,10 +934,11 @@ def phase_main(dev, pool):
         same_as_reference((st_gpu, fused, 0), ref, "steady main path")
         print(f"main path {G}x{P}: {SETTLE} settle rounds + {MAIN_BLOCKS} blocks of "
               f"{K}: card == CPU on all {len(st_gpu._fields)} fields (commit max "
-              f"{int(st_gpu.commit.max())}); steady kernel launches {launches}; "
+              f"{int(st_gpu.commit.max())}); steady kernel launches {launches}, "
+              f"steady predicate launches {pred_launches}; "
               f"fused {fused}/{MAIN_BLOCKS * K * G}; card {t_gpu:.2f}s")
 
-    return cfg, st_gpu, launches, run, h_launches, check
+    return cfg, st_gpu, launches, run, h_launches, check, pred_launches
 
 
 # --- the one-round dispatcher (fused_step.fast_step) --------------------------
@@ -986,6 +1007,96 @@ def phase_fast_step(dev, st, pool):
               f"launches at k=1), the general step in the others")
 
     return err, check
+
+
+# --- the dispatcher's steady predicate (csrc/steady_predicate.cu) -------------
+
+PREDICATE_G, PREDICATE_P, PREDICATE_SETTLE = 1_000_000, 3, 64
+# The benchmark's two fleets and their block lengths: raft-rs's harness
+# ticks at k = 32, TiKV's raftstore settings at k = 8.
+PREDICATE_FLEETS = {
+    "raftrs-1m-r3": (dict(election_tick=10, heartbeat_tick=1), 32),
+    "tikv-1m-r3": (dict(election_tick=10, heartbeat_tick=2, check_quorum=True,
+                        pre_vote=True), 8),
+}
+PREDICATE_PROFILE_CALLS = 10
+
+
+def store_down(n_peers, n_groups, dev):
+    """The replicas on one of 30 stores down (peer p of group g on store
+    (g * n_peers + p) % 30)."""
+    g = torch.arange(n_groups, device=dev)[None, :]
+    p = torch.arange(n_peers, device=dev)[:, None]
+    return (g * n_peers + p) % 30 == 0
+
+
+@phase("predicate")
+def phase_predicate(dev):
+    """The steady predicate kernel against fused_step.steady_mask_reference
+    on the same card tensors at 1M x 3 for each fleet, exact; then its call
+    timed against the composition.  Returns {fleet: (mismatched groups,
+    timing)}."""
+    out = {}
+    for fleet, (ticks, k) in PREDICATE_FLEETS.items():
+        G_, P_ = PREDICATE_G, PREDICATE_P
+        cfg = sim.SimConfig(n_groups=G_, n_peers=P_, **ticks)
+        s = sim.ClusterSim(cfg, device=dev)
+        s.run(PREDICATE_SETTLE, None, torch.ones(G_, dtype=torch.int32, device=dev))
+        st = s.state
+        none = torch.zeros((P_, G_), dtype=torch.bool, device=dev)
+        err = 0
+        for label, crashed in (("settled", none), ("a store down", store_down(P_, G_, dev))):
+            for horizon in (1, k):
+                note = f"steady predicate {fleet}, {label}, horizon {horizon}"
+                want = fused_step.steady_mask_reference(cfg, st, crashed, horizon)
+                got = predicate_kernel.steady_invariant(cfg, st, crashed, horizon)
+                flag = predicate_kernel.steady_invariant(cfg, st, crashed, horizon,
+                                                         whole=True)
+                err += int((got != want).sum())
+                if bool(flag) != bool(want.all()):
+                    raise AssertionError(f"{note}: flag {bool(flag)}, the composition's "
+                                         f"{bool(want.all())}")
+                # Both answers must be seen: the settled fleet holds the
+                # invariant, and a store down breaks it in some groups only.
+                held = int(want.sum())
+                if (held == G_) != (crashed is none) or held == 0:
+                    raise AssertionError(f"{note}: {held} of {G_} groups steady")
+        if err:
+            raise AssertionError(f"steady predicate {fleet}: {err} groups differ from "
+                                 f"the composition")
+
+        def kernel():
+            return predicate_kernel.steady_invariant(cfg, st, none, k, whole=True)
+
+        def reference():
+            return fused_step.steady_mask_reference(cfg, st, none, k).all()
+
+        # The bound is the bytes': the integer work is a tenth of their time
+        # (predicate_kernel's docstring).
+        work = (predicate_kernel.predicate_work(P_, G_, cfg.check_quorum), 0)
+        t = kernel_times(dev, kernel, reference, (), {}, work)
+        reps = PREDICATE_PROFILE_CALLS
+        for route, fn in (("kernel", kernel), ("plain", reference)):
+            prof = device_profile(lambda: [fn() for _ in range(reps)])
+            t[f"{route}_records"] = sum(r["count"] for r in prof["kernels"]) / reps
+            t[f"{route}_device_ms"] = prof["busy_us"] / reps / 1e3
+            if route == "kernel":
+                named = sum(r["count"] for r in prof["kernels"]
+                            if "steady_predicate_kernel" in r["name"])
+                if not 0 < named <= reps or t["kernel_records"] > 2:
+                    raise AssertionError(
+                        f"steady predicate {fleet}: {prof['kernels']} over {reps} calls")
+        t["launches_per_call"] = t["kernel_records"]
+        out[fleet] = (err, t)
+        print(f"steady predicate {fleet} {G_}x{P_} k={k}: kernel == composition on "
+              f"every group (settled and a store down, horizons 1 and {k}); "
+              f"{t['ms']:.4f} ms cold, {t['hot_ms']:.4f} hot, call {t['call_ms']:.4f}, "
+              f"{t['kernel_records']:.1f} device records a call against the "
+              f"composition's {t['plain_records']:.1f} and {t['plain_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms by bytes ({100 * t['bound_ms'] / t['ms']:.1f} % "
+              f"of it); {t['card']}")
+        del s, st
+    return out
 
 
 # --- timing helpers ----------------------------------------------------------
@@ -1712,7 +1823,8 @@ def phase_damped(dev, settled, pool, small_ref):
     reference for both, in a reference worker (`small_ref`, the future of
     cpu_health_path for the small run).  Returns (the bare 100k state before
     the crash blocks, its damped kernel launches, the instrumented card run,
-    its with_health launches, check)."""
+    its with_health launches, check, the 100k run's steady predicate kernel
+    launches)."""
     t0 = time.perf_counter()
     small_cfg = damped_cfg(CQ_SMALL_G)
     small_start = instrumented_settle(dev, small_cfg, CQ_SETTLE)
@@ -1724,6 +1836,8 @@ def phase_damped(dev, settled, pool, small_ref):
     full = run_damped_path(dev, G, CQ_FUSED_BLOCKS, start=settled,
                            crash_blocks=CQ_CRASH_BLOCKS)
     launches = bare_launches(damped_rounds, f"the check-quorum path at G={G}")
+    pred_launches = predicate_launches(CQ_FUSED_BLOCKS + CQ_CRASH_BLOCKS,
+                                       f"the check-quorum path at G={G}")
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
     if full[2] != CQ_CRASH_BLOCKS or small[2] or full[1] != CQ_FUSED_BLOCKS * K * G:
@@ -1757,9 +1871,10 @@ def phase_damped(dev, settled, pool, small_ref):
               f"{full[1]}, general blocks {full[2]}): card == CPU "
               f"on all {len(settled._fields)} fields, recent_active included; damped "
               f"kernel launches {small_launches} at G={CQ_SMALL_G} and {launches} at "
-              f"G={G} (the main path's count); card {t_gpu:.2f}s")
+              f"G={G} (the main path's count), steady predicate launches "
+              f"{pred_launches} at G={G}; card {t_gpu:.2f}s")
 
-    return full[3], launches, run, h_launches, check
+    return full[3], launches, run, h_launches, check, pred_launches
 
 
 @phase("damped timing")
@@ -1927,6 +2042,16 @@ def phase_warp(dev):
 def zero_launches():
     for fn in KERNELS:
         fn.launches = fn.health_launches = 0
+    predicate_kernel.steady_invariant.launches = 0
+
+
+def predicate_launches(blocks, note):
+    """The path just run launched the steady predicate kernel once a
+    fast_multi_round block (its `blocks`); returns that count."""
+    n = predicate_kernel.steady_invariant.launches
+    if n != blocks:
+        raise AssertionError(f"{note}: {n} steady predicate launches over {blocks} blocks")
+    return n
 
 
 def launch_counts():
@@ -4531,6 +4656,7 @@ def main(argv=None):
     occupancy["steady_warp"] = warp_occupancy()
     steady_err, steady_wide_err, steady_wide_st, steady_warp_err = phase_parity(dev)
     if opts.quick:
+        phase_predicate(dev)
         *_, chaos_wide_st = phase_chaos_parity(dev)
         *_, damped_wide_st = phase_damped_parity(dev)
         phase_wide(dev, steady_wide_st, chaos_wide_st, damped_wide_st)
@@ -4558,12 +4684,13 @@ def main(argv=None):
         damped_small = pool.submit(cpu_health_path, dict(
             cfg=damped_cfg(CQ_SMALL_G), blocks=CQ_SMALL_BLOCKS, settle=CQ_SETTLE))
         checks = []
-        cfg, st_main, steady_launches, steady_run, steady_h_launches, check = phase_main(
-            dev, pool)
+        (cfg, st_main, steady_launches, steady_run, steady_h_launches, check,
+         predicate_launches_plain) = phase_main(dev, pool)
         checks.append(check)
         fast_step_err, check = phase_fast_step(dev, st_main, pool)
         checks.append(check)
         steady_err = worst(steady_err, fast_step_err)
+        predicate = phase_predicate(dev)
         steady = phase_timing(dev, cfg, st_main)
         chaos_err, settled, chaos_wide_err, chaos_wide_st = phase_chaos_parity(dev)
         st, chaos_launches, lossy_run, chaos_h_launches, check = phase_lossy(
@@ -4577,8 +4704,8 @@ def main(argv=None):
         warp_launches, warp_err, warp = phase_warp(dev)
         steady_warp_err = worst(steady_warp_err, warp_err)
         cpu_run = pool.submit(cpu_composed, sim.state_to_numpy(settled))
-        st, damped_launches, damped_run, damped_h_launches, check = phase_damped(
-            dev, settled, pool, damped_small)
+        (st, damped_launches, damped_run, damped_h_launches, check,
+         predicate_launches_cq) = phase_damped(dev, settled, pool, damped_small)
         checks.append(check)
         damped = phase_damped_timing(dev, st)
         steady_h, damped_h, lossy_h = phase_health_timing(
@@ -4646,7 +4773,14 @@ def main(argv=None):
         kernel_entry(f"damped_rounds with_loss=True with_health=True k={PROD_K} "
                      f"group_base={MESH_BASES[0]}", DAMPED_SOURCE,
                      f"{DAMPED_REPLACES} (with_loss=True, with_health=True, "
-                     f"k={PROD_K}, a mesh rank's block)", *mesh_damped)]}
+                     f"k={PROD_K}, a mesh rank's block)", *mesh_damped)] + [
+        # Each fleet's launches are those of the main path of its kind:
+        # the steady path's (plain) and the check-quorum path's at G.
+        kernel_entry(f"steady_predicate {fleet} k={PREDICATE_FLEETS[fleet][1]}",
+                     PREDICATE_SOURCE, f"{PREDICATE_REPLACES} ({fleet}'s config)",
+                     launches, *predicate[fleet])
+        for fleet, launches in (("raftrs-1m-r3", predicate_launches_plain),
+                                ("tikv-1m-r3", predicate_launches_cq))]}
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w", encoding="utf-8") as fh:
@@ -4662,7 +4796,8 @@ def main(argv=None):
                 "reads": reads, "autopilot": auto, "blackbox": blackbox,
                 "compiled": compiled_out, "wide": wide, "wide_steady": warp,
                 "driver": driver,
-                "bench": bench_out, "mesh": mesh_out},
+                "bench": bench_out, "mesh": mesh_out,
+                "predicate": {fleet: t for fleet, (_, t) in predicate.items()}},
                 "composed_branches": composed_branches,
                 "steady_hybrid_fused": steady_hybrid_fused}, fh, indent=1,
                 default=str)

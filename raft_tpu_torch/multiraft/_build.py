@@ -49,6 +49,9 @@ STEADY_WARP_PEERS = 13
 _locks: Dict[str, threading.Lock] = {}
 _locks_guard = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+# The libraries whose function _library has declared, by (name, function):
+# a repeat load (the fused wrappers load theirs on every call) is a lookup.
+_declared: Dict[Tuple[str, str], ctypes.CDLL] = {}
 # The last build's compiler output (nvcc -Xptxas -v reports registers and
 # spills per kernel) and wall seconds, by library name.
 build_log: Dict[str, Tuple[str, float]] = {}
@@ -64,6 +67,9 @@ _CHAOS_ARGS = [ctypes.c_void_p] * 27 + [ctypes.c_longlong] + [ctypes.c_int] * 6
 # 17 operands, 10 outputs; P, round_base, rounds, election_tick,
 # heartbeat_tick, with_cq and with_loss.
 _DAMPED_ARGS = [ctypes.c_void_p] * 29 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+# 13 operands and outputs (the optional ones null); P, horizon,
+# election_tick, heartbeat_tick and the config flags.
+_PREDICATE_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 5
 # The chaos and damped launchers, and their hosts' `*_round_host_at`, take
 # the global id of the first group (group_base, the loss draw's group key)
 # after with_health.
@@ -145,6 +151,9 @@ def _library(name: str, source: str, cuda: bool, fn: str, argtypes,
     """Build (once) and load csrc/`source` as library `name`: with nvcc for
     sm_90a when `cuda`, else with g++, with the `-D` flags `defines`;
     declare its C function `fn`."""
+    lib = _declared.get((name, fn))
+    if lib is not None:
+        return lib
 
     def build():
         compiler, flags = ([_nvcc()], NVCC_FLAGS) if cuda else ([_gxx()], GXX_FLAGS)
@@ -154,6 +163,7 @@ def _library(name: str, source: str, cuda: bool, fn: str, argtypes,
     func = getattr(lib, fn)
     func.argtypes = argtypes
     func.restype = ctypes.c_int
+    _declared[(name, fn)] = lib
     return lib
 
 
@@ -195,7 +205,10 @@ def _host_kernel(kind: str, P: int, argtypes, base: bool = False,
 def load_steady_cuda(P: int = 1) -> ctypes.CDLL:
     """The CUDA steady-round library holding P's instances; its
     `steady_round_launch` takes the 21 tensor pointers, G, P, rounds,
-    election_tick, heartbeat_tick, with_health and the CUDA stream."""
+    election_tick, heartbeat_tick, with_health and the CUDA stream.  The
+    dispatcher's predicate library (load_predicate_cuda) is loaded with
+    it, so a caller that builds the fused arm builds its predicate too."""
+    load_predicate_cuda()
     return _cuda_kernel("steady", P, _STEADY_ARGS + [ctypes.c_void_p])
 
 
@@ -266,7 +279,10 @@ def load_damped_cuda(P: int = 1) -> ctypes.CDLL:
     CUDA stream; its `damped_round_occupancy` takes P, with_cq, with_loss,
     with_health and a pointer to 5 ints, which it fills with the instance's
     registers a thread, local (spill) bytes a thread, shared memory bytes a
-    block, threads a block and resident blocks an SM."""
+    block, threads a block and resident blocks an SM.  The dispatcher's
+    predicate library (load_predicate_cuda) is loaded with it, as with
+    load_steady_cuda."""
+    load_predicate_cuda()
     lib = _cuda_kernel("damped", P, _DAMPED_ARGS + _BASE + [ctypes.c_void_p])
     lib.damped_round_occupancy.argtypes = [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_int)]
@@ -284,6 +300,24 @@ def load_damped_host(P: int = 1) -> ctypes.CDLL:
     lib.damped_round_host_strided_at.argtypes = _DAMPED_ARGS + _BASE
     lib.damped_round_host_strided_at.restype = ctypes.c_int
     return lib
+
+
+def load_predicate_cuda() -> ctypes.CDLL:
+    """The dispatcher's steady predicate (csrc/steady_predicate.cu), one
+    library for every P: its `steady_predicate_launch` takes the 13 tensor
+    pointers (the optional ones null), G, P, horizon, election_tick,
+    heartbeat_tick, the config flags and the CUDA stream."""
+    return _library("steady_predicate", "steady_predicate.cu", True,
+                    "steady_predicate_launch",
+                    _PREDICATE_ARGS + [ctypes.c_void_p])
+
+
+def load_predicate_host() -> ctypes.CDLL:
+    """The host build of the predicate's body (g++), for the CPU tests:
+    `steady_predicate_host` takes the launcher's arguments but the
+    stream."""
+    return _library("steady_predicate_host", "steady_predicate_host.cpp",
+                    False, "steady_predicate_host", _PREDICATE_ARGS)
 
 
 def load_graph_cuda() -> ctypes.CDLL:

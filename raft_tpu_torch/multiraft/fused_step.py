@@ -21,11 +21,14 @@ ticks_since_commit.
 
 The reference's `lax.cond` on the predicate becomes a host `bool(pred)`
 (in hybrid_multi_round, an `int` of the storm count): one device sync per
-k-round block.  On a rank of a mesh run (cfg.shard set) the predicate and
-the storm count are reduced over every rank first (sharding.all_ranks,
-sharding.sum_ranks), so all ranks take the arm that the reference's
-predicate over the whole batch takes, and the fused kernels key their
-loss draws on the rank's global group ids.  The gathers of the acting
+k-round block.  On CUDA tensors without a link plane the predicate is one
+hand-written kernel (predicate_kernel: a set and a launch, where the plain
+composition, steady_mask_reference, is 29 to 87 launches).  On a rank of
+a mesh run (cfg.shard set) the predicate and the storm count are reduced
+over every rank first (sharding.all_ranks, sharding.sum_ranks), so all
+ranks take the arm that the reference's predicate over the whole batch
+takes, and the fused kernels key their loss draws on the rank's global
+group ids.  The gathers of the acting
 leader's rows before the kernel and the scatters after it (and, on the
 plain path, the `agree` update) stay plain PyTorch, as the reference
 leaves them to XLA; at 100k groups × 5 peers they move more bytes than the
@@ -42,6 +45,7 @@ from .. import profiling
 from . import sharding
 from . import sim as sim_mod
 from . import kernels
+from . import predicate_kernel
 from .chaos_kernel import MAX_PEERS, chaos_rounds, check_round_base
 from .damped_kernel import damped_rounds
 from .kernels import (
@@ -95,7 +99,30 @@ def steady_mask(
 
     A black-box config (SimConfig.blackbox) rejects every group: the fused
     kernels cannot fold the per-round ring record, so such configs run the
-    general rounds."""
+    general rounds.
+
+    On CUDA tensors without `link` this is one hand-written kernel
+    (predicate_kernel.steady_invariant); steady_mask_reference, its plain
+    version, runs on the CPU and for the link arms."""
+    if link is None and st.term.is_cuda:
+        return predicate_kernel.steady_invariant(
+            cfg, st, crashed, horizon, reconfig_pending, read_pending)
+    return steady_mask_reference(cfg, st, crashed, horizon, link,
+                                 reconfig_pending, loss_rate, read_pending)
+
+
+def steady_mask_reference(
+    cfg: SimConfig,
+    st: SimState,
+    crashed: torch.Tensor,
+    horizon: int = 1,
+    link=None,
+    reconfig_pending=None,
+    loss_rate=None,
+    read_pending=None,
+) -> torch.Tensor:
+    """steady_mask as plain tensor code on any device: the readable
+    statement of the invariant that the kernel is held to."""
     if cfg.blackbox:
         return torch.zeros((cfg.n_groups,), dtype=torch.bool, device=st.term.device)
     damped = cfg.check_quorum or cfg.pre_vote
@@ -149,11 +176,7 @@ def steady_mask(
     if cfg.check_quorum:
         # 6. every check-quorum boundary inside the horizon passes.
         if st.recent_active is None:
-            raise ValueError(
-                "steady_mask for a check_quorum config needs the "
-                "recent_active plane but the state has None; rebuild it "
-                "with init_state(cfg)"
-            )
+            raise predicate_kernel.missing_recent_active()
         bound = (
             st.recent_active, st.voter_mask, st.outgoing_mask, st.state,
             crashed, st.election_elapsed, horizon, cfg.election_tick,
@@ -181,7 +204,11 @@ def steady_predicate(
     loss_rate=None,
 ) -> torch.Tensor:
     """0-dim bool tensor: True iff every group satisfies the steady
-    invariant (see steady_mask)."""
+    invariant (see steady_mask).  On CUDA tensors without `link` one
+    kernel reduces it, at most two device operations."""
+    if link is None and st.term.is_cuda:
+        return predicate_kernel.steady_invariant(cfg, st, crashed, horizon,
+                                                 whole=True)
     return steady_mask(cfg, st, crashed, horizon, link, loss_rate=loss_rate).all()
 
 

@@ -24,6 +24,11 @@ correlation id).  Both sit on the host clock that the profiler aligns the
 device's records to; `gap_end_skew_us` is, over the operations that end an
 idle interval, device start minus host launch: a negative value is a
 disagreement of the two clocks, by which the split of that interval is off.
+
+`predicate` counts, over the traced fused blocks, the records of the
+dispatcher's predicate kernel (`steady_predicate_kernel`: 1 a block where
+it ran, 0 where the PyTorch composition did) and the device operations
+launched under `dispatch.predicate`, with their device time a block.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cuda_runtime", "cuda_driver")
 
 Span = Tuple[str, float, float]  # (name, start us, end us)
+PREDICATE_KERNEL = "steady_predicate_kernel"
 
 
 def read(events: List[dict]):
@@ -189,6 +195,22 @@ def split(events: List[dict]) -> dict:
         r["device_ms"] += dur / 1e3
         r["launches"] += 1
 
+    # By host launch alone: an operation that the device clock puts a few us
+    # before its block's span still belongs to the block.
+    fused = [s for s in blocks if s[0] == "block.fused"]
+    fused_starts = [s[1] for s in fused]
+    pred = [{"kernel_records": 0, "launches": 0, "device_ms": 0.0} for _ in fused]
+    walk = _Innermost(program)
+    for name, start, dur, launch in sorted(ops, key=lambda o: o[3]):
+        walk.advance(launch)
+        i = bisect.bisect_right(fused_starts, launch) - 1
+        if i < 0 or fused[i][2] < launch:
+            continue
+        pred[i]["kernel_records"] += PREDICATE_KERNEL in name
+        if walk.top() == "dispatch.predicate":
+            pred[i]["launches"] += 1
+            pred[i]["device_ms"] += dur / 1e3
+
     diff = 0.0
     for label, total in by_label.items():
         parts = sum(v for k, v in refined.items() if k == label or k.startswith(label + "/"))
@@ -210,6 +232,12 @@ def split(events: List[dict]) -> dict:
         "idle_refined_s": dict(sorted(refined.items(), key=lambda kv: -kv[1])),
         "refined_sum_max_abs_diff_s": diff,
         "by_span": dict(sorted(by_span.items(), key=lambda kv: -kv[1]["idle_ms"])),
+        "predicate": {
+            "fused_blocks": len(pred),
+            **{f"{key}_{agg.__name__}": agg(b[key] for b in pred) if pred else None
+               for key in ("kernel_records", "launches") for agg in (min, max)},
+            "device_ms_mean": statistics.mean(b["device_ms"] for b in pred) if pred else None,
+        },
         "gap_end_skew_us": {
             "min": min(skews) if skews else None,
             "median": statistics.median(skews) if skews else None,

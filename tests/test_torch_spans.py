@@ -240,7 +240,7 @@ def test_span_split_reads_a_hand_built_trace(tmp_path):
         _span("dispatch.predicate", 1, 20), _span("dispatch.wait", 20, 30),
         _span("fused.operands", 30, 40), _span("fused.kernel", 40, 50),
         _span("fused.merge", 50, 90),
-        _op("cuda_runtime", "cudaLaunchKernel", 5, 1, 1), _op("kernel", "pred", 10, 15, 1),
+        _op("cuda_runtime", "cudaLaunchKernel", 5, 1, 1), _op("kernel", "steady_predicate_kernel", 10, 15, 1),
         _op("cuda_runtime", "cudaLaunchKernel", 45, 1, 2), _op("kernel", "steady", 60, 20, 2),
         _op("cuda_runtime", "cudaMemcpyAsync", 96, 1, 3), _op("gpu_memcpy", "DtoH", 95, 3, 3),
         _op("cuda_runtime", "cudaLaunchKernel", 198, 1, 4), _op("kernel", "fill", 199, 1, 4),
@@ -271,6 +271,9 @@ def test_span_split_reads_a_hand_built_trace(tmp_path):
                    "block.fused/fused.kernel": (20.0, 1), "block.fused/-": (3.0, 1),
                    "host/-": (1.0, 1)}
     assert out["gap_end_skew_us"] == {"min": -1.0, "median": 3.0, "negative": 1, "n": 4}
+    assert out["predicate"] == {
+        "fused_blocks": 1, "kernel_records_min": 1, "kernel_records_max": 1,
+        "launches_min": 1, "launches_max": 1, "device_ms_mean": 0.015}
     assert span_split.main([str(path), "--out", str(tmp_path / "split.json")]) == 0
     assert json.loads((tmp_path / "split.json").read_text()) == out
 
