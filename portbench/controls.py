@@ -2,15 +2,31 @@
 the program and must come out not correct.
 
     control     the plain reference in the program's place, with
-                replication elided (check.control_step): a leader commits
-                what its followers never stored, which breaks the
-                configurations' first guarantee;
+                replication elided (check.control_step), and its
+                conf-change arm around it in traffic with conf changes:
+                a leader commits what its followers never stored, which
+                breaks the configurations' first guarantee;
     unchanged   the program's dispatcher returning each block's input
                 state unchanged (and counting it fused);
     half        the program's block applied to the first half of the
                 groups only, the rest left as they were;
     altered     the program's block with one group's commit changed by
                 one where the block produces it.
+
+The last three wrap the configuration's own system.  Four more plant a
+fault in the reference's conf-change arm (reference/confchange.py), put
+in the program's place; they differ from the reference only in traffic
+with conf changes:
+
+    swap_early      a step's masks swap one round early: at the start of
+                    the round that proposes its entry;
+    incoming_gate   the commit gate asks the incoming voters' majority
+                    alone, on the owner's tracker row, and not its commit;
+    uncommitted     a step applies once its owner still leads, committed
+                    or not;
+    learner_quorum  a learner counts toward a majority: in the gate and in
+                    the commit picked up at apply, learners hold entries
+                    toward the voters' majority.
 
     python3 -m portbench.controls --workload <cell> --system <name> \\
         --seeds <a,b,c> --seconds <s>
@@ -31,65 +47,161 @@ import time
 import torch
 
 from . import check, harness, spec
+from .reference import confchange as C
 from .reference import raft_step as R
 
 Program = spec.module(spec.PACKAGE, "systems", "fast_multi_round").Program
 
 
 class Control:
-    """The reference, replication elided, behind the program's interface."""
+    """The reference, replication elided, behind the program's interface.
+    Its state carries the conf-change fields; in traffic with conf changes
+    (the harness passes `confchanges`) its block runs `arm` around the
+    round."""
 
     fused_kernel = ""
 
     def __init__(self, conf: dict, device):
         self.rc = check.ref_config(conf)
+        self.conf = conf
         self.k = conf["block_rounds"]
         self.device = device
+        self.arm = C.Arm(step=check.control_step)
 
     def prepare(self) -> None:
         pass
 
     def init_state(self):
-        return R.init_state(self.rc, self.device)
+        return check.full(check.init_state(self.rc, self.conf, self.device),
+                          C.init_state(self.rc.n_peers, self.rc.n_groups, self.device))
 
     def step(self, st, crashed, append):
-        return check.control_step(self.rc, check.as_ref(st), crashed, append)
+        return check.full(self.arm.step(self.rc, check.as_ref(st), crashed, append), C.of(st))
 
     def steady(self, st, crashed) -> bool:
         return check.settled(st, crashed)
 
-    def block(self, st, crashed, append, fused: int):
-        return check.run_reference(self.rc, st, crashed, append, self.k,
-                                   control=True), fused
+    def block(self, st, crashed, append, fused: int, **cc):
+        if "confchanges" in cc:
+            return check.run_arm(self.rc, st, crashed, append, self.k, cc["confchanges"],
+                                 self.arm), fused
+        ref = check.run_reference(self.rc, st, crashed, append, self.k, self.arm.step)
+        return check.full(ref, C.of(st)), fused
 
 
-class Unchanged(Program):
-    def block(self, st, crashed, append, fused: int):
-        return st, fused + self.k * self.cfg.n_groups
+class SwapEarlyArm(C.Arm):
+    def round(self, rc, st, cc, crashed, append):
+        due = (cc.cc_step < cc.cc_len) & (cc.cc_stage == 0)
+        return super().round(rc, self.apply(st, cc, due), cc, crashed, append)
 
 
-class Half(Program):
-    def block(self, st, crashed, append, fused: int):
-        out, fused = super().block(st, crashed, append, fused)
-        h = self.cfg.n_groups // 2
-
-        def keep(new, old):
-            if new is None:
-                return None
-            return torch.cat([new[..., :h], old[..., h:]], dim=-1)
-
-        return type(out)(*map(keep, out, st)), fused
+def owner_row(matched, owner):
+    """int32[P, G]: the owner's tracker row, matched[owner - 1, :, g]."""
+    i = torch.clamp(owner - 1, 0, matched.shape[0] - 1).to(torch.int64)
+    return matched.gather(0, i[None, None, :].expand(1, *matched.shape[1:]))[0]
 
 
-class Altered(Program):
-    def block(self, st, crashed, append, fused: int):
-        out, fused = super().block(st, crashed, append, fused)
-        commit = out.commit.clone()
-        commit[0, self.cfg.n_groups // 3] += 1
-        return out._replace(commit=commit), fused
+class IncomingGateArm(C.Arm):
+    def gate(self, st2, cc, crashed):
+        _, retry = super().gate(st2, cc, crashed)
+        row = owner_row(st2.matched, cc.cc_owner)
+        held = ((row >= cc.cc_index[None, :]) & st2.voter_mask).sum(0)
+        lead = (cc.cc_stage == 1) & ~retry
+        return lead & (held >= R.majority_of(st2.voter_mask.sum(0))), retry
 
 
-SYSTEMS = {"control": Control, "unchanged": Unchanged, "half": Half, "altered": Altered}
+class UncommittedArm(C.Arm):
+    def gate(self, st2, cc, crashed):
+        apply, retry = super().gate(st2, cc, crashed)
+        return (cc.cc_stage == 1) & ~retry, retry
+
+
+class LearnerQuorumArm(C.Arm):
+    @staticmethod
+    def _pick(rows, counted, voters):
+        """Per owner, the highest index that `counted` peers hold as often
+        as the voters' majority: the learners count toward it."""
+        vals = torch.where(counted.t()[None], rows, 0)
+        srt = torch.sort(vals, dim=-1, descending=True).values
+        need = R.majority_of(voters.sum(0))  # [G]
+        i = torch.clamp(need - 1, 0, rows.shape[-1] - 1).to(torch.int64)
+        return srt.gather(-1, i[None, :, None].expand(rows.shape[0], -1, 1))[..., 0]
+
+    def gate(self, st2, cc, crashed):
+        _, retry = super().gate(st2, cc, crashed)
+        row = owner_row(st2.matched, cc.cc_owner)
+        counted = st2.voter_mask | st2.learner_mask
+        held = ((row >= cc.cc_index[None, :]) & counted).sum(0)
+        lead = (cc.cc_stage == 1) & ~retry
+        return lead & (held >= R.majority_of(st2.voter_mask.sum(0))), retry
+
+    def apply(self, st2, cc, apply):
+        out = super().apply(st2, cc, apply)
+        rows = out.matched.transpose(1, 2)  # [owner, G, peer]
+        mci = self._pick(rows, out.voter_mask | out.learner_mask, out.voter_mask)
+        pickup = (apply[None, :] & (out.state == R.ROLE_LEADER)
+                  & (mci >= out.term_start_index))
+        return out._replace(commit=torch.where(pickup, torch.maximum(out.commit, mci),
+                                               out.commit))
+
+
+def arm_fault(arm_class):
+    """The reference in the program's place, with a fault planted in its
+    conf-change arm."""
+
+    class ArmFault(Control):
+        def __init__(self, conf: dict, device):
+            super().__init__(conf, device)
+            self.arm = arm_class()
+
+    ArmFault.__name__ = arm_class.__name__
+    return ArmFault
+
+
+def _system(conf: dict):
+    return spec.module(spec.PACKAGE, "systems", conf["system"]).Program
+
+
+def unchanged(conf: dict, device):
+    class Unchanged(_system(conf)):
+        def block(self, st, crashed, append, fused: int, **cc):
+            return st, fused + self.k * conf["n_groups"]
+
+    return Unchanged(conf, device)
+
+
+def half(conf: dict, device):
+    class Half(_system(conf)):
+        def block(self, st, crashed, append, fused: int, **cc):
+            out, fused = super().block(st, crashed, append, fused, **cc)
+            h = conf["n_groups"] // 2
+
+            def keep(new, old):
+                if new is None:
+                    return None
+                return torch.cat([new[..., :h], old[..., h:]], dim=-1)
+
+            return type(out)(*map(keep, out, st)), fused
+
+    return Half(conf, device)
+
+
+def altered(conf: dict, device):
+    class Altered(_system(conf)):
+        def block(self, st, crashed, append, fused: int, **cc):
+            out, fused = super().block(st, crashed, append, fused, **cc)
+            commit = out.commit.clone()
+            commit[0, conf["n_groups"] // 3] += 1
+            return out._replace(commit=commit), fused
+
+    return Altered(conf, device)
+
+
+SYSTEMS = {"control": Control, "unchanged": unchanged, "half": half, "altered": altered,
+           "swap_early": arm_fault(SwapEarlyArm),
+           "incoming_gate": arm_fault(IncomingGateArm),
+           "uncommitted": arm_fault(UncommittedArm),
+           "learner_quorum": arm_fault(LearnerQuorumArm)}
 
 
 def main(argv=None) -> int:

@@ -9,8 +9,9 @@ fused kernel.  The window then drives the program's dispatcher, a block of
 k rounds a call, each block's outputs synchronised on the host before the
 next is issued (a host acknowledging each block's commits).  The window
 lasts at least `seconds` and closes at the first end of a traffic period
-after that (a block without faults, a fault's period with them), so that
-every run measures whole periods.
+after that (a block without faults, a fault's or conf-change kind's period
+with them), so that every run measures whole periods.  In traffic with conf
+changes each block's requests go to the program's block.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from . import check, spec, stats
 from .generator import Traffic
+from .reference import confchange as C
 from .trace import Tracer, breakdown
 
 SETTLE_CHECK_EVERY = 8
@@ -57,9 +59,9 @@ def _sync(device) -> None:
 
 class Sampler:
     """A uniform sample, drawn from the seed, of each branch's blocks:
-    reservoirs of SAMPLED_BLOCKS (input state, output state, inputs)."""
+    reservoirs of `size` (input state, output state, inputs)."""
 
-    def __init__(self, seed: int, size: int = SAMPLED_BLOCKS):
+    def __init__(self, seed: int, size: int):
         self.rng = np.random.default_rng([seed, 2])
         self.size = size
         self.seen = {True: 0, False: 0}
@@ -96,20 +98,24 @@ def _check_records(view, traced, kernel: str) -> None:
 
 
 def _check(conf, device, traffic, start, end, settle_append, settle_rounds, kept,
-           table_blocks):
+           table_blocks, conf_entries):
     """The numbers that decide `correct`, each with its limit, and the
     checked blocks that failed; see check.py."""
     rc = check.ref_config(conf)
     k = conf["block_rounds"]
+    with_cc = traffic.confchanges is not None
     checks = {"settle_mismatch": (
-        check.settle_check(rc, start, settle_append, settle_rounds, device), 0)}
+        check.settle_check(rc, start, settle_append, settle_rounds, device, conf), 0)}
     block_bad = guar_bad = failed = 0
-    for pre, post, crashed, append in kept:
-        bad, viol = check.block_check(rc, pre, post, crashed, append, k)
+    for pre, post, crashed, append, req in kept:
+        bad, viol = check.block_check(rc, pre, post, crashed, append, k, req, with_cc)
         block_bad += bad
         guar_bad += viol
         failed += int(bad > 0 or viol > 0)
-    guar_bad += check.guarantee_violations(end, None if traffic.resets else start)
+    # With conf changes, the groups that started no chain in the window
+    # kept their masks since set-up: every commit was made under them.
+    guar_bad += check.guarantee_violations(end, None if traffic.resets else start,
+                                           (conf_entries == 0) if with_cc else None)
     checks["block_mismatch"] = (block_bad, 0)
     checks["guarantee_violations"] = (guar_bad, 0)
     checks["blocks_unchecked"] = (int(not kept), 0)
@@ -118,16 +124,22 @@ def _check(conf, device, traffic, start, end, settle_append, settle_rounds, kept
         for e, n in enumerate(table_blocks):
             if n:
                 expected += k * n * traffic.tables[e].to(torch.int64)
-        checks["entries_gap"] = (check.entries_gap(start, end, expected), 0)
+        if with_cc:
+            checks["entries_gap"] = (
+                check.entries_gap_members(start, end, expected + conf_entries), 0)
+        else:
+            checks["entries_gap"] = (check.entries_gap(start, end, expected), 0)
     return checks, failed
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
              t0: float, root: Path = spec.ROOT, device=None,
-             system: Optional[Callable] = None, n_groups: Optional[int] = None) -> dict:
+             system: Optional[Callable] = None, n_groups: Optional[int] = None,
+             sampled_blocks: int = SAMPLED_BLOCKS) -> dict:
     """Run the cell `workload` once; returns the result line's object.
     `system(conf, device)` builds the system under test (by default the
-    configuration's, systems/<system>.py); `n_groups` shrinks the fleet, for tests on the CPU."""
+    configuration's, systems/<system>.py); `n_groups` shrinks the fleet,
+    and a large `sampled_blocks` checks every block, for tests on the CPU."""
     bench = spec.load_benchmark(root)
     cell = spec.cell(bench, workload)
     conf = spec.config(bench, cell["config"], root)
@@ -177,10 +189,14 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     # ---- the window
     tracer = Tracer()
     traced_rounds = traffic.period if traffic.faults else TRACE_BLOCKS * k
-    sampler = Sampler(seed)
+    sampler = Sampler(seed, sampled_blocks)
     blocks: List[stats.BlockRecord] = []
     incidents: List[stats.Incident] = []
     table_blocks = [0] * traffic.tables.shape[0]
+    # Conf-change traffic: each block's requests go to the program, and
+    # the conf entries the window's chains log are counted from them.
+    with_cc = traffic.confchanges is not None
+    conf_entries = torch.zeros((G,), dtype=torch.int64, device=device) if with_cc else None
     start_state = st
     fused = 0
     round_no = 0
@@ -216,9 +232,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             if inp.reset is not None:
                 st = splice(st, sut.init_state(), inp.reset)
         pre = st
+        cc_kw = {"confchanges": inp.confchanges} if with_cc else {}
         with tracer.span("block"):
             t_call = time.perf_counter()
-            st, fused_after = sut.block(pre, inp.crashed, inp.append, fused)
+            st, fused_after = sut.block(pre, inp.crashed, inp.append, fused, **cc_kw)
         with tracer.span("sync"):
             _sync(device)
             t_end = time.perf_counter()
@@ -227,7 +244,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         i = len(blocks)
         blocks.append(stats.BlockRecord(i, t_call, t_end, ran_fused, k, traced))
         table_blocks[inp.table] += 1
-        sampler.offer(ran_fused, (pre, st, inp.crashed, inp.append))
+        if inp.confchanges is not None:
+            conf_entries += inp.confchanges.start * C.chain_steps(inp.confchanges.voter)
+        sampler.offer(ran_fused, (pre, st, inp.crashed, inp.append, inp.confchanges))
         if any(inc.open for inc in incidents):
             with tracer.span("bookkeeping"):
                 for inc in incidents:
@@ -254,7 +273,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     kept = sampler.kept[True] + sampler.kept[False]
     del sampler, pre
     checks, failed = _check(conf, device, traffic, start_state, st, settle_in.append,
-                            settle_rounds, kept, table_blocks)
+                            settle_rounds, kept, table_blocks, conf_entries)
     n_checked = len(kept)
     del kept
     del start_state, st

@@ -6,7 +6,10 @@ It is a frozen copy of the general round of the program under test
 (`raft_tpu_torch.multiraft.sim`: the undamped round `_plain_step` and the
 check-quorum / pre-vote round `_damped_linked_step` under an all-up link
 plane), cut to what the benchmark's deployments run: no counters, health,
-black box, leader transfer, reconfiguration, client reads or link faults.
+black box, leader transfer, client reads or link faults.  Of
+reconfiguration it keeps what the round itself does (the masks' quorums
+and elections, and where a proposal lands: `step(lead=)`); the
+conf-change protocol around the round is `confchange.py`'s.
 The program may change; this file does not, so it keeps the semantics the
 benchmark holds the program to: raft-rs's protocol round by round, as the
 JAX package defines it and the port's CPU tests hold bit for bit.  It
@@ -193,17 +196,20 @@ def init_state(cfg: Config, device, group_ids: Optional[torch.Tensor] = None) ->
 
 
 def step(cfg: Config, st: State, crashed: torch.Tensor, append_n: torch.Tensor,
-         group_ids: Optional[torch.Tensor] = None) -> State:
+         group_ids: Optional[torch.Tensor] = None, lead: Optional[list] = None) -> State:
     """One lockstep round for every group.  crashed: bool[P, G] peers
     isolated this round (they keep ticking and exchange no messages);
     append_n: int32[G] entries proposed at each group's leader; group_ids:
-    the groups' global ids where `st` holds a subset of the fleet."""
+    the groups' global ids where `st` holds a subset of the fleet.  With a
+    list `lead`, the round appends to it where the proposals landed:
+    (has_leader bool[G], the acting leader's 0-based slot int32[G], its
+    last index after the round's appends int32[G], its term int32[G])."""
     key = node_key(cfg, st.term.device, group_ids)
     if cfg.check_quorum or cfg.pre_vote:
         link = torch.ones((cfg.n_peers, cfg.n_peers, cfg.n_groups),
                           dtype=torch.bool, device=st.term.device)
-        return _damped_linked_step(cfg, st, crashed, append_n, link, key)
-    return _plain_step(cfg, st, crashed, append_n, key)
+        return _damped_linked_step(cfg, st, crashed, append_n, link, key, lead)
+    return _plain_step(cfg, st, crashed, append_n, key, lead)
 
 
 def _sort_rows_desc(rows: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -341,6 +347,7 @@ def _plain_step(
     crashed: torch.Tensor,  # bool[P, G]
     append_n: torch.Tensor,  # int32[G]
     node_key: torch.Tensor,  # int64[P, G]
+    lead: Optional[list] = None,
 ):
     """The undamped round (raft-rs with check_quorum and pre_vote off):
     tick, campaign, election resolution, the solo crashed-campaigner win,
@@ -574,6 +581,8 @@ def _plain_step(
 
     lead_last = torch.where(is_acting_leader, new_last_index, 0).amax(0)
     lead_last_term = torch.where(is_acting_leader, new_last_term, 0).amax(0)
+    if lead is not None:
+        lead.append((has_leader, first_l, lead_last, lead_term))
 
     lead_beat = (want_heartbeat & is_acting_leader).any(0)
     sent = has_leader & (lead_beat | (n_app > 0) | winner_exists)
@@ -641,6 +650,7 @@ def _damped_linked_step(
     append_n: torch.Tensor,  # int32[G]
     link: torch.Tensor,  # bool[P, P, G]
     node_key: torch.Tensor,  # int64[P, G]
+    lead: Optional[list] = None,
 ):
     """The damped (check-quorum / pre-vote) round over the directed
     delivery plane `link`, replayed wave by wave.
@@ -1182,6 +1192,8 @@ def _damped_linked_step(
     LT = torch.where(is_acting_leader & (n_app > 0), lead_term, LT)
     lead_last = torch.where(is_acting_leader, LI, 0).amax(0)
     lead_last_term = torch.where(is_acting_leader, LT, 0).amax(0)
+    if lead is not None:
+        lead.append((has_leader, first_l, lead_last, lead_term))
     reach_b = (E & is_acting_leader[:, None, :]).any(0)  # [P_v, G]
     ack_path = (E & is_acting_leader[None, :, :]).any(1)  # v -> l
     acting_f = is_acting_leader.to(I32)

@@ -9,6 +9,7 @@ a file of its own, found by its name:
     systems/<system>.py       the system under test a configuration names
     appends/<dist>.py         an append distribution the traffic files name
     faults/<kind>.py          a fault kind the traffic files name
+    confchanges/<kind>.py     a conf-change kind the traffic files name
     metrics/<metric>.py       a per-layer metric's reader, `read(ctx)`
 
 A later change adds a configuration, a traffic mix, a cell or a metric by

@@ -88,3 +88,95 @@ def test_new_config_traffic_kinds_cell_and_metric_as_files(tmp_path):
     # the new fault kind ran: leaders went down, so some blocks ran general
     assert 0 < r["metrics"]["general_blocks"]["value"] < r["attempted"]
     assert "fused_pct" not in r["metrics"]  # not listed for the new cell
+
+
+# A conf-change kind written as a new file: one move chain on every group
+# in the first period, PD's move-peer from slot `source` to the empty slot
+# `target` (add a learner, enter joint promoting it and demoting the
+# source, leave joint, remove the source).
+MOVE_ONCE = '''
+import torch
+
+
+class ConfChanges:
+    def __init__(self, params, n_groups, n_peers, k, seed, device):
+        self.period = params["every_rounds"]
+        self.G, self.P, self.device = n_groups, n_peers, device
+        v, l = set(params["voters"]), set(params["learners"])
+        s, t = params["source"], params["target"]
+        inc = (v - {s}) | {t}
+        chain = [(v, set(), l | {t}), (inc, v, l), (inc, set(), l | {s}), (inc, set(), l)]
+        self.request = (torch.ones(n_groups, dtype=torch.bool, device=device),) + tuple(
+            torch.stack([self.mask(step[i]) for step in chain]) for i in range(3))
+
+    def mask(self, slots):
+        m = torch.zeros((self.P, self.G), dtype=torch.bool, device=self.device)
+        for s in slots:
+            m[s - 1] = True
+        return m
+
+    def at(self, round_no):
+        return None if round_no else self.request
+'''
+
+
+def learner_config(P=5, **kw):
+    conf = json.loads((PKG / "configs" / "raftrs-1m-r3.json").read_text())
+    conf.update(n_peers=P, voters=[1, 2, 3], learners=[4], system="reconfig_runner",
+                deployment="three voters, a learner and an empty slot", **kw)
+    return json.dumps(conf)
+
+
+def test_a_learner_configuration_settles_and_runs_correct(bench_copy):
+    root = bench_copy(
+        files={"configs/raftrs-r5-learner.json": learner_config()},
+        configs=[{"name": "raftrs-r5-learner", "source": "https://example.org/l",
+                  "file": "portbench/configs/raftrs-r5-learner.json", "reduced": [],
+                  "why": "a learner"}],
+        workloads=[{"name": "raftrs-r5-learner.ycsb", "config": "raftrs-r5-learner",
+                    "traffic": "ycsb", "chips": 1, "why": "a test cell"}])
+    r = harness.run_cell("raftrs-r5-learner.ycsb", 12, 0.3, False, t0=time.perf_counter(),
+                         root=root, device="cpu", n_groups=64, sampled_blocks=10**6)
+    assert r["correct"] and r["failed"] == 0, r["checks"]
+    assert r["checks"]["entries_gap"]["value"] == 0
+
+
+def test_membership_and_a_conf_change_kind_as_files(bench_copy):
+    before = digests(PKG.parent)
+    root = bench_copy(
+        files={"configs/raftrs-r5-learner.json": learner_config(),
+               "confchanges/move_once.py": MOVE_ONCE,
+               "traffic/ycsb-move.json": json.dumps({
+                   "appends": spec.traffic("ycsb")["appends"],
+                   "faults": None,
+                   "confchanges": {"kind": "move_once", "every_rounds": 64,
+                                   "voters": [1, 2, 3], "learners": [4], "source": 1,
+                                   "target": 5}})},
+        configs=[{"name": "raftrs-r5-learner", "source": "https://example.org/l",
+                  "file": "portbench/configs/raftrs-r5-learner.json", "reduced": [],
+                  "why": "a learner"}],
+        workloads=[{"name": "raftrs-r5-learner.ycsb-move", "config": "raftrs-r5-learner",
+                    "traffic": "ycsb-move", "chips": 1, "why": "a test cell"}])
+    after = digests(root)
+    assert all(after[p] == h for p, h in before.items())  # nothing edited
+
+    Program = spec.module(root / "portbench", "systems", "reconfig_runner").Program
+    ends = []
+
+    class Spy(Program):
+        def block(self, st, crashed, append, fused, **cc):
+            out = super().block(st, crashed, append, fused, **cc)
+            ends.append(out[0])
+            return out
+
+    r = harness.run_cell("raftrs-r5-learner.ycsb-move", 13, 0.1, False,
+                         t0=time.perf_counter(), root=root, device="cpu", n_groups=64,
+                         system=Spy, sampled_blocks=10**6)
+    assert r["correct"] and r["failed"] == 0, r["checks"]
+    assert r["checks"]["blocks_unchecked"]["value"] == 0
+    end = ends[-1]
+    # every group moved its replica from slot 1 to slot 5
+    assert bool((end.cc_step == 4).all())
+    assert end.voter_mask[:, 0].tolist() == [False, True, True, False, True]
+    assert end.learner_mask[:, 0].tolist() == [False, False, False, True, False]
+    assert bool((end.voter_mask == end.voter_mask[:, :1]).all())
